@@ -1,0 +1,212 @@
+"""Shared CLI argument handling for train_nn / run_nn.
+
+Reproduces the reference CLIs' flag grammar
+(ref: libhpnn tests/train_nn.c:59-255, tests/run_nn.c):
+``-h`` help, ``-v`` (repeatable/combinable) verbosity, ``-x`` dry
+toggle, ``-O n``/``-On`` OMP threads, ``-B n``/``-Bn`` BLAS threads,
+``-S n``/``-Sn`` CUDA-stream count (advisory), plus one positional
+``.conf`` file (default ``./nn.conf``).
+
+Long options are pulled out first.  ``--device cpu|cuda`` (default
+``cuda``) picks where the work runs; the JAX package's other long
+options belong to paths this package does not have yet and are
+refused with a message, as are the environment knobs of those paths.
+"""
+
+from __future__ import annotations
+
+import os
+import signal
+import sys
+
+from hpnn_tpu_torch import runtime
+
+DEVICES = ("cpu", "cuda")
+
+# long option -> the path of the JAX package it belongs to
+DEFERRED_OPTS = {
+    "batch": "minibatch training (--batch)",
+    "epochs": "minibatch training (--batch)",
+    "lr": "minibatch training (--batch)",
+    "mesh": "tensor parallelism (--mesh)",
+    "profile": "profiling (--profile)",
+    "metrics": "observability (--metrics)",
+    "export-port": "observability (--export-port)",
+    "ledger": "observability (--ledger)",
+    "numerics": "observability (--numerics)",
+}
+
+# environment knob -> (value that selects the missing path or None for
+# any value, the path)
+DEFERRED_ENV = {
+    "HPNN_FUSE_STATE": (None, "fused-round crash-resume"),
+    "HPNN_FUSE_EPOCH": ("0", "the streaming per-sample path"),
+    "HPNN_PALLAS": ("1", "the streaming per-sample path"),
+    "HPNN_METRICS": (None, "observability"),
+    "HPNN_LEDGER": (None, "observability"),
+    "HPNN_PROBES": (None, "observability"),
+    "HPNN_TRACE": (None, "observability"),
+}
+
+
+def install_sigpipe_handler() -> None:
+    """Die quietly when stdout is a closed pipe (e.g. ``train_nn -h | head``)."""
+    try:
+        signal.signal(signal.SIGPIPE, signal.SIG_DFL)
+    except (ValueError, AttributeError):
+        pass
+
+
+def dump_help(prog: str) -> None:
+    w = sys.stdout.write
+    w("***********************************\n")
+    w(f"usage:  {prog} [-options] [input]\n")
+    w("***********************************\n")
+    w("options:\n")
+    w("-h \tdisplay this help;\n")
+    w("-v \tincrease verbosity;\n")
+    w("-x \tdiscard results.\n")
+    w("-O \tnumber of openMP threads.\n")
+    w("-B \tnumber of BLAS threads (MKL).\n")
+    w("-S \tnumber of CUDA streams.\n")
+    w("***********************************\n")
+    w("input:     neural network .def file\n")
+    w("contains the network definition and\n")
+    w("topology. May contain weight values\n")
+    w("or context for a random generation.\n")
+    w("***********************************\n")
+
+
+def extract_long_opts(argv: list[str], *, flags=(), valued=()):
+    """Pull ``--name [value]`` options out of argv before the
+    reference flag grammar runs (the single-dash grammar stays
+    byte-compatible with the C CLIs).
+
+    Returns (remaining_argv, opts dict) or (None, None) on error.
+    """
+    out = {}
+    rest = []
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg.startswith("--"):
+            name = arg[2:]
+            val = None
+            if "=" in name:
+                name, val = name.split("=", 1)
+            if name in flags and val is None:
+                out[name] = True
+            elif name in valued:
+                if val is None:
+                    i += 1
+                    if i >= len(argv):
+                        sys.stderr.write(f"syntax error: --{name} needs a value\n")
+                        return None, None
+                    val = argv[i]
+                out[name] = val
+            else:
+                sys.stderr.write(f"syntax error: unrecognized option --{name}\n")
+                return None, None
+        else:
+            rest.append(arg)
+        i += 1
+    return rest, out
+
+
+def check_supported(opts: dict, prog: str) -> bool:
+    """Refuse (with a message) the options and knobs of paths this
+    package does not have, and a bad ``--device``; never ignore them."""
+    for name in opts:
+        if name in DEFERRED_OPTS:
+            sys.stderr.write(
+                f"{prog}: --{name} is not supported by hpnn_tpu_torch: "
+                f"{DEFERRED_OPTS[name]} is not ported yet (hpnn_tpu's "
+                f"{prog} has it)\n")
+            return False
+    for knob, (value, path) in DEFERRED_ENV.items():
+        cur = os.environ.get(knob)
+        if cur and (value is None or cur == value):
+            sys.stderr.write(
+                f"{prog}: {knob}={cur} selects {path}, which "
+                f"hpnn_tpu_torch does not have yet; unset it\n")
+            return False
+    dev = opts.get("device")
+    if dev is not None and dev not in DEVICES:
+        sys.stderr.write(f"syntax error: bad --device parameter (want cpu|cuda)!\n")
+        return False
+    return True
+
+
+def resolve_device(opts: dict, prog: str):
+    """The run's torch device, or None (message printed) when CUDA was
+    asked for, explicitly or by default, and is absent."""
+    try:
+        return runtime.resolve_device(opts.get("device", "cuda"))
+    except runtime.DeviceUnavailable as exc:
+        sys.stderr.write(f"{prog}: {exc}\n")
+        return None
+
+
+def parse_args(argv: list[str], prog: str) -> str | None:
+    """Apply flags to the runtime; return the conf filename or None.
+
+    Returns None when the process should exit (help shown or error).
+    """
+    filename = None
+    i = 0
+    while i < len(argv):
+        arg = argv[i]
+        if arg.startswith("-") and len(arg) > 1:
+            j = 1
+            while j < len(arg):
+                c = arg[j]
+                if c == "h":
+                    dump_help(prog)
+                    return None
+                if c == "v":
+                    runtime.inc_verbose()
+                    j += 1
+                    continue
+                if c == "x":
+                    runtime.toggle_dry()
+                    j += 1
+                    continue
+                if c in "OBS":
+                    if j + 1 < len(arg):
+                        num = arg[j + 1 :]
+                    else:
+                        i += 1
+                        if i >= len(argv):
+                            sys.stderr.write(
+                                f"syntax error: bad -{c} parameter!\n"
+                            )
+                            dump_help(prog)
+                            return None
+                        num = argv[i]
+                    if not num.strip() or not num.strip()[0].isdigit():
+                        sys.stderr.write(f"syntax error: bad -{c} parameter!\n")
+                        dump_help(prog)
+                        return None
+                    n = int("".join(ch for ch in num.strip() if ch.isdigit()) or 0)
+                    if n == 0 and c != "S":
+                        sys.stderr.write(f"syntax error: bad -{c} parameter!\n")
+                        dump_help(prog)
+                        return None
+                    if c == "O":
+                        runtime.set_omp_threads(n)
+                    elif c == "B":
+                        runtime.set_omp_blas(n)
+                    else:
+                        runtime.set_cuda_streams(max(1, n))
+                    break  # no combination after -O/-B/-S
+                sys.stderr.write("syntax error: unrecognized option!\n")
+                dump_help(prog)
+                return None
+        else:
+            if filename is not None:
+                sys.stderr.write("syntax error: unrecognized option!\n")
+                dump_help(prog)
+                return None
+            filename = arg
+        i += 1
+    return filename or "./nn.conf"

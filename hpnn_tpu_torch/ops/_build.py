@@ -1,0 +1,73 @@
+"""Build and load the package's CUDA sources.
+
+Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into a
+shared library with a plain C interface, ``csrc/build/lib<name>.so``,
+and loaded with ``ctypes``.  A library older than its source is
+rebuilt.  Nothing here runs at import time: the CPU-only test machine
+has no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
+BUILD_DIR = os.path.join(CSRC, "build")
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+# no --use_fast_math: expf/logf/exp/log keep their full accuracy
+NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_lock = threading.Lock()
+_libs: dict[str, ctypes.CDLL] = {}
+# name -> (seconds, compiler output) of the build this process ran
+build_log: dict[str, tuple[float, str]] = {}
+
+
+class NvccError(RuntimeError):
+    pass
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    if os.path.exists(cand):
+        return cand
+    raise NvccError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
+
+
+def build(name: str, *, force: bool = False) -> str:
+    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
+    returns the library path."""
+    src = os.path.join(CSRC, name + ".cu")
+    out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    if (not force and os.path.exists(out)
+            and os.path.getmtime(out) >= os.path.getmtime(src)):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, src]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise NvccError(
+            f"nvcc failed ({proc.returncode}) on {src}:\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, out)
+    build_log[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+    return out
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built if needed."""
+    with _lock:
+        lib = _libs.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(build(name))
+            _libs[name] = lib
+        return lib
