@@ -9,8 +9,9 @@ Run from the root of a checkout, on a machine with one CUDA card:
 Phases (any failure exits non-zero and prints no result line):
 
 1. probe   — torch/CUDA versions, the card, its power limit.
-2. build   — compiles every CUDA source of the main path from the
-   checkout (``hpnn_tpu_torch/csrc/*.cu``) with nvcc for sm_90a.
+2. build   — compiles every CUDA source of the main paths from the
+   checkout (``hpnn_tpu_torch/csrc/*.cu``) with nvcc for sm_90a, one
+   nvcc per source, all started together.
 3. pinned  — the convergence kernel against its plain PyTorch version
    at 784-300-10 with delta = -1e30, so every sample runs exactly
    K+1 iterations: ANN/SNN x BP/BPM, float and double.
@@ -20,12 +21,27 @@ Phases (any failure exits non-zero and prints no result line):
 5. real    — kernel against plain at the loop's own delta/min_iter
    (max_iter lowered so the plain Python loop stays short).
 6. timing  — the kernel, its plain version and its bound on one chunk.
+7. batch pinned — the four batch-step entry points against their plain
+   versions at 784-300-10 BP and 851-230-230 BPM, B = 256, S = 8, ANN
+   and SNN, float and double; then bitwise: banked step == direct step
+   on every block, grid epoch == S banked steps, dbuf epoch == grid
+   epoch, grid epoch == itself run again.
+8. batch main — ``train_nn --batch 256 --epochs 5`` then ``run_nn`` and
+   ``run_nn --batch`` on 4096 + 1024 synthetic MNIST-shaped files: ANN
+   and SNN BP; again with ``HPNN_BANK_DBUF=1`` (byte-identical stdout
+   and kernel.opt); ANN with ``HPNN_BANK=0`` (per-step launches) equal
+   byte for byte to ``HPNN_BANK_REFRESH=1``; ANN with ``--device cpu``
+   in float64, the band the card's float32 run is held to.  The
+   batch-step launch counts are read around this phase.
+9. batch timing — each entry point, its plain version and its bound
+   over one epoch of a 60000 x 784 bank in device memory, B = 256.
 
 The last two lines are the kernel table and the device line.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import io
 import json
@@ -33,6 +49,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -62,6 +79,30 @@ TOL = {"float32": 1e-4, "float64": 1e-10}
 # thresholds, so totals are held to a band, not per sample.
 REAL_F32_NITER_BAND = 0.05   # relative, on the total N_ITER
 REAL_F32_FIRST_OK_BAND = 1   # samples, on the first-try OK count
+# Phases 7-9: the batch path (tutorials/mnist/tutorial.sh --batch).
+BATCH, EPOCHS, PINNED_S = 256, 5, 8
+N_BATCH_TRAIN, N_BATCH_TEST = 4096, 1024   # the tutorial's 60k / 10k, cut
+XRD = (851, 230, 230)                      # the XRD kernel's shape
+TIMED_ROWS = 60000                         # one MNIST epoch, in memory
+SCALING_B, SCALING_STEPS = (16, 64, 256), 64  # per-step time against B
+# Batch kernel vs plain: the same arithmetic, each sum in another order.
+# float32 moves ~1e-7 relative per operation: 1e-5 after a step, 1e-4
+# after the S = 8 steps of an epoch; float64 within 1e-10.  Losses are
+# held relative to max(1, |loss|).
+BATCH_TOL = {("float32", "step"): 1e-5, ("float32", "epoch"): 1e-4,
+             ("float64", "step"): 1e-10, ("float64", "epoch"): 1e-10}
+# The card's float32 main path against the CPU's float64 run of the
+# same protocol: losses within 1e-3 relative, counts within
+# max(2, 0.5% of n).
+BAND_LOSS_REL, BAND_COUNT_REL = 1e-3, 0.005
+EPOCH_RE = re.compile(r"BATCH EPOCH +(\d+) loss= (\S+) acc= +\S+% \((\d+)/(\d+)\)")
+BATCH_KERNELS = (
+    # entry point, TPU kernel it replaces (pallas_call line), on the main path
+    ("train_step_fused_batch", "hpnn_tpu/ops/pallas_train.py:528", True),
+    ("train_step_fused_banked", "hpnn_tpu/ops/pallas_train.py:629", False),
+    ("train_epoch_grid_banked", "hpnn_tpu/ops/pallas_train.py:733", True),
+    ("train_epoch_dbuf_banked", "hpnn_tpu/ops/pallas_train.py:882", True),
+)
 
 
 class SmokeFailure(Exception):
@@ -158,6 +199,327 @@ def bound_ms(nbytes, flops, dtype_name):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# ---------------------------------------------------------- batch phases
+def batch_work(weights_shapes, S, momentum, dtype_bytes):
+    """(bytes, flops) of S batch steps: each block of X and T read once,
+    the weights (and dw) read and written once, the order and losses;
+    per step three matrix passes of 2·B·Σ in·out (forward, update,
+    re-forward), the hidden deltas 2·B·Σ_{l>0} in·out, and the update's
+    elementwise triad (2 flops a weight, 4 with momentum)."""
+    sizes = [o * i for o, i in weights_shapes]
+    n_w, n_tail = sum(sizes), sum(sizes[1:])
+    n_in, n_out = weights_shapes[0][1], weights_shapes[-1][0]
+    nbytes = ((S * BATCH * (n_in + n_out) + 2 * n_w * (2 if momentum else 1) + S)
+              * dtype_bytes + 4 * S)
+    flops = S * (6 * BATCH * n_w + 2 * BATCH * n_tail + (4 if momentum else 2) * n_w)
+    return nbytes, flops
+
+
+def batch_bank(np, rng, shape, rows):
+    n_in, _, n_out = shape
+    X = rng.random((rows, n_in))
+    T = -np.ones((rows, n_out))
+    T[np.arange(rows), rng.integers(0, n_out, rows)] = 1.0
+    return X, T
+
+
+def batch_pinned(np, torch, dev):
+    """Phase 7: each entry point against its plain version, then the
+    bitwise agreements.  Returns {entry: {dtype: max error}}."""
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    rng = np.random.default_rng(SEED + 7)
+    err = {name: {"float32": 0.0, "float64": 0.0} for name, _, _ in BATCH_KERNELS}
+
+    def state_err(a, b):
+        return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+    def loss_err(a, b):
+        return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+    for shape, momentum in (((N_IN, N_HID, N_OUT), False), (XRD, True)):
+        k, _ = km.generate(SEED, shape[0], [shape[1]], shape[2])
+        X, T = batch_bank(np, rng, shape, PINNED_S * BATCH)
+        dw0 = ([rng.uniform(-1e-3, 1e-3, np.shape(w)) for w in k.weights]
+               if momentum else None)
+        order = rng.permutation(PINNED_S)
+        for model in ("ann", "snn"):
+            kw = dict(model=model, momentum=momentum)
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype).split(".")[1]
+                tag = (f"{model}-{'BPM' if momentum else 'BP'} "
+                       f"{'-'.join(map(str, shape))} {dname}")
+                Xd = torch.tensor(X, dtype=dtype, device=dev)
+                Td = torch.tensor(T, dtype=dtype, device=dev)
+
+                def fresh():
+                    w, dw = km.to_torch(k.weights, dw0, device=dev, dtype=dtype)
+                    return list(w), list(dw)
+
+                def steps(fn, w, dw, first, direct):
+                    """S single steps in ``order`` (``direct``: each block
+                    passed as X/T, else by index); the state after the
+                    first goes to ``first``."""
+                    out = []
+                    for blk in order:
+                        if direct:
+                            rows = slice(int(blk) * BATCH, (int(blk) + 1) * BATCH)
+                            out.append(fn(w, dw, Xd[rows], Td[rows], **kw)[2])
+                        else:
+                            out.append(fn(w, dw, Xd, Td, int(blk), batch=BATCH, **kw)[2])
+                        if len(out) == 1:
+                            first.append([t.clone() for t in w + dw] + [out[0].reshape(1)])
+                    return torch.stack(out)
+
+                line = []
+                for name, _, _ in BATCH_KERNELS:
+                    fn, plain = getattr(bs, name), getattr(bs, name + "_plain")
+                    (wk, dwk), (wp, dwp) = fresh(), fresh()
+                    if "epoch" in name:
+                        lk = fn(wk, dwk, Xd, Td, order, batch=BATCH, **kw)[2]
+                        lp = plain(wp, dwp, Xd, Td, order, batch=BATCH, **kw)[2]
+                    else:
+                        fk, fp = [], []
+                        direct = name == "train_step_fused_batch"
+                        lk = steps(fn, wk, dwk, fk, direct)
+                        lp = steps(plain, wp, dwp, fp, direct)
+                        fk, fp = fk[0], fp[0]
+                        e1 = max(state_err(fk[:-1], fp[:-1]), loss_err(fk[-1], fp[-1]))
+                        tol1 = BATCH_TOL[(dname, "step")]
+                        check(math.isfinite(e1) and e1 <= tol1,
+                              f"{name} {tag}: first step |kernel - plain| {e1:.3e} > {tol1:.0e}")
+                    torch.cuda.synchronize()
+                    e = max(state_err(wk + dwk, wp + dwp), loss_err(lk, lp))
+                    tol = BATCH_TOL[(dname, "epoch")]
+                    check(math.isfinite(e) and e <= tol,
+                          f"{name} {tag}: {PINNED_S} steps |kernel - plain| {e:.3e} > {tol:.0e}")
+                    err[name][dname] = max(err[name][dname], e)
+                    line.append(f"{name.replace('train_', '')} {e:.2e}")
+                log(f"[batch-pinned] {tag}, B={BATCH} S={PINNED_S}: max|kernel - plain| "
+                    + ", ".join(line))
+
+            # bitwise: one sum order everywhere, whatever the entry point
+            Xd = torch.tensor(X, dtype=torch.float32, device=dev)
+            Td = torch.tensor(T, dtype=torch.float32, device=dev)
+            runs = {}
+            for run in ("step", "banked", "grid", "dbuf", "grid again"):
+                w, dw = km.to_torch(k.weights, dw0, device=dev, dtype=torch.float32)
+                w, dw = list(w), list(dw)
+                if run == "step":
+                    losses = torch.stack([bs.train_step_fused_batch(
+                        w, dw, Xd[int(b) * BATCH:(int(b) + 1) * BATCH],
+                        Td[int(b) * BATCH:(int(b) + 1) * BATCH], **kw)[2] for b in order])
+                elif run == "banked":
+                    losses = torch.stack([bs.train_step_fused_banked(
+                        w, dw, Xd, Td, int(b), batch=BATCH, **kw)[2] for b in order])
+                else:
+                    fn = bs.train_epoch_dbuf_banked if run == "dbuf" else bs.train_epoch_grid_banked
+                    losses = fn(w, dw, Xd, Td, order, batch=BATCH, **kw)[2]
+                runs[run] = [t.cpu() for t in w + dw] + [losses.cpu()]
+            for a, b in (("banked", "step"), ("grid", "banked"), ("dbuf", "grid"),
+                         ("grid again", "grid")):
+                check(all(torch.equal(x, y) for x, y in zip(runs[a], runs[b])),
+                      f"{model} {shape}: {a} differs bitwise from {b}")
+            log(f"[batch-pinned] {model}-{'BPM' if momentum else 'BP'} "
+                f"{'-'.join(map(str, shape))} float32: banked == step per block, "
+                f"grid == {PINNED_S} banked steps, dbuf == grid, grid == grid again (bitwise)")
+    return err
+
+
+def epochs_of(out):
+    return [(int(e), float(l), int(ok), int(n)) for e, l, ok, n in EPOCH_RE.findall(out)]
+
+
+def batch_main(np, torch, protos):
+    """Phase 8: the batch path through the CLIs.  Returns (launches by
+    entry point over the whole phase, per-run statistics)."""
+    from hpnn_tpu_torch.cli import run_nn, train_nn
+    from hpnn_tpu_torch.fileio import samples as sample_io
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    # pixels 0-255 unnormalized, as the tutorial's pmnist writes them
+    rng = np.random.default_rng(SEED + 1)
+    Xtr, Ttr = make_dataset(np, rng, N_BATCH_TRAIN, protos)
+    Xte, Tte = make_dataset(np, rng, N_BATCH_TEST, protos)
+    Xtr, Xte = np.round(255 * Xtr), np.round(255 * Xte)
+    bdir = os.path.join(WORK, "batch")
+    write_samples(os.path.join(bdir, "train"), Xtr, Ttr)
+    write_samples(os.path.join(bdir, "test"), Xte, Tte)
+    t0 = time.perf_counter()
+    sample_io.read_dir(os.path.join(bdir, "train"))
+    parse_s = time.perf_counter() - t0
+    log(f"[batch-main] host parse of the {N_BATCH_TRAIN} training files: {parse_s:.2f} s")
+    n_steps = math.ceil(N_BATCH_TRAIN / BATCH)
+    runs = (
+        # label, type, environment, extra CLI args, expected launches, eval
+        ("ANN", "ANN", {}, [], {"train_epoch_grid_banked": EPOCHS}, True),
+        ("SNN", "SNN", {}, [], {"train_epoch_grid_banked": EPOCHS}, True),
+        ("ANN dbuf", "ANN", {"HPNN_BANK_DBUF": "1"}, [],
+         {"train_epoch_dbuf_banked": EPOCHS}, False),
+        ("SNN dbuf", "SNN", {"HPNN_BANK_DBUF": "1"}, [],
+         {"train_epoch_dbuf_banked": EPOCHS}, False),
+        ("ANN bank0", "ANN", {"HPNN_BANK": "0"}, [],
+         {"train_step_fused_batch": EPOCHS * n_steps}, False),
+        ("ANN refresh1", "ANN", {"HPNN_BANK_REFRESH": "1"}, [],
+         {"train_epoch_grid_banked": EPOCHS}, False),
+        ("ANN cpu f64", "ANN", {}, ["--device", "cpu"], {}, False),
+    )
+    cwd = os.getcwd()
+    got, stats = {}, {}
+    for name in bs.launches:
+        bs.launches[name] = 0
+    try:
+        for label, kind, env, extra, expect, with_eval in runs:
+            run_dir = os.path.join(bdir, label.replace(" ", "_").lower())
+            os.makedirs(run_dir)
+            os.chdir(run_dir)
+            write_conf("nn.conf", name=f"batch_{kind.lower()}", kind=kind,
+                       train_dir="../train", test_dir="../test")
+            saved = {k: os.environ.get(k) for k in env}
+            os.environ.update(env)
+            before = dict(bs.launches)
+            try:
+                rc, out, secs = run_cli(train_nn.main, extra + [
+                    "--batch", str(BATCH), "--epochs", str(EPOCHS), "-v", "-v", "nn.conf"])
+            finally:
+                for k, v in saved.items():
+                    if v is None:
+                        os.environ.pop(k, None)
+                    else:
+                        os.environ[k] = v
+            check(rc == 0, f"{label}: train_nn --batch exit {rc}")
+            launched = {k: bs.launches[k] - before[k] for k in bs.launches}
+            check(launched == {k: expect.get(k, 0) for k in bs.launches},
+                  f"{label}: launches {launched}, expected {expect}")
+            ep = epochs_of(out)
+            check(len(ep) == EPOCHS and all(e[3] == N_BATCH_TRAIN for e in ep),
+                  f"{label}: {len(ep)} BATCH EPOCH lines")
+            check(all(math.isfinite(e[1]) for e in ep), f"{label}: loss not finite")
+            with open("kernel.opt") as fp:
+                opt = fp.read()
+            got[label] = (out, opt, ep)
+            st = dict(seconds=secs, samples_per_s=N_BATCH_TRAIN * EPOCHS / secs,
+                      launches=launched, losses=[e[1] for e in ep],
+                      counts=[e[2] for e in ep])
+            msg = (f"[batch-main] {label} 784-300-10 BP --batch {BATCH} --epochs {EPOCHS}: "
+                   f"{secs:.2f} s ({N_BATCH_TRAIN * EPOCHS / secs:.0f} samples/s with the "
+                   f"parse), loss {ep[0][1]:.6f} -> {ep[-1][1]:.6f}, acc {ep[0][2]} -> "
+                   f"{ep[-1][2]}/{N_BATCH_TRAIN}, launches "
+                   f"{ {k: v for k, v in launched.items() if v} }")
+            if with_eval:
+                check(ep[-1][1] < ep[0][1], f"{label}: last loss not below the first")
+                write_conf("cont.conf", name=f"batch_{kind.lower()}", kind=kind,
+                           train_dir="../train", test_dir="../test", init="kernel.opt")
+                rc, eout, esecs = run_cli(run_nn.main, extra + ["-v", "-v", "cont.conf"])
+                check(rc == 0, f"{label}: run_nn exit {rc}")
+                rc, bout, bsecs = run_cli(run_nn.main, extra + ["--batch", "-v", "-v",
+                                                                "cont.conf"])
+                check(rc == 0, f"{label}: run_nn --batch exit {rc}")
+                for what, o in (("run_nn", eout), ("run_nn --batch", bout)):
+                    check(o.count("TESTING FILE") == N_BATCH_TEST, f"{label} {what}: eval lines")
+                p1, p2 = eout.count("[PASS]"), bout.count("[PASS]")
+                check(abs(p1 - p2) <= max(2, BAND_COUNT_REL * N_BATCH_TEST),
+                      f"{label}: run_nn PASS {p1} vs run_nn --batch PASS {p2}")
+                st.update(run_nn_pass=p1, run_nn_batch_pass=p2, run_nn_s=esecs,
+                          run_nn_batch_s=bsecs)
+                msg += (f"; run_nn PASS {p1}/{N_BATCH_TEST} in {esecs:.2f} s, "
+                        f"run_nn --batch PASS {p2}/{N_BATCH_TEST} in {bsecs:.2f} s")
+            stats[label] = st
+            log(msg)
+            os.chdir(bdir)
+    finally:
+        os.chdir(cwd)
+    main_launches = dict(bs.launches)
+    for a, b in (("ANN dbuf", "ANN"), ("SNN dbuf", "SNN"), ("ANN bank0", "ANN refresh1")):
+        check(got[a][0] == got[b][0], f"{a} stdout differs from {b}")
+        check(got[a][1] == got[b][1], f"{a} kernel.opt differs from {b}")
+        log(f"[batch-main] {a} == {b}: stdout and kernel.opt byte-identical")
+    card, cpu = got["ANN"][2], got["ANN cpu f64"][2]
+    for (e, lc, okc, n), (_, lh, okh, _) in zip(card, cpu):
+        check(abs(lc - lh) <= BAND_LOSS_REL * abs(lh),
+              f"epoch {e}: card f32 loss {lc} vs cpu f64 {lh}")
+        check(abs(okc - okh) <= max(2, BAND_COUNT_REL * n),
+              f"epoch {e}: card f32 count {okc} vs cpu f64 {okh}")
+    rel = max(abs(c[1] - h[1]) / abs(h[1]) for c, h in zip(card, cpu))
+    dok = max(abs(c[2] - h[2]) for c, h in zip(card, cpu))
+    log(f"[batch-main] ANN card f32 vs cpu f64: max loss rel diff {rel:.3e} "
+        f"(band {BAND_LOSS_REL:.0e}), max count diff {dok} (band "
+        f"max(2, {BAND_COUNT_REL:.1%} of {N_BATCH_TRAIN}))")
+    stats["band"] = dict(max_loss_rel=rel, max_count_diff=dok, parse_s=parse_s)
+    return main_launches, stats
+
+
+def batch_timing(np, torch, dev):
+    """Phase 9: each entry point over one epoch of a 60000-row bank at
+    784-300-10 ANN-BP float32, its plain version, and the bound."""
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    S = math.ceil(TIMED_ROWS / BATCH)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED)
+    X = torch.rand((TIMED_ROWS, N_IN), generator=g, device=dev)
+    labels = torch.randint(0, N_OUT, (TIMED_ROWS,), generator=g, device=dev)
+    T = -torch.ones((TIMED_ROWS, N_OUT), device=dev)
+    T[torch.arange(TIMED_ROWS, device=dev), labels] = 1.0
+    # the epoch's permuted bank, its tail wrapped as train_kernel_batched does
+    perm = np.resize(np.random.RandomState(SEED).permutation(TIMED_ROWS), S * BATCH)
+    perm = torch.from_numpy(perm).to(dev)
+    Xp, Tp = X[perm], T[perm]
+    del X, T
+    order = np.random.RandomState(SEED + 1).permutation(S)
+    k, _ = km.generate(SEED, N_IN, [N_HID], N_OUT)
+    w = list(km.to_torch(k.weights, device=dev, dtype=torch.float32)[0])
+    kw = dict(model="ann", momentum=False)
+
+    def rows(b):
+        return slice(int(b) * BATCH, (int(b) + 1) * BATCH)
+
+    fns = {
+        "train_step_fused_batch": lambda: [bs.train_step_fused_batch(
+            w, [], Xp[rows(b)], Tp[rows(b)], **kw) for b in order],
+        "train_step_fused_banked": lambda: [bs.train_step_fused_banked(
+            w, [], Xp, Tp, int(b), batch=BATCH, **kw) for b in order],
+        "train_epoch_grid_banked": lambda: bs.train_epoch_grid_banked(
+            w, [], Xp, Tp, order, batch=BATCH, **kw),
+        "train_epoch_dbuf_banked": lambda: bs.train_epoch_dbuf_banked(
+            w, [], Xp, Tp, order, batch=BATCH, **kw),
+    }
+    times = {name: [] for name in fns}
+    for _ in range(2):  # in turns, twice
+        for name, fn in fns.items():
+            times[name].append(cuda_ms(torch, fn))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs.train_epoch_grid_banked_plain(w, [], Xp, Tp, order, batch=BATCH, **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.isfinite(t).all() for t in w), "timing: weights not finite")
+    nbytes, flops = batch_work([tuple(t.shape) for t in w], S, False, 4)
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    out = {}
+    for name, ts in times.items():
+        ms = statistics.median(ts)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         runs_ms=ts, us_per_step=ms / S * 1e3)
+        log(f"[batch-timing] {name}: one epoch of {S} steps, B={BATCH}, "
+            f"{TIMED_ROWS}-row bank, ANN-BP 784-300-10 float32: {ms:.3f} ms "
+            f"({ms / S * 1e3:.2f} us/step; runs {', '.join(f'{t:.3f}' for t in ts)})")
+    log(f"[batch-timing] plain epoch {plain_ms:.1f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes} B, {flops} flop; {b_ms / S * 1e3:.2f} us/step)")
+    # where a step's time goes: the grid epoch's time per step against
+    # the rows per step (SCALING_STEPS leading blocks of the bank)
+    scaling = {}
+    for b in SCALING_B:
+        ms = cuda_ms(torch, lambda: bs.train_epoch_grid_banked(
+            w, [], Xp, Tp, np.arange(SCALING_STEPS), batch=b, **kw))
+        scaling[b] = ms / SCALING_STEPS * 1e3
+    log("[batch-timing] grid epoch, us per step by rows per step: "
+        + ", ".join(f"B={b} {us:.2f}" for b, us in scaling.items()))
+    return out
+
+
 # ---------------------------------------------------------------- phases
 def main() -> int:
     import numpy as np
@@ -191,14 +553,19 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {kind} count {torch.cuda.device_count()}")
     log(f"[probe] nvidia-smi: {smi}")
 
-    # 2. build
+    # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    _build.build("convergence", force=True)
-    _build.load("convergence")
-    log(f"[build] convergence.cu built in {time.perf_counter() - t0:.1f} s")
-    for line in _build.build_log["convergence"][1].splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    sources = ("convergence", "batch_step")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        list(pool.map(lambda name: _build.build(name, force=True), sources))
+    for name in sources:
+        _build.load(name)
+        secs, out = _build.build_log[name]
+        log(f"[build] {name}.cu built in {secs:.1f} s")
+        for line in out.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] all sources in {time.perf_counter() - t0:.1f} s")
 
     k0, _ = km.generate(SEED, N_IN, [N_HID], N_OUT)
     rng = np.random.default_rng(SEED)
@@ -383,6 +750,16 @@ def main() -> int:
     chunk_ms, chunk_iters = e0.elapsed_time(e1), int(st.n_iter.sum())
     log(f"[timing] ANN-BP chunk of {CHUNK} real samples: {chunk_ms:.1f} ms, "
         f"{chunk_iters} iterations ({chunk_ms / chunk_iters * 1e3:.2f} us/iteration)")
+
+    # 7-9. the batch path
+    batch_err = batch_pinned(np, torch, dev)
+    batch_launches, batch_stats = batch_main(np, torch, protos)
+    for name, _, on_path in BATCH_KERNELS:
+        check(not on_path or batch_launches[name] > 0,
+              f"the batch main path launched no {name}")
+    batch_times = batch_timing(np, torch, dev)
+    bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
+    check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = [{
@@ -406,6 +783,30 @@ def main() -> int:
         "main": main_stats,
         "by_config": timings,
     }]
+    for name, replaces, on_path in BATCH_KERNELS:
+        t = batch_times[name]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "hpnn_tpu_torch/csrc/batch_step.cu",
+            "replaces": replaces,
+            "launches": batch_launches[name],
+            "on_main_path": on_path,
+            "max_abs_err": batch_err[name]["float32"],
+            "max_abs_err_f32": batch_err[name]["float32"],
+            "max_abs_err_f64": batch_err[name]["float64"],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": None,
+            "timed": (f"ANN-BP 784-300-10 float32, one epoch of "
+                      f"{math.ceil(TIMED_ROWS / BATCH)} steps of B={BATCH} over a "
+                      f"{TIMED_ROWS}-row bank"),
+            "us_per_step": t["us_per_step"],
+            "runs_ms": t["runs_ms"],
+        })
+    kernels[1]["main"] = batch_stats
     log(f"[card] {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -8,9 +8,11 @@ toggle, ``-O n``/``-On`` OMP threads, ``-B n``/``-Bn`` BLAS threads,
 ``.conf`` file (default ``./nn.conf``).
 
 Long options are pulled out first.  ``--device cpu|cuda`` (default
-``cuda``) picks where the work runs; the JAX package's other long
-options belong to paths this package does not have yet and are
-refused with a message, as are the environment knobs of those paths.
+``cuda``) picks where the work runs; ``--batch N``, ``--epochs E`` and
+``--lr X`` select minibatch training (``train_nn``) and ``--batch`` the
+batched eval (``run_nn``).  The JAX package's other long options
+belong to paths this package does not have yet and are refused with a
+message, as are the environment knobs of those paths.
 """
 
 from __future__ import annotations
@@ -25,9 +27,6 @@ DEVICES = ("cpu", "cuda")
 
 # long option -> the path of the JAX package it belongs to
 DEFERRED_OPTS = {
-    "batch": "minibatch training (--batch)",
-    "epochs": "minibatch training (--batch)",
-    "lr": "minibatch training (--batch)",
     "mesh": "tensor parallelism (--mesh)",
     "profile": "profiling (--profile)",
     "metrics": "observability (--metrics)",
@@ -115,7 +114,8 @@ def extract_long_opts(argv: list[str], *, flags=(), valued=()):
 
 def check_supported(opts: dict, prog: str) -> bool:
     """Refuse (with a message) the options and knobs of paths this
-    package does not have, and a bad ``--device``; never ignore them."""
+    package does not have, and a bad ``--device``, ``--batch``,
+    ``--epochs`` or ``--lr`` value; never ignore them."""
     for name in opts:
         if name in DEFERRED_OPTS:
             sys.stderr.write(
@@ -129,6 +129,20 @@ def check_supported(opts: dict, prog: str) -> bool:
             sys.stderr.write(
                 f"{prog}: {knob}={cur} selects {path}, which "
                 f"hpnn_tpu_torch does not have yet; unset it\n")
+            return False
+    for name in ("batch", "epochs"):
+        v = opts.get(name)
+        if v is not None and v is not True and (not str(v).isdigit() or int(v) < 1):
+            sys.stderr.write(f"syntax error: bad --{name} parameter!\n")
+            return False
+    lr = opts.get("lr")
+    if lr is not None:
+        try:
+            ok = float(lr) > 0.0
+        except ValueError:
+            ok = False
+        if not ok:
+            sys.stderr.write("syntax error: bad --lr parameter!\n")
             return False
     dev = opts.get("device")
     if dev is not None and dev not in DEVICES:

@@ -1,8 +1,10 @@
 """``run_nn`` — load conf, evaluate the tests directory.
 
 Mirrors the reference driver (ref: libhpnn tests/run_nn.c).
-Run as ``python -m hpnn_tpu_torch.cli.run_nn [--device cpu|cuda] [-v..] file.conf``;
-the work runs on ``cuda`` unless ``--device cpu`` is given.
+Run as ``python -m hpnn_tpu_torch.cli.run_nn [--device cpu|cuda] [--batch]
+[-v..] file.conf``; the work runs on ``cuda`` unless ``--device cpu`` is
+given.  ``--batch`` evaluates with one batched forward over the files
+that share the first readable file's dims (``train/batch.py``).
 """
 
 from __future__ import annotations
@@ -11,7 +13,7 @@ import sys
 
 from hpnn_tpu_torch import config, runtime
 from hpnn_tpu_torch.cli import common
-from hpnn_tpu_torch.train import driver
+from hpnn_tpu_torch.train import batch, driver
 
 PROG = "run_nn"
 
@@ -38,7 +40,10 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.write("FAILED to read NN configuration file! (ABORTING)\n")
         runtime.deinit_all()
         return -1
-    driver.run_kernel(conf, device=device)
+    if opts.get("batch"):
+        batch.run_kernel_batched(conf, device=device)
+    else:
+        driver.run_kernel(conf, device=device)
     runtime.deinit_all()
     return 0
 

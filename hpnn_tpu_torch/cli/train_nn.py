@@ -2,8 +2,11 @@
 
 Command-line and control flow mirror the reference driver
 (ref: libhpnn tests/train_nn.c:59-255).  Run as
-``python -m hpnn_tpu_torch.cli.train_nn [--device cpu|cuda] [-v..] file.conf``;
-the work runs on ``cuda`` unless ``--device cpu`` is given.
+``python -m hpnn_tpu_torch.cli.train_nn [--device cpu|cuda]
+[--batch B [--epochs E] [--lr X]] [-v..] file.conf``; the work runs on
+``cuda`` unless ``--device cpu`` is given.  Without ``--batch`` it is
+the faithful per-sample round (``train/driver.py``); with it,
+minibatch training (``train/batch.py``).
 """
 
 from __future__ import annotations
@@ -12,7 +15,7 @@ import sys
 
 from hpnn_tpu_torch import config, runtime
 from hpnn_tpu_torch.cli import common
-from hpnn_tpu_torch.train import driver
+from hpnn_tpu_torch.train import batch, driver
 
 PROG = "train_nn"
 
@@ -22,10 +25,17 @@ def main(argv: list[str] | None = None) -> int:
     common.install_sigpipe_handler()
     runtime.init_all(1)
     argv, opts = common.extract_long_opts(
-        argv, valued=("device", *common.DEFERRED_OPTS))
+        argv, valued=("device", "batch", "epochs", "lr", *common.DEFERRED_OPTS))
     if argv is None or not common.check_supported(opts, PROG):
         runtime.deinit_all()
         return -1
+    for needs_batch in ("epochs", "lr"):
+        if "batch" not in opts and needs_batch in opts:
+            # per-sample mode keeps the reference's fixed learning rates
+            # and epoch notion; these knobs exist for minibatch SGD only
+            sys.stderr.write(f"syntax error: --{needs_batch} requires --batch!\n")
+            runtime.deinit_all()
+            return -1
     filename = common.parse_args(argv, PROG)
     if filename is None:
         runtime.deinit_all()
@@ -43,7 +53,14 @@ def main(argv: list[str] | None = None) -> int:
         sys.stderr.write("FAILED to open kernel.tmp for WRITE!\n")
         runtime.deinit_all()
         return -1
-    if not driver.train_kernel(conf, device=device):
+    if "batch" in opts:
+        ok = batch.train_kernel_batched(
+            conf, batch_size=int(opts["batch"]),
+            epochs=int(opts.get("epochs", "1")),
+            lr=float(opts["lr"]) if "lr" in opts else None, device=device)
+    else:
+        ok = driver.train_kernel(conf, device=device)
+    if not ok:
         sys.stderr.write("FAILED to train kernel!\n")
         runtime.deinit_all()
         return -1

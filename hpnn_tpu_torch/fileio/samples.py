@@ -17,8 +17,11 @@ from __future__ import annotations
 
 import os
 import re
+import sys
 
 import numpy as np
+
+from hpnn_tpu_torch.utils import logging as log
 
 # strtod: optional whitespace then a decimal number ("inf"/"nan"/hex
 # floats parse in C but are never written by any converter).  Bytes
@@ -106,6 +109,34 @@ def _skip_blank(raw: bytes, pos: int, limit: int) -> int:
     while pos < limit and raw[pos] != 0x0A and not (0x20 < raw[pos] < 0x7F):
         pos += 1
     return pos
+
+
+def read_dir(directory: str, files=None):
+    """Read every sample in readdir order → (names, X, T) stacked arrays.
+
+    The batch drivers' bulk loader: unreadable or malformed files are
+    skipped, and so is a file whose dims differ from the first readable
+    one (with a warning).  Pass the already-listed census as ``files``
+    so that the census, the bulk read and a later shuffle all iterate
+    one listing."""
+    names, xs, ts = [], [], []
+    for name in (list_sample_files(directory) if files is None else files):
+        s = read_sample(os.path.join(directory, name))
+        if s is None:
+            continue
+        if xs and (s[0].shape != xs[0].shape or s[1].shape != ts[0].shape):
+            log.nn_warn(
+                sys.stderr,
+                "skipping %s: dims %ix%i != %ix%i\n",
+                name, s[0].size, s[1].size, xs[0].size, ts[0].size,
+            )
+            continue
+        names.append(name)
+        xs.append(s[0])
+        ts.append(s[1])
+    if not names:
+        return [], np.zeros((0, 0)), np.zeros((0, 0))
+    return names, np.stack(xs), np.stack(ts)
 
 
 def _count_after(line: str, tag: str) -> int | None:

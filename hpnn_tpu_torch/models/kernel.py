@@ -116,12 +116,13 @@ def dump(name: str, kernel: Kernel, fp) -> None:
 
 def to_torch(weights_np, dw_np=None, *, device, dtype):
     """Host arrays -> ``(weights, dw)`` tuples of contiguous tensors on
-    ``device`` in ``dtype``; ``dw`` is ``()`` when ``dw_np`` is None."""
+    ``device`` in ``dtype``; ``dw`` is ``()`` when ``dw_np`` is None.
+    The tensors are copies, never views of the arrays, so the kernels'
+    in-place updates leave the host arrays as they were."""
 
     def conv(arrs):
         return tuple(
-            torch.as_tensor(np.asarray(a)).to(device=device, dtype=dtype)
-            .contiguous() for a in arrs
+            torch.tensor(np.asarray(a), device=device, dtype=dtype) for a in arrs
         )
 
     return conv(weights_np), (conv(dw_np) if dw_np is not None else ())

@@ -1,0 +1,273 @@
+"""Minibatch training steps of the batch path: the CUDA kernel
+(``csrc/batch_step.cu``) behind four entry points, and their plain
+PyTorch versions.
+
+Replaces the four kernels of ``hpnn_tpu/ops/pallas_train.py`` that
+share ``_batch_step_math`` (one step: forward over the B rows, deltas,
+the mean-gradient SGD or BPM update at ``lr/B``, a re-forward, and the
+loss):
+
+* :func:`train_step_fused_batch` — one step on a ``(B, n)`` block;
+* :func:`train_step_fused_banked` — one step on block ``k`` of a
+  ``(blocks·B, n)`` bank;
+* :func:`train_epoch_grid_banked` — ``S`` steps on the bank's blocks in
+  the order ``order[S]``, one launch, ``losses[S]`` out;
+* :func:`train_epoch_dbuf_banked` — the same epoch, each step first
+  starting the copy of the next step's block into L2.
+
+All four return ``(weights, dw, loss | losses)`` and update ``weights``
+(and ``dw`` with momentum) IN PLACE.  A CUDA tensor goes through the
+kernel, one launch on the current stream (float32 or float64; anything
+else raises); a CPU tensor takes the ``*_plain`` twin, which runs
+``parallel.dp.train_step_math`` once per step.  There is no other
+route.  ``launches`` counts each entry point's kernel launches in this
+process.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from hpnn_tpu_torch.ops import _build
+from hpnn_tpu_torch.parallel import dp
+
+ENTRY_POINTS = (
+    "train_step_fused_batch",
+    "train_step_fused_banked",
+    "train_epoch_grid_banked",
+    "train_epoch_dbuf_banked",
+)
+launches = dict.fromkeys(ENTRY_POINTS, 0)
+
+MAX_LAYERS = 16  # HPNN_MAX_LAYERS in csrc/batch_step.cu
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_lib = None
+_grids: dict[tuple, int] = {}  # (dtype, device index) -> blocks
+
+
+def _library():
+    """The built kernel library with its C signatures declared (every
+    pointer and the stream as ``c_void_p``)."""
+    global _lib
+    if _lib is None:
+        lib = _build.load("batch_step")
+        fn = lib.hpnn_batch_train
+        fn.restype = ctypes.c_int
+        fn.argtypes = (
+            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+            + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_double] * 3
+            + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
+        )
+        lib.hpnn_batch_grid_blocks.restype = ctypes.c_int
+        lib.hpnn_batch_grid_blocks.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.hpnn_batch_error_string.restype = ctypes.c_char_p
+        lib.hpnn_batch_error_string.argtypes = [ctypes.c_int]
+        _lib = lib
+    return _lib
+
+
+def _raise_on(lib, rc: int, what: str) -> None:
+    if rc != 0:
+        raise RuntimeError(
+            f"batch-step kernel {what} failed: {rc} "
+            f"({lib.hpnn_batch_error_string(rc).decode()})")
+
+
+def grid_blocks(dtype, device) -> int:
+    """Blocks of one cooperative launch on ``device``, all co-resident
+    (asked of the card once per type and device).  This is the kernel's
+    resource check: it raises when the card cannot hold even one block
+    per SM, or does not take cooperative launches."""
+    key = (dtype, torch.device(device).index or 0)
+    if key not in _grids:
+        lib = _library()
+        blocks = ctypes.c_int(0)
+        with torch.cuda.device(device):
+            rc = lib.hpnn_batch_grid_blocks(_DTYPE_CODE[dtype], ctypes.byref(blocks))
+        _raise_on(lib, rc, "occupancy query")
+        if blocks.value < 1:
+            raise RuntimeError("the batch-step kernel's blocks cannot all be co-resident")
+        _grids[key] = blocks.value
+    return _grids[key]
+
+
+def _check(weights, dw, X, T, batch, model, momentum):
+    if model not in ("ann", "snn"):
+        raise ValueError(f"model must be 'ann' or 'snn', got {model!r}")
+    if X.dim() != 2 or T.dim() != 2 or X.shape[0] != T.shape[0]:
+        raise ValueError(f"want X (rows, n_in) and T (rows, n_out), got "
+                         f"{tuple(X.shape)} and {tuple(T.shape)}")
+    if batch < 1 or X.shape[0] % batch or X.shape[0] == 0:
+        raise ValueError(f"{X.shape[0]} rows are not whole blocks of {batch}")
+    if not 1 <= len(weights) <= MAX_LAYERS:
+        raise ValueError(f"{len(weights)} layers: the kernel takes 1..{MAX_LAYERS}")
+    if weights[0].shape[1] != X.shape[1] or weights[-1].shape[0] != T.shape[1]:
+        raise ValueError("sample widths do not match the kernel's input/output")
+    for a, b in zip(weights[:-1], weights[1:]):
+        if b.shape[1] != a.shape[0]:
+            raise ValueError("weight shapes do not chain")
+    state = tuple(weights)
+    if momentum:
+        if len(dw) != len(weights) or any(m.shape != w.shape for m, w in zip(dw, weights)):
+            raise ValueError("momentum needs one dw of each weight's shape")
+        state += tuple(dw)
+    for t in (X, T, *state):
+        if t.dtype != X.dtype or t.device != X.device:
+            raise ValueError("weights, dw, X and T must share one dtype and device")
+        if not t.is_contiguous():
+            raise ValueError("weights, dw, X and T must be contiguous")
+
+
+def _order(order, n_blocks: int) -> torch.Tensor:
+    """``order`` as a host int32 tensor of block ids, each in range."""
+    o = torch.as_tensor(order).reshape(-1).cpu()
+    if o.numel() == 0 or o.dtype.is_floating_point or o.dtype == torch.bool:
+        raise ValueError("order must be a non-empty sequence of block ids")
+    lo, hi = (int(v) for v in torch.aminmax(o))
+    if lo < 0 or hi >= n_blocks:
+        raise ValueError(f"block ids {lo}..{hi} outside the bank's {n_blocks} blocks")
+    return o.to(torch.int32)
+
+
+def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
+            alpha, prefetch):
+    if X.device.type != "cuda":
+        raise ValueError(f"unsupported device {X.device}")
+    if X.dtype not in _DTYPE_CODE:
+        raise TypeError(f"the kernel is built for float32 and float64, not {X.dtype}")
+    dev = X.device
+    blocks = grid_blocks(X.dtype, dev)
+    lib = _library()
+    S = order.numel()
+    # one step reads its block by index; an epoch's order goes to the card
+    ord_dev = order.to(dev) if S > 1 else None
+    first = 0 if S > 1 else int(order[0])
+    n_layers = len(weights)
+    # the activations and deltas of every layer for the B rows, and the
+    # B row losses (the counterpart of the Pallas kernel's VMEM scratch)
+    scratch = torch.empty((2 * sum(int(w.shape[0]) for w in weights) + 1) * batch,
+                          dtype=X.dtype, device=dev)
+    losses = torch.empty(S, dtype=X.dtype, device=dev)
+    dims = (ctypes.c_int * (n_layers + 1))(
+        weights[0].shape[1], *(int(w.shape[0]) for w in weights))
+    w_ptrs = (ctypes.c_void_p * n_layers)(*(w.data_ptr() for w in weights))
+    dw_ptrs = (ctypes.c_void_p * n_layers)(
+        *((m.data_ptr() for m in dw) if momentum else [None] * n_layers))
+    # lr·(1/B) in double on the host, as the JAX Python-scalar product is
+    lr_eff = float(lr) * (1.0 / batch)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = lib.hpnn_batch_train(
+            _DTYPE_CODE[X.dtype], blocks, int(model == "snn"), int(bool(momentum)),
+            n_layers, ctypes.addressof(dims), ctypes.addressof(w_ptrs),
+            ctypes.addressof(dw_ptrs), X.data_ptr(), T.data_ptr(), int(batch),
+            None if ord_dev is None else ord_dev.data_ptr(), first, S, lr_eff,
+            float(alpha), 1.0 / batch, scratch.data_ptr(), losses.data_ptr(),
+            int(bool(prefetch)), stream,
+        )
+    _raise_on(lib, rc, "launch")
+    launches[name] += 1
+    return losses
+
+
+def _plain_epoch(weights, dw, X, T, order, batch, *, model, momentum, lr, alpha):
+    """``dp.train_step_math`` on each block in ``order``; weights and dw
+    updated in place; the (S,) losses."""
+    losses = []
+    state_w, state_dw = tuple(weights), tuple(dw) if momentum else ()
+    for k in order.tolist():
+        rows = slice(k * batch, (k + 1) * batch)
+        state_w, state_dw, loss = dp.train_step_math(
+            state_w, state_dw, X[rows], T[rows], model=model,
+            momentum=momentum, lr=lr, alpha=alpha)
+        losses.append(loss)
+    with torch.no_grad():
+        for dst, src in zip(tuple(weights) + tuple(dw if momentum else ()),
+                            state_w + state_dw):
+            dst.copy_(src)
+    return torch.stack(losses)
+
+
+def _run(name, weights, dw, X, T, order, batch, *, prefetch, model="ann",
+         momentum=False, lr=None, alpha=0.2):
+    """Check, then the kernel (``name`` given and CUDA tensors) or the
+    plain version (``name`` None, or CPU tensors)."""
+    _check(weights, dw, X, T, batch, model, momentum)
+    order = _order(order, X.shape[0] // batch)
+    if lr is None:
+        lr = dp.default_lr(model, momentum)
+    kw = dict(model=model, momentum=momentum, lr=lr, alpha=alpha)
+    if name is None or X.device.type == "cpu":
+        return _plain_epoch(weights, dw, X, T, order, batch, **kw)
+    return _launch(name, weights, dw, X, T, order, batch, prefetch=prefetch, **kw)
+
+
+# ------------------------------------------------------------ entry points
+# Each takes ``model`` ("ann" | "snn"), ``momentum``, ``lr`` (default
+# ``dp.default_lr``) and ``alpha`` (0.2) by keyword.
+def _step_batch(name, weights, dw, X, T, **kw):
+    losses = _run(name, weights, dw, X, T, [0], X.shape[0], prefetch=False, **kw)
+    return weights, dw, losses[0]
+
+
+def _step_banked(name, weights, dw, X_bank, T_bank, k, *, batch, **kw):
+    if torch.as_tensor(k).numel() != 1:
+        raise ValueError("k must be one block index")
+    losses = _run(name, weights, dw, X_bank, T_bank, k, batch, prefetch=False, **kw)
+    return weights, dw, losses[0]
+
+
+def _epoch_banked(name, weights, dw, X_bank, T_bank, order, *, batch, **kw):
+    return weights, dw, _run(name, weights, dw, X_bank, T_bank, order, batch,
+                             prefetch=name == "train_epoch_dbuf_banked", **kw)
+
+
+def train_step_fused_batch(weights, dw, X, T, **kw):
+    """One minibatch step on the ``(B, n)`` block ``X``/``T``; the
+    drop-in for ``dp.train_step_math``.  Returns (weights, dw, loss)."""
+    return _step_batch("train_step_fused_batch", weights, dw, X, T, **kw)
+
+
+def train_step_fused_banked(weights, dw, X_bank, T_bank, k, *, batch: int, **kw):
+    """One step on rows ``[k·B, (k+1)·B)`` of the bank, read in place
+    (no gather copy).  ``k``: an int or a one-element tensor.  Returns
+    (weights, dw, loss)."""
+    return _step_banked("train_step_fused_banked", weights, dw, X_bank, T_bank, k,
+                        batch=batch, **kw)
+
+
+def train_epoch_grid_banked(weights, dw, X_bank, T_bank, order, *, batch: int, **kw):
+    """S banked steps in one launch, block ``order[s]`` at step ``s``;
+    exactly S successive :func:`train_step_fused_banked` steps.
+    Returns (weights, dw, losses[S])."""
+    return _epoch_banked("train_epoch_grid_banked", weights, dw, X_bank, T_bank,
+                         order, batch=batch, **kw)
+
+
+def train_epoch_dbuf_banked(weights, dw, X_bank, T_bank, order, *, batch: int, **kw):
+    """:func:`train_epoch_grid_banked` with each step first starting the
+    copy of block ``order[s+1]`` into L2 (the double-buffered DMA epoch
+    of the JAX package).  Returns (weights, dw, losses[S])."""
+    return _epoch_banked("train_epoch_dbuf_banked", weights, dw, X_bank, T_bank,
+                         order, batch=batch, **kw)
+
+
+# ---------------------------------------------------- the plain versions
+# The same functions in plain tensor operations on the inputs' device.
+def train_step_fused_batch_plain(weights, dw, X, T, **kw):
+    return _step_batch(None, weights, dw, X, T, **kw)
+
+
+def train_step_fused_banked_plain(weights, dw, X_bank, T_bank, k, *, batch: int, **kw):
+    return _step_banked(None, weights, dw, X_bank, T_bank, k, batch=batch, **kw)
+
+
+def train_epoch_grid_banked_plain(weights, dw, X_bank, T_bank, order, *, batch: int, **kw):
+    return _epoch_banked(None, weights, dw, X_bank, T_bank, order, batch=batch, **kw)
+
+
+def train_epoch_dbuf_banked_plain(weights, dw, X_bank, T_bank, order, *, batch: int, **kw):
+    """The same function as the grid epoch's: the prefetch moves no result."""
+    return _epoch_banked(None, weights, dw, X_bank, T_bank, order, batch=batch, **kw)

@@ -112,7 +112,7 @@ def test_missing_cuda_is_an_error(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["--batch", "4", "--device", "cpu"], {}),
+    (["--batch", "4", "--mesh", "1x1", "--device", "cpu"], {}),
     (["--mesh", "1x2", "--device", "cpu"], {}),
     (["--profile", "trace", "--device", "cpu"], {}),
     (["--device", "tpu"], {}),
@@ -148,7 +148,11 @@ def test_runtime_probe_sets_cuda_bit_only_with_a_card(monkeypatch):
 
 
 def test_run_nn_refuses_batch(tmp_path, monkeypatch, capsys):
+    """``run_nn --batch`` is a flag: it is refused with a value, and
+    beside an option of a path not ported (``--mesh``)."""
     monkeypatch.chdir(tmp_path)
     (tmp_path / "nn.conf").write_text(CONF.format(kind="ANN", train="BP"))
-    assert run_nn.main(["--batch", "--device", "cpu", "nn.conf"]) != 0
-    assert "--batch is not supported" in capsys.readouterr().err
+    assert run_nn.main(["--batch=4", "--device", "cpu", "nn.conf"]) != 0
+    assert "unrecognized option --batch" in capsys.readouterr().err
+    assert run_nn.main(["--batch", "--mesh", "1x1", "--device", "cpu", "nn.conf"]) != 0
+    assert "--mesh is not supported" in capsys.readouterr().err

@@ -17,9 +17,13 @@ MODULES = (
     "hpnn_tpu_torch.config",
     "hpnn_tpu_torch.runtime",
     "hpnn_tpu_torch.fileio.checkpoint",
+    "hpnn_tpu_torch.fileio.samples",
     "hpnn_tpu_torch.ops.convergence",
+    "hpnn_tpu_torch.ops.batch_step",
     "hpnn_tpu_torch.ops._build",
+    "hpnn_tpu_torch.parallel.dp",
     "hpnn_tpu_torch.train.driver",
+    "hpnn_tpu_torch.train.batch",
 )
 
 # an import statement naming jax or the JAX package (hpnn_tpu_torch is
