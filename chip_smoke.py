@@ -35,6 +35,22 @@ Phases (any failure exits non-zero and prints no result line):
    batch-step launch counts are read around this phase.
 9. batch timing — each entry point, its plain version and its bound
    over one epoch of a 60000 x 784 bank in device memory, B = 256.
+10. fleet pinned — the fleet epoch (#6) against its plain version at
+   784-300-10 BP and 851-230-230 BPM, 4 members, B = 256, S = 8, ANN
+   and SNN, float and double; then bitwise: member i of #6 == #5 and
+   #4 on bank i with orders[i], #6 == itself run again.
+11. fleet main — ``train.fleet.train_fleet`` on 8 members of 784-300-10
+   ANN-BP, 4096 synthetic MNIST-shaped rows, B = 256, 8 epochs, with
+   the launch counts read around it; bitwise: ``train_sequential`` ==
+   the fleet, ``train_fleet_multi`` (2 rounds) == 2 chained
+   ``train_fleet`` calls; the same fleet on the CPU in float64 within
+   the bands; then the HPNN-sized fleet (64 members of 32-16-4, B = 1,
+   30 ticks), one launch a tick against one per member, bitwise equal,
+   and one such tick of #6 against its plain version (ANN/SNN x BP/BPM,
+   float and double), the weights held to have moved.
+12. fleet timing — #6 over one epoch of 8 and of 32 members' 60000-row
+   banks, against its plain version (8 members), its bound and the
+   members' #5 epochs run one after another.
 
 The last two lines are the kernel table and the device line.
 """
@@ -95,6 +111,15 @@ BATCH_TOL = {("float32", "step"): 1e-5, ("float32", "epoch"): 1e-4,
 # same protocol: losses within 1e-3 relative, counts within
 # max(2, 0.5% of n).
 BAND_LOSS_REL, BAND_COUNT_REL = 1e-3, 0.005
+# Phases 10-12: the fleet path (hpnn_tpu/train/fleet.py, bench.py's fleet).
+FLEET_N = 4                                   # phase 10: members
+FLEET_MAIN_N, FLEET_EPOCHS, FLEET_ROWS = 8, 8, 4096
+# lr of the full-width fleet: the loss falls over all 8 epochs and the
+# counts climb from a fraction of the rows, so the count band between the
+# card's f32 and the CPU's f64 run can tell two runs apart
+FLEET_LR = 0.003
+HPNN_FLEET = (64, (32, 16, 4), 30)            # bench.py: members, shape, ticks
+FLEET_TIMED_N = (8, 32)                       # phase 12: members timed
 EPOCH_RE = re.compile(r"BATCH EPOCH +(\d+) loss= (\S+) acc= +\S+% \((\d+)/(\d+)\)")
 BATCH_KERNELS = (
     # entry point, TPU kernel it replaces (pallas_call line), on the main path
@@ -215,6 +240,14 @@ def batch_work(weights_shapes, S, momentum, dtype_bytes):
     return nbytes, flops
 
 
+def state_err(a, b):
+    return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def loss_err(a, b):
+    return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
+
+
 def batch_bank(np, rng, shape, rows):
     n_in, _, n_out = shape
     X = rng.random((rows, n_in))
@@ -231,12 +264,6 @@ def batch_pinned(np, torch, dev):
 
     rng = np.random.default_rng(SEED + 7)
     err = {name: {"float32": 0.0, "float64": 0.0} for name, _, _ in BATCH_KERNELS}
-
-    def state_err(a, b):
-        return max(float((x - y).abs().max()) for x, y in zip(a, b))
-
-    def loss_err(a, b):
-        return float(((a - b).abs() / b.abs().clamp_min(1.0)).max())
 
     for shape, momentum in (((N_IN, N_HID, N_OUT), False), (XRD, True)):
         k, _ = km.generate(SEED, shape[0], [shape[1]], shape[2])
@@ -520,6 +547,290 @@ def batch_timing(np, torch, dev):
     return out
 
 
+# ---------------------------------------------------------- fleet phases
+def fleet_pinned(np, torch, dev):
+    """Phase 10: the fleet epoch (#6) against its plain version, then
+    the bitwise agreements with #5 and #4.  Returns {dtype: max error}."""
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    rng = np.random.default_rng(SEED + 10)
+    err = {"float32": 0.0, "float64": 0.0}
+    for shape, momentum in (((N_IN, N_HID, N_OUT), False), (XRD, True)):
+        ks = [km.generate(SEED + i, shape[0], [shape[1]], shape[2])[0] for i in range(FLEET_N)]
+        W = [np.stack([k.weights[l] for k in ks]) for l in range(2)]
+        dW = [rng.uniform(-1e-3, 1e-3, w.shape) for w in W] if momentum else None
+        banks = [batch_bank(np, rng, shape, PINNED_S * BATCH) for _ in range(FLEET_N)]
+        orders = np.stack([rng.permutation(PINNED_S) for _ in range(FLEET_N)])
+        for model in ("ann", "snn"):
+            kw = dict(batch=BATCH, model=model, momentum=momentum)
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype).split(".")[1]
+                tag = (f"{model}-{'BPM' if momentum else 'BP'} "
+                       f"{'-'.join(map(str, shape))} {dname}")
+                Xd = torch.tensor(np.stack([x for x, _ in banks]), dtype=dtype, device=dev)
+                Td = torch.tensor(np.stack([t for _, t in banks]), dtype=dtype, device=dev)
+
+                def fresh():
+                    w, dw = km.to_torch(W, dW, device=dev, dtype=dtype)
+                    return list(w), list(dw)
+
+                (wk, dwk), (wp, dwp), (w2, dw2), (w0, dw0) = fresh(), fresh(), fresh(), fresh()
+                lk = bs.train_fleet_epoch_dbuf_banked(wk, dwk, Xd, Td, orders, **kw)[2]
+                lp = bs.train_fleet_epoch_dbuf_banked_plain(wp, dwp, Xd, Td, orders, **kw)[2]
+                torch.cuda.synchronize()
+                e = max(state_err(wk + dwk, wp + dwp), loss_err(lk, lp))
+                tol = BATCH_TOL[(dname, "epoch")]
+                check(math.isfinite(e) and e <= tol,
+                      f"fleet {tag}: {PINNED_S} steps |kernel - plain| {e:.3e} > {tol:.0e}")
+                err[dname] = max(err[dname], e)
+                # bitwise: #6 again, and each member's #5 and #4 epochs
+                l2 = bs.train_fleet_epoch_dbuf_banked(w2, dw2, Xd, Td, orders, **kw)[2]
+                check(all(torch.equal(a, b) for a, b in zip(wk + dwk + [lk], w2 + dw2 + [l2])),
+                      f"fleet {tag}: #6 run again differs bitwise")
+                for i in range(FLEET_N):
+                    for fn in (bs.train_epoch_dbuf_banked, bs.train_epoch_grid_banked):
+                        wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
+                        li = fn(wi, dwi, Xd[i], Td[i], orders[i], **kw)[2]
+                        check(torch.equal(li, lk[i])
+                              and all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, wk + dwk)),
+                              f"fleet {tag}: member {i} differs bitwise from {fn.__name__}")
+                log(f"[fleet-pinned] {tag}, N={FLEET_N} B={BATCH} S={PINNED_S}: "
+                    f"max|kernel - plain| {e:.2e} (tol {tol:.0e}); member i == #5 == #4 "
+                    f"on bank i, #6 == #6 again (bitwise)")
+    return err
+
+
+def fleet_main(np, torch, dev, protos):
+    """Phase 11: the fleet path through ``train.fleet``.  Returns
+    (launches by entry point over the whole phase, statistics)."""
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.ops import batch_step as bs
+    from hpnn_tpu_torch.train import fleet
+
+    rng = np.random.default_rng(SEED + 11)
+    X, T = make_dataset(np, rng, FLEET_ROWS, protos)
+    ks = [km.generate(SEED + i, N_IN, [N_HID], N_OUT)[0] for i in range(FLEET_MAIN_N)]
+    N, E, S = FLEET_MAIN_N, FLEET_EPOCHS, FLEET_ROWS // BATCH
+    seeds = list(range(N))
+    kw = dict(epochs=E, batch=BATCH, lr=FLEET_LR)
+    stats = {}
+
+    def run(label, fn, expect):
+        before = dict(bs.launches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launched = {k: bs.launches[k] - before[k] for k in bs.launches
+                    if bs.launches[k] != before[k]}
+        check(launched == expect, f"fleet {label}: launches {launched}, expected {expect}")
+        stats[label] = dict(seconds=secs, launches=launched)
+        return res
+
+    def same(a, b):
+        return (all(np.array_equal(x, y) for ka, kb in zip(a[0], b[0])
+                    for x, y in zip(ka.weights, kb.weights))
+                and np.array_equal(a[1], b[1]) and np.array_equal(a[2], b[2]))
+
+    for name in bs.launches:
+        bs.launches[name] = 0
+    fl = run("fleet", lambda: fleet.train_fleet(ks, X, T, seeds=seeds, **kw),
+             {"train_fleet_epoch_dbuf_banked": E})
+    _, losses, counts = fl
+    check(losses.shape == (N, E, S) and counts.shape == (N, E), "fleet: result shapes")
+    check(np.isfinite(losses).all(), "fleet: loss not finite")
+    by_epoch = losses.mean(axis=2)              # (N, E)
+    check((by_epoch[:, -1] < by_epoch[:, 0]).all(), "fleet: a member's loss did not fall")
+    check(counts[:, 0].max() < FLEET_ROWS,
+          "fleet: a member counted every row after one epoch, so counts cannot tell runs apart")
+    log(f"[fleet-main] train_fleet {N} x 784-300-10 ANN-BP, {FLEET_ROWS} rows, B={BATCH}, "
+        f"{E} epochs, lr {FLEET_LR}: {stats['fleet']['seconds']:.2f} s, mean loss "
+        f"{by_epoch[:, 0].mean():.6f} -> {by_epoch[:, -1].mean():.6f}, count "
+        f"{counts[:, 0].min()}..{counts[:, 0].max()} -> {counts[:, -1].min()}.."
+        f"{counts[:, -1].max()}/{FLEET_ROWS}, launches {stats['fleet']['launches']}")
+    sq = run("sequential", lambda: fleet.train_sequential(ks, X, T, seeds=seeds, **kw),
+             {"train_epoch_grid_banked": N * E})
+    check(same(fl, sq), "train_sequential differs bitwise from train_fleet")
+    mr = run("multi K=2", lambda: fleet.train_fleet_multi(ks, X, T, rounds=2, **kw),
+             {"train_fleet_epoch_dbuf_banked": 2 * E})
+    # round 0 of the default seed_rounds is the fleet run above
+    r1 = run("round 2 of 2 chained", lambda: fleet.train_fleet(
+        fl[0], X, T, seeds=list(range(N, 2 * N)), **kw), {"train_fleet_epoch_dbuf_banked": E})
+    check(same((mr[0], mr[1][:, 1], mr[2][:, 1]), r1)
+          and np.array_equal(mr[1][:, 0], fl[1]) and np.array_equal(mr[2][:, 0], fl[2]),
+          "train_fleet_multi (2 rounds) differs bitwise from 2 chained train_fleet calls")
+    log(f"[fleet-main] bitwise: train_sequential == train_fleet ({stats['sequential']['seconds']:.2f} s, "
+        f"{N * E} launches of #4); train_fleet_multi 2 rounds == 2 chained train_fleet "
+        f"({stats['multi K=2']['seconds']:.2f} s)")
+    cpu = run("cpu f64", lambda: fleet.train_fleet(ks, X, T, seeds=seeds, device="cpu", **kw), {})
+    rel = float(np.max(np.abs(fl[1] - cpu[1]) / np.abs(cpu[1])))
+    dok = int(np.max(np.abs(fl[2].astype(np.int64) - cpu[2])))
+    check(rel <= BAND_LOSS_REL, f"fleet card f32 vs cpu f64: loss rel diff {rel:.3e}")
+    check(dok <= max(2, BAND_COUNT_REL * FLEET_ROWS), f"fleet card f32 vs cpu f64: count diff {dok}")
+    stats["band"] = dict(max_loss_rel=rel, max_count_diff=dok)
+    log(f"[fleet-main] card f32 vs cpu f64 ({stats['cpu f64']['seconds']:.2f} s): max loss rel "
+        f"diff {rel:.3e} over every member, epoch and step (band {BAND_LOSS_REL:.0e}), "
+        f"max count diff {dok}")
+
+    # the HPNN-sized fleet of bench.py: one new sample per member and tick
+    n_m, (hi, hh, ho), ticks = HPNN_FLEET
+    hks = [km.generate(1000 + i, hi, [hh], ho)[0] for i in range(n_m)]
+    Xh = torch.tensor(rng.normal(size=(1, hi)), dtype=torch.float32, device=dev)
+    Th = -torch.ones((1, ho), dtype=torch.float32, device=dev)
+    Th[0, int(rng.integers(0, ho))] = 1.0
+    fperms, forders = fleet.fleet_plan(range(n_m), n_rows=1, batch=1, epochs=1)
+    plans = [fleet.member_plan(i, n_rows=1, batch=1, epochs=1) for i in range(n_m)]
+    fleet_fn = fleet.make_fleet_epoch_fn(1, count=False)
+    member_fn = fleet.make_member_epoch_fn(1, count=False)
+    stacked = fleet.stack_kernels(hks, dtype=torch.float32)
+    members = [km.to_torch(k.weights, device=dev, dtype=torch.float32)[0] for k in hks]
+
+    def fleet_ticks():
+        for _ in range(ticks):
+            fleet_fn(stacked, (), Xh, Th, fperms, forders)
+
+    def sequential_ticks():
+        for _ in range(ticks):
+            for w, (p, o) in zip(members, plans):
+                member_fn(w, (), Xh, Th, p, o)
+
+    tick = {}
+    for label, fn, expect in (
+            ("hpnn fleet", fleet_ticks, {"train_fleet_epoch_dbuf_banked": ticks}),
+            ("hpnn sequential", sequential_ticks, {"train_epoch_grid_banked": n_m * ticks}),
+            ("hpnn fleet again", fleet_ticks, {"train_fleet_epoch_dbuf_banked": ticks}),
+            ("hpnn sequential again", sequential_ticks, {"train_epoch_grid_banked": n_m * ticks})):
+        run(label, fn, expect)
+        tick[label] = stats[label]["seconds"] / ticks * 1e3
+    check(all(torch.equal(s[i], w) for i, ws in enumerate(members) for s, w in zip(stacked, ws)),
+          "HPNN-sized fleet differs bitwise from its members run one by one")
+    check(not any(torch.equal(s[i], torch.tensor(w, dtype=torch.float32, device=dev))
+                  for i, k in enumerate(hks) for s, w in zip(stacked, k.weights)),
+          f"HPNN-sized fleet: a member's layer did not move in {2 * ticks} ticks")
+    stats["hpnn_ms_per_tick"] = tick
+    log(f"[fleet-main] HPNN-sized fleet, {n_m} x {hi}-{hh}-{ho} ANN-BP, B=1, {ticks} ticks x2, "
+        f"bitwise equal, every layer of every member moved: fleet {tick['hpnn fleet']:.3f} / "
+        f"{tick['hpnn fleet again']:.3f} ms a tick (1 launch), sequential "
+        f"{tick['hpnn sequential']:.3f} / {tick['hpnn sequential again']:.3f} ms a tick "
+        f"({n_m} launches)")
+    path_launches = dict(bs.launches)
+    stats["hpnn_vs_plain"] = hpnn_tick_vs_plain(np, torch, dev, rng, hks)
+    return path_launches, stats
+
+
+def hpnn_tick_vs_plain(np, torch, dev, rng, hks):
+    """#6 against its plain version on one tick of the HPNN-sized fleet
+    (B = 1, S = 1: one row a step, one-row tiles, the loss warp over one
+    row), ANN/SNN x BP/BPM, float and double, on the same stacked
+    weights, banks and orders; the kernel's weights must have moved.
+    Returns {dtype: max error}."""
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    n_m = len(hks)
+    (n_hid, n_in), (n_out, _) = (w.shape for w in hks[0].weights)
+    W = [np.stack([k.weights[l] for k in hks]) for l in range(2)]
+    dW = [rng.uniform(-1e-3, 1e-3, w.shape) for w in W]
+    X = rng.normal(size=(n_m, 1, n_in))
+    T = -np.ones((n_m, 1, n_out))
+    T[np.arange(n_m), 0, rng.integers(0, n_out, n_m)] = 1.0
+    orders = np.zeros((n_m, 1), dtype=np.int64)
+    err = {"float32": 0.0, "float64": 0.0}
+    for model in ("ann", "snn"):
+        for momentum in (False, True):
+            kw = dict(batch=1, model=model, momentum=momentum)
+            for dtype in (torch.float32, torch.float64):
+                dname = str(dtype).split(".")[1]
+                tag = f"{model}-{'BPM' if momentum else 'BP'} {dname}"
+                Xd = torch.tensor(X, dtype=dtype, device=dev)
+                Td = torch.tensor(T, dtype=dtype, device=dev)
+
+                def fresh():
+                    return ([torch.tensor(w, dtype=dtype, device=dev) for w in W],
+                            [torch.tensor(m, dtype=dtype, device=dev) for m in dW]
+                            if momentum else [])
+
+                (w0, dw0), (wk, dwk), (wp, dwp) = fresh(), fresh(), fresh()
+                lk = bs.train_fleet_epoch_dbuf_banked(wk, dwk, Xd, Td, orders, **kw)[2]
+                lp = bs.train_fleet_epoch_dbuf_banked_plain(wp, dwp, Xd, Td, orders, **kw)[2]
+                torch.cuda.synchronize()
+                e = max(state_err(wk + dwk, wp + dwp), loss_err(lk, lp))
+                tol = BATCH_TOL[(dname, "step")]
+                check(math.isfinite(e) and e <= tol,
+                      f"HPNN-sized tick {tag}: |kernel - plain| {e:.3e} > {tol:.0e}")
+                check(all(not torch.equal(a[i], b[i]) for a, b in zip(wk + dwk, w0 + dw0)
+                          for i in range(n_m)),
+                      f"HPNN-sized tick {tag}: the kernel left a member's state unchanged")
+                err[dname] = max(err[dname], e)
+    log(f"[fleet-main] HPNN-sized tick, #6 vs plain, N={n_m} B=1 S=1, ANN/SNN x BP/BPM: "
+        f"max|kernel - plain| f32 {err['float32']:.2e} (tol {BATCH_TOL[('float32', 'step')]:.0e}), "
+        f"f64 {err['float64']:.2e} (tol {BATCH_TOL[('float64', 'step')]:.0e}); every member's "
+        f"weights (and dw) moved")
+    return err
+
+
+def fleet_timing(np, torch, dev):
+    """Phase 12: #6 over one epoch of each member's 60000-row bank,
+    ANN-BP 784-300-10 float32, for FLEET_TIMED_N members; against its
+    plain version (the first N), its bound and the members' #5 epochs
+    one after another."""
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    S = math.ceil(TIMED_ROWS / BATCH)
+    g = torch.Generator(device=dev)
+    g.manual_seed(SEED + 12)
+    X = torch.rand((TIMED_ROWS, N_IN), generator=g, device=dev)
+    labels = torch.randint(0, N_OUT, (TIMED_ROWS,), generator=g, device=dev)
+    T = -torch.ones((TIMED_ROWS, N_OUT), device=dev)
+    T[torch.arange(TIMED_ROWS, device=dev), labels] = 1.0
+    ks = [km.generate(SEED + i, N_IN, [N_HID], N_OUT)[0] for i in range(max(FLEET_TIMED_N))]
+    kw = dict(batch=BATCH, model="ann", momentum=False)
+    out = {}
+    for N in FLEET_TIMED_N:
+        # each member's permuted bank, its tail wrapped as train_kernel_batched does
+        perm = np.stack([np.resize(np.random.RandomState(SEED + i).permutation(TIMED_ROWS),
+                                   S * BATCH) for i in range(N)])
+        idx = torch.from_numpy(perm).to(dev)
+        Xb, Tb = X[idx], T[idx]
+        del idx
+        orders = np.stack([np.random.RandomState(SEED + 100 + i).permutation(S)
+                           for i in range(N)])
+        W = [torch.tensor(np.stack([k.weights[l] for k in ks[:N]]), dtype=torch.float32,
+                          device=dev) for l in range(2)]
+        members = [[t[i].clone() for t in W] for i in range(N)]
+        runs, seq = [], []
+        for _ in range(2):  # in turns, twice
+            runs.append(cuda_ms(torch, lambda: bs.train_fleet_epoch_dbuf_banked(
+                W, [], Xb, Tb, orders, **kw)))
+            seq.append(cuda_ms(torch, lambda: [bs.train_epoch_dbuf_banked(
+                members[i], [], Xb[i], Tb[i], orders[i], **kw) for i in range(N)]))
+        ms, seq_ms = statistics.median(runs), statistics.median(seq)
+        nbytes, flops = batch_work([tuple(t.shape[1:]) for t in W], S, False, 4)
+        b_ms, b_by = bound_ms(N * nbytes, N * flops, "float32")
+        plain_ms = None
+        if N == FLEET_TIMED_N[0]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bs.train_fleet_epoch_dbuf_banked_plain(W, [], Xb, Tb, orders, **kw)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+        check(all(torch.isfinite(t).all() for t in W), "fleet timing: weights not finite")
+        out[N] = dict(ms=ms, runs_ms=runs, sequential_dbuf_ms=seq_ms, sequential_runs_ms=seq,
+                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                      ms_per_step=ms / S, bank_bytes=Xb.numel() * 4 + Tb.numel() * 4)
+        log(f"[fleet-timing] #6, {N} members x one epoch of {S} steps, B={BATCH}, "
+            f"{TIMED_ROWS}-row banks ({out[N]['bank_bytes'] / 1e9:.2f} GB), ANN-BP 784-300-10 "
+            f"float32: {ms:.3f} ms ({ms / S:.3f} ms/step; runs {', '.join(f'{t:.3f}' for t in runs)}); "
+            f"{N} sequential #5 epochs {seq_ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in seq)}); "
+            f"bound {b_ms:.4f} ms ({b_by})"
+            + (f"; plain {plain_ms:.1f} ms" if plain_ms is not None else ""))
+        del Xb, Tb, W, members
+        torch.cuda.empty_cache()
+    return out
+
+
 # ---------------------------------------------------------------- phases
 def main() -> int:
     import numpy as np
@@ -758,6 +1069,13 @@ def main() -> int:
         check(not on_path or batch_launches[name] > 0,
               f"the batch main path launched no {name}")
     batch_times = batch_timing(np, torch, dev)
+
+    # 10-12. the fleet path
+    fleet_err = fleet_pinned(np, torch, dev)
+    fleet_launches, fleet_stats = fleet_main(np, torch, dev, protos)
+    check(fleet_launches["train_fleet_epoch_dbuf_banked"] > 0,
+          "the fleet main path launched no train_fleet_epoch_dbuf_banked")
+    fleet_times = fleet_timing(np, torch, dev)
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -807,6 +1125,30 @@ def main() -> int:
             "runs_ms": t["runs_ms"],
         })
     kernels[1]["main"] = batch_stats
+    t8 = fleet_times[FLEET_TIMED_N[0]]
+    fleet_err = {d: max(e, fleet_stats["hpnn_vs_plain"][d]) for d, e in fleet_err.items()}
+    kernels.append({
+        "name": "train_fleet_epoch_dbuf_banked",
+        "route": "cuda",
+        "source": "hpnn_tpu_torch/csrc/batch_step.cu",
+        "replaces": "hpnn_tpu/ops/pallas_train.py:1041",
+        "launches": fleet_launches["train_fleet_epoch_dbuf_banked"],
+        "on_main_path": True,
+        "max_abs_err": fleet_err["float32"],
+        "max_abs_err_f32": fleet_err["float32"],
+        "max_abs_err_f64": fleet_err["float64"],
+        "ms": t8["ms"],
+        "plain_ms": t8["plain_ms"],
+        "bound_ms": t8["bound_ms"],
+        "bound_by": t8["bound_by"],
+        "library_ms": None,
+        "timed": (f"ANN-BP 784-300-10 float32, {FLEET_TIMED_N[0]} members x one epoch of "
+                  f"{math.ceil(TIMED_ROWS / BATCH)} steps of B={BATCH} over "
+                  f"{TIMED_ROWS}-row banks"),
+        "by_members": fleet_times,
+        "main": fleet_stats,
+        "launches_by_entry": fleet_launches,
+    })
     log(f"[card] {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -17,7 +17,6 @@ message, as are the environment knobs of those paths.
 
 from __future__ import annotations
 
-import os
 import signal
 import sys
 
@@ -33,18 +32,6 @@ DEFERRED_OPTS = {
     "export-port": "observability (--export-port)",
     "ledger": "observability (--ledger)",
     "numerics": "observability (--numerics)",
-}
-
-# environment knob -> (value that selects the missing path or None for
-# any value, the path)
-DEFERRED_ENV = {
-    "HPNN_FUSE_STATE": (None, "fused-round crash-resume"),
-    "HPNN_FUSE_EPOCH": ("0", "the streaming per-sample path"),
-    "HPNN_PALLAS": ("1", "the streaming per-sample path"),
-    "HPNN_METRICS": (None, "observability"),
-    "HPNN_LEDGER": (None, "observability"),
-    "HPNN_PROBES": (None, "observability"),
-    "HPNN_TRACE": (None, "observability"),
 }
 
 
@@ -123,13 +110,10 @@ def check_supported(opts: dict, prog: str) -> bool:
                 f"{DEFERRED_OPTS[name]} is not ported yet (hpnn_tpu's "
                 f"{prog} has it)\n")
             return False
-    for knob, (value, path) in DEFERRED_ENV.items():
-        cur = os.environ.get(knob)
-        if cur and (value is None or cur == value):
-            sys.stderr.write(
-                f"{prog}: {knob}={cur} selects {path}, which "
-                f"hpnn_tpu_torch does not have yet; unset it\n")
-            return False
+    msg = runtime.deferred_env_message(prog)
+    if msg:
+        sys.stderr.write(msg + "\n")
+        return False
     for name in ("batch", "epochs"):
         v = opts.get(name)
         if v is not None and v is not True and (not str(v).isdigit() or int(v) < 1):

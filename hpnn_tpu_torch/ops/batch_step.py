@@ -1,8 +1,8 @@
-"""Minibatch training steps of the batch path: the CUDA kernel
-(``csrc/batch_step.cu``) behind four entry points, and their plain
-PyTorch versions.
+"""Minibatch training steps of the batch and fleet paths: the CUDA
+kernels of ``csrc/batch_step.cu`` behind five entry points, and their
+plain PyTorch versions.
 
-Replaces the four kernels of ``hpnn_tpu/ops/pallas_train.py`` that
+Replaces the five kernels of ``hpnn_tpu/ops/pallas_train.py`` that
 share ``_batch_step_math`` (one step: forward over the B rows, deltas,
 the mean-gradient SGD or BPM update at ``lr/B``, a re-forward, and the
 loss):
@@ -13,15 +13,18 @@ loss):
 * :func:`train_epoch_grid_banked` — ``S`` steps on the bank's blocks in
   the order ``order[S]``, one launch, ``losses[S]`` out;
 * :func:`train_epoch_dbuf_banked` — the same epoch, each step first
-  starting the copy of the next step's block into L2.
+  starting the copy of the next step's block into L2;
+* :func:`train_fleet_epoch_dbuf_banked` — N members' dbuf epochs in one
+  launch: stacked ``(N, out, in)`` weights, ``(N, S·B, n)`` banks,
+  ``orders (N, S)``, ``losses (N, S)``.
 
-All four return ``(weights, dw, loss | losses)`` and update ``weights``
+All five return ``(weights, dw, loss | losses)`` and update ``weights``
 (and ``dw`` with momentum) IN PLACE.  A CUDA tensor goes through the
 kernel, one launch on the current stream (float32 or float64; anything
 else raises); a CPU tensor takes the ``*_plain`` twin, which runs
-``parallel.dp.train_step_math`` once per step.  There is no other
-route.  ``launches`` counts each entry point's kernel launches in this
-process.
+``parallel.dp.train_step_math`` once per step (per member and step for
+the fleet).  There is no other route.  ``launches`` counts each entry
+point's kernel launches in this process.
 """
 
 from __future__ import annotations
@@ -33,12 +36,15 @@ import torch
 from hpnn_tpu_torch.ops import _build
 from hpnn_tpu_torch.parallel import dp
 
-ENTRY_POINTS = (
+# the batch path's entry points, with the same (weights, dw, X, T, ...)
+# signature; the fleet epoch takes stacked tensors
+BATCH_ENTRY_POINTS = (
     "train_step_fused_batch",
     "train_step_fused_banked",
     "train_epoch_grid_banked",
     "train_epoch_dbuf_banked",
 )
+ENTRY_POINTS = BATCH_ENTRY_POINTS + ("train_fleet_epoch_dbuf_banked",)
 launches = dict.fromkeys(ENTRY_POINTS, 0)
 
 MAX_LAYERS = 16  # HPNN_MAX_LAYERS in csrc/batch_step.cu
@@ -46,20 +52,34 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 _lib = None
 _grids: dict[tuple, int] = {}  # (dtype, device index) -> blocks
 
+# The C signatures of csrc/batch_step.cu's launch entries, argument by
+# argument (every pointer and the stream as ``c_void_p``): a wrong entry
+# passes garbage without an error, so a test holds each against the
+# source's ``extern "C"`` declaration.
+_INT, _PTR, _DBL = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
+ARGTYPES = {
+    # dtype blocks snn momentum n_layers | dims w dw X Tg | B | order |
+    # first S | lr_eff alpha inv_b | scratch losses | prefetch stream
+    "hpnn_batch_train": (
+        (_INT,) * 5 + (_PTR,) * 5 + (_INT,) + (_PTR,) + (_INT,) * 2
+        + (_DBL,) * 3 + (_PTR,) * 2 + (_INT, _PTR)),
+    # dtype members snn momentum n_layers | dims w dw X Tg | bank_rows |
+    # B | orders | S | lr_eff alpha inv_b | scratch losses stream
+    "hpnn_fleet_train": (
+        (_INT,) * 5 + (_PTR,) * 5 + (ctypes.c_longlong, _INT, _PTR, _INT)
+        + (_DBL,) * 3 + (_PTR,) * 3),
+}
+
 
 def _library():
-    """The built kernel library with its C signatures declared (every
-    pointer and the stream as ``c_void_p``)."""
+    """The built kernel library with its C signatures declared."""
     global _lib
     if _lib is None:
         lib = _build.load("batch_step")
-        fn = lib.hpnn_batch_train
-        fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_int] * 5 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
-            + [ctypes.c_void_p] + [ctypes.c_int] * 2 + [ctypes.c_double] * 3
-            + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p]
-        )
+        for name, argtypes in ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int
+            fn.argtypes = argtypes
         lib.hpnn_batch_grid_blocks.restype = ctypes.c_int
         lib.hpnn_batch_grid_blocks.argtypes = [ctypes.c_int, ctypes.c_void_p]
         lib.hpnn_batch_error_string.restype = ctypes.c_char_p
@@ -131,6 +151,20 @@ def _order(order, n_blocks: int) -> torch.Tensor:
     return o.to(torch.int32)
 
 
+def _layers(weights, dw, momentum, batch):
+    """One kernel's C arrays (the layer widths and the weight and dw
+    pointers) and the values of its scratch: the activations and deltas
+    of every layer for the B rows and the B row losses (the counterpart
+    of the Pallas kernel's VMEM scratch)."""
+    n_layers = len(weights)
+    dims = (ctypes.c_int * (n_layers + 1))(
+        weights[0].shape[1], *(int(w.shape[0]) for w in weights))
+    w_ptrs = (ctypes.c_void_p * n_layers)(*(w.data_ptr() for w in weights))
+    dw_ptrs = (ctypes.c_void_p * n_layers)(
+        *((m.data_ptr() for m in dw) if momentum else [None] * n_layers))
+    return dims, w_ptrs, dw_ptrs, (2 * sum(dims[1:]) + 1) * batch
+
+
 def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
             alpha, prefetch):
     if X.device.type != "cuda":
@@ -144,28 +178,19 @@ def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
     # one step reads its block by index; an epoch's order goes to the card
     ord_dev = order.to(dev) if S > 1 else None
     first = 0 if S > 1 else int(order[0])
-    n_layers = len(weights)
-    # the activations and deltas of every layer for the B rows, and the
-    # B row losses (the counterpart of the Pallas kernel's VMEM scratch)
-    scratch = torch.empty((2 * sum(int(w.shape[0]) for w in weights) + 1) * batch,
-                          dtype=X.dtype, device=dev)
+    dims, w_ptrs, dw_ptrs, n_scratch = _layers(weights, dw, momentum, batch)
+    scratch = torch.empty(n_scratch, dtype=X.dtype, device=dev)
     losses = torch.empty(S, dtype=X.dtype, device=dev)
-    dims = (ctypes.c_int * (n_layers + 1))(
-        weights[0].shape[1], *(int(w.shape[0]) for w in weights))
-    w_ptrs = (ctypes.c_void_p * n_layers)(*(w.data_ptr() for w in weights))
-    dw_ptrs = (ctypes.c_void_p * n_layers)(
-        *((m.data_ptr() for m in dw) if momentum else [None] * n_layers))
-    # lr·(1/B) in double on the host, as the JAX Python-scalar product is
-    lr_eff = float(lr) * (1.0 / batch)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # lr·(1/B) in double on the host, as the JAX Python-scalar product is
         rc = lib.hpnn_batch_train(
             _DTYPE_CODE[X.dtype], blocks, int(model == "snn"), int(bool(momentum)),
-            n_layers, ctypes.addressof(dims), ctypes.addressof(w_ptrs),
+            len(weights), ctypes.addressof(dims), ctypes.addressof(w_ptrs),
             ctypes.addressof(dw_ptrs), X.data_ptr(), T.data_ptr(), int(batch),
-            None if ord_dev is None else ord_dev.data_ptr(), first, S, lr_eff,
-            float(alpha), 1.0 / batch, scratch.data_ptr(), losses.data_ptr(),
-            int(bool(prefetch)), stream,
+            None if ord_dev is None else ord_dev.data_ptr(), first, S,
+            float(lr) * (1.0 / batch), float(alpha), 1.0 / batch, scratch.data_ptr(),
+            losses.data_ptr(), int(bool(prefetch)), stream,
         )
     _raise_on(lib, rc, "launch")
     launches[name] += 1
@@ -202,6 +227,79 @@ def _run(name, weights, dw, X, T, order, batch, *, prefetch, model="ann",
     if name is None or X.device.type == "cpu":
         return _plain_epoch(weights, dw, X, T, order, batch, **kw)
     return _launch(name, weights, dw, X, T, order, batch, prefetch=prefetch, **kw)
+
+
+# ------------------------------------------------------------------ fleet
+def _check_fleet(weights, dw, X_banks, T_banks, orders, batch, model, momentum):
+    """The stacked checks of #6; returns ``orders`` as a host ``(N, S)``
+    int32 tensor of in-range block ids."""
+    if X_banks.dim() != 3 or T_banks.dim() != 3:
+        raise ValueError(f"want X_banks (N, rows, n_in) and T_banks (N, rows, n_out), "
+                         f"got {tuple(X_banks.shape)} and {tuple(T_banks.shape)}")
+    state = tuple(weights) + (tuple(dw) if momentum else ())
+    if any(t.dim() != 3 for t in state):
+        raise ValueError("stacked weights and dw must be (N, out, in)")
+    o = torch.as_tensor(orders).cpu()
+    if o.dim() != 2:
+        raise ValueError(f"orders must be (N, S), got {tuple(o.shape)}")
+    n = {int(t.shape[0]) for t in (X_banks, T_banks, o, *state)}
+    if len(n) != 1:
+        raise ValueError(f"member counts disagree across weights, dw, banks and "
+                         f"orders: {sorted(n)}")
+    for t in (X_banks, T_banks, *state):
+        if t.dtype not in _DTYPE_CODE:
+            raise TypeError(f"the kernel is built for float32 and float64, not {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("stacked weights, dw and banks must be contiguous")
+    # one member's shapes, types and devices, as for #2-#5
+    _check([w[0] for w in weights], [m[0] for m in dw] if momentum else dw,
+           X_banks[0], T_banks[0], batch, model, momentum)
+    return _order(o, X_banks.shape[1] // batch).reshape(o.shape)
+
+
+def _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, *, model,
+                  momentum, lr, alpha):
+    if X_banks.device.type != "cuda":
+        raise ValueError(f"unsupported device {X_banks.device}")
+    dev = X_banks.device
+    lib = _library()
+    N, S = (int(v) for v in orders.shape)
+    ord_dev = orders.to(dev)
+    # member 0's layers; the kernel steps to member i by the strides
+    dims, w_ptrs, dw_ptrs, n_scratch = _layers(
+        [w[0] for w in weights], [m[0] for m in dw] if momentum else (), momentum, batch)
+    scratch = torch.empty(N * n_scratch, dtype=X_banks.dtype, device=dev)
+    losses = torch.empty((N, S), dtype=X_banks.dtype, device=dev)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        # lr·(1/B) in double on the host, as the JAX Python-scalar product is
+        rc = lib.hpnn_fleet_train(
+            _DTYPE_CODE[X_banks.dtype], N, int(model == "snn"), int(bool(momentum)),
+            len(weights), ctypes.addressof(dims), ctypes.addressof(w_ptrs),
+            ctypes.addressof(dw_ptrs), X_banks.data_ptr(), T_banks.data_ptr(),
+            int(X_banks.shape[1]), int(batch), ord_dev.data_ptr(), S,
+            float(lr) * (1.0 / batch), float(alpha), 1.0 / batch,
+            scratch.data_ptr(), losses.data_ptr(), stream,
+        )
+    _raise_on(lib, rc, "fleet launch")
+    launches["train_fleet_epoch_dbuf_banked"] += 1
+    return losses
+
+
+def _run_fleet(kernel, weights, dw, X_banks, T_banks, orders, *, batch,
+               model="ann", momentum=False, lr=None, alpha=0.2):
+    """Check, then the kernel (``kernel`` and CUDA tensors) or, per
+    member, the plain epoch (``kernel`` False, or CPU tensors)."""
+    orders = _check_fleet(weights, dw, X_banks, T_banks, orders, batch, model, momentum)
+    if lr is None:
+        lr = dp.default_lr(model, momentum)
+    kw = dict(model=model, momentum=momentum, lr=lr, alpha=alpha)
+    if not kernel or X_banks.device.type == "cpu":
+        return torch.stack([
+            _plain_epoch([w[i] for w in weights], [m[i] for m in dw] if momentum else (),
+                         X_banks[i], T_banks[i], orders[i], batch, **kw)
+            for i in range(orders.shape[0])])
+    return _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, **kw)
 
 
 # ------------------------------------------------------------ entry points
@@ -254,6 +352,19 @@ def train_epoch_dbuf_banked(weights, dw, X_bank, T_bank, order, *, batch: int, *
                          order, batch=batch, **kw)
 
 
+def train_fleet_epoch_dbuf_banked(weights, dw, X_banks, T_banks, orders, *,
+                                  batch: int, **kw):
+    """N members' :func:`train_epoch_dbuf_banked` epochs in ONE launch,
+    block i of the grid on member i: member i's slice of the stacked
+    ``(N, out, in)`` weights (and dw), its bank ``X_banks[i]``,
+    ``T_banks[i]`` of ``(N, S·B, n)``, its block order ``orders[i]`` of
+    ``(N, S)``.  Member i's result is bitwise that of
+    :func:`train_epoch_dbuf_banked` on bank i with ``orders[i]``.
+    Returns (weights, dw, losses[N, S])."""
+    return weights, dw, _run_fleet(True, weights, dw, X_banks, T_banks, orders,
+                                   batch=batch, **kw)
+
+
 # ---------------------------------------------------- the plain versions
 # The same functions in plain tensor operations on the inputs' device.
 def train_step_fused_batch_plain(weights, dw, X, T, **kw):
@@ -271,3 +382,10 @@ def train_epoch_grid_banked_plain(weights, dw, X_bank, T_bank, order, *, batch: 
 def train_epoch_dbuf_banked_plain(weights, dw, X_bank, T_bank, order, *, batch: int, **kw):
     """The same function as the grid epoch's: the prefetch moves no result."""
     return _epoch_banked(None, weights, dw, X_bank, T_bank, order, batch=batch, **kw)
+
+
+def train_fleet_epoch_dbuf_banked_plain(weights, dw, X_banks, T_banks, orders, *,
+                                        batch: int, **kw):
+    """The grid epoch's plain version, member by member."""
+    return weights, dw, _run_fleet(False, weights, dw, X_banks, T_banks, orders,
+                                   batch=batch, **kw)

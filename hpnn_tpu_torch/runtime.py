@@ -194,3 +194,32 @@ def compute_dtype(device: torch.device) -> torch.dtype:
             raise ValueError(f"HPNN_DTYPE={dt}: want float32 or float64")
         return getattr(torch, name)
     return torch.float32 if torch.device(device).type == "cuda" else torch.float64
+
+
+# ----------------------------------------------------- knobs of other paths
+# environment knob -> (value that selects the missing path or None for
+# any value, the path)
+DEFERRED_ENV = {
+    "HPNN_FUSE_STATE": (None, "fused-round crash-resume"),
+    "HPNN_FUSE_EPOCH": ("0", "the streaming per-sample path"),
+    "HPNN_PALLAS": ("1", "the streaming per-sample path"),
+    "HPNN_METRICS": (None, "observability"),
+    "HPNN_LEDGER": (None, "observability"),
+    "HPNN_PROBES": (None, "observability"),
+    "HPNN_NUMERICS": (None, "observability"),
+    "HPNN_SPANS": (None, "observability"),
+    "HPNN_COST": (None, "observability"),
+    "HPNN_TRACE": (None, "observability"),
+}
+
+
+def deferred_env_message(prog: str, paths=None) -> str | None:
+    """The refusal of the first set knob of :data:`DEFERRED_ENV` (of
+    those selecting one of ``paths``, when given), or None: the CLIs and
+    the library entry points refuse such a knob, never ignore it."""
+    for knob, (value, path) in DEFERRED_ENV.items():
+        cur = os.environ.get(knob)
+        if cur and (value is None or cur == value) and (paths is None or path in paths):
+            return (f"{prog}: {knob}={cur} selects {path}, which "
+                    f"hpnn_tpu_torch does not have yet; unset it")
+    return None

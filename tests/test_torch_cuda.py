@@ -1,5 +1,6 @@
 """The CUDA kernels on the card against their plain PyTorch versions:
-the convergence kernel and the four batch-step entry points.
+the convergence kernel, the four batch-step entry points and the fleet
+epoch (#6), and the fleet path through ``train.fleet``.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip on a
 machine without a card.  On one, run them with
@@ -12,6 +13,7 @@ import torch
 
 from hpnn_tpu_torch.models import kernel as km
 from hpnn_tpu_torch.ops import batch_step, convergence
+from hpnn_tpu_torch.train import fleet
 
 pytestmark = pytest.mark.cuda
 
@@ -93,7 +95,7 @@ def _max_diff(a, b):
 @pytest.mark.parametrize("model,momentum", [
     ("ann", False), ("ann", True), ("snn", False), ("snn", True),
 ])
-@pytest.mark.parametrize("entry", batch_step.ENTRY_POINTS)
+@pytest.mark.parametrize("entry", batch_step.BATCH_ENTRY_POINTS)
 def test_batch_kernel_matches_plain(cuda, entry, model, momentum, dtype, tol):
     """Each entry point on the card against its plain version; only the
     summation order differs, so f64 agrees to rounding and f32 to 1e-5."""
@@ -159,3 +161,117 @@ def test_batch_kernel_refuses_what_it_cannot_take(cuda):
         batch_step.train_epoch_grid_banked(w, dw, X[:20], T[:20], [0], batch=16)
     with pytest.raises(ValueError, match="outside"):
         batch_step.train_epoch_grid_banked(w, dw, X, T, [0, 4], batch=16)
+
+
+# ------------------------------------------------------------- fleet (#6)
+def _fleet(dev, dtype, model, momentum, N=3, B=16, S=4, shape=(12, (16, 8), 6), seed=6):
+    """Stacked member weights (and a small dw), per-member banks and
+    block orders."""
+    n_in, hiddens, n_out = shape
+    rng = np.random.default_rng(seed)
+    ks = [km.generate(50 + i, n_in, list(hiddens), n_out)[0] for i in range(N)]
+    w = [torch.tensor(np.stack([k.weights[l] for k in ks]), dtype=dtype, device=dev)
+         for l in range(len(hiddens) + 1)]
+    dw = ([torch.tensor(rng.uniform(-1e-3, 1e-3, tuple(t.shape)), dtype=dtype, device=dev)
+           for t in w] if momentum else [])
+    X = rng.uniform(-1, 1, (N, S * B, n_in))
+    T = -np.ones((N, S * B, n_out))
+    for i in range(N):
+        T[i, np.arange(S * B), rng.integers(0, n_out, S * B)] = 1.0
+    orders = np.stack([rng.permutation(S) for _ in range(N)])
+    return (w, dw, torch.tensor(X, dtype=dtype, device=dev),
+            torch.tensor(T, dtype=dtype, device=dev), orders)
+
+
+@pytest.mark.parametrize("model,momentum", [
+    ("ann", False), ("ann", True), ("snn", False), ("snn", True),
+])
+def test_fleet_kernel_matches_plain_f64(cuda, model, momentum):
+    w, dw, X, T, orders = _fleet(cuda, torch.float64, model, momentum)
+    wp, dwp = _clone(w), _clone(dw)
+    kw = dict(batch=16, model=model, momentum=momentum, lr=0.05, alpha=0.2)
+    before = batch_step.launches["train_fleet_epoch_dbuf_banked"]
+    _, _, lk = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders, **kw)
+    torch.cuda.synchronize()
+    assert batch_step.launches["train_fleet_epoch_dbuf_banked"] == before + 1
+    _, _, lp = batch_step.train_fleet_epoch_dbuf_banked_plain(wp, dwp, X, T, orders, **kw)
+    assert batch_step.launches["train_fleet_epoch_dbuf_banked"] == before + 1
+    assert lk.shape == (3, 4)
+    assert _max_diff(w + dw, wp + dwp) <= TOL64
+    assert float((lk - lp).abs().max()) <= TOL64 * max(1.0, float(lp.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, TOL64), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("model,momentum", [
+    ("ann", False), ("ann", True), ("snn", False), ("snn", True),
+])
+def test_fleet_kernel_matches_plain_one_row(cuda, model, momentum, dtype, tol):
+    """The HPNN-sized fleet's shape (64 x 32-16-4, B = 1, S = 1): one-row
+    tiles and the loss warp over one row; the weights must move."""
+    w, dw, X, T, orders = _fleet(cuda, dtype, model, momentum, N=64, B=1, S=1,
+                                 shape=(32, (16,), 4))
+    w0, wp, dwp = _clone(w), _clone(w), _clone(dw)
+    kw = dict(batch=1, model=model, momentum=momentum)
+    _, _, lk = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders, **kw)
+    _, _, lp = batch_step.train_fleet_epoch_dbuf_banked_plain(wp, dwp, X, T, orders, **kw)
+    torch.cuda.synchronize()
+    assert lk.shape == (64, 1)
+    assert _max_diff(w + dw, wp + dwp) <= tol
+    assert float((lk - lp).abs().max()) <= tol * max(1.0, float(lp.abs().max()))
+    for a, b in zip(w, w0):
+        assert all(not torch.equal(a[i], b[i]) for i in range(64))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model,momentum", [("ann", False), ("snn", True)])
+def test_fleet_member_equals_dbuf_and_grid_bitwise(cuda, model, momentum, dtype):
+    """Member i of #6 equals #5 and #4 on bank i with orders[i]."""
+    w, dw, X, T, orders = _fleet(cuda, dtype, model, momentum)
+    kw = dict(batch=16, model=model, momentum=momentum, lr=0.05, alpha=0.2)
+    w0, dw0 = _clone(w), _clone(dw)
+    _, _, lf = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders, **kw)
+    for i in range(len(orders)):
+        for fn in (batch_step.train_epoch_dbuf_banked, batch_step.train_epoch_grid_banked):
+            wi = [t[i].clone() for t in w0]
+            dwi = [t[i].clone() for t in dw0]
+            _, _, li = fn(wi, dwi, X[i], T[i], orders[i], **kw)
+            assert torch.equal(li, lf[i]), fn.__name__
+            for a, b in zip(wi + dwi, w + dw):
+                assert torch.equal(a, b[i]), fn.__name__
+
+
+def test_train_fleet_equals_sequential_bitwise(cuda):
+    ks = [km.generate(60 + i, 12, [16], 6)[0] for i in range(4)]
+    rng = np.random.default_rng(8)
+    X = rng.uniform(-1, 1, (64, 12))
+    T = -np.ones((64, 6))
+    T[np.arange(64), rng.integers(0, 6, 64)] = 1.0
+    kw = dict(epochs=3, batch=16, seeds=[4, 0, 9, 2], lr=0.5)
+    before = dict(batch_step.launches)
+    out_f, loss_f, cnt_f = fleet.train_fleet(ks, X, T, **kw)
+    assert batch_step.launches["train_fleet_epoch_dbuf_banked"] == (
+        before["train_fleet_epoch_dbuf_banked"] + 3)  # one launch per epoch
+    out_s, loss_s, cnt_s = fleet.train_sequential(ks, X, T, **kw)
+    assert batch_step.launches["train_epoch_grid_banked"] == (
+        before["train_epoch_grid_banked"] + 4 * 3)
+    assert loss_f.dtype == np.float32 and loss_f.shape == (4, 3, 4)
+    for a, b in zip(out_f, out_s):
+        for wa, wb in zip(a.weights, b.weights):
+            assert wa.dtype == np.float64 and np.array_equal(wa, wb)
+    assert np.array_equal(loss_f, loss_s) and np.array_equal(cnt_f, cnt_s)
+
+
+def test_fleet_kernel_refuses_what_it_cannot_take(cuda):
+    w, dw, X, T, orders = _fleet(cuda, torch.float32, "ann", False)
+    kw = dict(batch=16)
+    run = batch_step.train_fleet_epoch_dbuf_banked
+    with pytest.raises(TypeError):
+        run([t.half() for t in w], dw, X.half(), T.half(), orders, **kw)
+    with pytest.raises(ValueError, match="contiguous"):
+        run(w, dw, X.transpose(1, 2).contiguous().transpose(1, 2), T, orders, **kw)
+    with pytest.raises(ValueError, match="member counts"):
+        run(w, dw, X[:2], T[:2], orders, **kw)
+    with pytest.raises(ValueError, match="member counts"):
+        run([w[0], w[1][:2].contiguous()], dw, X, T, orders, **kw)
+    with pytest.raises(ValueError, match="outside"):
+        run(w, dw, X, T, orders + 1, **kw)

@@ -1,11 +1,14 @@
 """The PyTorch port stands alone: importing it pulls in neither JAX nor
 any module of the JAX package, and its sources import neither."""
 
+import ctypes
 import json
 import os
 import re
 import subprocess
 import sys
+
+import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "hpnn_tpu_torch")
@@ -24,6 +27,7 @@ MODULES = (
     "hpnn_tpu_torch.parallel.dp",
     "hpnn_tpu_torch.train.driver",
     "hpnn_tpu_torch.train.batch",
+    "hpnn_tpu_torch.train.fleet",
 )
 
 # an import statement naming jax or the JAX package (hpnn_tpu_torch is
@@ -68,3 +72,35 @@ def test_forbidden_pattern_catches_jax_package_imports():
     assert _FORBIDDEN.search("    import hpnn_tpu\n")
     assert not _FORBIDDEN.search("from hpnn_tpu_torch.models import ann\n")
     assert not _FORBIDDEN.search("import hpnn_tpu_torch\n")
+
+
+# C parameter type -> the ctypes type the binding must declare for it
+_C_TYPES = {"int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "double": ctypes.c_double}
+
+
+def _c_params(source: str, fn: str) -> list:
+    """The parameter types of ``extern "C" int fn(...)`` in ``source``:
+    any pointer as ``void*``, else the type name."""
+    m = re.search(r'extern "C" int ' + fn + r"\((.*?)\)\s*\{", source, re.S)
+    assert m, f"{fn} is not declared extern \"C\""
+    out = []
+    for param in m.group(1).split(","):
+        words = " ".join(param.replace("*", " * ").split()).split(" ")[:-1]
+        out.append("void*" if "*" in words else
+                   " ".join(w for w in words if w != "const"))
+    return out
+
+
+@pytest.mark.parametrize("fn", ["hpnn_batch_train", "hpnn_fleet_train"])
+def test_batch_step_argtypes_match_the_c_signature(fn):
+    """A ctypes argtypes entry that disagrees with the C function passes
+    garbage silently: hold each declared tuple to the source text."""
+    from hpnn_tpu_torch.ops import batch_step
+
+    with open(os.path.join(PKG, "csrc", "batch_step.cu")) as fp:
+        params = _c_params(fp.read(), fn)
+    declared = batch_step.ARGTYPES[fn]
+    assert len(declared) == len(params)
+    want = [ctypes.c_void_p if p == "void*" else _C_TYPES[p] for p in params]
+    assert list(declared) == want
