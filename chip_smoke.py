@@ -14,13 +14,16 @@ Phases (any failure exits non-zero and prints no result line):
    nvcc per source, all started together.
 3. pinned  — the convergence kernel against its plain PyTorch version
    at 784-300-10 with delta = -1e30, so every sample runs exactly
-   K+1 iterations: ANN/SNN x BP/BPM, float and double.
+   K+1 iterations: ANN/SNN x BP/BPM, float and double; then the kernel
+   against itself, bitwise, under every plan (8 and 16 CTAs, weights
+   resident and streamed).
 4. main    — ``train_nn`` then ``run_nn`` (the package's CLIs) on a
    seeded synthetic MNIST-shaped dataset: ANN 784-300-10 BP, then
    SNN 784-300-10 BP; the kernel's launch count is read around it.
 5. real    — kernel against plain at the loop's own delta/min_iter
    (max_iter lowered so the plain Python loop stays short).
-6. timing  — the kernel, its plain version and its bound on one chunk.
+6. timing  — the kernel at each cluster size, its plain version and
+   its bound, every mode and type; one chunk of real samples.
 7. batch pinned — the four batch-step entry points against their plain
    versions at 784-300-10 BP and 851-230-230 BPM, B = 256, S = 8, ANN
    and SNN, float and double; then bitwise: banked step == direct step
@@ -53,6 +56,10 @@ Phases (any failure exits non-zero and prints no result line):
    members' #5 epochs run one after another.
 
 The last two lines are the kernel table and the device line.
+
+``--phase-split`` also builds the convergence kernel's phase-clock
+variant (``-DHPNN_PHASE_CLOCKS``), holds it bitwise against the kernel
+and prints where an iteration's time goes in phase 6.
 """
 
 from __future__ import annotations
@@ -77,6 +84,7 @@ N_IN, N_HID, N_OUT = 784, 300, 10
 N_TRAIN_ANN, N_TRAIN_SNN, N_TEST = 256, 16, 256
 CHUNK = 64            # HPNN_FUSE_CHUNK for the main path
 PINNED_K = 20         # phase 3: max_iter, so K+1 iterations per sample
+CLUSTERS = (16, 8)    # phase 6: cluster sizes timed
 REAL_MAX_ITER = 1500  # phase 5: caps the plain loop's run time
 TIMED_ITERS = 200     # phase 6: iterations per sample, pinned
 # H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor FLOP/s
@@ -222,6 +230,30 @@ def bound_ms(nbytes, flops, dtype_name):
     t_bytes = nbytes / PEAK_BYTES * 1e3
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ------------------------------------------------- convergence plans
+def plans_of(convergence, weights, dtype, momentum):
+    """Every plan the kernel can take for these weights: each cluster
+    size, with the owned weight rows resident where they fit and
+    streamed."""
+    out = []
+    for C in CLUSTERS:
+        p = convergence.plan(weights, dtype, momentum, cluster=C)
+        out.append(dict(cluster=C))
+        if p.weights_resident:
+            out.append(dict(cluster=C, weights_resident=False))
+    return out
+
+
+def plan_str(p):
+    return (f"{p.cluster} CTAs, W {'shared' if p.weights_resident else 'device'}, dw "
+            f"{'shared' if p.dw_resident else 'device'}, {p.smem_bytes} B a CTA")
+
+
+def same_run(a, b):
+    """Two (weights, stats) results equal bitwise."""
+    return all(x.equal(y) for x, y in zip(list(a[0]) + list(a[1]), list(b[0]) + list(b[1])))
 
 
 # ---------------------------------------------------------- batch phases
@@ -833,8 +865,15 @@ def fleet_timing(np, torch, dev):
 
 # ---------------------------------------------------------------- phases
 def main() -> int:
+    import argparse
+
     import numpy as np
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phase-split", action="store_true",
+                    help="time the convergence kernel's phases (a third nvcc build)")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -866,13 +905,15 @@ def main() -> int:
 
     # 2. build: one nvcc per source, all started together
     t0 = time.perf_counter()
-    sources = ("convergence", "batch_step")
-    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
-        list(pool.map(lambda name: _build.build(name, force=True), sources))
-    for name in sources:
-        _build.load(name)
-        secs, out = _build.build_log[name]
-        log(f"[build] {name}.cu built in {secs:.1f} s")
+    builds = (("convergence", None), ("batch_step", None))
+    if args.phase_split:
+        builds += (("convergence", "HPNN_PHASE_CLOCKS"),)
+    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+        list(pool.map(lambda b: _build.build(b[0], force=True, define=b[1]), builds))
+    for name, define in builds:
+        _build.load(name, define)
+        secs, out = _build.build_log[(name, define) if define else name]
+        log(f"[build] {name}.cu{' -D' + define if define else ''} built in {secs:.1f} s")
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
@@ -901,6 +942,7 @@ def main() -> int:
                 kw = dict(model=model, momentum=momentum, min_iter=5,
                           max_iter=PINNED_K)
                 wk, X, T = tensors(dtype, 4, snn=model == "snn")
+                w0 = tuple(w.clone() for w in wk)
                 wp = tuple(w.clone() for w in wk)
                 sk = convergence.train_epoch(wk, X, T, 0.2, -1e30, **kw)
                 sp = convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
@@ -917,6 +959,13 @@ def main() -> int:
                 max_err[name] = max(max_err[name], err)
                 log(f"[pinned] {tag}: n_iter {sk.n_iter.tolist()} first_ok "
                     f"{sk.first_ok.tolist()} max|diff| {err:.3e} (tol {TOL[name]:.0e})")
+                # the kernel against itself under every plan, bitwise
+                for plan in plans_of(convergence, w0, dtype, momentum):
+                    w = tuple(t.clone() for t in w0)
+                    check(same_run((w, convergence.train_epoch(w, X, T, 0.2, -1e30, **kw, **plan)),
+                                   (wk, sk)), f"{tag}: plan {plan} differs bitwise from the default")
+                log(f"[pinned] {tag}: default plan ({plan_str(convergence.plan(w0, dtype, momentum))}) "
+                    f"== every plan of {plans_of(convergence, w0, dtype, momentum)} (bitwise)")
 
     # 4. main path: train_nn then run_nn through the CLIs
     shutil.rmtree(WORK, ignore_errors=True)
@@ -1019,7 +1068,8 @@ def main() -> int:
 
 
     # 6. timing: 4 samples x TIMED_ITERS iterations each, every mode and
-    # type; the kernel row of the result is ANN-BP float32, the main path's
+    # type, at each cluster size, in turns; the kernel row of the result
+    # is ANN-BP float32, the main path's
     timings = []
     for model in ("ann", "snn"):
         for momentum in (False, True):
@@ -1028,8 +1078,15 @@ def main() -> int:
                 wk, X, T = tensors(dtype, 4)
                 kw = dict(model=model, momentum=momentum, min_iter=5,
                           max_iter=TIMED_ITERS - 1)
-                k_ms = cuda_ms(torch, lambda: convergence.train_epoch(
-                    wk, X, T, 0.2, -1e30, **kw))
+                tag = f"{model}-{'BPM' if momentum else 'BP'} {name}"
+                fns = {f"C={C}": (lambda C=C: convergence.train_epoch(
+                    wk, X, T, 0.2, -1e30, cluster=C, **kw)) for C in CLUSTERS}
+                runs = {k: [] for k in fns}
+                for k in list(fns) + list(fns)[::-1]:
+                    runs[k].append(cuda_ms(torch, fns[k]))
+                by = {k: statistics.median(v) for k, v in runs.items()}
+                p = convergence.plan(wk, dtype, momentum)
+                k_ms = by[f"C={p.cluster}"]
                 wp = tuple(w.clone() for w in wk)
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
@@ -1039,13 +1096,29 @@ def main() -> int:
                 iters = int(sp.n_iter.sum())
                 nbytes, flops = work_of(wk, 4, iters, momentum, X.element_size())
                 b_ms, b_by = bound_ms(nbytes, flops, name)
-                tag = f"{model}-{'BPM' if momentum else 'BP'} {name}"
                 timings.append(dict(config=tag, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-                                    bound_by=b_by, iters=iters))
+                                    bound_by=b_by, iters=iters, cluster=p.cluster,
+                                    smem_bytes=p.smem_bytes, ms_by_plan=by, runs_ms=runs,
+                                    us_per_iter={k: v / iters * 1e3 for k, v in by.items()}))
                 log(f"[timing] {tag} 784-300-10, 4 samples x {TIMED_ITERS} iterations: "
-                    f"kernel {k_ms:.3f} ms ({k_ms / iters * 1e3:.2f} us/iteration), "
-                    f"plain {p_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes} B, "
-                    f"{flops} flop)")
+                    + ", ".join(f"{k} {v:.3f} ms ({v / iters * 1e3:.2f} us/iteration)"
+                                for k, v in by.items())
+                    + f"; default {plan_str(p)}; plain {p_ms:.1f} ms, bound {b_ms:.4f} ms "
+                    f"({b_by}: {nbytes} B, {flops} flop)")
+                if args.phase_split:
+                    # the phase-clock build on the same inputs (bitwise the
+                    # kernel's), its cycles shared out over the measured time
+                    wc, wq = tuple(w.clone() for w in wk), tuple(w.clone() for w in wk)
+                    sc, clocks = convergence.phase_clocks(wc, X, T, 0.2, -1e30, **kw)
+                    sq = convergence.train_epoch(wq, X, T, 0.2, -1e30, **kw)
+                    check(same_run((wc, sc), (wq, sq)),
+                          f"{tag}: the phase-clock build differs bitwise from the kernel")
+                    cyc = sum(clocks.values())
+                    split = {k: v / cyc * k_ms / iters * 1e3 for k, v in clocks.items() if v}
+                    timings[-1].update(split_us_per_iter=split, clocks=clocks)
+                    log(f"[timing] {tag}: us/iteration by phase (C={p.cluster}, rank 0, "
+                        f"barrier waits included): "
+                        + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     head = timings[0]
     ms, plain_ms, b_ms, b_by = head["ms"], head["plain_ms"], head["bound_ms"], head["bound_by"]
     # a chunk of real samples at the loop's own thresholds, as train_nn sends it
@@ -1096,6 +1169,9 @@ def main() -> int:
         "bound_by": b_by,
         "library_ms": None,
         "timed": f"ANN-BP 784-300-10 float32, 4 samples x {TIMED_ITERS} iterations",
+        "cluster": head["cluster"],
+        "smem_bytes": head["smem_bytes"],
+        "us_per_iter": ms / head["iters"] * 1e3,
         "chunk_ms": chunk_ms,
         "chunk_iters": chunk_iters,
         "main": main_stats,

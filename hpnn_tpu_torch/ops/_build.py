@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` into a
 shared library with a plain C interface, ``csrc/build/lib<name>.so``,
 and loaded with ``ctypes``.  A library older than its source is
-rebuilt.  Nothing here runs at import time: the CPU-only test machine
+rebuilt.  A variant built with a ``-D`` define goes to
+``lib<name>.<define>.so``.  Nothing here runs at import time: the CPU-only test machine
 has no ``nvcc``.
 """
 
@@ -23,9 +24,9 @@ ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _lock = threading.Lock()
-_libs: dict[str, ctypes.CDLL] = {}
-# name -> (seconds, compiler output) of the build this process ran
-build_log: dict[str, tuple[float, str]] = {}
+_libs: dict[tuple, ctypes.CDLL] = {}
+# name (or (name, define)) -> (seconds, compiler output) of the build this process ran
+build_log: dict = {}
 
 
 class NvccError(RuntimeError):
@@ -42,32 +43,34 @@ def nvcc_path() -> str:
     raise NvccError("nvcc not found (set CUDA_HOME or put nvcc on PATH)")
 
 
-def build(name: str, *, force: bool = False) -> str:
-    """Compile ``csrc/<name>.cu`` unless an up-to-date library exists;
-    returns the library path."""
+def build(name: str, *, force: bool = False, define: str | None = None) -> str:
+    """Compile ``csrc/<name>.cu`` (with ``-D<define>``) unless an
+    up-to-date library exists; returns the library path."""
     src = os.path.join(CSRC, name + ".cu")
-    out = os.path.join(BUILD_DIR, f"lib{name}.so")
+    out = os.path.join(BUILD_DIR, f"lib{name}{'.' + define if define else ''}.so")
     if (not force and os.path.exists(out)
             and os.path.getmtime(out) >= os.path.getmtime(src)):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, "-o", tmp, src]
+    cmd = [nvcc_path(), *ARCH_FLAGS, *NVCC_FLAGS, *([f"-D{define}"] if define else []),
+           "-o", tmp, src]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise NvccError(
             f"nvcc failed ({proc.returncode}) on {src}:\n{proc.stdout}{proc.stderr}")
     os.replace(tmp, out)
-    build_log[name] = (time.perf_counter() - t0, proc.stdout + proc.stderr)
+    build_log[(name, define) if define else name] = (
+        time.perf_counter() - t0, proc.stdout + proc.stderr)
     return out
 
 
-def load(name: str) -> ctypes.CDLL:
+def load(name: str, define: str | None = None) -> ctypes.CDLL:
     """The loaded library for ``csrc/<name>.cu``, built if needed."""
     with _lock:
-        lib = _libs.get(name)
+        lib = _libs.get((name, define))
         if lib is None:
-            lib = ctypes.CDLL(build(name))
-            _libs[name] = lib
+            lib = ctypes.CDLL(build(name, define=define))
+            _libs[(name, define)] = lib
         return lib

@@ -159,3 +159,79 @@ def test_wrapper_checks_and_routes():
     # one block's shared memory bounds the layer widths; the wrapper says so
     big = [torch.empty(30000, 10), torch.empty(2, 30000)]
     assert convergence.shared_bytes(big, torch.float32) > convergence.MAX_SHARED_BYTES
+
+
+# the kernel's owner of row i of a layer of n rows over C CTAs
+# (csrc/convergence.cu, `owner`)
+def _owner(i, n, C):
+    return ((i + 1) * C + n - 1) // n - 1
+
+
+@pytest.mark.parametrize("dims,dtype,momentum,dw_resident", [
+    ((784, 300, 10), torch.float32, False, False),
+    ((784, 300, 10), torch.float32, True, True),
+    ((784, 300, 10), torch.float64, False, False),
+    ((784, 300, 10), torch.float64, True, False),   # 244 KB of dw a CTA
+    ((851, 230, 230), torch.float32, False, False),
+    ((851, 230, 230), torch.float32, True, True),
+    ((851, 230, 230), torch.float64, False, False),
+    ((851, 230, 230), torch.float64, True, False),
+    ((12, 16, 8, 4, 2), torch.float32, True, True),  # 4 layers, n_out < C
+    ((8, 2), torch.float64, False, False),           # 1 layer
+])
+def test_cluster_plan(dims, dtype, momentum, dw_resident):
+    """The launch plan of the cluster kernel: each row of each layer has
+    one owner (the same as the kernel's), a CTA's shared memory fits,
+    the weights' row blocks are resident at these shapes, dw only where
+    it fits beside them."""
+    weights = [torch.empty(n, m, dtype=dtype) for m, n in zip(dims[:-1], dims[1:])]
+    p = convergence.plan(weights, dtype, momentum)
+    assert p.cluster == convergence.CLUSTER
+    assert p.weights_resident and p.dbuf and p.stage == convergence.STAGE
+    assert p.dw_resident == dw_resident
+    assert p.smem_bytes <= convergence.MAX_SHARED_BYTES
+    b = torch.empty((), dtype=dtype).element_size()
+    rows = [n for n in dims[1:]]
+    wtot = sum(-(-n // p.cluster) * m for m, n in zip(dims[:-1], dims[1:]))
+    assert p.smem_bytes == (2 * b + 8 + b * (dims[0] + dims[-1] + 3 * sum(rows) + p.stage)
+                            + b * wtot * (2 if dw_resident else 1))
+    for n, starts in zip(rows, p.row_starts):
+        assert len(starts) == p.cluster + 1 and starts[0] == 0 and starts[-1] == n
+        owners = [r for r in range(p.cluster) for _ in range(starts[r], starts[r + 1])]
+        assert owners == [_owner(i, n, p.cluster) for i in range(n)]
+        assert max(starts[r + 1] - starts[r] for r in range(p.cluster)) == -(-n // p.cluster)
+    for C in (8, 16):  # a forced size keeps the same ownership rule
+        q = convergence.plan(weights, dtype, momentum, cluster=C)
+        assert q.smem_bytes <= convergence.MAX_SHARED_BYTES
+        for n, starts in zip(rows, q.row_starts):
+            assert [_owner(i, n, C) for i in range(n)] == [
+                r for r in range(C) for _ in range(starts[r], starts[r + 1])]
+    for C in (0, convergence.CLUSTER + 1):
+        with pytest.raises(ValueError, match="cluster size"):
+            convergence.plan(weights, dtype, momentum, cluster=C)
+    s = convergence.plan(weights, dtype, momentum, weights_resident=False)
+    assert not s.weights_resident and not s.dw_resident
+    big = [torch.empty(30000, dims[0], dtype=dtype), torch.empty(2, 30000, dtype=dtype)]
+    with pytest.raises(ValueError, match="shared memory"):
+        convergence.plan(big, dtype, momentum)
+
+
+def test_cluster_plan_keeps_every_shape_the_single_block_kernel_took():
+    """The single-block kernel took any net whose input, target, two
+    copies of the activations and its 16 or 24 bytes of scalars fit one
+    block; the plan takes the same, giving up the second activation
+    buffer, the staging tile and resident weights first."""
+    for dtype in (torch.float32, torch.float64):
+        b = torch.empty((), dtype=dtype).element_size()
+        room = (convergence.MAX_SHARED_BYTES - 2 * b - 8) // b   # values
+        hid = (room - 4 - 2) // 2 - 2                            # 4-hid-2, the widest
+        weights = [torch.empty(hid, 4, dtype=dtype), torch.empty(2, hid, dtype=dtype)]
+        p = convergence.plan(weights, dtype, True)
+        assert not p.dbuf and p.stage <= 1 and not p.weights_resident
+        assert p.smem_bytes == convergence.shared_bytes(weights, dtype) + b * p.stage
+        assert p.smem_bytes <= convergence.MAX_SHARED_BYTES
+        wider = [torch.empty(hid + 1, 4, dtype=dtype), torch.empty(2, hid + 1, dtype=dtype)]
+        with pytest.raises(ValueError, match="shared memory"):
+            convergence.plan(wider, dtype, True)
+        with pytest.raises(ValueError, match="owned weight rows"):
+            convergence.plan(weights, dtype, False, weights_resident=True)

@@ -1,6 +1,7 @@
 """The CUDA kernels on the card against their plain PyTorch versions:
-the convergence kernel, the four batch-step entry points and the fleet
-epoch (#6), and the fleet path through ``train.fleet``.
+the convergence kernel (and itself across its cluster plans), the four
+batch-step entry points and the fleet epoch (#6), and the fleet path
+through ``train.fleet``.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip on a
 machine without a card.  On one, run them with
@@ -67,6 +68,158 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     T = torch.zeros(1, 2, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
         convergence.train_epoch(w, X, T, 0.2, 1e-6, min_iter=3, max_iter=5)
+
+
+# the plans a net can be launched with: both cluster sizes, the owned
+# weight rows in shared memory where they fit and streamed
+def _plans(weights, dtype, momentum):
+    out = [{}]
+    for C in (8, 16):
+        p = convergence.plan(weights, dtype, momentum, cluster=C)
+        out.append(dict(cluster=C))
+        if p.weights_resident:
+            out.append(dict(cluster=C, weights_resident=False))
+    return out
+
+
+def _run_plans(dev, dtype, model, momentum, n_in, hiddens, n_out, S=2, max_iter=20):
+    """The kernel under every plan on the same inputs, pinned to
+    max_iter + 1 iterations a sample; returns [(plan, weights, stats)]."""
+    w0, X, T = _inputs(dev, dtype, n_in=n_in, hiddens=hiddens, n_out=n_out, S=S)
+    if model == "snn":
+        T = (T > 0).to(dtype)
+    kw = dict(model=model, momentum=momentum, min_iter=5, max_iter=max_iter)
+    runs = []
+    for plan in _plans(w0, dtype, momentum):
+        w = tuple(t.clone() for t in w0)
+        launches = convergence.launches
+        st = convergence.train_epoch(w, X, T, 0.2, -1e30, **kw, **plan)
+        torch.cuda.synchronize()
+        assert convergence.launches == launches + 1
+        assert st.n_iter.tolist() == [max_iter + 1] * S
+        runs.append((plan, w, st))
+    wp = tuple(t.clone() for t in w0)
+    sp = convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
+    return runs, (wp, sp)
+
+
+def _assert_bitwise(runs):
+    _, w_ref, st_ref = runs[0]
+    for plan, w, st in runs[1:]:
+        for a, b in zip(list(w) + list(st), list(w_ref) + list(st_ref)):
+            assert torch.equal(a, b), plan
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("model,momentum", [("ann", True), ("snn", False)])
+def test_cluster_kernel_bitwise_across_plans(cuda, model, momentum, dtype):
+    """784-300-10: 8 and 16 CTAs, resident and streamed weights, one
+    result bitwise: every sum keeps one order whatever the plan."""
+    runs, (wp, sp) = _run_plans(cuda, dtype, model, momentum, 784, (300,), 10)
+    _assert_bitwise(runs)
+    if dtype == torch.float64:
+        _, w, st = runs[0]
+        assert _max_diff(list(w) + [st.out], list(wp) + [sp.out]) <= TOL64
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("momentum", [False, True])
+def test_cluster_kernel_snn_stress(cuda, momentum, dtype):
+    """SNN at 16 CTAs, launched again and again on the same inputs: every
+    launch bitwise the 8-CTA run.  Other CTAs read a CTA's published
+    output exponentials after the barrier; a CTA that rewrote its own
+    before all had read them would show here as launches that differ.
+    The iterations are pinned, so no CTA can leave the loop early."""
+    w0, X, T = _inputs(cuda, dtype, n_in=784, hiddens=(300,), n_out=10, S=8)
+    T = (T > 0).to(dtype)
+    kw = dict(model="snn", momentum=momentum, min_iter=5, max_iter=100)
+    runs = []
+    for plan in [dict(cluster=8)] + [dict(cluster=16)] * 30:
+        w = tuple(t.clone() for t in w0)
+        runs.append((plan, w, convergence.train_epoch(w, X, T, 0.2, -1e30, **kw, **plan)))
+    torch.cuda.synchronize()
+    _assert_bitwise(runs)
+
+
+def test_cluster_kernel_phase_clock_build(cuda):
+    """The -DHPNN_PHASE_CLOCKS build (``chip_smoke.py --phase-split``)
+    gives the kernel's bits, counts no launch, and finds cycles in every
+    phase an SNN iteration with two activation buffers runs."""
+    w0, X, T = _inputs(cuda, torch.float32, n_in=784, hiddens=(300,), n_out=10, S=2)
+    T = (T > 0).to(torch.float32)
+    kw = dict(model="snn", momentum=False, min_iter=5, max_iter=20)
+    wa, wb = [tuple(t.clone() for t in w0) for _ in range(2)]
+    launches = convergence.launches
+    sa, clocks = convergence.phase_clocks(wa, X, T, 0.2, -1e30, **kw)
+    assert convergence.launches == launches
+    sb = convergence.train_epoch(wb, X, T, 0.2, -1e30, **kw)
+    torch.cuda.synchronize()
+    _assert_bitwise([({}, wb, sb), ({"phase clocks": True}, wa, sa)])
+    assert list(clocks) == list(convergence.PHASES)
+    assert all(v > 0 for k, v in clocks.items() if k != "update (one activation buffer)")
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_kernel_four_layers(cuda, dtype):
+    """Hidden deltas gathered across the cluster below the top hidden
+    layer: 12-16-8-6-4, BPM."""
+    runs, (wp, sp) = _run_plans(cuda, dtype, "ann", True, 12, (16, 8, 6), 4, max_iter=40)
+    _assert_bitwise(runs)
+    if dtype == torch.float64:
+        _, w, st = runs[0]
+        assert _max_diff(list(w) + [st.out, st.ep0], list(wp) + [sp.out, sp.ep0]) <= TOL64
+
+
+@pytest.mark.parametrize("model", ["ann", "snn"])
+def test_cluster_kernel_fewer_outputs_than_ctas(cuda, model):
+    """n_out = 2 < C: most CTAs own no output row."""
+    runs, (wp, sp) = _run_plans(cuda, torch.float64, model, False, 12, (40,), 2, S=3,
+                                max_iter=60)
+    _assert_bitwise(runs)
+    _, w, st = runs[0]
+    assert st.first_ok.tolist() == sp.first_ok.tolist()
+    assert _max_diff(list(w) + [st.out, st.ep0, st.dep], list(wp) + [sp.out, sp.ep0, sp.dep]) <= TOL64
+
+
+def test_cluster_kernel_f64_bpm_dw_in_device_memory(cuda):
+    """784-300-10 double BPM: the owned rows of dw do not fit beside W
+    and stay in device memory."""
+    w, X, T = _inputs(cuda, torch.float64, n_in=784, hiddens=(300,), n_out=10, S=2)
+    p = convergence.plan(w, torch.float64, True)
+    assert p.weights_resident and not p.dw_resident
+    wp = tuple(t.clone() for t in w)
+    kw = dict(model="ann", momentum=True, min_iter=5, max_iter=30)
+    sk = convergence.train_epoch(w, X, T, 0.2, 1e-6, **kw)
+    sp = convergence.train_epoch_plain(wp, X, T, 0.2, 1e-6, **kw)
+    torch.cuda.synchronize()
+    assert sk.n_iter.tolist() == sp.n_iter.tolist()
+    assert _max_diff(list(w) + [sk.out, sk.ep0], list(wp) + [sp.out, sp.ep0]) <= TOL64
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cluster_kernel_widest_single_block_shape(cuda, dtype):
+    """The widest 4-H-2 net the single-block kernel took: one activation
+    buffer (the update behind its own barrier), no staging tile in float
+    (1 value in double), weights streamed from device memory."""
+    b = torch.empty((), dtype=dtype).element_size()
+    room = (convergence.MAX_SHARED_BYTES - 2 * b - 8) // b
+    hid = (room - 4 - 2) // 2 - 2
+    rng = np.random.default_rng(11)
+    w0 = [torch.tensor(rng.uniform(-0.5, 0.5, (hid, 4)), dtype=dtype, device=cuda),
+          torch.tensor(rng.uniform(-1, 1, (2, hid)) / hid ** 0.5, dtype=dtype, device=cuda)]
+    p = convergence.plan(w0, dtype, True)
+    assert not p.dbuf and p.stage <= 1 and not p.weights_resident
+    X = torch.tensor(rng.uniform(-1, 1, (2, 4)), dtype=dtype, device=cuda)
+    T = torch.tensor([[1.0, -1.0], [-1.0, 1.0]], dtype=dtype, device=cuda)
+    kw = dict(model="ann", momentum=True, min_iter=1, max_iter=3)
+    wk, wp = [t.clone() for t in w0], [t.clone() for t in w0]
+    sk = convergence.train_epoch(wk, X, T, 0.2, -1e30, **kw)
+    sp = convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
+    torch.cuda.synchronize()
+    assert sk.n_iter.tolist() == [4, 4]
+    tol = TOL64 if dtype == torch.float64 else 1e-5
+    assert _max_diff(wk + [sk.out, sk.ep0], wp + [sp.out, sp.ep0]) <= tol
+    assert not torch.equal(wk[0], w0[0]) and not torch.equal(wk[1], w0[1])
 
 
 # ------------------------------------------------------------ batch step

@@ -104,3 +104,14 @@ def test_batch_step_argtypes_match_the_c_signature(fn):
     assert len(declared) == len(params)
     want = [ctypes.c_void_p if p == "void*" else _C_TYPES[p] for p in params]
     assert list(declared) == want
+
+
+def test_convergence_argtypes_match_the_c_signature():
+    from hpnn_tpu_torch.ops import convergence
+
+    with open(os.path.join(PKG, "csrc", "convergence.cu")) as fp:
+        params = _c_params(fp.read(), "hpnn_convergence_train_epoch")
+    declared = convergence.ARGTYPES["hpnn_convergence_train_epoch"]
+    assert len(declared) == len(params)
+    want = [ctypes.c_void_p if p == "void*" else _C_TYPES[p] for p in params]
+    assert list(declared) == want
