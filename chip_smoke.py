@@ -37,11 +37,14 @@ Phases (any failure exits non-zero and prints no result line):
    in float64, the band the card's float32 run is held to.  The
    batch-step launch counts are read around this phase.
 9. batch timing — each entry point, its plain version and its bound
-   over one epoch of a 60000 x 784 bank in device memory, B = 256.
+   over one epoch of a 60000 x 784 bank in device memory, B = 256, on
+   the cooperative grid (the entry points' team) and on one 16-CTA
+   cluster (``batch_step._cluster_team``).
 10. fleet pinned — the fleet epoch (#6) against its plain version at
    784-300-10 BP and 851-230-230 BPM, 4 members, B = 256, S = 8, ANN
    and SNN, float and double; then bitwise: member i of #6 == #5 and
-   #4 on bank i with orders[i], #6 == itself run again.
+   #4 on bank i with orders[i], #6 == itself run again, and #6 at
+   every cluster size (1, 2, 4, 8, 16 CTAs a member) == #6 planned.
 11. fleet main — ``train.fleet.train_fleet`` on 8 members of 784-300-10
    ANN-BP, 4096 synthetic MNIST-shaped rows, B = 256, 8 epochs, with
    the launch counts read around it; bitwise: ``train_sequential`` ==
@@ -52,14 +55,17 @@ Phases (any failure exits non-zero and prints no result line):
    and one such tick of #6 against its plain version (ANN/SNN x BP/BPM,
    float and double), the weights held to have moved.
 12. fleet timing — #6 over one epoch of 8 and of 32 members' 60000-row
-   banks, against its plain version (8 members), its bound and the
-   members' #5 epochs run one after another.
+   banks at each cluster size, against its plain version (8 members),
+   its bound and the members' #5 epochs run one after another; then #6
+   planned at 1-32 members against N times one #5 epoch, and the
+   least N at which the fleet is the faster.
 
 The last two lines are the kernel table and the device line.
 
-``--phase-split`` also builds the convergence kernel's phase-clock
-variant (``-DHPNN_PHASE_CLOCKS``), holds it bitwise against the kernel
-and prints where an iteration's time goes in phase 6.
+``--phase-split`` also builds the phase-clock variants
+(``-DHPNN_PHASE_CLOCKS``) of the convergence and batch-step kernels,
+holds each bitwise against its kernel and prints where an iteration's
+time goes in phase 6 and a #4 step's (on each team) in phase 9.
 """
 
 from __future__ import annotations
@@ -127,7 +133,8 @@ FLEET_MAIN_N, FLEET_EPOCHS, FLEET_ROWS = 8, 8, 4096
 # card's f32 and the CPU's f64 run can tell two runs apart
 FLEET_LR = 0.003
 HPNN_FLEET = (64, (32, 16, 4), 30)            # bench.py: members, shape, ticks
-FLEET_TIMED_N = (8, 32)                       # phase 12: members timed
+FLEET_TIMED_N = (8, 32)                       # phase 12: members timed at every C
+FLEET_CROSS_N = (1, 2, 4, 8, 16, 32)          # phase 12: members against sequential #5
 EPOCH_RE = re.compile(r"BATCH EPOCH +(\d+) loss= (\S+) acc= +\S+% \((\d+)/(\d+)\)")
 BATCH_KERNELS = (
     # entry point, TPU kernel it replaces (pallas_call line), on the main path
@@ -509,9 +516,10 @@ def batch_main(np, torch, protos):
     return main_launches, stats
 
 
-def batch_timing(np, torch, dev):
+def batch_timing(np, torch, dev, phase_split=False):
     """Phase 9: each entry point over one epoch of a 60000-row bank at
-    784-300-10 ANN-BP float32, its plain version, and the bound."""
+    784-300-10 ANN-BP float32, its plain version, and the bound; with
+    ``phase_split``, where a #4 step's time goes on each team."""
     from hpnn_tpu_torch.models import kernel as km
     from hpnn_tpu_torch.ops import batch_step as bs
 
@@ -535,7 +543,14 @@ def batch_timing(np, torch, dev):
     def rows(b):
         return slice(int(b) * BATCH, (int(b) + 1) * BATCH)
 
-    fns = {
+    def on_team(c, fn):
+        """``fn`` on the grid (c = 0) or on one cluster of c CTAs."""
+        def run():
+            with bs._cluster_team(c) if c else contextlib.nullcontext():
+                return fn()
+        return run
+
+    entry_fns = {
         "train_step_fused_batch": lambda: [bs.train_step_fused_batch(
             w, [], Xp[rows(b)], Tp[rows(b)], **kw) for b in order],
         "train_step_fused_banked": lambda: [bs.train_step_fused_banked(
@@ -545,10 +560,14 @@ def batch_timing(np, torch, dev):
         "train_epoch_dbuf_banked": lambda: bs.train_epoch_dbuf_banked(
             w, [], Xp, Tp, order, batch=BATCH, **kw),
     }
-    times = {name: [] for name in fns}
-    for _ in range(2):  # in turns, twice
-        for name, fn in fns.items():
-            times[name].append(cuda_ms(torch, fn))
+
+    # the entry points' team, the grid (0), and the other: one 16-CTA cluster
+    teams = (0, 16)
+    fns = {(name, c): on_team(c, fn) for c in teams for name, fn in entry_fns.items()}
+    times = {key: [] for key in fns}
+    for turn in range(2):  # in turns, the second in the reverse order
+        for key in (list(fns) if turn == 0 else list(fns)[::-1]):
+            times[key].append(cuda_ms(torch, fns[key]))
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     bs.train_epoch_grid_banked_plain(w, [], Xp, Tp, order, batch=BATCH, **kw)
@@ -557,16 +576,44 @@ def batch_timing(np, torch, dev):
     check(all(torch.isfinite(t).all() for t in w), "timing: weights not finite")
     nbytes, flops = batch_work([tuple(t.shape) for t in w], S, False, 4)
     b_ms, b_by = bound_ms(nbytes, flops, "float32")
+
+    def team_name(c):
+        return f"one {c}-CTA cluster" if c else "the grid"
+
     out = {}
-    for name, ts in times.items():
-        ms = statistics.median(ts)
+    for name, _, _ in BATCH_KERNELS:
+        ts, other = times[(name, teams[0])], times[(name, teams[1])]
+        ms, other_ms = statistics.median(ts), statistics.median(other)
         out[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         runs_ms=ts, us_per_step=ms / S * 1e3)
+                         runs_ms=ts, us_per_step=ms / S * 1e3, team=team_name(teams[0]),
+                         other_team=team_name(teams[1]), other_team_ms=other_ms,
+                         other_team_runs_ms=other)
         log(f"[batch-timing] {name}: one epoch of {S} steps, B={BATCH}, "
-            f"{TIMED_ROWS}-row bank, ANN-BP 784-300-10 float32: {ms:.3f} ms "
-            f"({ms / S * 1e3:.2f} us/step; runs {', '.join(f'{t:.3f}' for t in ts)})")
+            f"{TIMED_ROWS}-row bank, ANN-BP 784-300-10 float32: {ms:.3f} ms on "
+            f"{team_name(teams[0])} ({ms / S * 1e3:.2f} us/step; runs "
+            f"{', '.join(f'{t:.3f}' for t in ts)}); {other_ms:.3f} ms on "
+            f"{team_name(teams[1])} (runs {', '.join(f'{t:.3f}' for t in other)})")
     log(f"[batch-timing] plain epoch {plain_ms:.1f} ms; bound {b_ms:.4f} ms "
         f"({b_by}: {nbytes} B, {flops} flop; {b_ms / S * 1e3:.2f} us/step)")
+    if phase_split:
+        # the phase-clock build on the same inputs (bitwise the kernel's),
+        # its cycles shared out over the measured time of a step
+        for c in teams:
+            def epoch(wc, c=c):
+                return on_team(c, lambda: bs.train_epoch_grid_banked(
+                    wc, [], Xp, Tp, order, batch=BATCH, **kw)[2])()
+
+            wa, wb = [t.clone() for t in w], [t.clone() for t in w]
+            la, clocks = bs.phase_clocks(lambda: epoch(wa))
+            lb = epoch(wb)
+            check(all(torch.equal(a, b) for a, b in zip([la] + wa, [lb] + wb)),
+                  f"the batch-step phase-clock build differs bitwise on {team_name(c)}")
+            ms = statistics.median(times[("train_epoch_grid_banked", c)])
+            cyc = sum(clocks.values())
+            split = {k: v / cyc * ms / S * 1e3 for k, v in clocks.items() if v}
+            out["train_epoch_grid_banked"].setdefault("split_us_per_step", {})[team_name(c)] = split
+            log(f"[batch-timing] #4 on {team_name(c)}: us/step by phase (rank 0's thread 0, "
+                f"sync waits included): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
     # where a step's time goes: the grid epoch's time per step against
     # the rows per step (SCALING_STEPS leading blocks of the bank)
     scaling = {}
@@ -620,6 +667,12 @@ def fleet_pinned(np, torch, dev):
                 l2 = bs.train_fleet_epoch_dbuf_banked(w2, dw2, Xd, Td, orders, **kw)[2]
                 check(all(torch.equal(a, b) for a, b in zip(wk + dwk + [lk], w2 + dw2 + [l2])),
                       f"fleet {tag}: #6 run again differs bitwise")
+                for C in bs.CLUSTER_SIZES:
+                    wc, dwc = fresh()
+                    lc = bs.train_fleet_epoch_dbuf_banked(wc, dwc, Xd, Td, orders, cluster=C,
+                                                          **kw)[2]
+                    check(all(torch.equal(a, b) for a, b in zip(wk + dwk + [lk], wc + dwc + [lc])),
+                          f"fleet {tag}: #6 at {C} CTAs a member differs bitwise from the plan's")
                 for i in range(FLEET_N):
                     for fn in (bs.train_epoch_dbuf_banked, bs.train_epoch_grid_banked):
                         wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
@@ -627,9 +680,12 @@ def fleet_pinned(np, torch, dev):
                         check(torch.equal(li, lk[i])
                               and all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, wk + dwk)),
                               f"fleet {tag}: member {i} differs bitwise from {fn.__name__}")
+                plan = bs.fleet_cluster(FLEET_N, [tuple(t.shape[1:]) for t in wk], BATCH,
+                                        bs.cluster_capacity(dtype, dev))
                 log(f"[fleet-pinned] {tag}, N={FLEET_N} B={BATCH} S={PINNED_S}: "
                     f"max|kernel - plain| {e:.2e} (tol {tol:.0e}); member i == #5 == #4 "
-                    f"on bank i, #6 == #6 again (bitwise)")
+                    f"on bank i, #6 == #6 again, #6 at C = "
+                    f"{', '.join(map(str, bs.CLUSTER_SIZES))} == #6 planned (C={plan}) (bitwise)")
     return err
 
 
@@ -804,9 +860,11 @@ def hpnn_tick_vs_plain(np, torch, dev, rng, hks):
 
 def fleet_timing(np, torch, dev):
     """Phase 12: #6 over one epoch of each member's 60000-row bank,
-    ANN-BP 784-300-10 float32, for FLEET_TIMED_N members; against its
-    plain version (the first N), its bound and the members' #5 epochs
-    one after another."""
+    ANN-BP 784-300-10 float32, for FLEET_TIMED_N members at every
+    cluster size; against its plain version (the first N), its bound and
+    the members' #5 epochs one after another.  Then #6 as planned for
+    FLEET_CROSS_N members against N times one #5 epoch.  Returns
+    ({N: timings}, crossover)."""
     from hpnn_tpu_torch.models import kernel as km
     from hpnn_tpu_torch.ops import batch_step as bs
 
@@ -817,50 +875,89 @@ def fleet_timing(np, torch, dev):
     labels = torch.randint(0, N_OUT, (TIMED_ROWS,), generator=g, device=dev)
     T = -torch.ones((TIMED_ROWS, N_OUT), device=dev)
     T[torch.arange(TIMED_ROWS, device=dev), labels] = 1.0
-    ks = [km.generate(SEED + i, N_IN, [N_HID], N_OUT)[0] for i in range(max(FLEET_TIMED_N))]
+    n_max = max(FLEET_TIMED_N + FLEET_CROSS_N)
+    ks = [km.generate(SEED + i, N_IN, [N_HID], N_OUT)[0] for i in range(n_max)]
     kw = dict(batch=BATCH, model="ann", momentum=False)
+    cap = bs.cluster_capacity(torch.float32, dev)
+    log(f"[fleet-timing] clusters the card holds at once, by CTAs a cluster: "
+        + ", ".join(f"{C}: {n}" for C, n in cap.items()))
+    # each member's permuted bank, its tail wrapped as train_kernel_batched
+    # does; the first N members' banks are a leading slice
+    perm = np.stack([np.resize(np.random.RandomState(SEED + i).permutation(TIMED_ROWS),
+                               S * BATCH) for i in range(n_max)])
+    idx = torch.from_numpy(perm).to(dev)
+    Xb_all, Tb_all = X[idx], T[idx]
+    del idx, X, T
+    orders_all = np.stack([np.random.RandomState(SEED + 100 + i).permutation(S)
+                           for i in range(n_max)])
+    W_all = [torch.tensor(np.stack([k.weights[l] for k in ks]), dtype=torch.float32,
+                          device=dev) for l in range(2)]
+    shapes = [tuple(t.shape[1:]) for t in W_all]
+
+    def fleet_fn(W, N, C):
+        return lambda: bs.train_fleet_epoch_dbuf_banked(
+            W, [], Xb_all[:N], Tb_all[:N], orders_all[:N], cluster=C, **kw)
+
     out = {}
     for N in FLEET_TIMED_N:
-        # each member's permuted bank, its tail wrapped as train_kernel_batched does
-        perm = np.stack([np.resize(np.random.RandomState(SEED + i).permutation(TIMED_ROWS),
-                                   S * BATCH) for i in range(N)])
-        idx = torch.from_numpy(perm).to(dev)
-        Xb, Tb = X[idx], T[idx]
-        del idx
-        orders = np.stack([np.random.RandomState(SEED + 100 + i).permutation(S)
-                           for i in range(N)])
-        W = [torch.tensor(np.stack([k.weights[l] for k in ks[:N]]), dtype=torch.float32,
-                          device=dev) for l in range(2)]
+        W = [t[:N].clone() for t in W_all]
         members = [[t[i].clone() for t in W] for i in range(N)]
-        runs, seq = [], []
-        for _ in range(2):  # in turns, twice
-            runs.append(cuda_ms(torch, lambda: bs.train_fleet_epoch_dbuf_banked(
-                W, [], Xb, Tb, orders, **kw)))
+        plan = bs.fleet_cluster(N, shapes, BATCH, cap)
+        fns = {C: fleet_fn(W, N, C) for C in bs.CLUSTER_SIZES}
+        runs, seq = {C: [] for C in fns}, []
+        for turn in range(2):  # in turns, the second in the reverse order
+            for C in (list(fns) if turn == 0 else list(fns)[::-1]):
+                runs[C].append(cuda_ms(torch, fns[C]))
             seq.append(cuda_ms(torch, lambda: [bs.train_epoch_dbuf_banked(
-                members[i], [], Xb[i], Tb[i], orders[i], **kw) for i in range(N)]))
-        ms, seq_ms = statistics.median(runs), statistics.median(seq)
-        nbytes, flops = batch_work([tuple(t.shape[1:]) for t in W], S, False, 4)
+                members[i], [], Xb_all[i], Tb_all[i], orders_all[i], **kw) for i in range(N)]))
+        by_c = {C: statistics.median(v) for C, v in runs.items()}
+        ms, seq_ms = by_c[plan], statistics.median(seq)
+        nbytes, flops = batch_work(shapes, S, False, 4)
         b_ms, b_by = bound_ms(N * nbytes, N * flops, "float32")
         plain_ms = None
         if N == FLEET_TIMED_N[0]:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            bs.train_fleet_epoch_dbuf_banked_plain(W, [], Xb, Tb, orders, **kw)
+            bs.train_fleet_epoch_dbuf_banked_plain(W, [], Xb_all[:N], Tb_all[:N],
+                                                   orders_all[:N], **kw)
             torch.cuda.synchronize()
             plain_ms = (time.perf_counter() - t0) * 1e3
         check(all(torch.isfinite(t).all() for t in W), "fleet timing: weights not finite")
-        out[N] = dict(ms=ms, runs_ms=runs, sequential_dbuf_ms=seq_ms, sequential_runs_ms=seq,
-                      plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                      ms_per_step=ms / S, bank_bytes=Xb.numel() * 4 + Tb.numel() * 4)
+        out[N] = dict(ms=ms, cluster=plan, ms_by_cluster=by_c, runs_by_cluster=runs,
+                      sequential_dbuf_ms=seq_ms, sequential_runs_ms=seq, plain_ms=plain_ms,
+                      bound_ms=b_ms, bound_by=b_by, ms_per_step=ms / S,
+                      bank_bytes=(Xb_all[:N].numel() + Tb_all[:N].numel()) * 4)
         log(f"[fleet-timing] #6, {N} members x one epoch of {S} steps, B={BATCH}, "
             f"{TIMED_ROWS}-row banks ({out[N]['bank_bytes'] / 1e9:.2f} GB), ANN-BP 784-300-10 "
-            f"float32: {ms:.3f} ms ({ms / S:.3f} ms/step; runs {', '.join(f'{t:.3f}' for t in runs)}); "
-            f"{N} sequential #5 epochs {seq_ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in seq)}); "
-            f"bound {b_ms:.4f} ms ({b_by})"
+            f"float32, by CTAs a member: "
+            + ", ".join(f"C={C} {v:.3f} ms (runs {', '.join(f'{t:.3f}' for t in runs[C])})"
+                        for C, v in by_c.items())
+            + f"; planned C={plan}: {ms:.3f} ms ({ms / S:.4f} ms/step); {N} sequential #5 "
+            f"epochs {seq_ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in seq)}); bound "
+            f"{b_ms:.4f} ms ({b_by})"
             + (f"; plain {plain_ms:.1f} ms" if plain_ms is not None else ""))
-        del Xb, Tb, W, members
-        torch.cuda.empty_cache()
-    return out
+        del W, members
+    # where the fleet overtakes its members' #5 epochs one after another
+    one = [t[0].clone() for t in W_all]
+    t5 = statistics.median(cuda_ms(torch, lambda: bs.train_epoch_dbuf_banked(
+        one, [], Xb_all[0], Tb_all[0], orders_all[0], **kw)) for _ in range(2))
+    cross = {}
+    for N in FLEET_CROSS_N:
+        plan = bs.fleet_cluster(N, shapes, BATCH, cap)
+        f_ms = (out[N]["ms"] if N in out else
+                cuda_ms(torch, fleet_fn([t[:N].clone() for t in W_all], N, None)))
+        cross[N] = dict(cluster=plan, fleet_ms=f_ms, sequential_ms=N * t5)
+    faster = [N for N in FLEET_CROSS_N if cross[N]["fleet_ms"] < cross[N]["sequential_ms"]]
+    overtakes = next((N for N in FLEET_CROSS_N
+                      if all(M in faster for M in FLEET_CROSS_N if M >= N)), None)
+    log(f"[fleet-timing] #6 planned against N x one #5 epoch ({t5:.3f} ms): "
+        + ", ".join(f"N={N} (C={c['cluster']}) {c['fleet_ms']:.3f} vs {c['sequential_ms']:.3f} ms"
+                    for N, c in cross.items())
+        + f"; the fleet is the faster from N = {overtakes} on")
+    del Xb_all, Tb_all, W_all
+    torch.cuda.empty_cache()
+    return out, dict(dbuf_epoch_ms=t5, by_members=cross, overtakes_at=overtakes,
+                     clusters_at_once=cap)
 
 
 # ---------------------------------------------------------------- phases
@@ -872,7 +969,7 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase-split", action="store_true",
-                    help="time the convergence kernel's phases (a third nvcc build)")
+                    help="time the kernels' phases (two more nvcc builds)")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -907,7 +1004,7 @@ def main() -> int:
     t0 = time.perf_counter()
     builds = (("convergence", None), ("batch_step", None))
     if args.phase_split:
-        builds += (("convergence", "HPNN_PHASE_CLOCKS"),)
+        builds += (("convergence", "HPNN_PHASE_CLOCKS"), ("batch_step", "HPNN_PHASE_CLOCKS"))
     with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
         list(pool.map(lambda b: _build.build(b[0], force=True, define=b[1]), builds))
     for name, define in builds:
@@ -918,6 +1015,15 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
     log(f"[build] all sources in {time.perf_counter() - t0:.1f} s")
+    from hpnn_tpu_torch.ops import batch_step
+    for dtype, code in batch_step._DTYPE_CODE.items():
+        smem = batch_step._library().hpnn_batch_smem_bytes(code)
+        check(smem == batch_step.shared_bytes(dtype),
+              f"batch_step.cu takes {smem} bytes of shared memory a block in {dtype}, "
+              f"ops/batch_step.py says {batch_step.shared_bytes(dtype)}")
+    log(f"[build] batch_step.cu: {batch_step.shared_bytes(torch.float32)} / "
+        f"{batch_step.shared_bytes(torch.float64)} bytes of dynamic shared memory a block "
+        f"(f32 / f64), as ops/batch_step.py lays them out")
 
     k0, _ = km.generate(SEED, N_IN, [N_HID], N_OUT)
     rng = np.random.default_rng(SEED)
@@ -1141,14 +1247,14 @@ def main() -> int:
     for name, _, on_path in BATCH_KERNELS:
         check(not on_path or batch_launches[name] > 0,
               f"the batch main path launched no {name}")
-    batch_times = batch_timing(np, torch, dev)
+    batch_times = batch_timing(np, torch, dev, args.phase_split)
 
     # 10-12. the fleet path
     fleet_err = fleet_pinned(np, torch, dev)
     fleet_launches, fleet_stats = fleet_main(np, torch, dev, protos)
     check(fleet_launches["train_fleet_epoch_dbuf_banked"] > 0,
           "the fleet main path launched no train_fleet_epoch_dbuf_banked")
-    fleet_times = fleet_timing(np, torch, dev)
+    fleet_times, fleet_cross = fleet_timing(np, torch, dev)
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -1199,6 +1305,9 @@ def main() -> int:
                       f"{TIMED_ROWS}-row bank"),
             "us_per_step": t["us_per_step"],
             "runs_ms": t["runs_ms"],
+            "team": t["team"],
+            "other_team": t["other_team"],
+            "other_team_ms": t["other_team_ms"],
         })
     kernels[1]["main"] = batch_stats
     t8 = fleet_times[FLEET_TIMED_N[0]]
@@ -1221,7 +1330,10 @@ def main() -> int:
         "timed": (f"ANN-BP 784-300-10 float32, {FLEET_TIMED_N[0]} members x one epoch of "
                   f"{math.ceil(TIMED_ROWS / BATCH)} steps of B={BATCH} over "
                   f"{TIMED_ROWS}-row banks"),
+        "cluster": t8["cluster"],
+        "ms_by_cluster": t8["ms_by_cluster"],
         "by_members": fleet_times,
+        "crossover": fleet_cross,
         "main": fleet_stats,
         "launches_by_entry": fleet_launches,
     })

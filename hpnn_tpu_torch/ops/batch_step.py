@@ -25,10 +25,19 @@ else raises); a CPU tensor takes the ``*_plain`` twin, which runs
 ``parallel.dp.train_step_math`` once per step (per member and step for
 the fleet).  There is no other route.  ``launches`` counts each entry
 point's kernel launches in this process.
+
+The launch's *team*: #2-#5 run on the cooperative grid (one block per
+SM); #6 runs one cluster of :func:`fleet_cluster` CTAs per member
+(``cluster=`` forces the size).  Inside ``with _cluster_team(C):`` #2-#5
+run their body on one cluster of C CTAs instead, for the tests and
+``chip_smoke.py`` (the grid is the faster: PERF.md).  Every team gives
+the same bits.  A launch the card cannot place raises; nothing falls
+back to a smaller team.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 
 import torch
@@ -48,9 +57,19 @@ ENTRY_POINTS = BATCH_ENTRY_POINTS + ("train_fleet_epoch_dbuf_banked",)
 launches = dict.fromkeys(ENTRY_POINTS, 0)
 
 MAX_LAYERS = 16  # HPNN_MAX_LAYERS in csrc/batch_step.cu
+TILE = 32        # HPNN_TILE: output tile edge and k-tile depth
+WORKERS = 2      # HPNN_WORKERS: 128-thread tile workers a block
+MAX_SHARED_BYTES = 232448  # dynamic shared memory one H100 block can use
+CLUSTER_SIZES = (1, 2, 4, 8, 16)  # the cluster sizes the kernel takes
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
-_lib = None
-_grids: dict[tuple, int] = {}  # (dtype, device index) -> blocks
+_libs: dict = {}       # define (None: the shipped build) -> loaded library
+_variant = None        # the build the entry points launch (phase_clocks sets it)
+_team = 0              # #2-#5's team: 0 the grid, C one cluster (_cluster_team sets it)
+# asked of the card once per build, type and device (the queries also opt
+# the kernels in to their shared memory, so a launch sets nothing):
+_grids: dict[tuple, int] = {}      # -> blocks of the cooperative grid
+_capacity: dict[tuple, dict] = {}  # -> {C: clusters of C CTAs at once}
+_plans: dict[tuple, int] = {}      # and members, shapes, B, forced size -> #6's C
 
 # The C signatures of csrc/batch_step.cu's launch entries, argument by
 # argument (every pointer and the stream as ``c_void_p``): a wrong entry
@@ -58,34 +77,75 @@ _grids: dict[tuple, int] = {}  # (dtype, device index) -> blocks
 # source's ``extern "C"`` declaration.
 _INT, _PTR, _DBL = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
 ARGTYPES = {
-    # dtype blocks snn momentum n_layers | dims w dw X Tg | B | order |
-    # first S | lr_eff alpha inv_b | scratch losses | prefetch stream
+    # dtype blocks cluster snn momentum n_layers | dims w dw X Tg | B |
+    # order | first S | lr_eff alpha inv_b | scratch losses | prefetch stream
     "hpnn_batch_train": (
-        (_INT,) * 5 + (_PTR,) * 5 + (_INT,) + (_PTR,) + (_INT,) * 2
+        (_INT,) * 6 + (_PTR,) * 5 + (_INT,) + (_PTR,) + (_INT,) * 2
         + (_DBL,) * 3 + (_PTR,) * 2 + (_INT, _PTR)),
-    # dtype members snn momentum n_layers | dims w dw X Tg | bank_rows |
-    # B | orders | S | lr_eff alpha inv_b | scratch losses stream
+    # dtype members cluster snn momentum n_layers | dims w dw X Tg |
+    # bank_rows | B | orders | S | lr_eff alpha inv_b | scratch losses stream
     "hpnn_fleet_train": (
-        (_INT,) * 5 + (_PTR,) * 5 + (ctypes.c_longlong, _INT, _PTR, _INT)
+        (_INT,) * 6 + (_PTR,) * 5 + (ctypes.c_longlong, _INT, _PTR, _INT)
         + (_DBL,) * 3 + (_PTR,) * 3),
 }
 
 
-def _library():
-    """The built kernel library with its C signatures declared."""
-    global _lib
-    if _lib is None:
-        lib = _build.load("batch_step")
+def _library(define: str | None = None):
+    """The built kernel library (or its ``-D<define>`` variant) with its
+    C signatures declared."""
+    if define not in _libs:
+        lib = _build.load("batch_step", define)
         for name, argtypes in ARGTYPES.items():
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int
             fn.argtypes = argtypes
         lib.hpnn_batch_grid_blocks.restype = ctypes.c_int
         lib.hpnn_batch_grid_blocks.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.hpnn_batch_smem_bytes.restype = ctypes.c_longlong
+        lib.hpnn_batch_smem_bytes.argtypes = [ctypes.c_int]
+        lib.hpnn_fleet_max_clusters.restype = ctypes.c_int
+        lib.hpnn_fleet_max_clusters.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.hpnn_batch_error_string.restype = ctypes.c_char_p
         lib.hpnn_batch_error_string.argtypes = [ctypes.c_int]
-        _lib = lib
-    return _lib
+        if define == "HPNN_PHASE_CLOCKS":
+            lib.hpnn_batch_phase_clocks.restype = ctypes.c_int
+            lib.hpnn_batch_phase_clocks.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        _libs[define] = lib
+    return _libs[define]
+
+
+# the phases of csrc/batch_step.cu's `enum Phase`, in order
+PHASES = ("forward tiles", "output rows apart", "hidden-delta tiles", "update tiles",
+          "team syncs", "step start and loss")
+
+
+def phase_clocks(run):
+    """``run()`` (kernel launches through the entry points above, on CUDA
+    tensors) with the kernel's phase-clock build (``-DHPNN_PHASE_CLOCKS``):
+    returns ``run()``'s result and the SM cycles that rank 0's thread 0
+    spent in each of ``PHASES``, waits at the team's syncs included.  A
+    measuring tool: its launches do not count in ``launches``."""
+    global _variant
+    lib = _library("HPNN_PHASE_CLOCKS")
+    clocks = (ctypes.c_ulonglong * len(PHASES))()
+
+    def read_and_zero():
+        rc = lib.hpnn_batch_phase_clocks(ctypes.addressof(clocks), 1)
+        if rc != 0:
+            raise RuntimeError(f"reading the phase clocks failed: {rc}")
+
+    counted = dict(launches)
+    torch.cuda.synchronize()
+    read_and_zero()
+    _variant = "HPNN_PHASE_CLOCKS"
+    try:
+        out = run()
+        torch.cuda.synchronize()
+    finally:
+        _variant = None
+        launches.update(counted)
+    read_and_zero()
+    return out, dict(zip(PHASES, (int(v) for v in clocks)))
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -95,14 +155,18 @@ def _raise_on(lib, rc: int, what: str) -> None:
             f"({lib.hpnn_batch_error_string(rc).decode()})")
 
 
+def _key(dtype, device) -> tuple:
+    return (_variant, dtype, torch.device(device).index or 0)
+
+
 def grid_blocks(dtype, device) -> int:
     """Blocks of one cooperative launch on ``device``, all co-resident
     (asked of the card once per type and device).  This is the kernel's
     resource check: it raises when the card cannot hold even one block
     per SM, or does not take cooperative launches."""
-    key = (dtype, torch.device(device).index or 0)
+    key = _key(dtype, device)
     if key not in _grids:
-        lib = _library()
+        lib = _library(_variant)
         blocks = ctypes.c_int(0)
         with torch.cuda.device(device):
             rc = lib.hpnn_batch_grid_blocks(_DTYPE_CODE[dtype], ctypes.byref(blocks))
@@ -111,6 +175,100 @@ def grid_blocks(dtype, device) -> int:
             raise RuntimeError("the batch-step kernel's blocks cannot all be co-resident")
         _grids[key] = blocks.value
     return _grids[key]
+
+
+def shared_bytes(dtype) -> int:
+    """Dynamic shared memory of one block of the kernel (the layout of
+    csrc/batch_step.cu's ``smem_bytes``): per tile worker two stages of
+    an A and a B k-tile, each TILE k-rows of TILE values plus a 16-byte
+    pad, and a TILE x (TILE + 1) staged output tile."""
+    b = torch.empty((), dtype=dtype).element_size()
+    stage = TILE * (TILE + 16 // b)
+    return WORKERS * (4 * stage + TILE * (TILE + 1)) * b
+
+
+def largest_gemm_tiles(shapes, batch: int) -> int:
+    """TILE x TILE output tiles of the largest matrix product of one
+    step: a layer's forward (or its hidden deltas, the same shape) or its
+    update.  ``shapes``: the layers' (out, in)."""
+    def cdiv(a, b):
+        return -(-a // b)
+    return max(max(cdiv(batch, TILE), cdiv(n_in, TILE)) * cdiv(n_out, TILE)
+               for n_out, n_in in shapes)
+
+
+def _cluster_arg(cluster) -> int:
+    if cluster not in CLUSTER_SIZES:
+        raise ValueError(f"cluster size {cluster!r}: the kernel takes one of {CLUSTER_SIZES}")
+    return cluster
+
+
+def fleet_cluster(members: int, shapes, batch: int, capacity, *, cluster=None) -> int:
+    """CTAs of each member's cluster in one launch of #6.  ``capacity``:
+    {C: clusters of C CTAs the card holds at once} (:func:`cluster_capacity`).
+    Clusters live inside one GPC, so the count is not the SM count over
+    C.  The members run in ceil(members / capacity[C]) waves, and a
+    member's step takes about 1/C of one CTA's time, so the plan is the C
+    of CLUSTER_SIZES, at most :func:`largest_gemm_tiles` (or 1), with the
+    fewest waves per CTA of a member; of equals, the smaller C (its
+    barrier is cheaper).  Members that fill the card one CTA each take
+    C = 1: a larger C adds barriers and no SM.  ``cluster`` forces a
+    size (the same bits whatever C: tests and chip_smoke.py use it)."""
+    if cluster is not None:
+        return _cluster_arg(cluster)
+    tiles = largest_gemm_tiles(shapes, batch)
+    full = members >= capacity.get(1, 0)
+    sizes = [C for C in CLUSTER_SIZES
+             if (C == 1 or (C <= tiles and not full)) and capacity.get(C, 0) >= 1]
+    if not sizes:
+        raise RuntimeError("the card holds no cluster of the fleet kernel")
+    return min(sizes, key=lambda C: (-(-members // capacity[C]) / C, C))
+
+
+def cluster_capacity(dtype, device) -> dict:
+    """{C: clusters of C CTAs of the fleet kernel the card holds at once},
+    asked of the card once per type and device; raises if it cannot hold
+    even one CTA."""
+    key = _key(dtype, device)
+    if key not in _capacity:
+        lib = _library(_variant)
+        cap = {}
+        with torch.cuda.device(device):
+            for C in CLUSTER_SIZES:
+                n = ctypes.c_int(0)
+                _raise_on(lib, lib.hpnn_fleet_max_clusters(_DTYPE_CODE[dtype], C,
+                                                           ctypes.byref(n)),
+                          f"cluster occupancy query ({C} CTAs)")
+                cap[C] = n.value
+        if cap[1] < 1:
+            raise RuntimeError("the fleet kernel's CTA does not fit the card")
+        _capacity[key] = cap
+    return _capacity[key]
+
+
+@contextlib.contextmanager
+def _cluster_team(cluster: int):
+    """Inside the block, #2-#5 launch their body on one cluster of
+    ``cluster`` CTAs rather than the cooperative grid: the same bits, about
+    3x slower at 784-300-10 (PERF.md).  For the tests and chip_smoke.py;
+    the plain versions ignore it."""
+    global _team
+    _cluster_arg(cluster)
+    _team = cluster
+    try:
+        yield
+    finally:
+        _team = 0
+
+
+def _placed(cluster: int, dtype, device) -> int:
+    """``cluster``, once the card is known to hold a cluster of that many
+    CTAs of the kernel; raises if it holds none."""
+    if cluster_capacity(dtype, device)[cluster] < 1:
+        raise RuntimeError(f"the card cannot place a cluster of {cluster} CTAs of the "
+                           f"batch-step kernel ({shared_bytes(dtype)} bytes of shared "
+                           f"memory a CTA)")
+    return cluster
 
 
 def _check(weights, dw, X, T, batch, model, momentum):
@@ -167,13 +325,20 @@ def _layers(weights, dw, momentum, batch):
 
 def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
             alpha, prefetch):
+    """One launch of #2-#5 (``order``: a host int32 tensor) on the
+    cooperative grid, or on one cluster of ``_team`` CTAs."""
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     if X.dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernel is built for float32 and float64, not {X.dtype}")
     dev = X.device
-    blocks = grid_blocks(X.dtype, dev)
-    lib = _library()
+    cluster = _team
+    if cluster:
+        blocks = 0
+        _placed(cluster, X.dtype, dev)
+    else:
+        blocks = grid_blocks(X.dtype, dev)
+    lib = _library(_variant)
     S = order.numel()
     # one step reads its block by index; an epoch's order goes to the card
     ord_dev = order.to(dev) if S > 1 else None
@@ -185,14 +350,17 @@ def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
         stream = torch.cuda.current_stream(dev).cuda_stream
         # lr·(1/B) in double on the host, as the JAX Python-scalar product is
         rc = lib.hpnn_batch_train(
-            _DTYPE_CODE[X.dtype], blocks, int(model == "snn"), int(bool(momentum)),
+            _DTYPE_CODE[X.dtype], blocks, cluster, int(model == "snn"), int(bool(momentum)),
             len(weights), ctypes.addressof(dims), ctypes.addressof(w_ptrs),
             ctypes.addressof(dw_ptrs), X.data_ptr(), T.data_ptr(), int(batch),
             None if ord_dev is None else ord_dev.data_ptr(), first, S,
             float(lr) * (1.0 / batch), float(alpha), 1.0 / batch, scratch.data_ptr(),
             losses.data_ptr(), int(bool(prefetch)), stream,
         )
-    _raise_on(lib, rc, "launch")
+    if rc != 0:
+        team = f"one {cluster}-CTA cluster" if cluster else f"a grid of {blocks} blocks"
+        _raise_on(lib, rc, f"launch ({team}, {shared_bytes(X.dtype)} bytes of shared "
+                           f"memory a block)")
     launches[name] += 1
     return losses
 
@@ -258,12 +426,19 @@ def _check_fleet(weights, dw, X_banks, T_banks, orders, batch, model, momentum):
 
 
 def _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, *, model,
-                  momentum, lr, alpha):
+                  momentum, lr, alpha, cluster):
     if X_banks.device.type != "cuda":
         raise ValueError(f"unsupported device {X_banks.device}")
     dev = X_banks.device
-    lib = _library()
+    lib = _library(_variant)
     N, S = (int(v) for v in orders.shape)
+    shapes = tuple(tuple(w.shape[1:]) for w in weights)
+    key = _key(X_banks.dtype, dev) + (N, shapes, batch, cluster)
+    C = _plans.get(key)
+    if C is None:
+        cap = cluster_capacity(X_banks.dtype, dev)
+        C = _plans[key] = _placed(fleet_cluster(N, shapes, batch, cap, cluster=cluster),
+                                  X_banks.dtype, dev)
     ord_dev = orders.to(dev)
     # member 0's layers; the kernel steps to member i by the strides
     dims, w_ptrs, dw_ptrs, n_scratch = _layers(
@@ -274,23 +449,27 @@ def _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, *, model,
         stream = torch.cuda.current_stream(dev).cuda_stream
         # lr·(1/B) in double on the host, as the JAX Python-scalar product is
         rc = lib.hpnn_fleet_train(
-            _DTYPE_CODE[X_banks.dtype], N, int(model == "snn"), int(bool(momentum)),
+            _DTYPE_CODE[X_banks.dtype], N, C, int(model == "snn"), int(bool(momentum)),
             len(weights), ctypes.addressof(dims), ctypes.addressof(w_ptrs),
             ctypes.addressof(dw_ptrs), X_banks.data_ptr(), T_banks.data_ptr(),
             int(X_banks.shape[1]), int(batch), ord_dev.data_ptr(), S,
             float(lr) * (1.0 / batch), float(alpha), 1.0 / batch,
             scratch.data_ptr(), losses.data_ptr(), stream,
         )
-    _raise_on(lib, rc, "fleet launch")
+    if rc != 0:
+        _raise_on(lib, rc, f"fleet launch ({N} clusters of {C} CTAs, "
+                           f"{shared_bytes(X_banks.dtype)} bytes of shared memory a CTA)")
     launches["train_fleet_epoch_dbuf_banked"] += 1
     return losses
 
 
 def _run_fleet(kernel, weights, dw, X_banks, T_banks, orders, *, batch,
-               model="ann", momentum=False, lr=None, alpha=0.2):
+               model="ann", momentum=False, lr=None, alpha=0.2, cluster=None):
     """Check, then the kernel (``kernel`` and CUDA tensors) or, per
     member, the plain epoch (``kernel`` False, or CPU tensors)."""
     orders = _check_fleet(weights, dw, X_banks, T_banks, orders, batch, model, momentum)
+    if cluster is not None:
+        _cluster_arg(cluster)
     if lr is None:
         lr = dp.default_lr(model, momentum)
     kw = dict(model=model, momentum=momentum, lr=lr, alpha=alpha)
@@ -299,12 +478,14 @@ def _run_fleet(kernel, weights, dw, X_banks, T_banks, orders, *, batch,
             _plain_epoch([w[i] for w in weights], [m[i] for m in dw] if momentum else (),
                          X_banks[i], T_banks[i], orders[i], batch, **kw)
             for i in range(orders.shape[0])])
-    return _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, **kw)
+    return _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, cluster=cluster, **kw)
 
 
 # ------------------------------------------------------------ entry points
 # Each takes ``model`` ("ann" | "snn"), ``momentum``, ``lr`` (default
-# ``dp.default_lr``) and ``alpha`` (0.2) by keyword.
+# ``dp.default_lr``) and ``alpha`` (0.2) by keyword; the fleet epoch also
+# ``cluster``, the members' cluster size (default :func:`fleet_cluster`'s
+# plan), which its plain version checks and ignores.
 def _step_batch(name, weights, dw, X, T, **kw):
     losses = _run(name, weights, dw, X, T, [0], X.shape[0], prefetch=False, **kw)
     return weights, dw, losses[0]
@@ -355,7 +536,7 @@ def train_epoch_dbuf_banked(weights, dw, X_bank, T_bank, order, *, batch: int, *
 def train_fleet_epoch_dbuf_banked(weights, dw, X_banks, T_banks, orders, *,
                                   batch: int, **kw):
     """N members' :func:`train_epoch_dbuf_banked` epochs in ONE launch,
-    block i of the grid on member i: member i's slice of the stacked
+    cluster i of the grid on member i: member i's slice of the stacked
     ``(N, out, in)`` weights (and dw), its bank ``X_banks[i]``,
     ``T_banks[i]`` of ``(N, S·B, n)``, its block order ``orders[i]`` of
     ``(N, S)``.  Member i's result is bitwise that of

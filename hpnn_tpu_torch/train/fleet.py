@@ -22,8 +22,9 @@ Semantics, as in the JAX package:
 
 Where the JAX package vmaps ``dp.train_step_math`` (XLA), the port runs
 each epoch of the whole fleet as ONE launch of kernel #6,
-``ops.batch_step.train_fleet_epoch_dbuf_banked`` (one thread block per
-member), then counts each member over the full ``X``, ``T``.  The
+``ops.batch_step.train_fleet_epoch_dbuf_banked`` (one thread-block
+cluster per member, its size planned from the card), then counts each
+member over the full ``X``, ``T``.  The
 per-member baseline (:func:`make_member_epoch_fn`,
 :func:`train_sequential`) launches #4, ``train_epoch_grid_banked``,
 once per member and epoch.  The epoch functions update the stacked

@@ -23,11 +23,21 @@ from hpnn_tpu.cli import run_nn as jrun_nn
 from hpnn_tpu.cli import train_nn as jtrain_nn
 from hpnn_tpu.fileio import samples as jsamples
 from hpnn_tpu.train import batch as jbatch
+from hpnn_tpu_torch import runtime
 from hpnn_tpu_torch.cli import run_nn, train_nn
 from hpnn_tpu_torch.fileio import kernel_format
 from hpnn_tpu_torch.fileio import samples
 from hpnn_tpu_torch.ops import batch_step
 from hpnn_tpu_torch.train import batch
+
+@pytest.fixture(autouse=True)
+def _no_deferred_knobs(monkeypatch):
+    """The port refuses the knobs it has not ported (runtime.DEFERRED_ENV),
+    and a test elsewhere in the process may have left one set
+    (``hpnn_tpu.obs.configure`` exports HPNN_METRICS)."""
+    for knob in runtime.DEFERRED_ENV:
+        monkeypatch.delenv(knob, raising=False)
+
 
 CONF = ("[name] V\n[type] {kind}\n[init] generate\n[seed] 1234\n[input] 8\n"
         "[hidden] 6\n[output] 2\n[train] {train}\n[sample_dir] ./samples\n"

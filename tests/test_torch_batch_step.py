@@ -12,6 +12,8 @@ against the JAX package on the CPU.
 Inputs are made from a seed with numpy and handed to both packages.
 """
 
+import contextlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -172,3 +174,106 @@ def test_wrappers_refuse_bad_inputs():
     with pytest.raises(ValueError, match="chain"):
         batch_step.train_step_fused_batch(
             [gw[0], torch.zeros(6, 15, dtype=torch.float64)], [], Xt, Tt)
+
+
+# ------------------------------------------------- teams and their plan
+MNIST = [(300, 784), (10, 300)]
+
+
+# a card of 132 SMs that all take clusters of every size
+PACKED = {C: 132 // C for C in batch_step.CLUSTER_SIZES}
+# clusters of C CTAs of the fleet kernel an H100 80GB HBM3 holds at once
+# (cudaOccupancyMaxActiveClusters; chip_smoke.py phase 12 prints them): a
+# cluster lives inside one GPC, so fewer than 132 / C fit
+H100 = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+
+
+@pytest.mark.parametrize("members,shapes,batch,cap,want", [
+    (8, MNIST, 256, PACKED, 16),             # 8 x 16 = 128 CTAs of 132, one wave
+    (32, MNIST, 256, PACKED, 4),             # one wave of 4, or two of 8: the smaller
+    (9, MNIST, 256, PACKED, 8),              # 9 x 16 = 144 > 132
+    (200, MNIST, 256, PACKED, 1),            # more members than SMs: waves of one-CTA members
+    (1, MNIST, 256, H100, 16),
+    (7, MNIST, 256, H100, 16),               # the 7 clusters of 16 the card holds
+    (8, MNIST, 256, H100, 8),                # 16 CTAs would run in 2 waves of 7
+    (32, MNIST, 256, H100, 16),              # 5 waves of 7 x 16 beat 3 of 15 x 8
+    (64, [(16, 32), (4, 16)], 1, H100, 1),   # the HPNN-sized fleet: one tile a product
+    (2, [(16, 12), (6, 16)], 16, H100, 1),   # one tile a product, whatever N
+    (2, [(70, 130), (10, 70)], 64, H100, 8),  # 3 x 5 tiles in the update
+    (8, MNIST, 256, {1: 132, 2: 66, 4: 33, 8: 0, 16: 0}, 4),  # no 8- or 16-CTA cluster fits
+])
+def test_fleet_cluster_plan(members, shapes, batch, cap, want):
+    assert batch_step.fleet_cluster(members, shapes, batch, cap) == want
+
+
+def test_fleet_cluster_plan_refuses_a_card_that_holds_none():
+    with pytest.raises(RuntimeError, match="holds no cluster"):
+        batch_step.fleet_cluster(8, MNIST, 256, dict.fromkeys(batch_step.CLUSTER_SIZES, 0))
+
+
+@pytest.mark.parametrize("forced", [1, 2, 4, 8, 16])
+def test_fleet_cluster_forced(forced):
+    """A forced size is taken as it is, even past the SM count: the
+    kernel then runs the members in waves."""
+    assert batch_step.fleet_cluster(200, MNIST, 256, PACKED, cluster=forced) == forced
+
+
+@pytest.mark.parametrize("bad", [0, 3, 6, 32, -4, 2.5])
+def test_fleet_cluster_refuses_other_sizes(bad):
+    with pytest.raises(ValueError, match="cluster size"):
+        batch_step.fleet_cluster(8, MNIST, 256, PACKED, cluster=bad)
+
+
+def test_largest_gemm_tiles():
+    assert batch_step.largest_gemm_tiles(MNIST, 256) == 250   # the update of W_0
+    assert batch_step.largest_gemm_tiles(MNIST, 1024) == 320  # the forward of layer 0
+    assert batch_step.largest_gemm_tiles([(230, 851), (230, 230)], 256) == 8 * 27
+
+
+def test_shared_bytes_of_the_stages():
+    """Two workers, each two stages of two 32 x (32 + 16 bytes) k-tiles
+    and a 32 x 33 output tile: within one H100 block's shared memory."""
+    f32 = 2 * (4 * 32 * 36 + 32 * 33) * 4
+    f64 = 2 * (4 * 32 * 34 + 32 * 33) * 8
+    assert batch_step.shared_bytes(torch.float32) == f32 == 45312
+    assert batch_step.shared_bytes(torch.float64) == f64 == 86528
+    assert f64 <= batch_step.MAX_SHARED_BYTES
+    # each stage row and each worker's share keep 16-byte alignment
+    assert (32 + 16 // 4) * 4 % 16 == 0 and (32 + 16 // 8) * 8 % 16 == 0
+    assert f32 // 4 % 16 == 0 and f64 // 4 % 16 == 0
+
+
+def test_entry_points_check_the_team_on_the_cpu():
+    """The plain versions refuse a team the kernel would refuse and give
+    the same result whatever team is named: #6's ``cluster=`` and #2-#5's
+    private cluster team; #2-#5 take no ``cluster=``."""
+    w, dw, X, T = _data(5, 12, [16], 6, 16, True)
+    kw = dict(model="ann", momentum=True, batch=8)
+    Xs, Ts = torch.tensor(X).reshape(2, 8, 12), torch.tensor(T).reshape(2, 8, 6)
+    runs = []
+    for cluster in (None, 1, 16):
+        gw, gdw = _torch(w, torch.float64), _torch(dw, torch.float64)
+        with (batch_step._cluster_team(cluster) if cluster else contextlib.nullcontext()):
+            losses = batch_step.train_epoch_grid_banked(
+                gw, gdw, torch.tensor(X), torch.tensor(T), [1, 0], **kw)[2]
+        ws = [torch.stack([a, a]) for a in _torch(w, torch.float64)]
+        dws = [torch.stack([a, a]) for a in _torch(dw, torch.float64)]
+        fl = batch_step.train_fleet_epoch_dbuf_banked(ws, dws, Xs, Ts, [[0], [0]],
+                                                      cluster=cluster, **kw)[2]
+        runs.append([losses, fl] + gw + gdw + ws + dws)
+    assert batch_step._team == 0
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+    for bad in (0, 3, 32):
+        with pytest.raises(ValueError, match="cluster size"):
+            with batch_step._cluster_team(bad):
+                pass
+    assert batch_step._team == 0
+    with pytest.raises(TypeError, match="cluster"):
+        batch_step.train_epoch_grid_banked(
+            _torch(w, torch.float64), _torch(dw, torch.float64), torch.tensor(X),
+            torch.tensor(T), [1, 0], cluster=16, **kw)
+    ws = [torch.stack([a, a]) for a in _torch(w, torch.float64)]
+    with pytest.raises(ValueError, match="cluster size"):
+        batch_step.train_fleet_epoch_dbuf_banked(ws, [], Xs, Ts, [[0], [0]], batch=8,
+                                                 cluster=12)

@@ -11,9 +11,20 @@ import torch
 
 from hpnn_tpu.cli import run_nn as jrun_nn
 from hpnn_tpu.cli import train_nn as jtrain_nn
+from hpnn_tpu_torch import runtime
 from hpnn_tpu_torch.cli import run_nn, train_nn
 from hpnn_tpu_torch.fileio import kernel_format
 from hpnn_tpu_torch.ops import convergence
+
+
+@pytest.fixture(autouse=True)
+def _no_deferred_knobs(monkeypatch):
+    """The port refuses the knobs it has not ported (runtime.DEFERRED_ENV),
+    and a test elsewhere in the process may have left one set
+    (``hpnn_tpu.obs.configure`` exports HPNN_METRICS)."""
+    for knob in runtime.DEFERRED_ENV:
+        monkeypatch.delenv(knob, raising=False)
+
 
 CONF = ("[name] V\n[type] {kind}\n[init] generate\n[seed] 1234\n[input] 8\n"
         "[hidden] 6\n[output] 2\n[train] {train}\n[sample_dir] ./samples\n"
@@ -131,7 +142,6 @@ def test_unported_options_are_refused(tmp_path, monkeypatch, capsys, argv, env):
 
 
 def test_runtime_probe_sets_cuda_bit_only_with_a_card(monkeypatch):
-    from hpnn_tpu_torch import runtime
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     runtime.init_all()

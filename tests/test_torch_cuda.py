@@ -8,6 +8,8 @@ machine without a card.  On one, run them with
 ``python -m pytest -m cuda tests/test_torch_cuda.py``.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -276,33 +278,69 @@ def test_batch_kernel_matches_plain(cuda, entry, model, momentum, dtype, tol):
     assert float((lk - lp).abs().max()) <= tol * max(1.0, float(lp.abs().max()))
 
 
+@pytest.mark.parametrize("shape", [(12, (16, 8), 6), (20, (24,), 40)])
 @pytest.mark.parametrize("model,momentum", [("ann", False), ("snn", True)])
-def test_batch_kernels_agree_bitwise(cuda, model, momentum):
+def test_batch_kernels_agree_bitwise(cuda, model, momentum, shape):
     """#3 equals #2 on every block, #4 equals S steps of #3, #5 equals #4,
-    and a second run of #4 equals the first: every sum has one order."""
+    and a second run of #4 equals the first, on the grid and on a
+    cluster team of 1 and 16 CTAs: every sum has one order.  n_out = 6
+    takes the output rows in the last layer's tiles, n_out = 40 apart."""
     B, S = 16, 4
     order = [3, 1, 0, 2]
     kw = dict(model=model, momentum=momentum, lr=0.05, alpha=0.2)
-    w, dw, X, T = _bank(cuda, torch.float32, model, momentum, B=B, S=S)
+    w, dw, X, T = _bank(cuda, torch.float32, model, momentum, B=B, S=S, shape=shape)
     runs = {}
-    for name in ("step", "banked", "grid", "dbuf", "grid2"):
+    for name in ("step", "banked", "grid", "dbuf", "grid2", "grid on 16", "dbuf on 16",
+                 "grid on 1", "step on 16"):
         wr, dwr = _clone(w), _clone(dw)
-        if name == "step":
-            losses = [batch_step.train_step_fused_batch(
-                wr, dwr, X[k * B:(k + 1) * B].contiguous(),
-                T[k * B:(k + 1) * B].contiguous(), **kw)[2] for k in order]
-        elif name == "banked":
-            losses = [batch_step.train_step_fused_banked(wr, dwr, X, T, k, batch=B, **kw)[2]
-                      for k in order]
-        else:
-            fn = (batch_step.train_epoch_dbuf_banked if name == "dbuf"
-                  else batch_step.train_epoch_grid_banked)
-            losses = list(fn(wr, dwr, X, T, order, batch=B, **kw)[2])
+        team = (batch_step._cluster_team(int(name.split(" on ")[1])) if " on " in name
+                else contextlib.nullcontext())
+        with team:
+            if name.startswith("step"):
+                losses = [batch_step.train_step_fused_batch(
+                    wr, dwr, X[k * B:(k + 1) * B].contiguous(),
+                    T[k * B:(k + 1) * B].contiguous(), **kw)[2] for k in order]
+            elif name == "banked":
+                losses = [batch_step.train_step_fused_banked(wr, dwr, X, T, k, batch=B,
+                                                             **kw)[2] for k in order]
+            else:
+                fn = (batch_step.train_epoch_dbuf_banked if name.startswith("dbuf")
+                      else batch_step.train_epoch_grid_banked)
+                losses = list(fn(wr, dwr, X, T, order, batch=B, **kw)[2])
         runs[name] = [t.cpu() for t in wr + dwr] + [torch.stack(losses).cpu()]
     ref = runs["step"]
     for name, got in runs.items():
         for a, b in zip(got, ref):
             assert torch.equal(a, b), name
+
+
+def test_batch_shared_bytes_match_the_kernel(cuda):
+    """ops.batch_step.shared_bytes mirrors the kernel's layout."""
+    lib = batch_step._library()
+    for dtype, code in batch_step._DTYPE_CODE.items():
+        assert lib.hpnn_batch_smem_bytes(code) == batch_step.shared_bytes(dtype)
+
+
+@pytest.mark.parametrize("cluster", [0, 16])
+def test_batch_phase_clock_build(cuda, cluster):
+    """The -DHPNN_PHASE_CLOCKS build gives the kernel's bits, counts no
+    launch, and clocks the tiles and the syncs of each step."""
+    B, S = 16, 4
+    kw = dict(model="snn", momentum=True, lr=0.05, alpha=0.2, batch=B)
+    w, dw, X, T = _bank(cuda, torch.float32, "snn", True, B=B, S=S)
+    wa, dwa, wb, dwb = _clone(w), _clone(dw), _clone(w), _clone(dw)
+    before = dict(batch_step.launches)
+    with batch_step._cluster_team(cluster) if cluster else contextlib.nullcontext():
+        la, clocks = batch_step.phase_clocks(
+            lambda: batch_step.train_epoch_grid_banked(wa, dwa, X, T, [3, 1, 0, 2], **kw)[2])
+        assert batch_step.launches == before
+        lb = batch_step.train_epoch_grid_banked(wb, dwb, X, T, [3, 1, 0, 2], **kw)[2]
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip([la] + wa + dwa, [lb] + wb + dwb))
+    assert set(clocks) == set(batch_step.PHASES)
+    for phase in ("forward tiles", "hidden-delta tiles", "update tiles", "team syncs"):
+        assert clocks[phase] > 0, phase
+    assert clocks["output rows apart"] == 0  # n_out = 6: folded into the forward
 
 
 def test_batch_kernel_refuses_what_it_cannot_take(cuda):
@@ -375,12 +413,17 @@ def test_fleet_kernel_matches_plain_one_row(cuda, model, momentum, dtype, tol):
         assert all(not torch.equal(a[i], b[i]) for i in range(64))
 
 
+@pytest.mark.parametrize("shape,B", [((12, (16, 8), 6), 16), ((130, (70,), 10), 64),
+                                     ((40, (36,), 40), 32)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-@pytest.mark.parametrize("model,momentum", [("ann", False), ("snn", True)])
-def test_fleet_member_equals_dbuf_and_grid_bitwise(cuda, model, momentum, dtype):
-    """Member i of #6 equals #5 and #4 on bank i with orders[i]."""
-    w, dw, X, T, orders = _fleet(cuda, dtype, model, momentum)
-    kw = dict(batch=16, model=model, momentum=momentum, lr=0.05, alpha=0.2)
+@pytest.mark.parametrize("model,momentum", [("ann", False), ("ann", True), ("snn", False),
+                                            ("snn", True)])
+def test_fleet_member_equals_dbuf_and_grid_bitwise(cuda, model, momentum, dtype, shape, B):
+    """Member i of #6 equals #5 and #4 on bank i with orders[i], for every
+    cluster size: 130-70-10 at B = 64 spreads 15 update tiles over the
+    CTAs' workers, 40-36-40 takes its output rows apart (n_out > 32)."""
+    w, dw, X, T, orders = _fleet(cuda, dtype, model, momentum, B=B, S=3, shape=shape)
+    kw = dict(batch=B, model=model, momentum=momentum, lr=0.05, alpha=0.2)
     w0, dw0 = _clone(w), _clone(dw)
     _, _, lf = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders, **kw)
     for i in range(len(orders)):
@@ -391,6 +434,66 @@ def test_fleet_member_equals_dbuf_and_grid_bitwise(cuda, model, momentum, dtype)
             assert torch.equal(li, lf[i]), fn.__name__
             for a, b in zip(wi + dwi, w + dw):
                 assert torch.equal(a, b[i]), fn.__name__
+    for C in batch_step.CLUSTER_SIZES:
+        wc, dwc = _clone(w0), _clone(dw0)
+        _, _, lc = batch_step.train_fleet_epoch_dbuf_banked(wc, dwc, X, T, orders, cluster=C,
+                                                            **kw)
+        assert torch.equal(lc, lf), C
+        assert all(torch.equal(a, b) for a, b in zip(wc + dwc, w + dw)), C
+
+
+def test_fleet_many_members_and_waves(cuda):
+    """32 members at the planned cluster size and at 4 CTAs equal their
+    #5 epochs; 40 members of 16 CTAs, more clusters than the card holds
+    at once, run in waves and equal the planned launch bitwise."""
+    cap = batch_step.cluster_capacity(torch.float32, cuda)
+    assert all(n >= 1 for n in cap.values())
+    w, dw, X, T, orders = _fleet(cuda, torch.float32, "ann", True, N=40, B=32, S=2,
+                                 shape=(130, (70,), 10))
+    kw = dict(batch=32, model="ann", momentum=True, lr=0.05, alpha=0.2)
+    shapes = [tuple(t.shape[1:]) for t in w]
+    assert batch_step.fleet_cluster(32, shapes, 32, cap) in batch_step.CLUSTER_SIZES
+    runs32 = []
+    for C in (None, 4):
+        w32, dw32 = [t[:32].clone() for t in w], [t[:32].clone() for t in dw]
+        _, _, l32 = batch_step.train_fleet_epoch_dbuf_banked(
+            w32, dw32, X[:32].contiguous(), T[:32].contiguous(), orders[:32], cluster=C, **kw)
+        runs32.append([l32] + w32 + dw32)
+    assert all(torch.equal(a, b) for a, b in zip(*runs32))
+    l32, w32, dw32 = runs32[0][0], runs32[0][1:3], runs32[0][3:]
+    for i in (0, 17, 31):
+        wi, dwi = [t[i].clone() for t in w], [t[i].clone() for t in dw]
+        _, _, li = batch_step.train_epoch_dbuf_banked(wi, dwi, X[i], T[i], orders[i], **kw)
+        assert torch.equal(li, l32[i])
+        assert all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, w32 + dw32))
+    runs = []
+    for C in (None, 16):
+        wc, dwc = _clone(w), _clone(dw)
+        _, _, lc = batch_step.train_fleet_epoch_dbuf_banked(wc, dwc, X, T, orders,
+                                                            cluster=C, **kw)
+        runs.append([lc] + wc + dwc)
+    assert 40 > cap[16]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    assert all(torch.equal(a, b[:32]) for a, b in zip([l32] + w32 + dw32, runs[0]))
+
+
+@pytest.mark.parametrize("momentum", [False, True])
+def test_fleet_cluster_snn_stress(cuda, momentum):
+    """The cluster barrier orders the device-memory scratch: 24 launches
+    of an SNN fleet at 16 CTAs a member from the same start, bitwise
+    equal to the first and to 1 CTA a member."""
+    w, dw, X, T, orders = _fleet(cuda, torch.float32, "snn", momentum, N=4, B=64, S=3,
+                                 shape=(130, (70,), 10))
+    kw = dict(batch=64, model="snn", momentum=momentum, lr=0.05, alpha=0.2)
+    ref = None
+    for rep in range(25):
+        wc, dwc = _clone(w), _clone(dw)
+        _, _, lc = batch_step.train_fleet_epoch_dbuf_banked(
+            wc, dwc, X, T, orders, cluster=1 if rep == 0 else 16, **kw)
+        run = [lc] + wc + dwc
+        if ref is None:
+            ref = run
+        assert all(torch.equal(a, b) for a, b in zip(run, ref)), rep
 
 
 def test_train_fleet_equals_sequential_bitwise(cuda):
@@ -428,3 +531,5 @@ def test_fleet_kernel_refuses_what_it_cannot_take(cuda):
         run([w[0], w[1][:2].contiguous()], dw, X, T, orders, **kw)
     with pytest.raises(ValueError, match="outside"):
         run(w, dw, X, T, orders + 1, **kw)
+    with pytest.raises(ValueError, match="cluster size"):
+        run(w, dw, X, T, orders, cluster=3, **kw)

@@ -30,6 +30,16 @@ from hpnn_tpu_torch import runtime
 from hpnn_tpu_torch.ops import batch_step
 from hpnn_tpu_torch.train import fleet
 
+
+@pytest.fixture(autouse=True)
+def _no_deferred_knobs(monkeypatch):
+    """The port refuses the knobs it has not ported (runtime.DEFERRED_ENV),
+    and a test elsewhere in the process may have left one set
+    (``hpnn_tpu.obs.configure`` exports HPNN_METRICS)."""
+    for knob in runtime.DEFERRED_ENV:
+        monkeypatch.delenv(knob, raising=False)
+
+
 MODES = [("ann", False), ("ann", True), ("snn", False), ("snn", True)]
 LR = 0.3  # large enough that two epochs of 2-row steps move the weights
 
