@@ -11,7 +11,9 @@ Phases (any failure exits non-zero and prints no result line):
 1. probe   — torch/CUDA versions, the card, its power limit.
 2. build   — compiles every CUDA source of the main paths from the
    checkout (``hpnn_tpu_torch/csrc/*.cu``) with nvcc for sm_90a, one
-   nvcc per source, all started together.
+   nvcc per source, and the native host library
+   (``csrc/hpnn_native.cpp``) with g++, all started together; the host
+   library must load.
 3. pinned  — the convergence kernel against its plain PyTorch version
    at 784-300-10 with delta = -1e30, so every sample runs exactly
    K+1 iterations: ANN/SNN x BP/BPM, float and double; then the kernel
@@ -59,6 +61,20 @@ Phases (any failure exits non-zero and prints no result line):
    its bound and the members' #5 epochs run one after another; then #6
    planned at 1-32 members against N times one #5 epoch, and the
    least N at which the fleet is the faster.
+13. resume, streaming, ledger, obs, native — on phase 4's ANN round
+   (256 samples, chunks of 64) and phase 8's batch round: the launch of
+   chunk 2 raises and ``HPNN_FUSE_STATE`` resumes (tokens and kernel.opt
+   byte-identical to an uninterrupted run), and a batch run stopped
+   after epoch 2 of 5 resumes the same way; ``HPNN_FUSE_EPOCH=0``
+   launches #1 once a sample with the chunked run's stdout and
+   kernel.opt; the per-sample, batch and 8-member fleet rounds in
+   float64 on the card and on the CPU, each with ``HPNN_LEDGER`` and
+   ``HPNN_TRACE``: ``tools/ledger_diff.py`` exits 0 and the #DBG lines
+   agree tag by tag within 1e-12; every obs knob on leaves stdout and
+   kernel.opt byte-identical and records ``perf.mfu`` for #1, #4 and #6
+   (``tools/check_obs_catalog.py --ledger`` and ``--perf`` pass); the
+   native host library parses the 4096-file bank bitwise as the Python
+   walk does, both timed, with both rounds' wall times.
 
 The last two lines are the kernel table and the device line.
 
@@ -93,9 +109,6 @@ PINNED_K = 20         # phase 3: max_iter, so K+1 iterations per sample
 CLUSTERS = (16, 8)    # phase 6: cluster sizes timed
 REAL_MAX_ITER = 1500  # phase 5: caps the plain loop's run time
 TIMED_ITERS = 200     # phase 6: iterations per sample, pinned
-# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s, non-tensor FLOP/s
-PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
 # Tolerances of kernel vs plain on the same inputs.  Both run the same
 # arithmetic; only the order of each dot product's and reduction's sum
 # differs (warp shuffles vs torch's kernels).  float64: a reordered sum
@@ -220,25 +233,6 @@ def cuda_ms(torch, fn, reps=3):
     return sorted(times)[len(times) // 2]
 
 
-def work_of(weights, S, iters, momentum, dtype_bytes):
-    """(bytes, flops) the function must move and compute: weights read
-    and written once, samples read once, stats and outputs written
-    once; per iteration 2|W| (forward) + 2|W_1:| (hidden deltas) + 3|W|
-    (BP update) or 5|W| (BPM update) flops, plus a forward per sample."""
-    sizes = [int(w.numel()) for w in weights]
-    n_w, n_tail = sum(sizes), sum(sizes[1:])
-    n_in, n_out = weights[0].shape[1], weights[-1].shape[0]
-    nbytes = (2 * n_w + S * (n_in + 2 * n_out + 2)) * dtype_bytes + 12 * S
-    flops = 2 * n_w * S + iters * ((7 if momentum else 5) * n_w + 2 * n_tail)
-    return nbytes, flops
-
-
-def bound_ms(nbytes, flops, dtype_name):
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 # ------------------------------------------------- convergence plans
 def plans_of(convergence, weights, dtype, momentum):
     """Every plan the kernel can take for these weights: each cluster
@@ -264,21 +258,6 @@ def same_run(a, b):
 
 
 # ---------------------------------------------------------- batch phases
-def batch_work(weights_shapes, S, momentum, dtype_bytes):
-    """(bytes, flops) of S batch steps: each block of X and T read once,
-    the weights (and dw) read and written once, the order and losses;
-    per step three matrix passes of 2·B·Σ in·out (forward, update,
-    re-forward), the hidden deltas 2·B·Σ_{l>0} in·out, and the update's
-    elementwise triad (2 flops a weight, 4 with momentum)."""
-    sizes = [o * i for o, i in weights_shapes]
-    n_w, n_tail = sum(sizes), sum(sizes[1:])
-    n_in, n_out = weights_shapes[0][1], weights_shapes[-1][0]
-    nbytes = ((S * BATCH * (n_in + n_out) + 2 * n_w * (2 if momentum else 1) + S)
-              * dtype_bytes + 4 * S)
-    flops = S * (6 * BATCH * n_w + 2 * BATCH * n_tail + (4 if momentum else 2) * n_w)
-    return nbytes, flops
-
-
 def state_err(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
 
@@ -521,6 +500,7 @@ def batch_timing(np, torch, dev, phase_split=False):
     784-300-10 ANN-BP float32, its plain version, and the bound; with
     ``phase_split``, where a #4 step's time goes on each team."""
     from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.obs.cost import batch_work, bound_ms
     from hpnn_tpu_torch.ops import batch_step as bs
 
     S = math.ceil(TIMED_ROWS / BATCH)
@@ -574,7 +554,7 @@ def batch_timing(np, torch, dev, phase_split=False):
     torch.cuda.synchronize()
     plain_ms = (time.perf_counter() - t0) * 1e3
     check(all(torch.isfinite(t).all() for t in w), "timing: weights not finite")
-    nbytes, flops = batch_work([tuple(t.shape) for t in w], S, False, 4)
+    nbytes, flops = batch_work([tuple(t.shape) for t in w], S, False, 4, BATCH)
     b_ms, b_by = bound_ms(nbytes, flops, "float32")
 
     def team_name(c):
@@ -866,6 +846,7 @@ def fleet_timing(np, torch, dev):
     FLEET_CROSS_N members against N times one #5 epoch.  Returns
     ({N: timings}, crossover)."""
     from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.obs.cost import batch_work, bound_ms
     from hpnn_tpu_torch.ops import batch_step as bs
 
     S = math.ceil(TIMED_ROWS / BATCH)
@@ -912,7 +893,7 @@ def fleet_timing(np, torch, dev):
                 members[i], [], Xb_all[i], Tb_all[i], orders_all[i], **kw) for i in range(N)]))
         by_c = {C: statistics.median(v) for C, v in runs.items()}
         ms, seq_ms = by_c[plan], statistics.median(seq)
-        nbytes, flops = batch_work(shapes, S, False, 4)
+        nbytes, flops = batch_work(shapes, S, False, 4, BATCH)
         b_ms, b_by = bound_ms(N * nbytes, N * flops, "float32")
         plain_ms = None
         if N == FLEET_TIMED_N[0]:
@@ -960,6 +941,341 @@ def fleet_timing(np, torch, dev):
                      clusters_at_once=cap)
 
 
+# ------------------------------------------- crash-resume, streaming, obs
+# Phase 13: the reference's cross-backend bars (ChangeLog:33-38), on the
+# #DBG trace as tools/ledger_diff.py holds the ledger to them
+VEC_TOL, MAT_TOL = 1e-14, 1e-12
+DBG_RE = re.compile(r"#DBG: acc\[(.+)/(\d+)\]=(\S+)")
+
+
+@contextlib.contextmanager
+def knobs(obs, env):
+    """``env`` set for the block, the port's memoized obs readings
+    forgotten on the way in and out."""
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    obs.reset()
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        obs.reset()
+
+
+def training_lines(out):
+    return [ln for ln in out.splitlines() if "TRAINING FILE" in ln]
+
+
+def traces_agree(got, ref):
+    """(ok, max |diff|, lines): the #DBG lines tag by tag, each value
+    within the reference's bar (weights are matrices, eval outputs
+    vectors)."""
+    a = [(m.group(1), int(m.group(2)), float(m.group(3))) for m in DBG_RE.finditer(got)]
+    b = [(m.group(1), int(m.group(2)), float(m.group(3))) for m in DBG_RE.finditer(ref)]
+    if not a or [x[:2] for x in a] != [x[:2] for x in b]:
+        return False, math.inf, len(a)
+    worst, ok = 0.0, True
+    for (tag, _, va), (_, _, vb) in zip(a, b):
+        tol = VEC_TOL if tag.startswith("out@") else MAT_TOL
+        worst = max(worst, abs(va - vb))
+        ok = ok and abs(va - vb) <= tol
+    return ok, worst, len(a)
+
+
+def ledger_diff(a, b):
+    """tools/ledger_diff.py at its default bars: (exit code, report)."""
+    out = subprocess.run([sys.executable, os.path.join(ROOT, "tools", "ledger_diff.py"),
+                          a, b], capture_output=True, text=True, timeout=120)
+    return out.returncode, (out.stdout + out.stderr).strip()
+
+
+def ledger_rel_dev(a, b):
+    """Max relative deviation of ledger ``a``'s checksums from ``b``'s,
+    row by row."""
+    rows = [[json.loads(ln) for ln in open(p) if '"ledger.round"' in ln] for p in (a, b)]
+    check(len(rows[0]) == len(rows[1]) > 0, f"ledgers {a} and {b}: row counts differ")
+    return max(abs(ra["checksums"][k] - rb["checksums"][k]) / abs(rb["checksums"][k])
+               for ra, rb in zip(*rows) for k in rb["checksums"])
+
+
+def resume_obs_native(np, torch, dev, protos):
+    """Phase 13: crash-resume (per-sample and batch), the streaming
+    per-sample loop, the card's float64 ledger and #DBG trace against
+    the CPU's (per-sample, batch, fleet), obs leaving the tokens alone
+    with its MFU records, and the native parse.  Returns statistics."""
+    from hpnn_tpu_torch import native, obs
+    from hpnn_tpu_torch.cli import train_nn
+    from hpnn_tpu_torch.fileio import samples as sample_io
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.ops import batch_step as bs
+    from hpnn_tpu_torch.ops import convergence
+    from hpnn_tpu_torch.parallel import dp
+    from hpnn_tpu_torch.train import batch, driver, fleet, loop
+
+    sdir = os.path.join(WORK, "resume_obs")
+    os.makedirs(sdir)
+    ps_dir, b_dir = os.path.join(WORK, "train"), os.path.join(WORK, "batch", "train")
+    cwd = os.getcwd()
+    stats = {}
+
+    def cli(label, argv, env=(), raises=None):
+        """train_nn in its own directory: (stdout, kernel.opt text or
+        None, seconds, the directory).  ``raises``: the exception the
+        run must end with (its stdout is still returned)."""
+        run_dir = os.path.join(sdir, label)
+        os.makedirs(run_dir, exist_ok=True)
+        os.chdir(run_dir)
+        try:
+            write_conf("nn.conf", name="smoke_ann", kind="ANN",
+                       train_dir=b_dir if "--batch" in argv else ps_dir, test_dir=ps_dir)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with knobs(obs, dict(env)), contextlib.redirect_stdout(buf):
+                try:
+                    rc = train_nn.main(argv + ["-v", "-v", "nn.conf"])
+                except Exception as exc:  # the deliberate launch error only
+                    check(raises is not None and isinstance(exc, raises),
+                          f"{label}: train_nn raised {exc!r}")
+                    rc = None
+            secs = time.perf_counter() - t0
+            check(raises is None or rc is None, f"{label}: the launch error did not surface")
+            check(raises is not None or rc == 0, f"{label}: train_nn exit {rc}")
+            opt = open("kernel.opt").read() if rc == 0 else None
+            return buf.getvalue(), opt, secs, run_dir
+        finally:
+            os.chdir(cwd)
+
+    # 1. resume: the launch of chunk 2 raises; the rerun resumes
+    out_a, opt_a, secs_a, _ = cli("chunked", [])
+    check(len(training_lines(out_a)) == N_TRAIN_ANN, "chunked: token lines")
+    state = os.path.join(sdir, "round.state")
+    real_epoch, calls = loop.train_epoch, [0]
+
+    def dying_epoch(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 2:
+            raise RuntimeError("the launch of chunk 2 raised (deliberately)")
+        return real_epoch(*a, **kw)
+
+    loop.train_epoch = dying_epoch
+    try:
+        part1, _, _, _ = cli("crashed", [], {"HPNN_FUSE_STATE": state}, raises=RuntimeError)
+    finally:
+        loop.train_epoch = real_epoch
+    with np.load(state, allow_pickle=False) as z:
+        done, hint = int(z["done"]), int(z["chunk"])
+    want_hint = max(min(32, CHUNK), CHUNK // 2)  # halved, not below 32
+    check((done, hint) == (CHUNK, want_hint),
+          f"crash checkpoint: done {done}, chunk {hint} (want {CHUNK}, {want_hint})")
+    part2, opt_r, _, _ = cli("resumed", [], {"HPNN_FUSE_STATE": state})
+    check(training_lines(part1 + part2) == training_lines(out_a),
+          "resume: the two attempts' tokens differ from the uninterrupted run's")
+    check(opt_r == opt_a, "resume: kernel.opt differs from the uninterrupted run's")
+    check(not os.path.exists(state), "resume: the completed round left its checkpoint")
+    log(f"[resume] ANN 784-300-10 BP, {N_TRAIN_ANN} samples in chunks of {CHUNK}: chunk 2's "
+        f"launch raised after {done} samples (checkpoint chunk hint {hint}); the resumed "
+        f"round's tokens ({len(training_lines(part2))} lines) after the crashed one's "
+        f"({len(training_lines(part1))}) and kernel.opt byte-identical to the "
+        f"uninterrupted run ({secs_a:.2f} s)")
+
+    bargv = ["--batch", str(BATCH), "--epochs", str(EPOCHS)]
+    out_b, opt_b, secs_b, _ = cli("batch", bargv)
+    names = sample_io.list_sample_files(b_dir)
+    k0 = km.generate(SEED, N_IN, [N_HID], N_OUT)[0]
+    key = batch._batch_state_key(
+        b_dir, "ann", False, tuple(w.shape for w in k0.weights), BATCH,
+        dp.default_lr("ann", False), EPOCHS,
+        "cuda-kernel-bank8/generate", names=names)
+    # a checkpoint at epoch 0 with a block cap of 2: the run checkpoints
+    # after epochs 2 and 4; the launch of epoch 3 raises
+    bstate = os.path.join(sdir, "batch.state")
+    wdt = np.float32 if dev.type == "cuda" else np.float64  # the run's compute dtype
+    driver._save_fuse_state(bstate, key, SEED, 0, 2, [w.astype(wdt) for w in k0.weights])
+    real_grid, calls[0] = bs.train_epoch_grid_banked, 0
+
+    def dying_grid(*a, **kw):
+        calls[0] += 1
+        if calls[0] == 3:
+            raise RuntimeError("the launch of epoch 3 raised (deliberately)")
+        return real_grid(*a, **kw)
+
+    bs.train_epoch_grid_banked = dying_grid
+    try:
+        bpart1, _, _, _ = cli("batch_crashed", bargv, {"HPNN_FUSE_STATE": bstate},
+                              raises=RuntimeError)
+    finally:
+        bs.train_epoch_grid_banked = real_grid
+    with np.load(bstate, allow_pickle=False) as z:
+        check(int(z["done"]) == 2, f"batch crash checkpoint: done {int(z['done'])}")
+    bpart2, opt_br, _, _ = cli("batch_resumed", bargv, {"HPNN_FUSE_STATE": bstate})
+    check(epochs_of(bpart1) + epochs_of(bpart2) == epochs_of(out_b)
+          and len(epochs_of(out_b)) == EPOCHS,
+          "batch resume: the epoch tokens differ from the uninterrupted run's")
+    check(opt_br == opt_b, "batch resume: kernel.opt differs from the uninterrupted run's")
+    log(f"[resume] --batch {BATCH} --epochs {EPOCHS} on {N_BATCH_TRAIN} files: stopped after "
+        f"epoch 2 (blocks of 2), resumed: epoch tokens and kernel.opt byte-identical to "
+        f"the uninterrupted run ({secs_b:.2f} s)")
+
+    # 2. streaming: one launch of #1 a sample
+    before = convergence.launches
+    out_s, opt_s, secs_s, _ = cli("streaming", [], {"HPNN_FUSE_EPOCH": "0"})
+    launched = convergence.launches - before
+    check(launched == N_TRAIN_ANN, f"streaming: {launched} launches for {N_TRAIN_ANN} samples")
+    check(out_s == out_a and opt_s == opt_a,
+          "streaming: stdout or kernel.opt differs from the chunked card run")
+    stats["streaming"] = dict(seconds=secs_s, launches=launched, chunked_seconds=secs_a,
+                              chunked_launches=math.ceil(N_TRAIN_ANN / CHUNK))
+    log(f"[streaming] HPNN_FUSE_EPOCH=0: {launched} launches of #1 in {secs_s:.2f} s against "
+        f"the chunked run's {math.ceil(N_TRAIN_ANN / CHUNK)} in {secs_a:.2f} s; stdout and "
+        f"kernel.opt byte-identical")
+
+    # 3. float64 ledger and trace, the card against the CPU
+    f64 = {"HPNN_DTYPE": "float64", "HPNN_TRACE": "1"}
+    diffs = {}
+    for what, argv in (("per-sample", []), ("batch", bargv)):
+        runs = {}
+        for where, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            lpath = os.path.join(sdir, f"ledger_{what}_{where}.jsonl")
+            runs[where] = cli(f"f64_{what}_{where}", extra + argv,
+                              dict(f64, HPNN_LEDGER=lpath)) + (lpath,)
+        rc, report = ledger_diff(runs["cuda"][4], runs["cpu"][4])
+        check(rc == 0, f"{what} f64: ledger_diff card vs cpu exit {rc}:\n{report}")
+        ok, worst, n = traces_agree(runs["cuda"][0], runs["cpu"][0])
+        check(ok, f"{what} f64: #DBG lines of the card and the CPU disagree "
+                  f"(max |diff| {worst:.3e} over {n} lines)")
+        same_tokens = ([ln for ln in runs["cuda"][0].splitlines() if "#DBG" not in ln
+                        and "[GPU]" not in ln] ==
+                       [ln for ln in runs["cpu"][0].splitlines() if "#DBG" not in ln])
+        max_abs = re.search(r"max \|a-b\|: (\S+)", report).group(1)
+        diffs[what] = dict(ledger_max_abs_diff=float(max_abs), trace_max_abs_diff=worst,
+                           trace_lines=n, tokens_identical=same_tokens,
+                           cuda_seconds=runs["cuda"][2], cpu_seconds=runs["cpu"][2])
+        log(f"[ledger] {what} round in float64, card vs CPU: ledger_diff exit 0 (max |a-b| "
+            f"{max_abs}), {n} #DBG lines within 1e-12 (max |diff| {worst:.3e}), tokens "
+            f"{'byte-identical' if same_tokens else 'differ'}; card {runs['cuda'][2]:.2f} s, "
+            f"CPU {runs['cpu'][2]:.2f} s")
+    rng = np.random.default_rng(SEED + 11)   # phase 11's fleet data
+    Xf, Tf = make_dataset(np, rng, FLEET_ROWS, protos)
+    fks = [km.generate(SEED + i, N_IN, [N_HID], N_OUT)[0] for i in range(FLEET_MAIN_N)]
+    fkw = dict(epochs=FLEET_EPOCHS, batch=BATCH, lr=FLEET_LR, seeds=list(range(FLEET_MAIN_N)))
+    fl_paths = {}
+    for where in ("cuda", "cpu"):
+        fl_paths[where] = os.path.join(sdir, f"ledger_fleet_{where}.jsonl")
+        t0 = time.perf_counter()
+        with knobs(obs, {"HPNN_LEDGER": fl_paths[where]}):
+            fleet.train_fleet(fks, Xf, Tf, dtype="f64", device=where, **fkw)
+        diffs.setdefault("fleet", {})[f"{where}_seconds"] = time.perf_counter() - t0
+    rc, report = ledger_diff(fl_paths["cuda"], fl_paths["cpu"])
+    check(rc == 0, f"fleet f64: ledger_diff card vs cpu exit {rc}:\n{report}")
+    diffs["fleet"]["ledger_max_abs_diff"] = float(
+        re.search(r"max \|a-b\|: (\S+)", report).group(1))
+    log(f"[ledger] fleet of {FLEET_MAIN_N} in float64, card vs CPU: ledger_diff exit 0 over "
+        f"{FLEET_MAIN_N} member rows (max |a-b| {diffs['fleet']['ledger_max_abs_diff']:.3e})")
+    stats["card_vs_cpu_f64"] = diffs
+
+    # 4. obs leaves the tokens alone, and records MFU (a sink and a
+    # ledger per run: each starts its rows and span ids anew)
+    odir = os.path.join(sdir, "obs")
+    os.makedirs(odir)
+
+    def all_on(label):
+        return {"HPNN_METRICS": os.path.join(odir, f"metrics_{label}.jsonl"),
+                "HPNN_SPANS": "1", "HPNN_COST": "1", "HPNN_PROBES": "1",
+                "HPNN_LEDGER": os.path.join(odir, f"ledger_{label}.jsonl"),
+                "HPNN_FLIGHT": os.path.join(odir, f"flight_{label}.jsonl")}
+
+    out_o, opt_o, secs_o, _ = cli("obs", [], all_on("per-sample"))
+    check(out_o == out_a and opt_o == opt_a, "obs on: per-sample stdout or kernel.opt differs")
+    out_ob, opt_ob, secs_ob, _ = cli("obs_batch", bargv, all_on("batch"))
+    check(out_ob == out_b and opt_ob == opt_b, "obs on: batch stdout or kernel.opt differs")
+    plain = fleet.train_fleet(fks, Xf, Tf, **fkw)
+    t0 = time.perf_counter()
+    with knobs(obs, all_on("fleet")):
+        traced = fleet.train_fleet(fks, Xf, Tf, **fkw)
+    secs_of = time.perf_counter() - t0
+    check(all(np.array_equal(x, y) for ka, kb in zip(plain[0], traced[0])
+              for x, y in zip(ka.weights, kb.weights)), "obs on: the fleet's weights differ")
+    mfu = {}
+    for label, exe in (("per-sample", "driver.train_epoch"), ("batch", "batch.epoch"),
+                       ("fleet", "fleet.epoch")):
+        conf = all_on(label)
+        for ln in open(conf["HPNN_METRICS"]):
+            r = json.loads(ln)
+            if r["ev"] == "perf.mfu":
+                mfu.setdefault((r["exe"], r.get("kernel")), []).append(r["value"])
+        vals = [v for (e, _), vs in mfu.items() if e == exe for v in vs]
+        check(vals and all(math.isfinite(v) and v > 0 for v in vals),
+              f"metrics: no perf.mfu of {exe}")
+        for flag, path in (("--ledger", conf["HPNN_LEDGER"]), ("--perf", conf["HPNN_METRICS"])):
+            out = subprocess.run([sys.executable, os.path.join(ROOT, "tools",
+                                                               "check_obs_catalog.py"),
+                                  flag, path], capture_output=True, text=True, timeout=120,
+                                 cwd=ROOT)
+            check(out.returncode == 0,
+                  f"check_obs_catalog.py {flag} ({label}): {out.stderr.strip()}")
+    ledger_f32 = all_on("per-sample")["HPNN_LEDGER"]
+    stats["obs"] = dict(
+        per_sample_seconds=secs_o, per_sample_seconds_off=secs_a, batch_seconds=secs_ob,
+        batch_seconds_off=secs_b, fleet_seconds=secs_of,
+        mfu={f"{e} {k}": dict(n=len(v), mean=statistics.fmean(v), min=min(v), max=max(v))
+             for (e, k), v in mfu.items()})
+    log(f"[obs] every obs knob on (metrics, spans, cost, probes, ledger, flight): per-sample "
+        f"{secs_o:.2f} s (off {secs_a:.2f}), batch {secs_ob:.2f} s (off {secs_b:.2f}): stdout "
+        f"and kernel.opt byte-identical; fleet weights bitwise equal; check_obs_catalog.py "
+        f"--ledger and --perf pass")
+    for name, v in stats["obs"]["mfu"].items():
+        log(f"[obs] perf.mfu {name}: mean {v['mean']:.4e} over {v['n']} launches "
+            f"({v['min']:.4e}..{v['max']:.4e})")
+    rel = ledger_rel_dev(ledger_f32, os.path.join(sdir, "ledger_per-sample_cpu.jsonl"))
+    stats["f32_card_vs_f64_cpu_ledger_max_rel_dev"] = rel
+    log(f"[obs] per-sample ledger, card float32 vs CPU float64: max relative deviation "
+        f"{rel:.3e} (reported, not gated)")
+
+    # 5. the native parse
+    check(native.lib() is not None, "the native host library did not load")
+    times = {}
+    for what, d in (("batch", b_dir), ("per-sample", ps_dir)):
+        got = {}
+        # in turns: native, Python, Python, native
+        for walk in ("native", "python", "python", "native"):
+            with knobs(obs, {"HPNN_NO_NATIVE": "1"} if walk == "python" else {}):
+                t0 = time.perf_counter()
+                got[walk] = sample_io.read_dir(d)
+                times.setdefault(f"{what} {walk}", []).append(time.perf_counter() - t0)
+        a, b = got["native"], got["python"]
+        check(a[0] == b[0] and a[1].tobytes() == b[1].tobytes()
+              and a[2].tobytes() == b[2].tobytes(),
+              f"{what}: the native parse differs from the Python walk")
+        log(f"[native] {len(a[0])} {what} files: native parse "
+            f"{' / '.join(f'{t:.3f}' for t in times[what + ' native'])} s, Python walk "
+            f"{' / '.join(f'{t:.3f}' for t in times[what + ' python'])} s, bitwise equal")
+    out_np, _, secs_np, _ = cli("python_walk", [], {"HPNN_NO_NATIVE": "1"})
+    out_nb, _, secs_nb, _ = cli("python_walk_batch", bargv, {"HPNN_NO_NATIVE": "1"})
+    check(out_np == out_a and out_nb == out_b, "the Python walk's rounds print other tokens")
+    # --profile on the card: the trace holds #1's kernels and the
+    # chunks' ranges
+    out_p, opt_p, _, pdir = cli("profile", ["--profile", "trace"])
+    check(out_p == out_a and opt_p == opt_a, "--profile: stdout or kernel.opt differs")
+    events = json.load(open(os.path.join(pdir, "trace", "trace.json")))["traceEvents"]
+    n_kern = sum(1 for e in events if "convergence_cluster" in str(e.get("name", "")))
+    n_rng = sum(1 for e in events if str(e.get("name", "")).startswith("hpnn.fused_chunk#"))
+    check(n_kern >= math.ceil(N_TRAIN_ANN / CHUNK) and n_rng >= math.ceil(N_TRAIN_ANN / CHUNK),
+          f"--profile: {n_kern} convergence kernels and {n_rng} chunk ranges in the trace")
+    log(f"[obs] --profile: trace.json holds {n_kern} convergence_cluster kernel events and "
+        f"{n_rng} hpnn.fused_chunk ranges; stdout and kernel.opt byte-identical")
+    stats["native"] = dict(parse_s=times, per_sample_round_s=dict(native=secs_a,
+                                                                  python=secs_np),
+                           batch_round_s=dict(native=secs_b, python=secs_nb))
+    log(f"[native] round wall: per-sample {secs_np:.2f} s with the Python walk, {secs_a:.2f} s "
+        f"native; batch {secs_nb:.2f} s with the Python walk, {secs_b:.2f} s native; tokens "
+        f"byte-identical")
+    return stats
+
+
 # ---------------------------------------------------------------- phases
 def main() -> int:
     import argparse
@@ -983,6 +1299,7 @@ def main() -> int:
     from hpnn_tpu_torch.cli import run_nn, train_nn
     from hpnn_tpu_torch.fileio import kernel_format
     from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.obs.cost import bound_ms, work_of
     from hpnn_tpu_torch.ops import _build, convergence
     from hpnn_tpu_torch.train import loop
 
@@ -1000,13 +1317,16 @@ def main() -> int:
         f"cuda {torch.version.cuda} device {kind} count {torch.cuda.device_count()}")
     log(f"[probe] nvidia-smi: {smi}")
 
-    # 2. build: one nvcc per source, all started together
+    # 2. build: one nvcc per source and g++ for the host library, all
+    # started together
     t0 = time.perf_counter()
     builds = (("convergence", None), ("batch_step", None))
     if args.phase_split:
         builds += (("convergence", "HPNN_PHASE_CLOCKS"), ("batch_step", "HPNN_PHASE_CLOCKS"))
-    with concurrent.futures.ThreadPoolExecutor(len(builds)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(builds) + 1) as pool:
+        host = pool.submit(_build.build_host, "hpnn_native", force=True)
         list(pool.map(lambda b: _build.build(b[0], force=True, define=b[1]), builds))
+        host.result()
     for name, define in builds:
         _build.load(name, define)
         secs, out = _build.build_log[(name, define) if define else name]
@@ -1014,6 +1334,10 @@ def main() -> int:
         for line in out.splitlines():
             if "registers" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+    from hpnn_tpu_torch import native
+    check(native.lib() is not None, "the native host library (csrc/hpnn_native.cpp) did not load")
+    log(f"[build] hpnn_native.cpp built in {_build.build_log['hpnn_native'][0]:.1f} s and "
+        f"loaded: the sample parse, kernel dumps and shuffle run natively")
     log(f"[build] all sources in {time.perf_counter() - t0:.1f} s")
     from hpnn_tpu_torch.ops import batch_step
     for dtype, code in batch_step._DTYPE_CODE.items():
@@ -1255,6 +1579,11 @@ def main() -> int:
     check(fleet_launches["train_fleet_epoch_dbuf_banked"] > 0,
           "the fleet main path launched no train_fleet_epoch_dbuf_banked")
     fleet_times, fleet_cross = fleet_timing(np, torch, dev)
+
+    # 13. crash-resume, streaming, the float64 ledger card vs CPU, obs, native
+    t13 = time.perf_counter()
+    slice6 = resume_obs_native(np, torch, dev, protos)
+    log(f"[resume-obs-native] phase 13 in {time.perf_counter() - t13:.1f} s")
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -1282,6 +1611,7 @@ def main() -> int:
         "chunk_iters": chunk_iters,
         "main": main_stats,
         "by_config": timings,
+        "resume_obs_native": slice6,
     }]
     for name, replaces, on_path in BATCH_KERNELS:
         t = batch_times[name]

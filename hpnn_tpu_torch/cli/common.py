@@ -10,9 +10,14 @@ toggle, ``-O n``/``-On`` OMP threads, ``-B n``/``-Bn`` BLAS threads,
 Long options are pulled out first.  ``--device cpu|cuda`` (default
 ``cuda``) picks where the work runs; ``--batch N``, ``--epochs E`` and
 ``--lr X`` select minibatch training (``train_nn``) and ``--batch`` the
-batched eval (``run_nn``).  The JAX package's other long options
-belong to paths this package does not have yet and are refused with a
-message, as are the environment knobs of those paths.
+batched eval (``run_nn``).  The observability options are the JAX
+package's: ``--metrics PATH`` (``HPNN_METRICS``), ``--ledger PATH``
+(``HPNN_LEDGER``), ``--numerics warn|abort`` (``HPNN_NUMERICS``),
+``--export-port N`` (a live ``/metrics`` endpoint) and ``--profile DIR``
+(a ``torch.profiler`` trace of the workload).  ``--mesh`` belongs to a
+path this package does not have yet and is refused with a message, as
+are the environment knobs of the JAX package's unported planes
+(``runtime.DEFERRED_ENV``).
 """
 
 from __future__ import annotations
@@ -27,12 +32,9 @@ DEVICES = ("cpu", "cuda")
 # long option -> the path of the JAX package it belongs to
 DEFERRED_OPTS = {
     "mesh": "tensor parallelism (--mesh)",
-    "profile": "profiling (--profile)",
-    "metrics": "observability (--metrics)",
-    "export-port": "observability (--export-port)",
-    "ledger": "observability (--ledger)",
-    "numerics": "observability (--numerics)",
 }
+# the observability options both CLIs take (valued)
+OBS_OPTS = ("metrics", "ledger", "numerics", "export-port", "profile")
 
 
 def install_sigpipe_handler() -> None:
@@ -132,7 +134,56 @@ def check_supported(opts: dict, prog: str) -> bool:
     if dev is not None and dev not in DEVICES:
         sys.stderr.write(f"syntax error: bad --device parameter (want cpu|cuda)!\n")
         return False
+    port = opts.get("export-port")
+    if port is not None and (not str(port).isdigit() or int(port) > 65535):
+        sys.stderr.write("syntax error: bad --export-port parameter!\n")
+        return False
+    if opts.get("numerics") not in (None, "warn", "abort"):
+        sys.stderr.write(
+            "syntax error: bad --numerics parameter (want warn|abort)!\n")
+        return False
     return True
+
+
+def configure_obs(opts: dict, prog: str):
+    """Apply the observability options (each flag wins over its env
+    knob) and start the ``--export-port`` server.  Returns ``(ok,
+    server)``: ``ok`` False (message printed) when the port cannot be
+    bound; ``server`` the running server or None."""
+    from hpnn_tpu_torch import obs
+
+    if "metrics" in opts:
+        obs.configure(opts["metrics"])
+    if "ledger" in opts:
+        obs.ledger.configure(opts["ledger"])
+    if "numerics" in opts:
+        obs.probes.configure_mode(opts["numerics"])
+    if "export-port" not in opts:
+        return True, None
+    try:
+        server = obs.export.start_export_server(port=int(opts["export-port"]))
+    except OSError as exc:
+        sys.stderr.write(f"{prog}: cannot bind --export-port: {exc}\n")
+        return False, None
+    host, port = server.server_address[:2]
+    sys.stderr.write(f"{prog}: metrics export on http://{host}:{port}/metrics\n")
+    return True, server
+
+
+def run_workload(opts: dict, work):
+    """``work()`` inside the ``--profile`` trace.  A numerics-sentinel
+    abort prints its message and returns -1 (the events, the sink flush
+    and the flight dump already happened); otherwise returns
+    ``work()``'s value."""
+    from hpnn_tpu_torch import obs
+    from hpnn_tpu_torch.obs import profiler
+
+    try:
+        with profiler.trace(opts.get("profile")):
+            return work()
+    except obs.probes.NumericsError as exc:
+        sys.stderr.write(f"FAILED: numerics sentinel abort: {exc}\n")
+        return -1
 
 
 def resolve_device(opts: dict, prog: str):

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from hpnn_tpu_torch import native
 from hpnn_tpu_torch.fileio import samples
 
 
@@ -156,4 +157,7 @@ def dump_kernel(name: str, weights: list[np.ndarray], fp) -> None:
         for j in range(n):
             fp.write(f"[neuron {j + 1}] {m}\n")
             # %17.15f per weight, space separated (ref: src/ann.c:820-824)
-            fp.write(" ".join("%17.15f" % v for v in w[j]) + "\n")
+            text = native.format_row(w[j])
+            if text is None:
+                text = " ".join("%17.15f" % v for v in w[j]) + "\n"
+            fp.write(text)

@@ -21,6 +21,7 @@ import sys
 
 import numpy as np
 
+from hpnn_tpu_torch import native
 from hpnn_tpu_torch.utils import logging as log
 
 # strtod: optional whitespace then a decimal number ("inf"/"nan"/hex
@@ -81,10 +82,17 @@ def parse_row(line: str, n: int) -> np.ndarray | None:
     * a line with fewer than ``n`` values yields 0.0 for the missing
       ones.
 
+    The native library's walk (``native.parse_doubles``) gives the same
+    values; this Python walk runs without it (``HPNN_NO_NATIVE=1``).
+
     Returns None only for an absurd ``n`` (see ``_SANE_ROW``)."""
     if n > max(len(line) // 2 + 1, _SANE_ROW):
         return None
     out = np.zeros(n, dtype=np.float64)
+    row = native.parse_doubles(line, n)
+    if row is not None:
+        out[: row.size] = row
+        return out
     raw = line.encode() if isinstance(line, str) else line
     pos, limit = 0, len(raw)
     # SKIP_BLANK runs once BEFORE the first GET_DOUBLE (ref:

@@ -198,28 +198,38 @@ def compute_dtype(device: torch.device) -> torch.dtype:
 
 # ----------------------------------------------------- knobs of other paths
 # environment knob -> (value that selects the missing path or None for
-# any value, the path)
+# any value, the path): the JAX package's fleet-telemetry, forensics,
+# drift, meter, blame and tuning planes, which its obs registry arms and
+# this package has not ported
+_PLANES = "the JAX package's fleet-telemetry and tuning planes"
 DEFERRED_ENV = {
-    "HPNN_FUSE_STATE": (None, "fused-round crash-resume"),
-    "HPNN_FUSE_EPOCH": ("0", "the streaming per-sample path"),
-    "HPNN_PALLAS": ("1", "the streaming per-sample path"),
-    "HPNN_METRICS": (None, "observability"),
-    "HPNN_LEDGER": (None, "observability"),
-    "HPNN_PROBES": (None, "observability"),
-    "HPNN_NUMERICS": (None, "observability"),
-    "HPNN_SPANS": (None, "observability"),
-    "HPNN_COST": (None, "observability"),
-    "HPNN_TRACE": (None, "observability"),
+    "HPNN_COLLECTOR": (None, _PLANES),
+    "HPNN_ALERTS": (None, _PLANES),
+    "HPNN_CAPSULE_DIR": (None, _PLANES),
+    "HPNN_METER": (None, _PLANES),
+    "HPNN_BLAME": (None, _PLANES),
+    "HPNN_DRIFT": (None, _PLANES),
+    "HPNN_SAMPLE": (None, _PLANES),
+    "HPNN_TUNE": (None, _PLANES),
 }
 
 
-def deferred_env_message(prog: str, paths=None) -> str | None:
-    """The refusal of the first set knob of :data:`DEFERRED_ENV` (of
-    those selecting one of ``paths``, when given), or None: the CLIs and
-    the library entry points refuse such a knob, never ignore it."""
+def deferred_env_message(prog: str) -> str | None:
+    """The refusal of the first set knob of :data:`DEFERRED_ENV`, or
+    None: the CLIs and the library entry points refuse such a knob,
+    never ignore it."""
     for knob, (value, path) in DEFERRED_ENV.items():
         cur = os.environ.get(knob)
-        if cur and (value is None or cur == value) and (paths is None or path in paths):
+        if cur and (value is None or cur == value):
             return (f"{prog}: {knob}={cur} selects {path}, which "
                     f"hpnn_tpu_torch does not have yet; unset it")
     return None
+
+
+def refuse_deferred(prog: str) -> None:
+    """Raise ``NotImplementedError`` with :func:`deferred_env_message`
+    when a knob of :data:`DEFERRED_ENV` is set (the library entry
+    points' refusal)."""
+    msg = deferred_env_message(prog)
+    if msg:
+        raise NotImplementedError(msg)

@@ -30,18 +30,30 @@ per-member baseline (:func:`make_member_epoch_fn`,
 once per member and epoch.  The epoch functions update the stacked
 weights (and dw) IN PLACE and return them.
 
-Not ported: the obs calls and the parity-ledger rows (``HPNN_METRICS``,
-``HPNN_LEDGER``, ``HPNN_PROBES``, ...: a set knob is refused, never
-ignored), and ``dtype="bf16"``, which raises until a bf16 build of the
+Parity mode: with ``HPNN_LEDGER`` (or ``HPNN_PROBES``/``HPNN_NUMERICS``)
+set, :func:`train_fleet`, :func:`train_fleet_multi` and
+:func:`train_sequential` write one ``ledger.round`` row per member, in
+member order, from the members' final weights, so ``tools/ledger_diff.py``
+pairs a fleet ledger with a sequential one, a card run's with a CPU
+run's, and the port's with the JAX package's.  Observability as in the
+JAX package: ``fleet.size`` gauge, ``fleet.round`` / ``fleet.multi_round``
+/ ``fleet.sequential`` events, ``train.fleet_round`` /
+``train.multi_round`` / ``train.member_round`` spans, and under
+``HPNN_COST`` the ``perf.*`` gauges of every launch of #6
+(``fleet.epoch``) and #4 (``fleet.member_epoch``).
+
+Not ported: ``dtype="bf16"``, which raises until a bf16 build of the
 kernel exists.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
-from hpnn_tpu_torch import runtime
+from hpnn_tpu_torch import obs, runtime
 from hpnn_tpu_torch.models import kernel as kernel_mod
 from hpnn_tpu_torch.ops import batch_step
 from hpnn_tpu_torch.parallel import dp
@@ -79,12 +91,6 @@ def _train_dtype(name, dev):
             "dtype='bf16' is not ported yet: the fleet kernel is built for "
             "float32 and float64 (pass 'f32' or 'f64')")
     return _TORCH_DTYPES[name]
-
-
-def _refuse_deferred(prog: str) -> None:
-    msg = runtime.deferred_env_message(prog, paths=("observability",))
-    if msg:
-        raise NotImplementedError(msg)
 
 
 # ------------------------------------------------------------------ stacking
@@ -198,6 +204,20 @@ def _epoch_setup(n_steps, model, momentum, lr, alpha, count):
     return kw, counter if count else None, batch_of
 
 
+def _timed(name, fn, weights, n_steps, batch, members, momentum, kernel):
+    """One launch, recorded under ``HPNN_COST`` against ``members``
+    times one member's epoch of work (``obs.cost.batch_work``)."""
+    if not obs.cost.enabled():
+        return fn()
+    nbytes, flops = obs.cost.batch_work(
+        [tuple(w.shape) for w in weights], n_steps, momentum,
+        weights[0].element_size(), batch)
+    return obs.cost.timed_launch(
+        name, fn, nbytes=members * nbytes, flops=members * flops,
+        dtype=weights[0].dtype, device=weights[0].device, kernel=kernel,
+        members=members)
+
+
 def make_member_epoch_fn(n_steps: int, *, model: str = "ann",
                          momentum: bool = False, lr: float | None = None,
                          alpha: float = 0.2, count: bool = True):
@@ -215,8 +235,10 @@ def make_member_epoch_fn(n_steps: int, *, model: str = "ann",
             idx = torch.from_numpy(perms[g]).to(device=X.device, dtype=torch.long)
             Xp, Tp = X[idx], T[idx]
             for r in range(orders.shape[1]):
-                losses.append(batch_step.train_epoch_grid_banked(
-                    weights, dw, Xp, Tp, orders[g, r], batch=B, **kw)[2])
+                losses.append(_timed(
+                    "fleet.member_epoch", lambda: batch_step.train_epoch_grid_banked(
+                        weights, dw, Xp, Tp, orders[g, r], batch=B, **kw)[2],
+                    weights, n_steps, B, 1, momentum, "train_epoch_grid_banked"))
                 counts.append(torch.zeros((), dtype=torch.int32, device=X.device)
                               if counter is None else counter(weights, X, T))
         return weights, dw, torch.stack(losses), torch.stack(counts)
@@ -245,9 +267,12 @@ def make_fleet_epoch_fn(n_steps: int, *, model: str = "ann",
             idx = torch.from_numpy(perms[:, g]).to(device=X.device, dtype=torch.long)
             X_banks, T_banks = X[idx], T[idx]
             for r in range(orders.shape[2]):
-                losses.append(batch_step.train_fleet_epoch_dbuf_banked(
-                    stacked_w, stacked_dw, X_banks, T_banks, orders[:, g, r],
-                    batch=B, **kw)[2])
+                losses.append(_timed(
+                    "fleet.epoch", lambda: batch_step.train_fleet_epoch_dbuf_banked(
+                        stacked_w, stacked_dw, X_banks, T_banks, orders[:, g, r],
+                        batch=B, **kw)[2],
+                    [w[0] for w in stacked_w], n_steps, B, n, momentum,
+                    "train_fleet_epoch_dbuf_banked"))
                 # each member counted on its own copy of its weights: the
                 # operands a standalone run's count sees, so the counts
                 # agree bitwise with train_sequential's too
@@ -296,7 +321,7 @@ def _zeros_dw(stacked_or_weights, momentum: bool):
 def _setup(prog, kernels, X, T, dtype, device):
     """Refusals, then the device, compute dtype, members' host dtype
     and the data as tensors."""
-    _refuse_deferred(prog)
+    runtime.refuse_deferred(prog)
     dev = runtime.resolve_device(device)
     cdt = _train_dtype(dtype, dev)
     _check_same_topology(kernels)
@@ -315,6 +340,18 @@ def _result(stacked, losses, counts, host_dtype, dtype):
     if dtype is not None:
         losses = losses.float()
     return out, losses.cpu().numpy(), counts.cpu().numpy()
+
+
+def _record_member_rows(kernels, *, step):
+    """Parity hook: one numerics check (one ``ledger.round`` row) per
+    member, in member order; no work unless a numerics knob is set."""
+    for k in kernels:
+        obs.probes.check_weights(k.weights, step=step, where="fleet_round")
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 def _seeds(seeds, n):
@@ -343,10 +380,20 @@ def train_fleet(kernels, X, T, *, epochs: int, batch: int, seeds=None,
     dw = _zeros_dw(stacked, momentum)
     perms, orders = fleet_plan(seeds, n_rows=Xd.shape[0], batch=batch,
                                epochs=epochs, refresh=refresh)
-    fn = make_fleet_epoch_fn(Xd.shape[0] // batch, model=model, momentum=momentum,
+    n, n_steps = len(kernels), Xd.shape[0] // batch
+    fn = make_fleet_epoch_fn(n_steps, model=model, momentum=momentum,
                              lr=lr, alpha=alpha, count=count)
-    stacked, dw, losses, counts = fn(stacked, dw, Xd, Td, perms, orders)
-    return _result(stacked, losses, counts, host_dtype, dtype)
+    obs.gauge("fleet.size", n, where="train")
+    with obs.spans.span("train.fleet_round", members=n, epochs=epochs, mode="fleet"):
+        t0 = time.perf_counter()
+        stacked, dw, losses, counts = fn(stacked, dw, Xd, Td, perms, orders)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    obs.event("fleet.round", members=n, epochs=epochs, batch=batch, steps=n_steps,
+              mode="fleet", dispatch_s=round(dt, 6), dtype=dtype or str(host_dtype))
+    out = _result(stacked, losses, counts, host_dtype, dtype)
+    _record_member_rows(out[0], step=epochs)
+    return out
 
 
 def train_fleet_multi(kernels, X, T, *, rounds: int, epochs: int,
@@ -374,11 +421,24 @@ def train_fleet_multi(kernels, X, T, *, rounds: int, epochs: int,
     dw = _zeros_dw(stacked, momentum)
     perms, orders = multi_round_plan(seed_rounds, n_rows=Xd.shape[0], batch=batch,
                                      epochs=epochs, refresh=refresh)
-    fn = make_fleet_multi_round_fn(Xd.shape[0] // batch, model=model,
-                                   momentum=momentum, lr=lr, alpha=alpha,
-                                   count=count)
-    stacked, dw, losses, counts = fn(stacked, dw, Xd, Td, perms, orders)
-    return _result(stacked, losses, counts, host_dtype, dtype)
+    n_steps = Xd.shape[0] // batch
+    fn = make_fleet_multi_round_fn(n_steps, model=model, momentum=momentum,
+                                   lr=lr, alpha=alpha, count=count)
+    obs.gauge("fleet.size", n, where="train_multi")
+    with obs.spans.span("train.multi_round", members=n, k=rounds, epochs=epochs,
+                        mode="multi_round"):
+        t0 = time.perf_counter()
+        stacked, dw, losses, counts = fn(stacked, dw, Xd, Td, perms, orders)
+        _sync(dev)
+        dt = time.perf_counter() - t0
+    obs.event("fleet.multi_round", members=n, k=rounds, epochs=epochs, batch=batch,
+              steps=n_steps, mode="multi_round", dispatch_s=round(dt, 6),
+              dtype=dtype or str(host_dtype))
+    out = _result(stacked, losses, counts, host_dtype, dtype)
+    # one row per member from the final weights: a multi-round ledger
+    # pairs with the LAST round of a sequential baseline
+    _record_member_rows(out[0], step=rounds * epochs)
+    return out
 
 
 def quant_probe_fleet(kernels, X, T, *, epochs: int, batch: int,
@@ -400,6 +460,8 @@ def quant_probe_fleet(kernels, X, T, *, epochs: int, batch: int,
             d = np.max(np.abs(np.asarray(wl, dtype=np.float64)
                               - np.asarray(wr, dtype=np.float64)))
             err = max(err, float(d))
+    obs.gauge("numerics.quant_err", err, where="fleet", dtype=dtype,
+              members=len(kernels), epochs=epochs)
     return out_low, out_ref, err
 
 
@@ -414,16 +476,26 @@ def train_sequential(kernels, X, T, *, epochs: int, batch: int,
     seeds = _seeds(seeds, len(kernels))
     dev, cdt, host_dtype, Xd, Td = _setup("train_sequential", kernels, X, T,
                                           None, device)
-    fn = make_member_epoch_fn(Xd.shape[0] // batch, model=model, momentum=momentum,
+    n_steps = Xd.shape[0] // batch
+    fn = make_member_epoch_fn(n_steps, model=model, momentum=momentum,
                               lr=lr, alpha=alpha, count=count)
+    obs.gauge("fleet.size", len(kernels), where="train_sequential")
     out, all_losses, all_counts = [], [], []
-    for k, seed in zip(kernels, seeds):
+    t0 = time.perf_counter()
+    for i, (k, seed) in enumerate(zip(kernels, seeds)):
         perms, orders = member_plan(int(seed), n_rows=Xd.shape[0], batch=batch,
                                     epochs=epochs, refresh=refresh)
         w, _ = kernel_mod.to_torch(k.weights, device=dev, dtype=cdt)
-        w, dw, losses, counts = fn(w, _zeros_dw(w, momentum), Xd, Td, perms, orders)
+        with obs.spans.span("train.member_round", member=i, epochs=epochs,
+                            mode="sequential"):
+            w, dw, losses, counts = fn(w, _zeros_dw(w, momentum), Xd, Td, perms, orders)
+            _sync(dev)
         out.append(kernel_mod.Kernel(tuple(
             t.cpu().numpy().astype(host_dtype) for t in w)))
         all_losses.append(losses.cpu().numpy())
         all_counts.append(counts.cpu().numpy())
+    obs.event("fleet.sequential", members=len(kernels), epochs=epochs, batch=batch,
+              steps=n_steps, mode="sequential",
+              dispatch_s=round(time.perf_counter() - t0, 6))
+    _record_member_rows(out, step=epochs)
     return out, np.stack(all_losses), np.stack(all_counts)

@@ -9,12 +9,14 @@ for two observable behaviors that must reproduce seed-for-seed:
   with rejection of already-drawn slots
   (ref: libhpnn src/libhpnn.c:1218-1229).
 
-Pure Python: glibc's default TYPE_3 generator (degree 31, separation 3,
+glibc's default TYPE_3 generator (degree 31, separation 3,
 310 warm-up discards), with Python integers making the int32/uint32
 wrap semantics explicit.
 """
 
 from __future__ import annotations
+
+from hpnn_tpu_torch import native
 
 RAND_MAX = 2147483647
 
@@ -88,7 +90,12 @@ def shuffled_order(seed: int, n: int) -> list[int]:
 
     Draw random slots in [0, n) with rejection of already-drawn slots
     until all n are drawn (ref: libhpnn src/libhpnn.c:1218-1229).
+    The native library draws the same order at C speed (the rejection
+    loop draws O(n log n) slots); the Python loop runs without it.
     """
+    arr = native.glibc_shuffle(seed, n)
+    if arr is not None:
+        return [int(i) for i in arr]
     rng = GlibcRandom(seed)
     taken = [False] * n
     order: list[int] = []

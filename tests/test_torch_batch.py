@@ -31,12 +31,24 @@ from hpnn_tpu_torch.ops import batch_step
 from hpnn_tpu_torch.train import batch
 
 @pytest.fixture(autouse=True)
-def _no_deferred_knobs(monkeypatch):
-    """The port refuses the knobs it has not ported (runtime.DEFERRED_ENV),
-    and a test elsewhere in the process may have left one set
-    (``hpnn_tpu.obs.configure`` exports HPNN_METRICS)."""
-    for knob in runtime.DEFERRED_ENV:
+def _no_obs_knobs(monkeypatch):
+    """The port refuses the knobs of the JAX package's unported planes
+    (runtime.DEFERRED_ENV), and its own obs knobs are memoized process
+    state: a test elsewhere in this worker may have left one set
+    (``hpnn_tpu.obs.configure`` exports HPNN_METRICS), and a ``--metrics``
+    or ``--ledger`` flag here exports one.  Clear them all and forget
+    the port's memos before the test; drop what the test exported and
+    forget again after it."""
+    from hpnn_tpu_torch import obs as port_obs
+
+    for knob in (*runtime.DEFERRED_ENV, *port_obs.ENV_KNOBS, "HPNN_FUSE_STATE",
+                 "HPNN_FUSE_EPOCH", "HPNN_PALLAS"):
         monkeypatch.delenv(knob, raising=False)
+    port_obs._reset_for_tests()
+    yield
+    for knob in port_obs.ENV_KNOBS:
+        os.environ.pop(knob, None)
+    port_obs._reset_for_tests()
 
 
 CONF = ("[name] V\n[type] {kind}\n[init] generate\n[seed] 1234\n[input] 8\n"

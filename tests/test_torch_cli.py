@@ -18,12 +18,24 @@ from hpnn_tpu_torch.ops import convergence
 
 
 @pytest.fixture(autouse=True)
-def _no_deferred_knobs(monkeypatch):
-    """The port refuses the knobs it has not ported (runtime.DEFERRED_ENV),
-    and a test elsewhere in the process may have left one set
-    (``hpnn_tpu.obs.configure`` exports HPNN_METRICS)."""
-    for knob in runtime.DEFERRED_ENV:
+def _no_obs_knobs(monkeypatch):
+    """The port refuses the knobs of the JAX package's unported planes
+    (runtime.DEFERRED_ENV), and its own obs knobs are memoized process
+    state: a test elsewhere in this worker may have left one set
+    (``hpnn_tpu.obs.configure`` exports HPNN_METRICS), and a ``--metrics``
+    or ``--ledger`` flag here exports one.  Clear them all and forget
+    the port's memos before the test; drop what the test exported and
+    forget again after it."""
+    from hpnn_tpu_torch import obs as port_obs
+
+    for knob in (*runtime.DEFERRED_ENV, *port_obs.ENV_KNOBS, "HPNN_FUSE_STATE",
+                 "HPNN_FUSE_EPOCH", "HPNN_PALLAS"):
         monkeypatch.delenv(knob, raising=False)
+    port_obs._reset_for_tests()
+    yield
+    for knob in port_obs.ENV_KNOBS:
+        os.environ.pop(knob, None)
+    port_obs._reset_for_tests()
 
 
 CONF = ("[name] V\n[type] {kind}\n[init] generate\n[seed] 1234\n[input] 8\n"
@@ -125,10 +137,10 @@ def test_missing_cuda_is_an_error(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("argv,env", [
     (["--batch", "4", "--mesh", "1x1", "--device", "cpu"], {}),
     (["--mesh", "1x2", "--device", "cpu"], {}),
-    (["--profile", "trace", "--device", "cpu"], {}),
+    (["--mesh", "1x2", "--metrics", "m.jsonl", "--device", "cpu"], {}),
     (["--device", "tpu"], {}),
-    (["--device", "cpu"], {"HPNN_FUSE_STATE": "state.npz"}),
-    (["--device", "cpu"], {"HPNN_FUSE_EPOCH": "0"}),
+    (["--device", "cpu"], {"HPNN_COLLECTOR": "http://localhost:8790"}),
+    (["--device", "cpu"], {"HPNN_ALERTS": "rules.json"}),
 ])
 def test_unported_options_are_refused(tmp_path, monkeypatch, capsys, argv, env):
     monkeypatch.chdir(tmp_path)

@@ -18,6 +18,8 @@ plain twin of kernel #6) held against the JAX package on the CPU.
 Inputs are made from a seed with numpy and handed to both packages.
 """
 
+import os
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -32,12 +34,24 @@ from hpnn_tpu_torch.train import fleet
 
 
 @pytest.fixture(autouse=True)
-def _no_deferred_knobs(monkeypatch):
-    """The port refuses the knobs it has not ported (runtime.DEFERRED_ENV),
-    and a test elsewhere in the process may have left one set
-    (``hpnn_tpu.obs.configure`` exports HPNN_METRICS)."""
-    for knob in runtime.DEFERRED_ENV:
+def _no_obs_knobs(monkeypatch):
+    """The port refuses the knobs of the JAX package's unported planes
+    (runtime.DEFERRED_ENV), and its own obs knobs are memoized process
+    state: a test elsewhere in this worker may have left one set
+    (``hpnn_tpu.obs.configure`` exports HPNN_METRICS), and a ``--metrics``
+    or ``--ledger`` flag here exports one.  Clear them all and forget
+    the port's memos before the test; drop what the test exported and
+    forget again after it."""
+    from hpnn_tpu_torch import obs as port_obs
+
+    for knob in (*runtime.DEFERRED_ENV, *port_obs.ENV_KNOBS, "HPNN_FUSE_STATE",
+                 "HPNN_FUSE_EPOCH", "HPNN_PALLAS"):
         monkeypatch.delenv(knob, raising=False)
+    port_obs._reset_for_tests()
+    yield
+    for knob in port_obs.ENV_KNOBS:
+        os.environ.pop(knob, None)
+    port_obs._reset_for_tests()
 
 
 MODES = [("ann", False), ("ann", True), ("snn", False), ("snn", True)]
@@ -259,12 +273,13 @@ def test_train_fleet_refusals(monkeypatch):
         fleet.quant_probe_fleet(ks, X, T, epochs=1, batch=2, device="cpu")
     with pytest.raises(ValueError, match="unknown train dtype"):
         fleet.train_fleet(ks, X, T, epochs=1, batch=2, dtype="f16", device="cpu")
-    monkeypatch.setenv("HPNN_LEDGER", "ledger.jsonl")
-    with pytest.raises(NotImplementedError, match="HPNN_LEDGER=ledger.jsonl selects observability"):
+    monkeypatch.setenv("HPNN_METER", "1")
+    with pytest.raises(NotImplementedError,
+                       match="HPNN_METER=1 selects the JAX package's fleet-telemetry"):
         fleet.train_fleet(ks, X, T, epochs=1, batch=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="observability"):
+    with pytest.raises(NotImplementedError, match="tuning planes"):
         fleet.train_sequential(ks, X, T, epochs=1, batch=2, device="cpu")
-    monkeypatch.delenv("HPNN_LEDGER")
+    monkeypatch.delenv("HPNN_METER")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(runtime.DeviceUnavailable):
         fleet.train_fleet(ks, X, T, epochs=1, batch=2)

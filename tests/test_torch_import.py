@@ -28,6 +28,19 @@ MODULES = (
     "hpnn_tpu_torch.train.driver",
     "hpnn_tpu_torch.train.batch",
     "hpnn_tpu_torch.train.fleet",
+    "hpnn_tpu_torch.native",
+    "hpnn_tpu_torch.obs",
+    "hpnn_tpu_torch.obs.cost",
+    "hpnn_tpu_torch.obs.device",
+    "hpnn_tpu_torch.obs.export",
+    "hpnn_tpu_torch.obs.flight",
+    "hpnn_tpu_torch.obs.ledger",
+    "hpnn_tpu_torch.obs.probes",
+    "hpnn_tpu_torch.obs.profiler",
+    "hpnn_tpu_torch.obs.registry",
+    "hpnn_tpu_torch.obs.spans",
+    "hpnn_tpu_torch.utils.debug",
+    "hpnn_tpu_torch.utils.trace",
 )
 
 # an import statement naming jax or the JAX package (hpnn_tpu_torch is
