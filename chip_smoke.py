@@ -76,6 +76,19 @@ Phases (any failure exits non-zero and prints no result line):
    native host library parses the 4096-file bank bitwise as the Python
    walk does, both timed, with both rounds' wall times.
 
+14. serve — the serve stack (``hpnn_tpu_torch.serve``) at 784-300-10,
+   ANN (phase 4's trained kernel.opt) and SNN (the generated kernel):
+   one CUDA graph a (kernel, bucket) captured at warmup and none after;
+   graph replay against the eager batched forward on every bucket; the
+   bench twin's headline load (16 clients x 25 requests of 1/2/4/8
+   rows, max_batch 64, 2 ms wait) with one replay a bucket dispatch and
+   every answer held to the CPU's float64 parity answer; one replay's
+   time a bucket against one eager launch; the bf16/int8 policies'
+   quant_err within docs/performance.md's bounds; 8 same-topology
+   kernels through one stacked fleet graph; a hot reload mid-load whose
+   answers are each the old or the new version's; a 2-replica router;
+   ``serve_nn`` in its own process over HTTP.
+
 The last two lines are the kernel table and the device line.
 
 ``--phase-split`` also builds the phase-clock variants
@@ -1277,6 +1290,473 @@ def resume_obs_native(np, torch, dev, protos):
 
 
 # ---------------------------------------------------------------- phases
+# ------------------------------------------------------------ serving
+# Phase 14: hpnn_tpu_torch.serve.  The card's float32 answers against the
+# CPU's float64 parity answers on the same rows: a 784-300-10 forward
+# moves ~1e-7 relative per float32 operation, so 1e-5 absolute on
+# outputs in (-1, 1) is far above that rounding and far below a real
+# fault (a wrong term is O(1e-2)).  SNN: its softmax row sum (10 terms
+# in float32, in the card's order) adds ~1e-7 relative on outputs in
+# (0, 1); the band is the same 1e-5.
+SERVE_TOL, SERVE_SNN_TOL = 1e-5, 1e-5
+SERVE_MAX_BATCH, SERVE_WAIT_MS = 64, 2.0
+SERVE_CLIENTS, SERVE_REQUESTS, SERVE_ROWS = 16, 25, (1, 2, 4, 8)
+SERVE_FLEET_N = 8
+SERVE_TIMED_REPLAYS = 200
+# docs/performance.md's documented bounds on the warmup probe
+QUANT_BOUND = {"bf16": 1e-1, "int8": 2e-1}
+
+
+def serve_rows_ref(cpu_sess, name, xs):
+    """CPU float64 parity answers of the blocks ``xs``, one block each."""
+    entry = cpu_sess.registry.get(name)
+    return [cpu_sess.engine.run_rows(entry, x) for x in xs]
+
+
+def serve_split(np, obs, load, label):
+    """Run ``load()`` with ``HPNN_METRICS`` on and split the mean request
+    time from the sink: queue wait (submit to the batch's pop), the
+    batch's forward (pad, copy in, replay, copy out) and the rest
+    (waking the client, the GIL, the router's hop)."""
+    sink = os.path.join(WORK, f"serve_obs_{label}.jsonl")
+    with knobs(obs, {"HPNN_METRICS": sink}):
+        load()
+    recs = [json.loads(ln) for ln in open(sink)]
+    req = [r["dt"] for r in recs if r["ev"] == "serve.request" and r["kind"] == "timer"]
+    waits = [r for r in recs if r["ev"] == "serve.wait_ms"]
+    fwd = [r["dt"] for r in recs if r["ev"] == "serve.forward"]
+    sizes = [r for r in recs if r["ev"] == "serve.batch_size"]
+    check(len(req) == SERVE_CLIENTS * SERVE_REQUESTS and waits and fwd,
+          f"{label}: the obs sink holds {len(req)} serve.request timers")
+    split = dict(request_ms=float(np.mean(req)) * 1e3,
+                 queue_wait_ms=sum(w["sum"] for w in waits) / sum(w["n"] for w in waits),
+                 forward_ms=float(np.mean(fwd)) * 1e3, batches=len(fwd),
+                 requests_per_batch=float(np.mean([r["requests"] for r in sizes])),
+                 rows_per_batch=float(np.mean([r["mean"] for r in sizes])))
+    split["rest_ms"] = split["request_ms"] - split["queue_wait_ms"] - split["forward_ms"]
+    log(f"[serve] {label}: ann request, mean of {len(req)} (HPNN_METRICS on): "
+        f"{split['request_ms']:.3f} ms = queue wait {split['queue_wait_ms']:.3f} + forward "
+        f"{split['forward_ms']:.3f} ({split['batches']} batches of "
+        f"{split['requests_per_batch']:.1f} requests, {split['rows_per_batch']:.1f} rows) + "
+        f"the rest {split['rest_ms']:.3f}")
+    return split
+
+
+def serve_timing(np, torch, eng, entry):
+    """Per bucket: one graph replay (CUDA events over
+    SERVE_TIMED_REPLAYS replays) against one eager launch of the same
+    batched forward on the same static input, a whole dispatch's wall
+    time (copy-in, replay, copy-out), and the bound."""
+    from hpnn_tpu_torch.obs.cost import bound_ms, forward_work
+    from hpnn_tpu_torch.serve import engine as eng_mod
+
+    weights = eng._device_weights(entry)
+    model = eng_mod._model_of(entry)
+    shapes = [tuple(w.shape) for w in entry.kernel.weights]
+    rng = np.random.default_rng(SEED)
+    out = {}
+    for bucket in eng.buckets:
+        g = eng._compiled_forward(entry, bucket, np.float64)
+        n = SERVE_TIMED_REPLAYS
+
+        def replays(g=g, n=n):
+            for _ in range(n):
+                g.graph.replay()
+
+        def eager(g=g, n=n):
+            with torch.no_grad():
+                for _ in range(n):
+                    eng_mod.batch_forward(model, weights, g.static_in)
+
+        by = {"replay": [], "eager": []}
+        for k in ("replay", "eager", "eager", "replay"):
+            by[k].append(cuda_ms(torch, replays if k == "replay" else eager) / n * 1e3)
+        block = rng.uniform(-1.0, 1.0, (bucket, entry.n_inputs))
+        walls = []
+        for _ in range(21):
+            t0 = time.perf_counter()
+            eng.run_rows(entry, block)
+            walls.append((time.perf_counter() - t0) * 1e6)
+        nbytes, flops = forward_work(shapes, bucket, 4)
+        b_ms, b_by = bound_ms(nbytes, flops, "float32")
+        out[bucket] = dict(replay_us=statistics.median(by["replay"]),
+                           eager_us=statistics.median(by["eager"]),
+                           dispatch_us=statistics.median(walls), bound_us=b_ms * 1e3,
+                           bound_by=b_by, bytes=nbytes, flops=flops)
+    return out
+
+
+def serve_phase(np, torch, dev, k0):
+    """Phase 14: the serve stack on the card at 784-300-10, ANN (phase
+    4's trained kernel.opt) and SNN (the generated kernel): captures,
+    the bench twin's headline load, every answer against the CPU float64
+    parity answer and the eager batched forward, replay == eager on each
+    bucket, bf16/int8 quant_err, the fleet, a hot reload mid-load, a
+    2-replica router and serve_nn over HTTP.  Returns statistics."""
+    import http.client
+    import threading
+
+    from hpnn_tpu_torch import obs, runtime, serve
+    from hpnn_tpu_torch.fileio import kernel_format
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.serve import compile_cache
+    from hpnn_tpu_torch.tools import bench_serve
+
+    check(runtime.deferred_env_message("chip_smoke") is None, "a refused knob is set")
+    obs.reset()
+    stats = {}
+    ann_path = os.path.join(WORK, "ann", "kernel.opt")
+    _, w_ann = kernel_format.load_kernel(ann_path)
+    k_ann, k_snn = km.Kernel(tuple(w_ann)), k0
+    kw = dict(max_batch=SERVE_MAX_BATCH, max_wait_ms=SERVE_WAIT_MS)
+    cpu = serve.Session(device="cpu", **kw)
+    cpu.register_kernel("ann", k_ann)
+    cpu.register_kernel("snn", k_snn, model="snn")
+    check(cpu.engine.mode == "parity", "the CPU session is not in parity mode")
+
+    # captures: one graph per (kernel, bucket), nothing after warmup
+    sess = serve.Session(device=dev, **kw)
+    eng = sess.engine
+    check(eng.mode == "compiled" and eng.device.type == "cuda",
+          f"the card's session runs {eng.mode} on {eng.device}")
+    compile_cache._reset_for_tests()
+    t0 = time.perf_counter()
+    sess.load_kernel("ann", ann_path)
+    sess.register_kernel("snn", k_snn, model="snn")
+    warm_s = time.perf_counter() - t0
+    n_graphs = 2 * len(eng.buckets)
+    check(eng.compiled_count() == n_graphs and compile_cache.counters()[1] == n_graphs,
+          f"warmup left {eng.compiled_count()} forwards, {compile_cache.counters()[1]} captures")
+    check(all(type(g).__name__ == "_Graph" for g in eng._compiled.values()),
+          "a bucket forward is not a captured graph")
+    stats["warmup_s"] = warm_s
+    log(f"[serve] 784-300-10 ANN + SNN on {eng.device}: {n_graphs} graphs captured "
+        f"(buckets {list(eng.buckets)}) in {warm_s:.2f} s")
+
+    # replay == eager batched forward on the same padded block, per bucket
+    rng = np.random.default_rng(SEED + 14)
+    replay_eager = {}
+    for name in ("ann", "snn"):
+        entry = sess.registry.get(name)
+        worst = 0.0
+        for bucket in eng.buckets:
+            block = rng.uniform(-1.0, 1.0, (bucket, N_IN))
+            got, want = eng.run_rows(entry, block), eng.eager_rows(entry, block)
+            worst = max(worst, float(np.max(np.abs(got - want))))
+        replay_eager[name] = worst
+        check(worst <= SERVE_TOL, f"{name}: replay vs eager {worst:.3e}")
+        log(f"[serve] {name}: graph replay vs eager batched forward, every bucket: "
+            + ("bitwise equal" if worst == 0.0 else f"max |diff| {worst:.3e}"))
+    stats["replay_vs_eager"] = replay_eager
+
+    # the bench twin's headline load, every answer held
+    loads = {}
+    for name in ("ann", "snn"):
+        answers = []
+        lock = threading.Lock()
+
+        def keep(x, out, answers=answers):
+            with lock:
+                answers.append((x, out))
+
+        r0, h0 = eng.replay_count(), compile_cache.counters()
+        load = bench_serve.closed_loop(sess, name, N_IN, n_clients=SERVE_CLIENTS,
+                                       n_requests=SERVE_REQUESTS, mixed_rows=SERVE_ROWS,
+                                       on_answer=keep)
+        h1 = compile_cache.counters()
+        replays = eng.replay_count() - r0
+        check("errors" not in load, f"{name} load: {load.get('errors')}")
+        check(load["requests_served"] == SERVE_CLIENTS * SERVE_REQUESTS,
+              f"{name} load served {load['requests_served']}")
+        check(h1[1] == h0[1] and eng.compiled_count() == n_graphs,
+              f"{name} load captured {h1[1] - h0[1]} graphs after warmup")
+        check(replays == h1[0] - h0[0] > 0,
+              f"{name} load: {replays} replays for {h1[0] - h0[0]} bucket dispatches")
+        refs = serve_rows_ref(cpu, name, [x for x, _ in answers])
+        err_cpu = max(float(np.max(np.abs(out - ref))) for (_, out), ref in zip(answers, refs))
+        err_eager = max(float(np.max(np.abs(out - eng.eager_rows(sess.registry.get(name), x))))
+                        for x, out in answers)
+        tol = SERVE_SNN_TOL if name == "snn" else SERVE_TOL
+        check(all(np.isfinite(out).all() and out.shape == (x.shape[0], N_OUT)
+                  for x, out in answers), f"{name}: an answer is malformed or not finite")
+        check(err_cpu <= tol, f"{name}: card vs CPU float64 {err_cpu:.3e} > {tol:.0e}")
+        check(err_eager <= tol, f"{name}: card vs eager {err_eager:.3e}")
+        load.update(replays=replays, max_abs_err_cpu_f64=err_cpu, max_abs_err_eager=err_eager)
+        loads[name] = load
+        lat = load["latency_ms"]
+        log(f"[serve] {name} load, {SERVE_CLIENTS} clients x {SERVE_REQUESTS} requests of "
+            f"{list(SERVE_ROWS)} rows, max_batch {SERVE_MAX_BATCH}, {SERVE_WAIT_MS} ms wait: "
+            f"p50 {lat['p50']} ms p99 {lat['p99']} ms, {load['throughput_rps']} requests/s, "
+            f"{load['rows_per_s']} rows/s; {replays} replays, 0 captures; max |card - cpu f64| "
+            f"{err_cpu:.3e} (tol {tol:.0e}), vs the eager forward of each request alone "
+            + ("bitwise" if err_eager == 0.0 else f"{err_eager:.3e}"))
+    stats["load"] = loads
+
+    # the ANN and SNN loads at once on the one session: two batchers
+    # replay their graphs from their own threads, and every answer is
+    # still its own kernel's
+    both, lock = {"ann": [], "snn": []}, threading.Lock()
+    runs = {}
+
+    def load_of(name):
+        def keep(x, out):
+            with lock:
+                both[name].append((x, out))
+        runs[name] = bench_serve.closed_loop(
+            sess, name, N_IN, n_clients=SERVE_CLIENTS, n_requests=SERVE_REQUESTS,
+            mixed_rows=SERVE_ROWS, on_answer=keep)
+
+    threads = [threading.Thread(target=load_of, args=(name,)) for name in both]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    check(not any(t.is_alive() for t in threads) and len(runs) == 2,
+          "the concurrent ANN + SNN load did not finish")
+    together = {}
+    for name, answers in both.items():
+        check("errors" not in runs[name], f"concurrent {name} load: {runs[name].get('errors')}")
+        check(len(answers) == SERVE_CLIENTS * SERVE_REQUESTS,
+              f"concurrent {name} load served {len(answers)}")
+        refs = serve_rows_ref(cpu, name, [x for x, _ in answers])
+        err = max(float(np.max(np.abs(out - ref))) for (_, out), ref in zip(answers, refs))
+        tol = SERVE_SNN_TOL if name == "snn" else SERVE_TOL
+        check(err <= tol, f"concurrent {name} load: card vs CPU float64 {err:.3e} > {tol:.0e}")
+        together[name] = dict(max_abs_err_cpu_f64=err, p50_ms=runs[name]["latency_ms"]["p50"],
+                              p99_ms=runs[name]["latency_ms"]["p99"])
+    check(eng.compiled_count() == n_graphs, "the concurrent load captured a graph")
+    stats["concurrent"] = together
+    log(f"[serve] ANN and SNN loads at once on one session ({SERVE_CLIENTS} clients each): "
+        + "; ".join(f"{n} p50 {v['p50_ms']} ms p99 {v['p99_ms']} ms, max |card - cpu f64| "
+                    f"{v['max_abs_err_cpu_f64']:.3e}" for n, v in together.items()))
+
+    # where an ANN request's time goes: the same load with HPNN_METRICS on
+    split = serve_split(np, obs, lambda: bench_serve.closed_loop(
+        sess, "ann", N_IN, n_clients=SERVE_CLIENTS, n_requests=SERVE_REQUESTS,
+        mixed_rows=SERVE_ROWS), "session")
+    stats["split"] = split
+
+    # one replay per bucket against one eager launch
+    timing = serve_timing(np, torch, eng, sess.registry.get("ann"))
+    stats["by_bucket"] = timing
+    for bucket, t in timing.items():
+        log(f"[serve] ANN bucket {bucket}: replay {t['replay_us']:.2f} us, eager "
+            f"{t['eager_us']:.2f} us, whole dispatch {t['dispatch_us']:.1f} us; bound "
+            f"{t['bound_us']:.3f} us ({t['bound_by']}: {t['bytes']} B, {t['flops']} flop)")
+
+    # bf16 / int8 policies: the warmup probe's error within the documented bounds
+    quant = {}
+    for prec, bound in QUANT_BOUND.items():
+        qs = serve.Session(device=dev, **kw)
+        qs.registry.register("ann", k_ann, precision=prec)
+        qs.engine.warmup()
+        err = qs.engine.precision_doc()["kernels"]["ann"]["quant_err"]
+        block = rng.uniform(-1.0, 1.0, (37, N_IN))
+        served = float(np.max(np.abs(qs.infer("ann", block)
+                                     - serve_rows_ref(cpu, "ann", [block])[0])))
+        qs.close()
+        check(0.0 < err < bound and served < bound,
+              f"{prec}: quant_err {err:.3e}, served {served:.3e}, bound {bound:.0e}")
+        quant[prec] = dict(quant_err=err, served_err=served)
+        log(f"[serve] {prec} policy: quant_err {err:.3e} on the warmup probe, {served:.3e} "
+            f"on 37 served rows (documented bound {bound:.0e})")
+    stats["quant"] = quant
+
+    # the fleet: 8 same-topology kernels through one stacked graph
+    os.environ["HPNN_SERVE_FLEET"] = "1"
+    try:
+        fs = serve.Session(device=dev, **kw)
+    finally:
+        os.environ.pop("HPNN_SERVE_FLEET")
+    check(fs.fleet, "HPNN_SERVE_FLEET=1 left the session per-kernel")
+    frng = np.random.RandomState(SEED)
+    for i in range(SERVE_FLEET_N):
+        w = tuple(frng.uniform(-1, 1, (o, n)) / np.sqrt(n)
+                  for n, o in ((N_IN, N_HID), (N_HID, N_OUT)))
+        fs.register_kernel(f"f{i}", km.Kernel(w))
+    payloads = [(f"f{i}", frng.uniform(-1, 1, (1 + i % 8, N_IN))) for i in range(SERVE_FLEET_N)]
+    outs = fs.engine.dispatch_fleet(payloads)
+    check(any(k[0][0] == "fleet" for k in fs.engine._compiled),
+          "dispatch_fleet captured no fleet graph")
+    f_err = max(float(np.max(np.abs(out - fs.engine.dispatch(name, [x])[0])))
+                for (name, x), out in zip(payloads, outs))
+    got = [None] * SERVE_FLEET_N
+    threads = [threading.Thread(target=lambda i=i: got.__setitem__(
+        i, fs.infer(payloads[i][0], payloads[i][1]))) for i in range(SERVE_FLEET_N)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=60)
+    f_err = max([f_err] + [float(np.max(np.abs(g - o))) for g, o in zip(got, outs)])
+    fs.close()
+    check(f_err <= SERVE_TOL, f"fleet vs per-kernel dispatch {f_err:.3e}")
+    stats["fleet"] = dict(members=SERVE_FLEET_N, max_abs_err=f_err)
+    log(f"[serve] fleet of {SERVE_FLEET_N} x 784-300-10 ANN (HPNN_SERVE_FLEET=1): one "
+        f"stacked graph, max |fleet - per-kernel| {f_err:.3e}")
+
+    # hot reload mid-load: clients stream requests while the kernel file
+    # is rewritten and reloaded; every answer is the old or the new
+    # version's, and the load runs on until the new version has answered.
+    # Other clients stream SNN requests meanwhile: their latency while
+    # the reload captures against the rest of the run
+    hot = os.path.join(WORK, "serve_hot.opt")
+    shutil.copyfile(ann_path, hot)
+    sess.load_kernel("hot", hot)
+    k_new = km.Kernel(tuple(np.asarray(w) for w in k0.weights))
+    answers, lock, stop, errors = [], threading.Lock(), threading.Event(), []
+    others = []  # (start, end, rows, answer) of the SNN requests
+
+    def client(ci):
+        crng = np.random.RandomState(2000 + ci)
+        while not stop.is_set():
+            x = crng.uniform(-1.0, 1.0, (SERVE_ROWS[ci % len(SERVE_ROWS)], N_IN))
+            try:
+                out = sess.infer("hot", x, timeout_s=60.0)
+            except Exception as exc:  # reported below
+                errors.append(repr(exc))
+                return
+            with lock:
+                answers.append((x, out))
+
+    def other(ci):
+        crng = np.random.RandomState(3000 + ci)
+        while not stop.is_set():
+            x = crng.uniform(-1.0, 1.0, (SERVE_ROWS[ci % len(SERVE_ROWS)], N_IN))
+            t_req = time.perf_counter()
+            try:
+                out = sess.infer("snn", x, timeout_s=60.0)
+            except Exception as exc:  # reported below
+                errors.append(repr(exc))
+                return
+            with lock:
+                others.append((t_req, time.perf_counter(), x, out))
+
+    def wait_for(n):
+        t0 = time.perf_counter()
+        while len(answers) < n and not errors and time.perf_counter() - t0 < 120:
+            time.sleep(0.005)
+
+    threads = [threading.Thread(target=client, args=(ci,)) for ci in range(SERVE_CLIENTS)]
+    threads += [threading.Thread(target=other, args=(ci,)) for ci in range(SERVE_CLIENTS // 2)]
+    for t in threads:
+        t.start()
+    try:
+        wait_for(SERVE_CLIENTS * SERVE_REQUESTS // 4)
+        with open(hot + ".tmp", "w") as fp:
+            km.dump("hot", k_new, fp)
+        os.replace(hot + ".tmp", hot)
+        t0 = time.perf_counter()
+        sess.reload("hot")
+        t1 = time.perf_counter()
+        reload_s = t1 - t0
+        wait_for(len(answers) + SERVE_CLIENTS * SERVE_REQUESTS // 4)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join(timeout=120)
+    check(not errors and not any(t.is_alive() for t in threads),
+          f"hot reload load: {errors[:3]}")
+    cpu.register_kernel("hot_new", k_new)
+    seen = {"old": 0, "new": 0}
+    xs = [x for x, _ in answers]
+    for (x, out), old_ref, new_ref in zip(answers, serve_rows_ref(cpu, "ann", xs),
+                                          serve_rows_ref(cpu, "hot_new", xs)):
+        old = float(np.max(np.abs(out - old_ref)))
+        new = float(np.max(np.abs(out - new_ref)))
+        check(min(old, new) <= SERVE_TOL, f"hot reload: an answer is neither version's "
+              f"({old:.3e}, {new:.3e})")
+        seen["old" if old <= new else "new"] += 1
+    check(seen["old"] > 0 and seen["new"] > 0, f"hot reload: answers {seen}")
+    check(sess.registry.get("hot").version == 1, "hot reload: version did not move")
+    o_err = max(float(np.max(np.abs(out - ref))) for (_, _, _, out), ref in
+                zip(others, serve_rows_ref(cpu, "snn", [x for _, _, x, _ in others])))
+    check(o_err <= SERVE_SNN_TOL, f"SNN answers during the reload: {o_err:.3e}")
+    during = [(b - a) * 1e3 for a, b, _, _ in others if a < t1 and b > t0]
+    outside = [(b - a) * 1e3 for a, b, _, _ in others if not (a < t1 and b > t0)]
+    check(during and outside, f"SNN requests during / outside the reload: {len(during)}, "
+          f"{len(outside)}")
+    beside = dict(during=len(during), during_max_ms=max(during),
+                  during_p99_ms=float(np.percentile(during, 99)),
+                  outside=len(outside), outside_p50_ms=float(np.percentile(outside, 50)),
+                  outside_p99_ms=float(np.percentile(outside, 99)), max_abs_err_cpu_f64=o_err)
+    stats["hot_reload"] = dict(seen, reload_s=reload_s, snn_beside=beside)
+    log(f"[serve] hot reload mid-load ({reload_s:.2f} s: file parse, 4 captures, evict): "
+        f"{seen['old']} answers of version 0 and {seen['new']} of version 1, each within "
+        f"{SERVE_TOL:.0e} of its version's CPU float64 answer")
+    log(f"[serve] SNN requests beside the reload: {len(during)} overlapped it, p99 "
+        f"{beside['during_p99_ms']:.3f} ms max {beside['during_max_ms']:.3f} ms; "
+        f"{len(outside)} outside it, p50 {beside['outside_p50_ms']:.3f} ms p99 "
+        f"{beside['outside_p99_ms']:.3f} ms; max |card - cpu f64| {o_err:.3e}")
+    sess.close()
+
+    # a 2-replica router on the one card
+    router = serve.Router(2, device=dev, **kw)
+    router.register_kernel("ann", k_ann)
+    devs = [str(r.engine.device) for r in router.replicas]
+    check(devs == ["cuda:0", "cuda:0"], f"router replicas on {devs}")
+    answers = []
+    load = bench_serve.closed_loop(router, "ann", N_IN, n_clients=SERVE_CLIENTS,
+                                   n_requests=SERVE_REQUESTS, mixed_rows=SERVE_ROWS,
+                                   on_answer=lambda x, out: answers.append((x, out)))
+    per = [r.engine.replay_count() for r in router.replicas]
+    r_split = serve_split(np, obs, lambda: bench_serve.closed_loop(
+        router, "ann", N_IN, n_clients=SERVE_CLIENTS, n_requests=SERVE_REQUESTS,
+        mixed_rows=SERVE_ROWS), "router")
+    router.close()
+    r_err = max(float(np.max(np.abs(out - ref))) for (_, out), ref in
+                zip(answers, serve_rows_ref(cpu, "ann", [x for x, _ in answers])))
+    check("errors" not in load and all(p > 0 for p in per) and r_err <= SERVE_TOL,
+          f"router: replays by replica {per}, max err {r_err:.3e}, {load.get('errors')}")
+    stats["router"] = dict(load, replays_by_replica=per, max_abs_err=r_err, split=r_split)
+    log(f"[serve] router, 2 replicas on {devs}: p50 {load['latency_ms']['p50']} ms p99 "
+        f"{load['latency_ms']['p99']} ms, {load['throughput_rps']} requests/s, replays by "
+        f"replica {per}, max |card - cpu f64| {r_err:.3e}")
+
+    # serve_nn over HTTP: the CLI in its own process, a few /v1/infer calls
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "hpnn_tpu_torch.cli.serve_nn", "--port", "0",
+         "--max-batch", str(SERVE_MAX_BATCH), "cont.conf"],
+        cwd=os.path.join(WORK, "ann"), stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=dict(os.environ, PYTHONPATH=ROOT))
+    try:
+        port, lines = None, []
+        t0 = time.perf_counter()
+        while port is None and time.perf_counter() - t0 < 300:
+            line = proc.stderr.readline()
+            if not line:
+                break
+            lines.append(line)
+            m = re.search(r"listening on [\d.]+:(\d+)", line)
+            port = int(m.group(1)) if m else None
+        check(port is not None, f"serve_nn did not listen: {''.join(lines)[-2000:]}")
+        cn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        cn.request("GET", "/healthz")
+        health = json.loads(cn.getresponse().read())
+        check(health["buckets"] == list(eng.buckets) and health["kernels"] == ["smoke_ann"],
+              f"serve_nn /healthz {health.get('kernels')} {health.get('buckets')}")
+        h_err = 0.0
+        for rows in (1, 3, 8, 50):
+            x = rng.uniform(-1.0, 1.0, (rows, N_IN))
+            cn.request("POST", "/v1/infer", body=json.dumps(
+                {"kernel": "smoke_ann", "inputs": x.tolist()}))
+            resp = cn.getresponse()
+            body = json.loads(resp.read())
+            check(resp.status == 200, f"serve_nn /v1/infer {resp.status} {body}")
+            out = np.asarray(body["outputs"])
+            h_err = max(h_err, float(np.max(np.abs(out - serve_rows_ref(cpu, "ann", [x])[0]))))
+        cn.close()
+    finally:
+        proc.terminate()
+        out_bytes, _ = proc.communicate(timeout=60)
+    check(h_err <= SERVE_TOL, f"serve_nn over HTTP: max err {h_err:.3e}")
+    check(out_bytes == "", f"serve_nn wrote {len(out_bytes)} bytes to stdout")
+    cpu.close()
+    stats["http"] = dict(max_abs_err=h_err, compiled=health["compiled"])
+    log(f"[serve] serve_nn over HTTP ({lines[-1].strip()}): 4 /v1/infer calls of 1-50 "
+        f"rows, max |card - cpu f64| {h_err:.3e}, stdout 0 bytes")
+    return stats
+
+
 def main() -> int:
     import argparse
 
@@ -1584,6 +2064,11 @@ def main() -> int:
     t13 = time.perf_counter()
     slice6 = resume_obs_native(np, torch, dev, protos)
     log(f"[resume-obs-native] phase 13 in {time.perf_counter() - t13:.1f} s")
+
+    # 14. serving: the serve stack on the card
+    t14 = time.perf_counter()
+    serve_stats = serve_phase(np, torch, dev, k0)
+    log(f"[serve] phase 14 in {time.perf_counter() - t14:.1f} s")
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -1612,6 +2097,7 @@ def main() -> int:
         "main": main_stats,
         "by_config": timings,
         "resume_obs_native": slice6,
+        "serve": serve_stats,
     }]
     for name, replaces, on_path in BATCH_KERNELS:
         t = batch_times[name]

@@ -1,4 +1,4 @@
-"""Shared CLI argument handling for train_nn / run_nn.
+"""Shared CLI argument handling for train_nn / run_nn / serve_nn.
 
 Reproduces the reference CLIs' flag grammar
 (ref: libhpnn tests/train_nn.c:59-255, tests/run_nn.c):
@@ -41,6 +41,18 @@ def install_sigpipe_handler() -> None:
     """Die quietly when stdout is a closed pipe (e.g. ``train_nn -h | head``)."""
     try:
         signal.signal(signal.SIGPIPE, signal.SIG_DFL)
+    except (ValueError, AttributeError):
+        pass
+
+
+def shield_sigpipe_for_server() -> None:
+    """Put SIGPIPE back to ignored before entering a serve loop: with
+    the token CLIs' SIG_DFL armed, a write to a peer-reset socket would
+    kill the server instead of raising the BrokenPipeError its handlers
+    turn into a counted close.  Call after argument/help handling,
+    before ``serve_forever``."""
+    try:
+        signal.signal(signal.SIGPIPE, signal.SIG_IGN)
     except (ValueError, AttributeError):
         pass
 
@@ -101,22 +113,25 @@ def extract_long_opts(argv: list[str], *, flags=(), valued=()):
     return rest, out
 
 
-def check_supported(opts: dict, prog: str) -> bool:
-    """Refuse (with a message) the options and knobs of paths this
-    package does not have, and a bad ``--device``, ``--batch``,
-    ``--epochs`` or ``--lr`` value; never ignore them."""
+def check_supported(opts: dict, prog: str, deferred=None) -> bool:
+    """Refuse (with a message) the options (``deferred``, default
+    :data:`DEFERRED_OPTS`) and knobs of paths this package does not
+    have, and a bad ``--device``, ``--batch``, ``--epochs``, ``--lr``,
+    ``--max-batch``, ``--max-wait-ms`` or port value; never ignore
+    them."""
+    deferred = DEFERRED_OPTS if deferred is None else deferred
     for name in opts:
-        if name in DEFERRED_OPTS:
+        if name in deferred:
             sys.stderr.write(
                 f"{prog}: --{name} is not supported by hpnn_tpu_torch: "
-                f"{DEFERRED_OPTS[name]} is not ported yet (hpnn_tpu's "
+                f"{deferred[name]} is not ported yet (hpnn_tpu's "
                 f"{prog} has it)\n")
             return False
     msg = runtime.deferred_env_message(prog)
     if msg:
         sys.stderr.write(msg + "\n")
         return False
-    for name in ("batch", "epochs"):
+    for name in ("batch", "epochs", "max-batch"):
         v = opts.get(name)
         if v is not None and v is not True and (not str(v).isdigit() or int(v) < 1):
             sys.stderr.write(f"syntax error: bad --{name} parameter!\n")
@@ -134,10 +149,20 @@ def check_supported(opts: dict, prog: str) -> bool:
     if dev is not None and dev not in DEVICES:
         sys.stderr.write(f"syntax error: bad --device parameter (want cpu|cuda)!\n")
         return False
-    port = opts.get("export-port")
-    if port is not None and (not str(port).isdigit() or int(port) > 65535):
-        sys.stderr.write("syntax error: bad --export-port parameter!\n")
-        return False
+    for name in ("export-port", "port"):
+        port = opts.get(name)
+        if port is not None and (not str(port).isdigit() or int(port) > 65535):
+            sys.stderr.write(f"syntax error: bad --{name} parameter!\n")
+            return False
+    wait = opts.get("max-wait-ms")
+    if wait is not None:
+        try:
+            ok = float(wait) >= 0.0
+        except ValueError:
+            ok = False
+        if not ok:
+            sys.stderr.write("syntax error: bad --max-wait-ms parameter!\n")
+            return False
     if opts.get("numerics") not in (None, "warn", "abort"):
         sys.stderr.write(
             "syntax error: bad --numerics parameter (want warn|abort)!\n")

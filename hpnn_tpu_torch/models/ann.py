@@ -57,10 +57,11 @@ def run(weights, x):
 
 
 def run_batch(weights, X):
-    """``run`` over the rows of a ``(B, n_in)`` batch."""
+    """``run`` over the rows of a ``(B, n_in)`` batch; stacked weights
+    ``(N, n, m)`` with a ``(N, B, n_in)`` batch run N networks at once."""
     v = X
     for w in weights:
-        v = act(torch.matmul(v, w.T))
+        v = act(torch.matmul(v, w.mT))
     return v
 
 

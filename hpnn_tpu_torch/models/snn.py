@@ -47,11 +47,12 @@ def run(weights, x):
 
 
 def run_batch(weights, X):
-    """``run`` over the rows of a ``(B, n_in)`` batch."""
+    """``run`` over the rows of a ``(B, n_in)`` batch; stacked weights
+    ``(N, n, m)`` with a ``(N, B, n_in)`` batch run N networks at once."""
     v = X
     for w in weights[:-1]:
-        v = ann.act(torch.matmul(v, w.T))
-    return softmax_out(torch.matmul(v, weights[-1].T))
+        v = ann.act(torch.matmul(v, w.mT))
+    return softmax_out(torch.matmul(v, weights[-1].mT))
 
 
 def train_error(out, target):

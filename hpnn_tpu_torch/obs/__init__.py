@@ -22,7 +22,11 @@ files unchanged:
   sentinel — ``HPNN_PROBES``, ``HPNN_LEDGER``, ``HPNN_NUMERICS``
   (obs/probes.py, obs/ledger.py);
 * spans and the work catalog with its MFU gauges — ``HPNN_SPANS``,
-  ``HPNN_COST`` (obs/spans.py, obs/cost.py).
+  ``HPNN_COST`` (obs/spans.py, obs/cost.py);
+* the serve stack's planes, copied from the JAX package: the
+  rolling-window SLO tracker ``HPNN_SLO_MS`` (obs/slo.py), trace
+  context on the wire (obs/propagate.py, rides ``HPNN_SPANS``) and the
+  lock-order watchdog ``HPNN_LOCKWATCH`` (obs/lockwatch.py).
 
 Every knob unset: each env var is read once and memoized, and every
 call is a constant-time no-op.  Nothing here writes to stdout.  The JAX
@@ -30,8 +34,8 @@ package's fleet-telemetry, forensics, drift, meter, blame and tuning
 planes are not ported; their knobs are refused (``runtime.DEFERRED_ENV``).
 """
 
-from hpnn_tpu_torch.obs import (cost, device, export, flight, ledger, probes,
-                                spans)
+from hpnn_tpu_torch.obs import (cost, device, export, flight, ledger,
+                                lockwatch, probes, propagate, slo, spans)
 from hpnn_tpu_torch.obs.profiler import annotate, step_annotation
 from hpnn_tpu_torch.obs.registry import (
     ENV_KNOB,
@@ -60,7 +64,9 @@ def reset() -> None:
 # every environment knob of the ported obs core (each read once and
 # memoized; _reset_for_tests forgets the readings)
 ENV_KNOBS = ("HPNN_METRICS", "HPNN_LEDGER", "HPNN_PROBES", "HPNN_NUMERICS",
-             "HPNN_SPANS", "HPNN_COST", "HPNN_TRACE", "HPNN_FLIGHT")
+             "HPNN_SPANS", "HPNN_COST", "HPNN_TRACE", "HPNN_FLIGHT",
+             "HPNN_SLO_MS", "HPNN_SLO_WINDOW_S", "HPNN_SLO_TARGET",
+             "HPNN_LOCKWATCH")
 
 __all__ = [
     "ENV_KNOB",
@@ -78,10 +84,13 @@ __all__ = [
     "flush",
     "gauge",
     "ledger",
+    "lockwatch",
     "observe",
     "probes",
+    "propagate",
     "reset",
     "sink_path",
+    "slo",
     "snapshot_state",
     "spans",
     "step_annotation",

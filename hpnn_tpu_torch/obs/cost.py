@@ -8,7 +8,8 @@ count per kernel family that ``chip_smoke.py``'s bound column uses too:
 * :func:`work_of` — a launch of the convergence kernel (#1): its bytes
   and operations given the iterations the launch ran;
 * :func:`batch_work` — S batch steps of one member (#2-#5; #6 is N
-  members' worth).
+  members' worth);
+* :func:`forward_work` — one batched forward of a serve bucket.
 
 :func:`bound_ms` turns a count into the least time an H100 could take,
 and :func:`record_dispatch` turns a count and a measured launch time
@@ -19,7 +20,8 @@ reads it).
 
 The peaks are the NVIDIA H100 SXM data sheet's: 3.35 TB/s of HBM3,
 67 TFLOP/s in float32 and 34 TFLOP/s in float64 outside the tensor
-cores, at the 700 W power limit.  ``HPNN_PEAK_FLOPS`` (FLOP/s) overrides
+cores, and 989 TFLOP/s dense in bfloat16 on them (the serve engine's
+bf16 and int8 policies), at the 700 W power limit.  ``HPNN_PEAK_FLOPS`` (FLOP/s) overrides
 the MFU denominator; on the CPU the default is a nominal 100 GFLOP/s,
 an indicative trend, not a utilization.
 
@@ -41,7 +43,7 @@ PEAK_ENV = "HPNN_PEAK_FLOPS"
 
 # NVIDIA H100 SXM data sheet, dense rates outside the tensor cores
 PEAK_BYTES = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+PEAK_FLOPS = {"float32": 67e12, "float64": 34e12, "bfloat16": 989e12}
 CPU_PEAK_FLOPS = 100e9  # nominal, indicative only
 
 _enabled: bool | None = None
@@ -89,6 +91,18 @@ def batch_work(weights_shapes, S, momentum, dtype_bytes, batch):
               * dtype_bytes + 4 * S)
     flops = S * (6 * batch * n_w + 2 * batch * n_tail + (4 if momentum else 2) * n_w)
     return nbytes, flops
+
+
+def forward_work(weights_shapes, rows, dtype_bytes, io_bytes=None):
+    """(bytes, flops) of one batched forward of ``rows`` rows (a serve
+    bucket): the weights read once in ``dtype_bytes``, the input block
+    read and the output block written once in ``io_bytes`` (default
+    ``dtype_bytes``); 2·rows·Σ in·out flops of matrix products (the
+    activations' elementwise work is not counted)."""
+    n_w = sum(o * i for o, i in weights_shapes)
+    n_in, n_out = weights_shapes[0][1], weights_shapes[-1][0]
+    io = dtype_bytes if io_bytes is None else io_bytes
+    return n_w * dtype_bytes + rows * (n_in + n_out) * io, 2 * rows * n_w
 
 
 def bound_ms(nbytes, flops, dtype_name):

@@ -67,6 +67,8 @@ _cfg_lock = threading.Lock()
 
 # last verdict of check_weights (the /healthz numerics document)
 _last_verdict: dict | None = None
+# per-kernel serve-side verdicts (the serve engine's NaN tripwire)
+_serve_verdicts: dict[str, dict] = {}
 _verdict_lock = threading.Lock()
 
 
@@ -235,11 +237,59 @@ def last_verdict() -> dict | None:
         return dict(_last_verdict) if _last_verdict else None
 
 
+# ------------------------------------------------------- serve side
+def note_serve(kernel: str, *, rows: int, nan: int) -> None:
+    """Record one serve dispatch's output NaN census for ``kernel``
+    (the serve engine calls this when probes are enabled).  Keeps a
+    cumulative per-kernel verdict for ``/healthz`` and counts
+    ``numerics.serve_nan`` when outputs went non-finite."""
+    cfg = _config()
+    if not cfg:
+        return
+    with _verdict_lock:
+        v = _serve_verdicts.setdefault(
+            kernel, {"rows": 0, "nan": 0, "clean": True})
+        v["rows"] += int(rows)
+        v["nan"] += int(nan)
+        v["clean"] = v["nan"] == 0
+        v["ledger_row"] = ledger.last_row()
+    if nan:
+        from hpnn_tpu_torch import obs
+
+        obs.count("numerics.serve_nan", n=int(nan), kernel=kernel,
+                  rows=int(rows))
+
+
+def health_doc(kernels=()) -> dict:
+    """The numerics section of a /healthz document: sentinel mode, the
+    last check verdict, and per-loaded-kernel serve verdicts (kernels
+    never dispatched report clean with zero rows)."""
+    cfg = _config()
+    if not cfg:
+        return {"mode": "off"}
+    with _verdict_lock:
+        per_kernel = {
+            name: dict(_serve_verdicts.get(
+                name, {"rows": 0, "nan": 0, "clean": True,
+                       "ledger_row": None}))
+            for name in kernels
+        }
+        last = dict(_last_verdict) if _last_verdict else None
+    return {
+        "mode": cfg["mode"],
+        "probes": cfg["probes"],
+        "ledger": ledger.path(),
+        "last": last,
+        "kernels": per_kernel,
+    }
+
+
 def _reset_for_tests() -> None:
-    """Forget the memoized knobs and the last verdict (chained from
-    registry._reset_for_tests)."""
+    """Forget the memoized knobs, the last verdict and the serve
+    verdicts (chained from registry._reset_for_tests)."""
     global _cfg, _last_verdict
     with _cfg_lock:
         _cfg = None
     with _verdict_lock:
         _last_verdict = None
+        _serve_verdicts.clear()

@@ -511,7 +511,10 @@ def _reset_for_tests() -> None:
     # chain the sibling memos; sys.modules.get avoids import cycles
     for name in ("hpnn_tpu_torch.obs.export", "hpnn_tpu_torch.obs.ledger",
                  "hpnn_tpu_torch.obs.probes", "hpnn_tpu_torch.obs.cost",
-                 "hpnn_tpu_torch.obs.spans", "hpnn_tpu_torch.utils.trace"):
+                 "hpnn_tpu_torch.obs.spans", "hpnn_tpu_torch.obs.slo",
+                 "hpnn_tpu_torch.obs.propagate",
+                 "hpnn_tpu_torch.obs.lockwatch", "hpnn_tpu_torch.chaos",
+                 "hpnn_tpu_torch.utils.trace"):
         mod = sys.modules.get(name)
         if mod is not None:
             mod._reset_for_tests()

@@ -1,7 +1,8 @@
 """The CUDA kernels on the card against their plain PyTorch versions:
 the convergence kernel (and itself across its cluster plans), the four
 batch-step entry points and the fleet epoch (#6), and the fleet path
-through ``train.fleet``.
+through ``train.fleet``; and the serve engine's CUDA graphs against
+the eager batched forward.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip on a
 machine without a card.  On one, run them with
@@ -533,3 +534,136 @@ def test_fleet_kernel_refuses_what_it_cannot_take(cuda):
         run(w, dw, X, T, orders + 1, **kw)
     with pytest.raises(ValueError, match="cluster size"):
         run(w, dw, X, T, orders, cluster=3, **kw)
+
+
+# ------------------------------------------------------------ serving
+def _serve_session(dev, model="ann", **kw):
+    """A card session holding one seeded 784-300-10 kernel ``k``."""
+    from hpnn_tpu_torch import serve
+
+    rng = np.random.RandomState(17)
+    w = tuple(rng.uniform(-1, 1, (o, i)) / np.sqrt(i) for i, o in ((784, 300), (300, 10)))
+    sess = serve.Session(device=dev, max_batch=64, max_wait_ms=1.0, **kw)
+    sess.register_kernel("k", km.Kernel(w), model=model)
+    return sess
+
+
+@pytest.mark.parametrize("model", ["ann", "snn"])
+def test_serve_graph_replay_matches_eager_batched_forward(cuda, model):
+    """Each bucket's graph replays the eager batched forward on the same
+    padded block (same weights, same kernels), and stays within 1e-5 of
+    the CPU float64 per-row answer."""
+    from hpnn_tpu_torch import serve
+
+    sess = _serve_session(cuda, model)
+    cpu = serve.Session(device="cpu", max_batch=64)
+    try:
+        entry = sess.registry.get("k")
+        cpu.register_kernel("k", entry.kernel, model=model)
+        assert sess.engine.mode == "compiled"
+        rng = np.random.RandomState(3)
+        for rows in (1, 3, 8, 13, 64, 100):
+            X = rng.uniform(-1, 1, (rows, 784))
+            got = sess.engine.run_rows(entry, X)
+            for s in range(0, rows, 64):
+                assert np.max(np.abs(got[s:s + 64]
+                                     - sess.engine.eager_rows(entry, X[s:s + 64]))) <= 1e-6
+            assert np.max(np.abs(got - cpu.engine.run_rows(cpu.registry.get("k"), X))) <= 1e-5
+    finally:
+        sess.close()
+        cpu.close()
+
+
+def test_serve_no_capture_after_warmup(cuda):
+    """Warmup captures one graph a bucket; 64 concurrent requests replay
+    them, one replay a bucket dispatch, and capture nothing."""
+    import threading
+
+    from hpnn_tpu_torch.serve import compile_cache
+
+    compile_cache._reset_for_tests()
+    sess = _serve_session(cuda)
+    try:
+        eng = sess.engine
+        assert eng.compiled_count() == compile_cache.counters()[1] == len(eng.buckets)
+        hits0, replays0 = compile_cache.counters()[0], eng.replay_count()
+        rng = np.random.RandomState(5)
+        xs = [rng.uniform(-1, 1, (1 + i % 8, 784)) for i in range(64)]
+        outs = [None] * 64
+        threads = [threading.Thread(target=lambda i=i: outs.__setitem__(
+            i, sess.infer("k", xs[i], timeout_s=60))) for i in range(64)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        assert all(o is not None and o.shape == (x.shape[0], 10) for o, x in zip(outs, xs))
+        hits, misses = compile_cache.counters()
+        assert misses == len(eng.buckets) and eng.compiled_count() == len(eng.buckets)
+        assert eng.replay_count() - replays0 == hits - hits0 > 0
+    finally:
+        sess.close()
+
+
+def test_serve_ann_and_snn_replay_concurrently(cuda):
+    """Two kernels' batchers replay their graphs from their own threads
+    at once; every answer is its own kernel's eager batched forward and
+    within 1e-5 of the CPU float64 answer."""
+    import threading
+
+    from hpnn_tpu_torch import serve
+
+    sess = _serve_session(cuda)
+    cpu = serve.Session(device="cpu", max_batch=64)
+    try:
+        rng = np.random.RandomState(23)
+        w = tuple(rng.uniform(-1, 1, (o, i)) / np.sqrt(i) for i, o in ((784, 300), (300, 10)))
+        sess.register_kernel("s", km.Kernel(w), model="snn")
+        cpu.register_kernel("k", sess.registry.get("k").kernel)
+        cpu.register_kernel("s", km.Kernel(w), model="snn")
+        jobs = [("k" if i % 2 else "s", rng.uniform(-1, 1, (1 + i % 8, 784)))
+                for i in range(96)]
+        outs = [None] * len(jobs)
+        threads = [threading.Thread(target=lambda i=i: outs.__setitem__(
+            i, sess.infer(jobs[i][0], jobs[i][1], timeout_s=60))) for i in range(len(jobs))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+        for (name, x), out in zip(jobs, outs):
+            entry = sess.registry.get(name)
+            assert np.max(np.abs(out - sess.engine.eager_rows(entry, x))) <= 1e-6
+            assert np.max(np.abs(out - cpu.engine.run_rows(cpu.registry.get(name), x))) <= 1e-5
+    finally:
+        sess.close()
+        cpu.close()
+
+
+def test_serve_failed_capture_raises(cuda, monkeypatch):
+    """A forward that cannot be captured (here: it synchronizes the card
+    mid-capture) makes warmup raise, caches nothing, and never falls back
+    to an eager or CPU forward; the next engine captures cleanly."""
+    from hpnn_tpu_torch.serve import engine as eng_mod
+
+    real = eng_mod.batch_forward
+
+    def syncing(*args, **kw):
+        out = real(*args, **kw)
+        torch.cuda.synchronize()
+        return out
+
+    from hpnn_tpu_torch import serve
+
+    monkeypatch.setattr(eng_mod, "batch_forward", syncing)
+    failed = serve.Session(device=cuda, max_batch=64)
+    with pytest.raises(RuntimeError):
+        failed.register_kernel("k", km.Kernel(
+            tuple(np.zeros((o, i)) for i, o in ((784, 300), (300, 10)))))
+    assert failed.engine.compiled_count() == 0
+    failed.close()
+    monkeypatch.setattr(eng_mod, "batch_forward", real)
+    sess = _serve_session(cuda)
+    try:
+        assert sess.engine.compiled_count() == len(sess.engine.buckets)
+        assert sess.infer("k", np.zeros(784)).shape == (10,)
+    finally:
+        sess.close()

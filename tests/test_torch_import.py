@@ -63,6 +63,26 @@ def test_import_pulls_in_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+def test_serve_import_pulls_in_no_jax():
+    """The serve stack, its CLI and its bench, and the modules copied
+    for them (chaos, obs.slo, obs.propagate, obs.lockwatch)."""
+    mods = ("hpnn_tpu_torch.serve", "hpnn_tpu_torch.cli.serve_nn",
+            "hpnn_tpu_torch.tools.bench_serve", "hpnn_tpu_torch.chaos",
+            "hpnn_tpu_torch.obs.slo", "hpnn_tpu_torch.obs.propagate",
+            "hpnn_tpu_torch.obs.lockwatch")
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {mods!r}: importlib.import_module(m)\n"
+        "print(json.dumps([m for m in sys.modules "
+        "if m.split('.')[0] in ('jax', 'jaxlib', 'hpnn_tpu')]))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 def test_sources_import_no_jax():
     offenders = []
     for dirpath, _dirs, files in os.walk(PKG):

@@ -427,7 +427,8 @@ def test_cli_obs_option_errors(tmp_path, monkeypatch, capsys, prog, argv, msg):
 def test_deferred_holds_only_the_unported_planes():
     assert sorted(runtime.DEFERRED_ENV) == sorted([
         "HPNN_COLLECTOR", "HPNN_ALERTS", "HPNN_CAPSULE_DIR", "HPNN_METER",
-        "HPNN_BLAME", "HPNN_DRIFT", "HPNN_SAMPLE", "HPNN_TUNE"])
+        "HPNN_BLAME", "HPNN_DRIFT", "HPNN_SAMPLE", "HPNN_TUNE",
+        "HPNN_COMPILE_CACHE_DIR", "HPNN_SERVE_SPILL"])
     assert list(common.DEFERRED_OPTS) == ["mesh"]
 
 
