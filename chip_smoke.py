@@ -88,8 +88,29 @@ Phases (any failure exits non-zero and prints no result line):
    kernels through one stacked fleet graph; a hot reload mid-load whose
    answers are each the old or the new version's; a 2-replica router;
    ``serve_nn`` in its own process over HTTP.
+15. planes — the serving planes on the card: (a) the tenant host
+   (``tenant.TenantSession`` through ``bench_serve.run_bench_tenant``):
+   256 distinct 784-300-10 ANN kernels across 8 tenants, 32 resident,
+   Zipf 1.2 traffic from 16 clients of 1-8 rows for 10 s with the hot
+   tenant ``silver`` at 50 requests/s, every page-in capturing the
+   bucket menu: cold hits split into checkpoint read, copy and
+   captures, memory_allocated held under (cap + clients) x one
+   kernel's measured footprint plus a cuBLAS workspace a capturing
+   thread, sheds on the hot tenant only, every answer within 1e-5 of
+   the CPU float64 answer, a probe kernel bitwise across a page cycle,
+   and what a capture costs a replaying neighbour; (b) the bench
+   preset's load in 5 s windows with every plane off and on (A B B A),
+   probe rows bitwise alike; (c) a ``POST /v1/capture`` capsule whose
+   ``torch.profiler`` window holds the graph launches, an input shift
+   firing the drift alert, ``/meterz`` device-seconds against the
+   dispatch wall (every dispatch metered; both are host clocks); (d)
+   the tuning plane live (``HPNN_TUNE_DRY=0``) and a forced rollback
+   of a precision move, bitwise.
 
 The last two lines are the kernel table and the device line.
+
+``--planes-only`` runs phase 1 and phase 15 alone and prints no result
+line (a quick check of the planes on a card).
 
 ``--phase-split`` also builds the phase-clock variants
 (``-DHPNN_PHASE_CLOCKS``) of the convergence and batch-step kernels,
@@ -110,6 +131,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -1757,6 +1779,512 @@ def serve_phase(np, torch, dev, k0):
     return stats
 
 
+# ------------------------------------------------------------------ planes
+TENANT_KERNELS, TENANT_RESIDENT, TENANT_N = 256, 32, 8   # phase 15 (a)
+TENANT_SECONDS = 10.0
+PLANE_WINDOW_S = 5.0                                   # phase 15 (b)
+TUNE_COOLDOWN_S, TUNE_WATCH_S, TUNE_SECONDS = 3.0, 1.0, 8.0
+# every plane on: the rule watches the SLO window
+PLANE_RULES = "lat@slo.p99_ms>10000:cooldown=0"
+DRIFT_RULE = "drift@drift.score>1:cooldown=0"          # phase 15 (c)
+
+
+def plane_env(caps, url, **extra):
+    """The knobs of every serving plane (``HPNN_TUNE_DRY=1``)."""
+    env = {"HPNN_ALERTS": PLANE_RULES, "HPNN_SAMPLE": "1",
+           "HPNN_CAPSULE_DIR": caps, "HPNN_CAPSULE_PROFILE_MS": "200",
+           "HPNN_CAPSULE_COOLDOWN_S": "0", "HPNN_DRIFT": "1",
+           "HPNN_DRIFT_WINDOW": "64", "HPNN_BLAME": "1", "HPNN_METER": "1",
+           "HPNN_TUNE": "1", "HPNN_TUNE_DRY": "1", "HPNN_COLLECTOR": url,
+           "HPNN_COLLECTOR_FLUSH_S": "0.2"}
+    env.update(extra)
+    return env
+
+
+CUBLAS_WORKSPACE = 32 << 20     # cuBLAS's workspace for one handle and stream
+
+
+def capture_cost(np, torch, dev, k):
+    """What a capture costs the kernels that keep replaying: 4 rounds of
+    4 captures of a 784-300-10 forward as the engine captures (the
+    ``torch.cuda.graph`` context, which synchronizes the card and
+    empties the allocator's cache, under the process's capture lock),
+    while another thread replays a graph and times each dispatch."""
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.serve import engine as eng_mod
+
+    w, _ = km.to_torch(k.weights, device=dev, dtype=torch.float32)
+    body = lambda x: eng_mod.batch_forward(eng_mod.ann, w, x)  # noqa: E731
+    shape = (SERVE_MAX_BATCH, N_IN)
+    side = torch.cuda.Stream(dev)
+    replayer = eng_mod._Graph(body, shape, torch.float32, dev, side)
+    block = np.zeros(shape, dtype=np.float32)
+    lat, stop = [], threading.Event()
+
+    def replay():
+        while not stop.is_set():
+            t0 = time.perf_counter()
+            replayer(block)
+            lat.append((t0, time.perf_counter() - t0))
+
+    t = threading.Thread(target=replay)
+    t.start()
+    spans, ms = [], []
+    time.sleep(0.2)
+    try:
+        for _ in range(4):
+            for _ in range(4):
+                t0 = time.perf_counter()
+                eng_mod._Graph(body, shape, torch.float32, dev, side)
+                t1 = time.perf_counter()
+                ms.append((t1 - t0) * 1e3)
+                spans.append((t0, t1))
+                time.sleep(0.02)
+            time.sleep(0.2)
+    finally:
+        stop.set()
+        t.join()
+    during = [d * 1e3 for t0, d in lat if any(a <= t0 <= b for a, b in spans)]
+    quiet = [d * 1e3 for t0, d in lat if not any(a <= t0 <= b for a, b in spans)]
+    out = {"capture_ms": {"p50": statistics.median(ms), "max": max(ms)},
+           "replays_during": len(during),
+           "replay_p99_ms": float(np.percentile(during, 99)) if during else None,
+           "outside": {"replays": len(quiet),
+                       "replay_p99_ms": float(np.percentile(quiet, 99))}}
+    log(f"[planes] a capture beside a replaying kernel (16): {out['capture_ms']['p50']:.2f} ms "
+        f"p50 ({out['capture_ms']['max']:.2f} max), the other's dispatch p99 "
+        f"{out['replay_p99_ms']} ms over {len(during)}; no capture: dispatch p99 "
+        f"{out['outside']['replay_p99_ms']:.3f} ms over {len(quiet)}")
+    return out
+
+
+def tenant_host(np, torch, dev, stats):
+    """Phase 15 (a): the tenant host at full width on the card."""
+    from hpnn_tpu_torch import obs, tenant
+    from hpnn_tpu_torch.models import ann
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.tools import bench_serve
+
+    # one kernel's device footprint: weights + one graph a bucket, all
+    # returned when it is paged out
+    obs.reset()
+    pages = os.path.join(WORK, "tenant_pages")
+    rng = np.random.RandomState(SEED + 15)
+    k1 = km.Kernel(tuple(rng.uniform(-1, 1, (o, i)) / np.sqrt(i)
+                         for i, o in ((N_IN, N_HID), (N_HID, N_OUT))))
+    host = tenant.TenantSession(device=dev, resident_max=2, page_dir=pages + "_fp",
+                                max_batch=SERVE_MAX_BATCH)
+    alloc = []
+    for name in ("a", "b", "c"):        # c pages a out
+        host.register_for("t", name, k1)          # warmup: 4 captures
+        torch.cuda.synchronize()
+        alloc.append(torch.cuda.memory_allocated(dev))
+    host.close()
+    footprint = alloc[1] - alloc[0]
+    check(footprint > 0 and abs(alloc[2] - alloc[1]) <= footprint // 8,
+          f"page-out did not return a kernel's memory: {alloc} bytes")
+    log(f"[planes] one resident 784-300-10 kernel (weights + {SERVE_MAX_BATCH}-row menu of "
+        f"4 graphs): {footprint} bytes allocated; a third kernel paging the first out "
+        f"moves memory_allocated by {alloc[2] - alloc[1]} bytes")
+    stats["capture_cost"] = capture_cost(np, torch, dev, k1)
+
+    obs.reset()
+    kernels, answers, lock = {}, [], threading.Lock()
+
+    def keep(tn, kn, x, out, answers=answers):
+        with lock:
+            answers.append((f"{tn}:{kn}", x, out))
+
+    shutil.rmtree(pages, ignore_errors=True)
+    res = bench_serve.run_bench_tenant(
+        n_kernels=TENANT_KERNELS, resident=TENANT_RESIDENT, n_tenants=TENANT_N,
+        zipf_s=1.2, traffic_s=TENANT_SECONDS, n_threads=SERVE_CLIENTS, hot_rate_rps=50.0,
+        device=dev, rows=SERVE_ROWS, max_batch=SERVE_MAX_BATCH,
+        max_wait_ms=SERVE_WAIT_MS, page_dir=pages,
+        on_answer=keep, registered=kernels)
+    check(res["errors"] == 0, f"tenant host: {res['error_sample']}")
+    check(res["ok"] > 0 and res["page_ins"] > 0 and res["resident_cap_ok"],
+          f"tenant host: ok {res['ok']} page_ins {res['page_ins']} "
+          f"resident {res['resident']}")
+    check(set(res["shed_by_tenant"]) <= {res["hot_tenant"]},
+          f"tenant host: sheds off the hot tenant {res['shed_by_tenant']}")
+    check(res["probe"]["bitwise"],
+          f"tenant host: probe {res['probe']['kernel']} after a page cycle "
+          f"differs by {res['probe']['max_abs_diff']:.3e}")
+    # every answer against the CPU float64 answer, one batched forward a kernel
+    by = {}
+    for name, x, out in answers:
+        by.setdefault(name, []).append((x, out))
+    worst = 0.0
+    for name, pairs in by.items():
+        w64, _ = km.to_torch(kernels[name].weights, device="cpu", dtype=torch.float64)
+        xs = np.concatenate([x for x, _ in pairs])
+        with torch.no_grad():
+            ref = ann.run_batch(w64, torch.from_numpy(xs)).numpy()
+        got = np.concatenate([o for _, o in pairs])
+        check(np.isfinite(got).all() and got.shape == ref.shape,
+              f"tenant host: {name} answers malformed")
+        worst = max(worst, float(np.max(np.abs(got - ref))))
+    check(worst <= SERVE_TOL,
+          f"tenant host: card vs CPU float64 {worst:.3e} > {SERVE_TOL:.0e}")
+    mem = res["memory"]
+    base = mem["start"]["allocated"]
+    # the cap, plus a kernel per client pinned over it, plus one
+    # cuBLAS workspace per capturing thread on the engine's side
+    # stream: the clients (a page-in captures on the requesting
+    # thread) and this one
+    threads = SERVE_CLIENTS + 1
+    bound = (base + (TENANT_RESIDENT + SERVE_CLIENTS) * footprint
+             + threads * CUBLAS_WORKSPACE)
+    over = [s for s in mem["samples"] if s["allocated"] > bound]
+    check(mem["peak"]["allocated"] <= bound and not over,
+          f"tenant host: memory_allocated peak {mem['peak']['allocated']} > "
+          f"bound {bound} (start + (cap {TENANT_RESIDENT} + pins {SERVE_CLIENTS}) x "
+          f"{footprint} + {threads} x {CUBLAS_WORKSPACE})")
+    res.update(max_abs_err_cpu_f64=worst, answers=len(answers), footprint_bytes=footprint,
+               memory_bound=bound)
+    split = res["cold_split_ms"]
+    lat = res["latency_ms"]
+    log(f"[planes] tenant host, {TENANT_KERNELS} kernels / {TENANT_N} tenants, "
+        f"resident {TENANT_RESIDENT}, Zipf 1.2, {SERVE_CLIENTS} clients x {TENANT_SECONDS:.0f} s: "
+        f"goodput {res['goodput_rps']} requests/s, p50 {lat['p50']} ms p99 {lat['p99']} ms; "
+        f"{res['page_ins']} page-ins, cold hit p50 {res['cold_p50_ms']} ms p99 "
+        f"{res['cold_p99_ms']} ms = read {split['read_ms']} + copy {split['h2d_ms']} + "
+        f"captures {split['capture_ms']} (p50/p99 ms), {res['captures_per_page_in']} "
+        f"captures a page-in; sheds {res['shed_by_tenant']} (quota, hot tenant "
+        f"{res['hot_tenant']} at {res['hot_rate_rps']} requests/s); {len(answers)} answers "
+        f"max |card - cpu f64| {worst:.3e}; probe after a page cycle bitwise")
+    log(f"[planes] tenant host memory_allocated start {base} peak "
+        f"{mem['peak']['allocated']} end {mem['end']['allocated']} (bound {bound}); "
+        f"memory_reserved start {mem['start']['reserved']} peak {mem['peak']['reserved']} "
+        f"end {mem['end']['reserved']}; each second: "
+        + " ".join(str(s["allocated"]) for s in mem["samples"]))
+    stats["tenant"] = {"page_warmup": res}
+
+
+def plane_windows(np, torch, dev, url, stats):
+    """Phase 15 (b): the bench preset's load in 5 s windows, every plane
+    off (A) and on (B), A B B A; fixed probe rows answer bitwise alike."""
+    from hpnn_tpu_torch import obs, serve
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.tools import bench_serve
+
+    k, _ = km.generate(11, N_IN, [N_HID], N_OUT)
+    prng = np.random.RandomState(SEED + 151)
+    probes = [prng.uniform(-1, 1, (r, N_IN)) for r in (1, 3, 8, 50)]
+    runs = {"off": [], "on": []}
+    answers = {}
+    for side in ("off", "on", "on", "off"):
+        env = plane_env(os.path.join(WORK, "caps_b"), url) if side == "on" else {}
+        with knobs(obs, env):
+            sess = serve.Session(device=dev, max_batch=SERVE_MAX_BATCH,
+                                 max_wait_ms=SERVE_WAIT_MS)
+            sess.register_kernel("bench", k)
+            got = [np.asarray(sess.infer("bench", x)) for x in probes]
+            load = bench_serve.closed_loop(sess, "bench", N_IN, n_clients=SERVE_CLIENTS,
+                                           mixed_rows=SERVE_ROWS, duration_s=PLANE_WINDOW_S)
+            armed = sess.health()["tune"]["armed"]
+            sess.close()
+        check("errors" not in load, f"planes {side}: {load.get('errors')}")
+        check(armed == (side == "on"), f"planes {side}: tune armed {armed}")
+        for i, (a, b) in enumerate(zip(got, answers.setdefault(side, got))):
+            check(np.array_equal(a, b), f"planes {side}: probe {i} moved between windows")
+        runs[side].append(load)
+    for i, (a, b) in enumerate(zip(answers["on"], answers["off"])):
+        check(np.array_equal(a, b),
+              f"probe {i}: planes on vs off differ by {float(np.max(np.abs(a - b))):.3e}")
+    spread = {}
+    for side, loads in runs.items():
+        spread[side] = {key: {"min": min(v), "max": max(v)} for key, v in (
+            ("p50_ms", [x["latency_ms"]["p50"] for x in loads]),
+            ("p99_ms", [x["latency_ms"]["p99"] for x in loads]),
+            ("requests_per_s", [x["throughput_rps"] for x in loads]))}
+        s = spread[side]
+        log(f"[planes] every plane {side}, {SERVE_CLIENTS} clients x {PLANE_WINDOW_S:.0f} s "
+            f"windows (A B B A): p50 {s['p50_ms']['min']}-{s['p50_ms']['max']} ms, p99 "
+            f"{s['p99_ms']['min']}-{s['p99_ms']['max']} ms, "
+            f"{s['requests_per_s']['min']}-{s['requests_per_s']['max']} requests/s")
+    log("[planes] probe rows of 1/3/8/50 rows: planes on == off, bitwise")
+    stats["overhead"] = {"order": ["off", "on", "on", "off"], "spread": spread,
+                         "runs": runs}
+
+
+def capsules_drift_meter(np, torch, dev, url, stats):
+    """Phase 15 (c): a capture's profile holds the graph replays, an
+    input shift fires the drift alert, and /meterz's device-seconds
+    summed over tenants match the engine's dispatch wall.  The meter's
+    device-seconds are the host clock around each dispatch (replay and
+    copy-out, as in the JAX package), and the wall below is timed inside
+    that interval, so the check shows that every dispatch reaches the
+    meter, no record dropped or counted twice; it does not measure the
+    card's own time."""
+    import http.client
+
+    from hpnn_tpu_torch import obs, serve, tenant
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.serve import engine as eng_mod
+
+    # the engine's dispatch wall, by a clock of its own around each
+    # bucket forward the engine hands out (inside the meter's interval)
+    walls, wlock = [0.0], threading.Lock()
+    lookup = eng_mod.Engine._compiled_forward
+
+    def timed_lookup(self, *a, **kw):
+        fn = lookup(self, *a, **kw)
+
+        def timed(block):
+            t0 = time.perf_counter()
+            out = fn(block)
+            with wlock:
+                walls[0] += time.perf_counter() - t0
+            return out
+        return timed
+
+    caps = os.path.join(WORK, "caps_c")
+    # a wide drift window: the reference and live class mixes of 512
+    # predictions each, so sampling noise alone stays under the breach
+    with knobs(obs, plane_env(caps, url, HPNN_ALERTS=f"{PLANE_RULES},{DRIFT_RULE}",
+                              HPNN_DRIFT_WINDOW="512")):
+        host = tenant.TenantSession(device=dev, max_batch=SERVE_MAX_BATCH,
+                                    max_wait_ms=SERVE_WAIT_MS)
+        names = [f"t{i}" for i in range(4)]
+        for i, t in enumerate(names):
+            host.register_for(t, "k", km.generate(20 + i, N_IN, [N_HID], N_OUT)[0])
+        server = serve.make_server(host)
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        eng_mod.Engine._compiled_forward = timed_lookup
+        shift = threading.Event()
+        errors, done = [], threading.Event()
+
+        def client(ci):
+            crng = np.random.RandomState(4000 + ci)
+            j = 0
+            while not done.is_set():
+                loc = 3.0 if shift.is_set() else 0.0
+                x = crng.uniform(-1.0, 1.0, (SERVE_ROWS[(ci + j) % 4], N_IN)) + loc
+                j += 1
+                try:
+                    host.infer_for(names[ci % 4], "k", x, timeout_s=30.0)
+                except Exception as exc:  # reported below
+                    errors.append(repr(exc))
+                    return
+
+        threads = [threading.Thread(target=client, args=(ci,)) for ci in range(8)]
+        try:
+            for t in threads:
+                t.start()
+            time.sleep(2.0)
+            cn = http.client.HTTPConnection(*server.server_address[:2], timeout=60)
+            for _ in range(20):     # 429 while an alert's capsule is in flight
+                cn.request("POST", "/v1/capture", body=json.dumps({"reason": "smoke"}))
+                resp = cn.getresponse()
+                cap = json.loads(resp.read())
+                if resp.status != 429:
+                    break
+                time.sleep(0.5)
+            check(resp.status == 200, f"/v1/capture {resp.status} {cap}")
+            fired0 = sum(r["fired"] for r in obs.alerts.health_doc()["rules"]
+                         if r["rule"] == "drift")
+            shift.set()
+            t_shift = time.perf_counter()
+            fired_at = None
+            while time.perf_counter() - t_shift < 10.0 and fired_at is None:
+                if sum(r["fired"] for r in obs.alerts.health_doc()["rules"]
+                       if r["rule"] == "drift") > fired0:
+                    fired_at = time.perf_counter() - t_shift
+                time.sleep(0.01)
+            done.set()
+            for t in threads:
+                t.join(timeout=60)
+            cn.request("GET", "/meterz")
+            meterz = json.loads(cn.getresponse().read())
+            cn.close()
+        finally:
+            done.set()
+            eng_mod.Engine._compiled_forward = lookup
+            server.shutdown()
+            server.server_close()
+            host.close()
+    check(not errors, f"phase 15 (c) load: {errors[:3]}")
+    manifest = cap["manifest"]
+    check(manifest.get("profile") is not None,
+          f"the capsule holds no profile: {manifest.get('profile_refused')}")
+    trace = json.load(open(os.path.join(manifest["capsule"], "profile", "trace.json")))
+    launches = [e for e in trace["traceEvents"]
+                if "GraphLaunch" in str(e.get("name", ""))]
+    kernels_on_card = [e for e in trace["traceEvents"]
+                       if e.get("cat") in ("kernel", "Kernel")]
+    check(launches, "the capsule's profile holds no graph launch")
+    check(sorted(f for f in manifest["files"]) == sorted(
+        ["blame.json", "drift.json", "gauges.json", "health.json", "meter.json",
+         "spans.jsonl"]), f"capsule files {manifest['files']}")
+    check(fired_at is not None, "the input shift did not fire the drift alert in 10 s")
+    dev_s = meterz["axes"]["device_s"]
+    metered = sum(dev_s["top"].values()) if "top" in dev_s else dev_s["total"]
+    rel = abs(metered - walls[0]) / walls[0]
+    check(rel <= 0.05, f"/meterz device-seconds {metered:.6f} vs dispatch wall "
+          f"{walls[0]:.6f} ({rel:.2%})")
+    stats["capsule"] = {"files": manifest["files"], "graph_launches": len(launches),
+                        "card_kernels": len(kernels_on_card),
+                        "window_ms": manifest["profile"]["window_ms"],
+                        "duration_s": manifest["duration_s"]}
+    stats["drift_alert_s"] = fired_at
+    stats["meter"] = {"device_s": metered, "dispatch_wall_s": walls[0], "rel": rel,
+                      "by_tenant": dev_s.get("top")}
+    log(f"[planes] capsule {os.path.basename(manifest['capsule'])}: {manifest['files']} + "
+        f"profile/ ({manifest['profile']['window_ms']} ms torch.profiler window: "
+        f"{len(launches)} graph launches, {len(kernels_on_card)} kernels on the card), "
+        f"assembled in {manifest['duration_s']} s")
+    log(f"[planes] input shift by +3 mid-load: the drift alert fired after {fired_at:.3f} s")
+    log(f"[planes] /meterz device-seconds over {len(names)} tenants {metered:.6f} s vs the "
+        f"engine's summed dispatch wall {walls[0]:.6f} s ({rel:.3%}): no dispatch dropped "
+        f"by the meter (both are host clocks around the replay and copy-out)")
+
+
+def tuning_live(np, torch, dev, url, stats):
+    """Phase 15 (d): the tuning plane live on the card, and a forced
+    rollback of a precision move."""
+    from hpnn_tpu_torch import obs, serve, tune
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.serve import compile_cache
+    from hpnn_tpu_torch.tools import bench_serve
+
+    k, _ = km.generate(12, N_IN, [N_HID], N_OUT)
+    # a 20 ms delay at the dispatch seam makes dispatch the tail's phase
+    # (one client, no batching wait), and a 10 us objective burns budget
+    env = plane_env(os.path.join(WORK, "caps_d"), url, HPNN_TUNE_DRY="0",
+                    HPNN_SLO_MS="0.01", HPNN_TUNE_COOLDOWN_S=str(TUNE_COOLDOWN_S),
+                    HPNN_TUNE_WATCH_S=str(TUNE_WATCH_S),
+                    HPNN_CHAOS="delay@serve.dispatch:ms=20")
+    chaos_lines = io.StringIO()
+    with knobs(obs, env), contextlib.redirect_stderr(chaos_lines):
+        sess = serve.Session(device=dev, max_batch=SERVE_MAX_BATCH, max_wait_ms=0.0)
+        sess.register_kernel("k", k)
+        misses0 = compile_cache.counters()[1]
+        load = bench_serve.closed_loop(sess, "k", N_IN, n_clients=1, mixed_rows=SERVE_ROWS,
+                                       duration_s=TUNE_SECONDS)
+        live = tune.tunez_doc() is not None
+        sess.tuner.stop()
+        tunez = sess.tuner.tunez_doc()          # what /tunez answers
+        ledger = list(sess.tuner._ledger)
+        prec = sess.engine.precision_doc()["kernels"]["k"]
+        captures = compile_cache.counters()[1] - misses0
+        n_buckets = len(sess.engine.buckets)
+        sess.close()
+    other = [ln for ln in chaos_lines.getvalue().splitlines()
+             if not ln.startswith("hpnn chaos: delay@serve.dispatch")]
+    for ln in other[:20]:
+        log(f"[planes] (stderr during the tuning load) {ln}")
+    check("errors" not in load, f"tuning load: {load.get('errors')}")
+    check(live, "/tunez was not armed during the load")
+    applies = [r for r in ledger if r["verdict"] == "apply"]
+    check(applies, f"the tuner applied nothing: {tunez['stats']} {tunez['last_verdict']}")
+    gaps = [b["t"] - a["t"] for a, b in zip(applies, applies[1:])]
+    check(all(g >= TUNE_COOLDOWN_S for g in gaps), f"applies {gaps} s apart")
+    check(tunez["stats"]["applied"] == len(applies)
+          and applies[-1]["id"] in [r.get("id") for r in tunez["ledger"]],
+          f"/tunez counts {tunez['stats']['applied']} applies, the ledger {len(applies)}")
+    # each precision move and each rollback of one captures the menu once;
+    # a quant_err veto captures it twice (the move and its revert)
+    moves = sum(1 for r in ledger if r.get("action") == "precision_down"
+                and r["verdict"] in ("apply", "rollback"))
+    moves += 2 * sum(1 for r in ledger if r.get("reason") == "quant_err")
+    check(captures == moves * n_buckets,
+          f"{moves} precision moves captured {captures} graphs ({n_buckets} buckets)")
+    if any(a["action"] == "precision_down" for a in applies):
+        bound = QUANT_BOUND.get(prec["precision"], 1e-2)
+        check(prec.get("quant_err", 0.0) < bound,
+              f"{prec['precision']} quant_err {prec.get('quant_err')} >= {bound}")
+    log(f"[planes] tuning live (HPNN_SLO_MS=0.01, a 20 ms delay at serve.dispatch, cooldown "
+        f"{TUNE_COOLDOWN_S} s, {TUNE_SECONDS:.0f} s of 1 client): {len(applies)} applies "
+        f"{[a['action'] for a in applies]} {gaps} s apart, /tunez stats {tunez['stats']}; "
+        f"kernel now {prec['precision']} (quant_err {prec.get('quant_err')}), "
+        f"{captures} captures")
+
+    # a forced rollback restores the prior policy bitwise
+    with knobs(obs, {"HPNN_BLAME": "1", "HPNN_TUNE": "1"}):
+        sess = serve.Session(device=dev, max_batch=SERVE_MAX_BATCH, start=True)
+        sess.register_kernel("k", k)
+        xs = [np.random.RandomState(SEED + i).uniform(-1, 1, (r, N_IN))
+              for i, r in enumerate((1, 8, 64))]
+        before = [np.asarray(sess.infer("k", x)) for x in xs]
+        for i in range(64):
+            obs.blame.note_record({"span": 2 * i + 1, "parent": 2 * i + 2,
+                                   "name": "serve.dispatch", "t0": 0.0, "dt": 0.9})
+            obs.blame.note_record({"span": 2 * i + 2, "parent": None,
+                                   "name": "serve.request", "t0": 0.0, "dt": 1.0,
+                                   "kernel": "k"})
+        tuner = tune.Tuner(sess, policy=tune.Policy(cooldown_s=0.0), clock=lambda: 0.0,
+                           p99_fn=lambda: 1.0, burn_fn=lambda: 3.0)
+        d = tuner.tick()
+        moved = [np.asarray(sess.infer("k", x)) for x in xs]
+        back = tuner.rollback("forced")
+        after = [np.asarray(sess.infer("k", x)) for x in xs]
+        entry = sess.registry.get("k")
+        sess.close()
+    check(d["verdict"] == "apply" and d["action"] == "precision_down" and back,
+          f"forced move {d}, rollback {back}")
+    check(entry.precision is None, f"rollback left precision {entry.precision}")
+    for i, (a, b) in enumerate(zip(before, after)):
+        check(np.array_equal(a, b), f"rollback: block {i} differs by "
+              f"{float(np.max(np.abs(a - b))):.3e} from before the move")
+    moved_err = max(float(np.max(np.abs(a - b))) for a, b in zip(before, moved))
+    stats["tune"] = {"ledger": ledger, "stats": tunez["stats"], "precision": prec,
+                     "captures": captures, "forced": {"applied": d.get("applied"),
+                                                      "moved_max_abs": moved_err}}
+    log(f"[planes] forced precision_down to {d.get('applied')} (answers moved by "
+        f"{moved_err:.3e}) and rollback: the native graphs answer bitwise as before")
+
+
+def planes_summary(p):
+    """The headline numbers of phase 15 for the result line (the whole
+    record is ``.smoke/planes.json``)."""
+    out = {"tenant": {}}
+    for mode, r in p["tenant"].items():
+        out["tenant"][mode] = {k: r[k] for k in (
+            "goodput_rps", "latency_ms", "page_ins", "cold_p50_ms", "cold_p99_ms",
+            "cold_split_ms", "captures_per_page_in", "shed_by_tenant",
+            "max_abs_err_cpu_f64", "footprint_bytes", "memory_bound")}
+        out["tenant"][mode]["memory"] = {k: r["memory"][k] for k in ("start", "peak", "end")}
+    out["overhead"] = p["overhead"]["spread"]
+    out.update({k: p[k] for k in ("capsule", "drift_alert_s", "meter", "seconds")})
+    out["tune"] = {"stats": p["tune"]["stats"], "precision": p["tune"]["precision"]}
+    return out
+
+
+def planes_phase(np, torch, dev):
+    """Phase 15: the serving planes on the card."""
+    from hpnn_tpu_torch import obs
+
+    stats = {}
+    # the in-process collector's per-request stderr line, 5 a second
+    obs.collector._CollectorHandler.log_message = lambda *a: None
+    collector = obs.collector.start_collector(
+        host="127.0.0.1", port=0, path=os.path.join(WORK, "collector.jsonl"))
+    url = "http://127.0.0.1:%d" % collector.server_address[1]
+    try:
+        t0 = time.perf_counter()
+        tenant_host(np, torch, dev, stats)
+        t1 = time.perf_counter()
+        plane_windows(np, torch, dev, url, stats)
+        t2 = time.perf_counter()
+        capsules_drift_meter(np, torch, dev, url, stats)
+        t3 = time.perf_counter()
+        tuning_live(np, torch, dev, url, stats)
+        t4 = time.perf_counter()
+    finally:
+        obs.collector.stop_collector(collector)
+        obs.reset()
+    received = sum(1 for _ in open(os.path.join(WORK, "collector.jsonl")))
+    check(received > 0, "the in-process collector received no record")
+    stats["collector_records"] = received
+    stats["seconds"] = {"tenant": t1 - t0, "overhead": t2 - t1, "capsule_drift_meter": t3 - t2,
+                        "tune": t4 - t3}
+    log(f"[planes] collector received {received} records; parts in "
+        + ", ".join(f"{k} {v:.1f} s" for k, v in stats["seconds"].items()))
+    return stats
+
+
 def main() -> int:
     import argparse
 
@@ -1766,6 +2294,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--phase-split", action="store_true",
                     help="time the kernels' phases (two more nvcc builds)")
+    ap.add_argument("--planes-only", action="store_true",
+                    help="run only phase 15 (the serving planes); no result line")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1796,6 +2326,15 @@ def main() -> int:
     log(f"[probe] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {kind} count {torch.cuda.device_count()}")
     log(f"[probe] nvidia-smi: {smi}")
+    if args.planes_only:
+        os.makedirs(WORK, exist_ok=True)
+        t15 = time.perf_counter()
+        planes = planes_phase(np, torch, dev)
+        with open(os.path.join(WORK, "planes.json"), "w") as fp:
+            json.dump(planes, fp, default=str)
+        log(f"[planes] phase 15 in {time.perf_counter() - t15:.1f} s (--planes-only: "
+            f"no result line)")
+        return 0
 
     # 2. build: one nvcc per source and g++ for the host library, all
     # started together
@@ -2069,6 +2608,14 @@ def main() -> int:
     t14 = time.perf_counter()
     serve_stats = serve_phase(np, torch, dev, k0)
     log(f"[serve] phase 14 in {time.perf_counter() - t14:.1f} s")
+
+    # 15. the serving planes: tenant host, every plane on/off, capsules,
+    # drift, meter, the tuning plane
+    t15 = time.perf_counter()
+    planes = planes_phase(np, torch, dev)
+    with open(os.path.join(WORK, "planes.json"), "w") as fp:
+        json.dump(planes, fp, default=str)
+    log(f"[planes] phase 15 in {time.perf_counter() - t15:.1f} s")
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -2098,6 +2645,7 @@ def main() -> int:
         "by_config": timings,
         "resume_obs_native": slice6,
         "serve": serve_stats,
+        "planes": planes_summary(planes),
     }]
     for name, replaces, on_path in BATCH_KERNELS:
         t = batch_times[name]

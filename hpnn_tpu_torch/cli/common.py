@@ -16,8 +16,8 @@ package's: ``--metrics PATH`` (``HPNN_METRICS``), ``--ledger PATH``
 ``--export-port N`` (a live ``/metrics`` endpoint) and ``--profile DIR``
 (a ``torch.profiler`` trace of the workload).  ``--mesh`` belongs to a
 path this package does not have yet and is refused with a message, as
-are the environment knobs of the JAX package's unported planes
-(``runtime.DEFERRED_ENV``).
+are the environment knobs of ``runtime.DEFERRED_ENV`` (XLA's executable
+cache and the serve router's tensor-parallel spill).
 """
 
 from __future__ import annotations

@@ -10,11 +10,13 @@ options:
 
     python -m hpnn_tpu_torch.cli.serve_nn [-v] [--device cpu|cuda]
         [--port N] [--host H] [--max-batch N] [--max-wait-ms F]
-        [--metrics PATH] nn.conf
+        [--metrics PATH] [--sample P] [--capsule-dir DIR] nn.conf
 
-The work runs on ``cuda`` unless ``--device cpu`` is given.  The JAX
-package's ``--sample``/``--capsule-dir`` (tail-latency forensics) are
-refused: those planes are not ported.
+The work runs on ``cuda`` unless ``--device cpu`` is given.
+``--sample``/``--capsule-dir`` are the CLI twins of
+``HPNN_SAMPLE``/``HPNN_CAPSULE_DIR`` (tail-latency forensics,
+docs/observability.md): arm request sampling and alert/manual capture
+capsules without touching the environment.
 
 stdout stays silent (the token protocol belongs to train/run rounds);
 all serving diagnostics go to stderr.
@@ -22,6 +24,7 @@ all serving diagnostics go to stderr.
 
 from __future__ import annotations
 
+import os
 import sys
 
 from hpnn_tpu_torch import config, obs, runtime
@@ -29,11 +32,6 @@ from hpnn_tpu_torch.cli import common
 
 PROG = "serve_nn"
 _MODEL_OF = {"ANN": "ann", "SNN": "snn"}
-# long option -> the JAX package's plane it arms
-DEFERRED_OPTS = {
-    "sample": "the tail sampler (--sample, HPNN_SAMPLE)",
-    "capsule-dir": "capture capsules (--capsule-dir, HPNN_CAPSULE_DIR)",
-}
 
 
 def build_from_conf(conf, *, max_batch: int = 64, n_buckets: int = 4,
@@ -64,12 +62,20 @@ def main(argv: list[str] | None = None) -> int:
     argv, opts = common.extract_long_opts(
         argv,
         valued=("port", "host", "max-batch", "max-wait-ms", "metrics",
-                "device", *DEFERRED_OPTS),
+                "device", "sample", "capsule-dir"),
     )
-    if argv is None or not common.check_supported(opts, PROG,
-                                                  deferred=DEFERRED_OPTS):
+    if argv is None or not common.check_supported(opts, PROG):
         runtime.deinit_all()
         return -1
+    if "sample" in opts or "capsule-dir" in opts:
+        # twins must land BEFORE obs.configure so the registry's
+        # file-less activation + hook arming see them
+        if "sample" in opts:
+            obs.forensics.configure(opts["sample"])
+        if "capsule-dir" in opts:
+            obs.triggers.configure(opts["capsule-dir"])
+        if "metrics" not in opts:
+            obs.configure(os.environ.get(obs.ENV_KNOB))
     if "metrics" in opts:
         obs.configure(opts["metrics"])
     filename = common.parse_args(argv, PROG)

@@ -1,20 +1,24 @@
-"""Bitwise weight checkpoints (``.ckpt``) — load only.
+"""Bitwise weight checkpoints (``.ckpt``): the port of
+``hpnn_tpu/fileio/checkpoint.py``.
 
 A kernel file may be a promotion checkpoint written by the JAX
-package's online trainer instead of the reference text grammar:
+package's online trainer instead of the reference text grammar, and the
+tenant pager (tenant/pager.py) writes its page store in this format:
 
 * line 1: ``MAGIC`` (self-identifying; ``kernel.load`` dispatches on it);
-* line 2: one JSON header — kernel name, per-layer shapes and dtypes,
-  payload byte count, and a SHA-256 over the payload;
+* line 2: one JSON header — kernel name, version, per-layer shapes and
+  dtypes, payload byte count, and a SHA-256 over the payload;
 * then the concatenated raw bytes of each weight array in layer order.
 
-A torn or tampered file raises :class:`CheckpointError`.
+Writes are crash-atomic (temp file + fsync + ``os.replace``).  A torn
+or tampered file raises :class:`CheckpointError`.
 """
 
 from __future__ import annotations
 
 import hashlib
 import json
+import os
 
 import numpy as np
 
@@ -31,6 +35,44 @@ def is_checkpoint(path: str) -> bool:
             return fp.read(len(MAGIC)) == MAGIC
     except OSError:
         return False
+
+
+def dump_checkpoint(path: str, name: str, weights, *, version: int = 0,
+                    model: str = "ann", meta: dict | None = None):
+    """Atomically write ``weights`` (a sequence of 2-D arrays) to
+    ``path``.  Returns the registry-compatible staleness signature
+    ``(st_mtime_ns, st_size)`` of the final file."""
+    arrays = [np.ascontiguousarray(np.asarray(w)) for w in weights]
+    payload = b"".join(a.tobytes() for a in arrays)
+    header = {
+        "kernel": str(name),
+        "version": int(version),
+        "model": str(model),
+        "shapes": [list(a.shape) for a in arrays],
+        "dtypes": [a.dtype.str for a in arrays],
+        "nbytes": len(payload),
+        "sha256": hashlib.sha256(payload).hexdigest(),
+    }
+    if meta:
+        header["meta"] = dict(meta)
+    tmp = f"{path}.tmp.{os.getpid()}"
+    try:
+        with open(tmp, "wb") as fp:
+            fp.write(MAGIC)
+            fp.write(json.dumps(header, sort_keys=True).encode("utf-8"))
+            fp.write(b"\n")
+            fp.write(payload)
+            fp.flush()
+            os.fsync(fp.fileno())
+        os.replace(tmp, path)
+    except OSError:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+    st = os.stat(path)
+    return (st.st_mtime_ns, st.st_size)
 
 
 def load_checkpoint(path: str):

@@ -26,16 +26,26 @@ files unchanged:
 * the serve stack's planes, copied from the JAX package: the
   rolling-window SLO tracker ``HPNN_SLO_MS`` (obs/slo.py), trace
   context on the wire (obs/propagate.py, rides ``HPNN_SPANS``) and the
-  lock-order watchdog ``HPNN_LOCKWATCH`` (obs/lockwatch.py).
+  lock-order watchdog ``HPNN_LOCKWATCH`` (obs/lockwatch.py);
+* the serving planes, copied from the JAX package with their knobs:
+  the fleet collector push ``HPNN_COLLECTOR`` (obs/collector.py, and
+  ``cli/obs_collector.py``), alert rules ``HPNN_ALERTS``
+  (obs/alerts.py), the tail sampler ``HPNN_SAMPLE`` (obs/forensics.py),
+  capture capsules ``HPNN_CAPSULE_DIR`` (obs/triggers.py, whose
+  ``profile/`` window is a ``torch.profiler`` trace), drift sketches
+  ``HPNN_DRIFT`` (obs/drift.py), the per-tenant meter ``HPNN_METER``
+  (obs/meter.py) and the rolling per-phase blame ``HPNN_BLAME``
+  (obs/blame.py), the self-tuning plane's sensor
+  (hpnn_tpu_torch/tune/, ``HPNN_TUNE``).
 
 Every knob unset: each env var is read once and memoized, and every
-call is a constant-time no-op.  Nothing here writes to stdout.  The JAX
-package's fleet-telemetry, forensics, drift, meter, blame and tuning
-planes are not ported; their knobs are refused (``runtime.DEFERRED_ENV``).
+call is a constant-time no-op.  Nothing here writes to stdout.
 """
 
-from hpnn_tpu_torch.obs import (cost, device, export, flight, ledger,
-                                lockwatch, probes, propagate, slo, spans)
+from hpnn_tpu_torch.obs import (alerts, blame, collector, cost, device,
+                                drift, export, flight, forensics, ledger,
+                                lockwatch, meter, probes, propagate, slo,
+                                spans, triggers)
 from hpnn_tpu_torch.obs.profiler import annotate, step_annotation
 from hpnn_tpu_torch.obs.registry import (
     ENV_KNOB,
@@ -66,25 +76,40 @@ def reset() -> None:
 ENV_KNOBS = ("HPNN_METRICS", "HPNN_LEDGER", "HPNN_PROBES", "HPNN_NUMERICS",
              "HPNN_SPANS", "HPNN_COST", "HPNN_TRACE", "HPNN_FLIGHT",
              "HPNN_SLO_MS", "HPNN_SLO_WINDOW_S", "HPNN_SLO_TARGET",
-             "HPNN_LOCKWATCH")
+             "HPNN_LOCKWATCH",
+             # the serving planes (and the tuning plane's knobs)
+             "HPNN_COLLECTOR", "HPNN_COLLECTOR_QUEUE", "HPNN_COLLECTOR_FLUSH_S",
+             "HPNN_ALERTS", "HPNN_SAMPLE", "HPNN_SAMPLE_SLOW_MS",
+             "HPNN_SAMPLE_RING", "HPNN_CAPSULE_DIR", "HPNN_CAPSULE_PROFILE_MS",
+             "HPNN_CAPSULE_COOLDOWN_S", "HPNN_DRIFT", "HPNN_DRIFT_WINDOW",
+             "HPNN_DRIFT_Z", "HPNN_METER", "HPNN_METER_TOPK", "HPNN_BLAME",
+             "HPNN_BLAME_WINDOW", "HPNN_TUNE", "HPNN_TUNE_DOMINANT_PCT",
+             "HPNN_TUNE_BURN", "HPNN_TUNE_COOLDOWN_S", "HPNN_TUNE_WATCH_S",
+             "HPNN_TUNE_QUANT_ERR", "HPNN_TUNE_DRY")
 
 __all__ = [
     "ENV_KNOB",
     "ENV_KNOBS",
     "activate_memory",
+    "alerts",
     "annotate",
+    "blame",
+    "collector",
     "configure",
     "cost",
     "count",
     "device",
+    "drift",
     "enabled",
     "event",
     "export",
     "flight",
     "flush",
+    "forensics",
     "gauge",
     "ledger",
     "lockwatch",
+    "meter",
     "observe",
     "probes",
     "propagate",
@@ -96,4 +121,5 @@ __all__ = [
     "step_annotation",
     "summary",
     "timer",
+    "triggers",
 ]

@@ -144,6 +144,14 @@ def catalog() -> dict[str, dict]:
         return {k: dict(v) for k, v in _catalog.items()}
 
 
+def lookup(name: str) -> dict | None:
+    """The cataloged work of one entry point — ``{"flops", "bytes",
+    "units"}`` — or None when uncataloged.  The per-tenant meter's
+    dispatch join point (obs/meter.py): lock-free, entries are never
+    removed outside test resets."""
+    return _catalog.get(name)
+
+
 def record_dispatch(name: str, dt: float, *, nbytes, flops, dtype,
                     device, units: int = 1, **meta) -> None:
     """One launch of entry point ``name``: ``dt`` seconds (synchronized

@@ -7,19 +7,26 @@ format (version 0.0.4), or as OpenMetrics 1.0 histograms when the
 scraper asks for ``application/openmetrics-text``, and serves it from a
 standalone stdlib HTTP server (:func:`start_export_server`) wired to
 ``train_nn``/``run_nn --export-port N``, so a training run is
-scrapeable while it trains.  Starting a server calls
-``registry.activate_memory()``, so the export path works even when
-``HPNN_METRICS`` is unset.
+scrapeable while it trains; the serve front end (serve/server.py)
+answers ``GET /metrics`` with the same renderers.  Starting a server
+calls ``registry.activate_memory()``, so the export path works even
+when ``HPNN_METRICS`` is unset.
 
 Mapping: obs counters become Prometheus ``counter``s (``_total``
 suffix), obs gauges become ``gauge``s, and timer/histogram aggregates
 become ``summary`` metrics — q0.5/q0.9/q0.99 estimated from the
 registry's log2 buckets — plus exact ``_sum``/``_count``.  Metric names
 are ``hpnn_`` + the event name with non-alphanumerics mapped to ``_``.
+The per-tenant meter (``HPNN_METER``, obs/meter.py) adds its governed
+``hpnn_meter_*_total{tenant=...}`` counter families.
+
+The 0.0.4 body carries **no exemplars** (that format has no exemplar
+syntax); the OpenMetrics histograms carry the tail sampler's
+``# {trace_id="..."}`` marks (obs/forensics.py) on their bucket
+samples and end with ``# EOF``.
 
 ``/healthz`` reports process-level health: registry state, uptime,
-plus whatever the drivers published through :func:`set_health`.  The
-JAX package's per-tenant families and trace exemplars are not ported.
+plus whatever the drivers published through :func:`set_health`.
 stdlib only; nothing here ever writes stdout.
 """
 
@@ -28,7 +35,6 @@ from __future__ import annotations
 import json
 import os
 import re
-import sys
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -85,8 +91,11 @@ def _metric_name(ev: str) -> str:
 
 def _escape_label_value(v) -> str:
     """Escape one label value: backslash, double-quote and newline
-    per the exposition spec, plus carriage return (a raw one breaks
-    the line structure for a ``splitlines()``-style reader)."""
+    per the exposition spec, plus carriage return — a raw ``\\r``
+    inside a value breaks the line structure for any
+    ``splitlines()``-style reader (it splits on ``\\r`` too), so
+    exemplar trace-ids and free-form values must round-trip it
+    escaped (tests/test_perf_attr.py proves the round trip)."""
     return (str(v).replace("\\", "\\\\").replace('"', '\\"')
             .replace("\n", "\\n").replace("\r", "\\r"))
 
@@ -141,10 +150,53 @@ def _quantile_estimate(agg: dict, q: float) -> float:
     return float(vmax) if vmax is not None else 0.0
 
 
-def render_prometheus(snap: dict | None) -> str:
+# meter axis -> exported metric family (obs/meter.py).  Every family
+# is a counter: the sketches accumulate monotonically over a process
+# lifetime, and the governed export per family carries at most K+1
+# distinct ``tenant=`` labels by construction.
+METER_FAMILIES = {
+    "device_s": "hpnn_meter_device_seconds",
+    "flops": "hpnn_meter_flops",
+    "bytes": "hpnn_meter_bytes",
+    "queue_s": "hpnn_meter_queue_seconds",
+    "rows": "hpnn_meter_rows",
+    "sheds": "hpnn_meter_sheds",
+}
+
+
+def render_meter_lines(doc: dict | None,
+                       openmetrics: bool = False) -> list[str]:
+    """Exposition lines for one governed meter export document —
+    ``{axis: {tenant: value, ..., "_other": rest}}``, from
+    ``meter.export_doc()`` locally or the collector's fleet merge
+    (``axes[ax]["top"]`` there).  Empty list when the meter is
+    unarmed (doc None) — an unarmed scrape stays meter-silent."""
+    if not doc:
+        return []
+    lines = []
+    for axis, tenants in sorted(doc.items()):
+        fam = METER_FAMILIES.get(axis)
+        if fam is None or not tenants:
+            continue
+        # 0.0.4 names the suffixed metric in TYPE; OpenMetrics names
+        # the family and suffixes the sample — same split as the
+        # counter loops in the snapshot renderers
+        tname = fam if openmetrics else fam + "_total"
+        lines.append(f"# TYPE {tname} counter")
+        for tenant, v in sorted(tenants.items()):
+            labels = _render_labels({"tenant": tenant})
+            lines.append(f"{fam}_total{labels} {_fmt(v)}")
+    return lines
+
+
+def render_prometheus(snap: dict | None, *,
+                      local_meter: bool = True) -> str:
     """The Prometheus text exposition (0.0.4) of one registry
     snapshot.  ``snap=None`` (registry inactive) renders a comment-only
-    document — a scrape of an idle process is 200, not an error."""
+    document — a scrape of an idle process is 200, not an error.
+    ``local_meter=False`` omits this process's governed meter families
+    — the collector renders a *foreign* merged snapshot and appends
+    its own fleet-merged meter lines instead (obs/collector.py)."""
     lines = []
     if snap is None:
         lines.append("# hpnn obs registry inactive "
@@ -169,16 +221,24 @@ def render_prometheus(snap: dict | None) -> str:
             lines.append(f"{m}{labels} {_fmt(est)}")
         lines.append(f"{m}_sum {_fmt(agg['total'])}")
         lines.append(f"{m}_count {agg['n']}")
+    if local_meter:
+        from hpnn_tpu_torch.obs import meter
+
+        lines.extend(render_meter_lines(meter.export_doc()))
     return "\n".join(lines) + "\n"
 
 
-def render_openmetrics(snap: dict | None) -> str:
+def render_openmetrics(snap: dict | None, *,
+                       local_meter: bool = True) -> str:
     """The OpenMetrics 1.0 text exposition of one registry snapshot —
     the variant negotiated by ``Accept: application/openmetrics-text``.
     Aggregates render as **histograms** with cumulative ``le`` buckets
     taken from the registry's log2 buckets (bucket ``k`` holds
     ``(2^(k-1), 2^k]``, so its upper bound is ``2^k``; bucket 0 also
-    absorbs values ≤ 0).  Ends with the mandatory ``# EOF``."""
+    absorbs values ≤ 0), because bucket samples are the only aggregate
+    line type OpenMetrics allows exemplars on — the tail sampler's
+    ``# {trace_id="..."}`` marks attach to the bucket they landed in.
+    Ends with the mandatory ``# EOF`` terminator."""
     lines = []
     if snap is None:
         lines.append("# hpnn obs registry inactive "
@@ -198,14 +258,25 @@ def render_openmetrics(snap: dict | None) -> str:
     for ev, agg in sorted(snap["aggregates"].items()):
         m = _metric_name(ev)
         lines.append(f"# TYPE {m} histogram")
+        buckets = agg.get("log2_buckets") or {}
+        exemplars = agg.get("exemplars") or {}
         cum = 0
-        for k, c in sorted((agg.get("log2_buckets") or {}).items(),
-                           key=lambda kv: int(kv[0])):
-            cum += c
-            lines.append(f'{m}_bucket{{le="{_fmt(2.0 ** int(k))}"}} {cum}')
+        for k in sorted(buckets, key=int):
+            cum += buckets[k]
+            line = f'{m}_bucket{{le="{_fmt(2.0 ** int(k))}"}} {cum}'
+            e = exemplars.get(str(int(k)))
+            if e:
+                labels = _render_labels({"trace_id": e["trace_id"]})
+                line += f" # {labels} {_fmt(e['value'])}"
+            lines.append(line)
         lines.append(f'{m}_bucket{{le="+Inf"}} {agg["n"]}')
         lines.append(f"{m}_sum {_fmt(agg['total'])}")
         lines.append(f"{m}_count {agg['n']}")
+    if local_meter:
+        from hpnn_tpu_torch.obs import meter
+
+        lines.extend(render_meter_lines(meter.export_doc(),
+                                        openmetrics=True))
     lines.append("# EOF")
     return "\n".join(lines) + "\n"
 
@@ -218,8 +289,9 @@ def wants_openmetrics(accept: str | None) -> bool:
 
 def metrics_response(accept: str | None = None) -> tuple[bytes, str]:
     """The negotiated ``/metrics`` response for the current registry
-    state: ``(body, content_type)`` — 0.0.4 text by default, the
-    OpenMetrics histogram form when the Accept header asks for it."""
+    state: ``(body, content_type)`` — exemplar-free 0.0.4 text by
+    default, the OpenMetrics histogram form (exemplars attached) when
+    the Accept header asks for it."""
     snap = registry.snapshot_state()
     if wants_openmetrics(accept):
         return (render_openmetrics(snap).encode("utf-8"),
@@ -228,11 +300,19 @@ def metrics_response(accept: str | None = None) -> tuple[bytes, str]:
             TEXT_CONTENT_TYPE)
 
 
+def metrics_body() -> bytes:
+    """The default (0.0.4) ``/metrics`` response body for the current
+    registry state."""
+    return render_prometheus(registry.snapshot_state()).encode("utf-8")
+
+
 # ------------------------------------------------------------ server
 class _ExportHandler(BaseHTTPRequestHandler):
     protocol_version = "HTTP/1.1"
 
     def log_message(self, fmt, *args):  # stdout stays byte-frozen
+        import sys
+
         sys.stderr.write("obs.export: %s - %s\n"
                          % (self.address_string(), fmt % args))
 

@@ -59,9 +59,14 @@ _slots_lock = threading.Lock()
 
 
 def enabled() -> bool:
-    """Propagation rides the spans knob.  (The JAX package also arms it
-    for its tail sampler, ``HPNN_SAMPLE``, which the port refuses.)"""
-    return spans.enabled()
+    """Propagation rides the spans knob — or the tail sampler
+    (``HPNN_SAMPLE``, obs/forensics.py), whose sampled requests need
+    trace ids on the wire just like fully-spanned ones."""
+    if spans.enabled():
+        return True
+    from hpnn_tpu_torch.obs import forensics
+
+    return forensics.enabled()
 
 
 class Ctx:

@@ -36,9 +36,12 @@ without a sink.  On the first activation it chains SIGTERM/SIGINT
 handlers and ``sys.excepthook``, so a killed or crashing run flushes
 its sink, writes a final ``summary`` line and dumps the flight ring.
 
-The JAX package's fleet-telemetry hooks (collector push, alert rules,
-capture capsules) and the per-tenant meter are not ported; their knobs
-are refused (``runtime.DEFERRED_ENV``).
+The fleet-telemetry hooks ride the same record path as in the JAX
+package: each record is offered to the collector's push queue
+(``HPNN_COLLECTOR``, obs/collector.py), each gauge to the alert rules
+(``HPNN_ALERTS``, obs/alerts.py), and a firing rule to the capture
+capsules (``HPNN_CAPSULE_DIR``, obs/triggers.py); at exit the per-tenant
+meter (``HPNN_METER``) writes its final sketch.
 """
 
 from __future__ import annotations
@@ -83,7 +86,7 @@ class _Agg:
     """Running aggregate (count/sum/min/max + log2 buckets) for one
     timer or histogram name."""
 
-    __slots__ = ("n", "total", "vmin", "vmax", "buckets")
+    __slots__ = ("n", "total", "vmin", "vmax", "buckets", "exemplars")
 
     def __init__(self):
         self.n = 0
@@ -91,6 +94,14 @@ class _Agg:
         self.vmin = None
         self.vmax = None
         self.buckets: dict[int, int] = {}
+        # last (trace_id, value) per hot log2 bucket — rendered as
+        # OpenMetrics-style exemplars on /metrics (obs/export.py),
+        # marked by the tail sampler (obs/forensics.py).  Bounded by
+        # the bucket count; empty unless something marks it.
+        self.exemplars: dict[int, tuple[str, float]] = {}
+
+    def mark(self, v: float, trace: str) -> None:
+        self.exemplars[_bucket_of(v)] = (trace, v)
 
     def add(self, v: float) -> None:
         self.n += 1
@@ -122,7 +133,7 @@ class _Agg:
 
     def snapshot(self) -> dict:
         mean = self.total / self.n if self.n else 0.0
-        return {
+        out = {
             "n": self.n,
             "total": round(self.total, 9),
             "mean": round(mean, 9),
@@ -131,6 +142,11 @@ class _Agg:
             # JSON keys must be strings; "k" means bucket (2^(k-1), 2^k]
             "log2_buckets": {str(k): v for k, v in sorted(self.buckets.items())},
         }
+        if self.exemplars:
+            out["exemplars"] = {
+                str(k): {"trace_id": t, "value": round(v, 9)}
+                for k, (t, v) in sorted(self.exemplars.items())}
+        return out
 
 
 class _State:
@@ -158,6 +174,14 @@ _memory_requested = False
 # they check the live _state when they fire
 _handlers_installed = False
 _prev_excepthook = None
+
+# lazily-armed fan-out hooks (obs/collector.py push client and
+# obs/alerts.py rule engine).  Module-level callables — one ``is not
+# None`` check per record / per gauge when armed, nothing at all when
+# the knobs are unset.  _init arms them; _reset_for_tests disarms.
+_push_hook = None   # called with each serialized JSONL line
+_gauge_hook = None  # called with (name, float_value) per gauge
+
 
 def _to_py(o):
     # numpy scalars and other array-likes carrying .item()
@@ -199,7 +223,15 @@ def _init():
             # without a sink
             if not (_memory_requested or flight.enabled()
                     or os.environ.get("HPNN_SPANS")
-                    or os.environ.get("HPNN_COST")):
+                    or os.environ.get("HPNN_COST")
+                    or os.environ.get("HPNN_COLLECTOR")
+                    or os.environ.get("HPNN_ALERTS")
+                    or os.environ.get("HPNN_SAMPLE")
+                    or os.environ.get("HPNN_CAPSULE_DIR")
+                    or os.environ.get("HPNN_DRIFT")
+                    or os.environ.get("HPNN_METER")
+                    or os.environ.get("HPNN_BLAME")
+                    or os.environ.get("HPNN_TUNE")):
                 _state = False
                 return False
             path = None
@@ -207,6 +239,20 @@ def _init():
         _state = st
         atexit.register(_at_exit)
     _install_crash_handlers()
+    # arm the fleet-telemetry hooks (local imports: collector/alerts
+    # import registry, so importing them at module scope would cycle)
+    if os.environ.get("HPNN_COLLECTOR"):
+        from hpnn_tpu_torch.obs import collector
+
+        collector._install_push()
+    if os.environ.get("HPNN_ALERTS"):
+        from hpnn_tpu_torch.obs import alerts
+
+        alerts._install()
+    if os.environ.get("HPNN_CAPSULE_DIR"):
+        from hpnn_tpu_torch.obs import triggers
+
+        triggers._install()
     _emit(st, {"ev": "obs.open", "kind": "event", "pid": os.getpid(),
                "rank": _process_index()})
     return st
@@ -223,6 +269,9 @@ def _emit(st: _State, rec: dict) -> None:
     rec.setdefault("ts", round(time.time(), 6))
     line = json.dumps(rec, default=_to_py)
     flight.record(line)
+    hook = _push_hook
+    if hook is not None:
+        hook(line)  # O(1) enqueue-or-drop; never blocks (collector.py)
     if st.fp is not None:
         with st.lock:
             st.fp.write(line + "\n")
@@ -318,6 +367,28 @@ def gauge(name: str, value, **fields) -> None:
     rec = {"ev": name, "kind": "gauge", "value": v}
     rec.update(fields)
     _emit(st, rec)
+    hook = _gauge_hook
+    if hook is not None:
+        hook(name, v)  # alert rule evaluation (obs/alerts.py)
+
+
+def exemplar(name: str, value, trace: str) -> None:
+    """Attach a trace-id exemplar to the named aggregate's bucket for
+    ``value`` — last-write-wins per bucket, rendered on ``/metrics``
+    as ``# {trace_id="..."}`` suffixes (obs/export.py).  Called by the
+    tail sampler (obs/forensics.py) when an emitted request span
+    carries a trace; a no-op when the registry is inactive, the trace
+    is empty, or nothing has observed into the named aggregate yet —
+    minting an aggregate here would grow ``/metrics`` a degenerate
+    all-zero summary per marked name."""
+    st = _active()
+    if st is None or not trace:
+        return
+    v = float(value)
+    with st.lock:
+        agg = st.aggs.get(name)
+        if agg is not None:
+            agg.mark(v, str(trace))
 
 
 def observe(name: str, values, **fields) -> None:
@@ -414,7 +485,9 @@ def flush() -> None:
 
 
 # Signal-path teardown runs at most once per process, whichever handler
-# gets there first.
+# gets there first — the chained obs signal handler or the serve drain
+# handler (serve/server.py:install_drain).  Without the guard a drain
+# chained behind the obs handler would dump the flight ring twice.
 _signal_flushed = False
 
 
@@ -431,6 +504,13 @@ def _crash_flush(ev: str, detail: str, reason: str) -> None:
         if not isinstance(_state, _State):
             return
         event(ev, reason=detail)
+        # the meter's final cumulative sketch — a worker dying inside
+        # its first emission interval would otherwise never land one
+        # record and be invisible to the fleet blame table (lazy
+        # import: meter imports registry)
+        from hpnn_tpu_torch.obs import meter
+
+        meter.emit_sketch()
         summary()
         flush()
         flight.dump(reason)
@@ -483,6 +563,9 @@ def _at_exit() -> None:
     st = _state
     if isinstance(st, _State):
         try:
+            from hpnn_tpu_torch.obs import meter
+
+            meter.emit_sketch()   # final cumulative sketch (no-op unarmed)
             summary()
             if st.fp is not None:
                 st.fp.close()
@@ -497,11 +580,14 @@ def _reset_for_tests() -> None:
     and any file-less activation.  Test-only — production code
     re-points the sink through :func:`configure`."""
     global _state, _memory_requested, _signal_flushed
+    global _push_hook, _gauge_hook
     with _state_lock:
         st = _state
         _state = None
         _memory_requested = False
         _signal_flushed = False
+        _push_hook = None
+        _gauge_hook = None
         if isinstance(st, _State) and st.fp is not None:
             try:
                 st.fp.close()
@@ -509,12 +595,16 @@ def _reset_for_tests() -> None:
                 pass  # already closed
     flight._reset_for_tests()
     # chain the sibling memos; sys.modules.get avoids import cycles
+    # (export/ledger/probes all import registry; chaos/wal import obs)
     for name in ("hpnn_tpu_torch.obs.export", "hpnn_tpu_torch.obs.ledger",
                  "hpnn_tpu_torch.obs.probes", "hpnn_tpu_torch.obs.cost",
                  "hpnn_tpu_torch.obs.spans", "hpnn_tpu_torch.obs.slo",
-                 "hpnn_tpu_torch.obs.propagate",
-                 "hpnn_tpu_torch.obs.lockwatch", "hpnn_tpu_torch.chaos",
-                 "hpnn_tpu_torch.utils.trace"):
+                 "hpnn_tpu_torch.obs.propagate", "hpnn_tpu_torch.obs.collector",
+                 "hpnn_tpu_torch.obs.alerts", "hpnn_tpu_torch.obs.lockwatch",
+                 "hpnn_tpu_torch.obs.forensics", "hpnn_tpu_torch.obs.triggers",
+                 "hpnn_tpu_torch.obs.drift", "hpnn_tpu_torch.obs.meter",
+                 "hpnn_tpu_torch.obs.blame", "hpnn_tpu_torch.tune.engine",
+                 "hpnn_tpu_torch.chaos", "hpnn_tpu_torch.utils.trace"):
         mod = sys.modules.get(name)
         if mod is not None:
             mod._reset_for_tests()

@@ -57,7 +57,7 @@ import os
 import threading
 import time
 
-from hpnn_tpu_torch.obs import registry
+from hpnn_tpu_torch.obs import blame, registry
 
 ENV_KNOB = "HPNN_SPANS"
 
@@ -140,17 +140,31 @@ def _parent_id(parent) -> int | None:
 
 def span(name: str, parent=None, **fields):
     """Context-manager span.  ``parent`` (a Span or id) overrides the
-    ambient default; extra fields land on the ``span.end`` record."""
-    if not enabled():
+    ambient default; extra fields land on the ``span.end`` record.
+    With ``HPNN_SPANS`` unset, a real (forced/sampled) parent span
+    still gets a real child — that is how a sampled request's tree
+    grows under ``HPNN_SAMPLE`` (obs/forensics.py)."""
+    if not enabled() and not isinstance(parent, Span):
         return _NULL_SPAN
     return Span(name, _parent_id(parent), dict(fields))
 
 
 def start(name: str, parent=None, **fields):
     """Manually started span for cross-thread handoff — never enters
-    the ambient stack; close it with :func:`finish` from any thread."""
-    if not enabled():
+    the ambient stack; close it with :func:`finish` from any thread.
+    Like :func:`span`, a real parent forces a real child even while
+    ``HPNN_SPANS`` is unset (tail sampling, obs/forensics.py)."""
+    if not enabled() and not isinstance(parent, Span):
         return _NULL_SPAN
+    return Span(name, _parent_id(parent), dict(fields))
+
+
+def force_start(name: str, parent=None, **fields):
+    """A real span regardless of ``HPNN_SPANS`` — the tail sampler's
+    mint (obs/forensics.py) for the sampled fraction of requests.
+    ``finish`` emits whenever the registry is active, so forced spans
+    record without the global knob.  Never call this on a hot path
+    that has not already decided to sample."""
     return Span(name, _parent_id(parent), dict(fields))
 
 
@@ -175,6 +189,10 @@ def finish(sp, **fields) -> None:
     rec.update(sp.fields)
     rec.update(fields)
     registry._emit(st, rec)
+    # online blame tap (obs/blame.py): a memoized no-op unless
+    # HPNN_BLAME is armed — descendants buffer, a closing request
+    # root folds its per-phase split into the rolling window
+    blame.note_record(rec)
 
 
 def _reset_for_tests() -> None:

@@ -198,26 +198,15 @@ def compute_dtype(device: torch.device) -> torch.dtype:
 
 # ----------------------------------------------------- knobs of other paths
 # environment knob -> (value that selects the missing path or None for
-# any value, the path): the JAX package's fleet-telemetry, forensics,
-# drift, meter, blame and tuning planes, which its obs registry arms and
-# this package has not ported; the serve router's tensor-parallel spill,
-# which needs the multi-GPU slice; and XLA's persistent executable
-# cache, which has no counterpart (a CUDA graph cannot be written to
-# disk, so a serve engine captures its graphs anew in every process)
-_PLANES = "the JAX package's fleet-telemetry and tuning planes"
+# any value, the path): the serve router's tensor-parallel spill, which
+# needs the multi-GPU slice; and XLA's persistent executable cache,
+# which has no counterpart (a CUDA graph cannot be written to disk, so
+# a serve engine captures its graphs anew in every process)
 DEFERRED_ENV = {
     "HPNN_COMPILE_CACHE_DIR": (None, "XLA's persistent executable cache "
                                "(a CUDA graph cannot be written to disk)"),
     "HPNN_SERVE_SPILL": ("1", "the serve router's tensor-parallel spill "
                          "(Slice D, multi-GPU)"),
-    "HPNN_COLLECTOR": (None, _PLANES),
-    "HPNN_ALERTS": (None, _PLANES),
-    "HPNN_CAPSULE_DIR": (None, _PLANES),
-    "HPNN_METER": (None, _PLANES),
-    "HPNN_BLAME": (None, _PLANES),
-    "HPNN_DRIFT": (None, _PLANES),
-    "HPNN_SAMPLE": (None, _PLANES),
-    "HPNN_TUNE": (None, _PLANES),
 }
 
 

@@ -1,6 +1,5 @@
 """Dynamic micro-batching queue for the resident serving layer: a copy
-of ``hpnn_tpu/serve/batcher.py`` (less the per-tenant meter's queue
-tap, a plane the port refuses).
+of ``hpnn_tpu/serve/batcher.py``.
 
 Concurrent callers each bring a few rows of inference work; the device
 wants one big dispatch.  The batcher sits between them: requests park
@@ -218,10 +217,12 @@ class Batcher:
                 raise QueueFull(
                     f"batcher {self.name!r} queue at max_depth="
                     f"{self.max_depth}; retry later")
-            if obs.spans.enabled():
+            if obs.spans.enabled() or isinstance(span, obs.spans.Span):
                 # inside the lock, before the append: the drain thread
                 # cannot pop the request until we release, and
-                # spans.start neither locks nor emits
+                # spans.start neither locks nor emits.  A real parent
+                # without the global knob is a tail-sampled request
+                # (obs/forensics.py) — its tree still grows
                 qfields = {"batcher": self.name}
                 if req_id is not None:
                     qfields["req_id"] = req_id
@@ -338,6 +339,15 @@ class Batcher:
         waits = [now - r.submitted for r in batch]
         obs.observe("serve.wait_ms", [w * 1e3 for w in waits],
                     batcher=self.name)
+        if obs.meter.enabled():
+            # attribute queue-wait to the owning tenant: fleet-mode
+            # payloads carry their kernel name (serve/server.py), a
+            # per-kernel batcher is named for its kernel
+            for r, w in zip(batch, waits):
+                p = r.payload
+                owner = (p[0] if isinstance(p, tuple) and p
+                         and isinstance(p[0], str) else self.name)
+                obs.meter.note_queue(owner, w)
         obs.observe("serve.batch_size", [sum(r.rows for r in batch)],
                     batcher=self.name, requests=len(batch))
         # the dispatch span parents to the oldest request's root span —

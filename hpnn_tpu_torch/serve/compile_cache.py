@@ -14,7 +14,9 @@ counter surface, over the engines' pools of captured forwards:
   the cold-start regression the ``serve.compile`` counter catches.
 
 :func:`counters`, :func:`hit_rate` and :func:`stats` read them (the
-``/healthz`` ``compile_cache.graphs`` section); stdlib only.
+``/healthz`` ``compile_cache.graphs`` section); :func:`gc` keeps the JAX
+module's signature for the tenant pager and frees nothing.  stdlib
+only.
 """
 
 from __future__ import annotations
@@ -53,6 +55,15 @@ def stats() -> dict:
     h, m = counters()
     return {"persistent": False, "hits": h, "misses": m,
             "hit_rate": hit_rate()}
+
+
+def gc(max_mb: float | None = None) -> tuple[int, int]:
+    """The JAX package's size sweep of its on-disk executable cache,
+    which the tenant pager calls after page-outs: here there is no disk
+    cache to sweep (a CUDA graph lives in its engine's memory pool and
+    dies with its forward, which ``Engine.evict`` drops), so nothing is
+    removed.  Returns ``(files, bytes)`` removed: ``(0, 0)``."""
+    return (0, 0)
 
 
 def _reset_for_tests() -> None:

@@ -29,17 +29,20 @@ bounded, *counted* closes:
   timeouts by always arriving just in time, but cannot defeat a rate
   floor.  Kills count ``conn.guard_kill`` with reason ``slowloris``
   (mid-header) or ``stall`` (mid-body) and feed the cumulative
-  ``conn.guard_kills`` gauge (the JAX package alerts on it; the port
-  has no alert plane yet);
+  ``conn.guard_kills`` gauge — an alertable signal (``HPNN_ALERTS``),
+  so a hostile burst triggers a capture capsule carrying this module's
+  census as ``conn.json`` (obs/triggers.py);
 * **bounded table + census** — at most ``HPNN_CONN_TABLE`` (default
   1024) live entries carry per-connection detail; beyond the bound,
   connections stay fully *counted* (open/close/guards) but drop their
   table row.  The table feeds the ``conn.active`` / ``conn.oldest_s``
-  gauges and the ``GET /connz`` census of the serve server.
+  gauges and the ``GET /connz`` census on the serve AND collector
+  servers.
 
-Wiring: :func:`wrap_server` (called by ``serve.make_server``) hooks the
-``socketserver`` request path, so a Router's front end inherits the
-layer for free; :class:`ConnHandlerMixin` rides the handler class and
+Wiring: :func:`wrap_server` (called by ``serve.make_server`` and
+``obs.collector.start_collector``) hooks the ``socketserver`` request
+path, so a Router's front end inherits the layer for free;
+:class:`ConnHandlerMixin` rides the handler classes and
 converts handler-thread ``socket.timeout`` / ``ConnectionResetError``
 into counted closes instead of stderr stack traces.
 
@@ -711,3 +714,21 @@ class ConnHandlerMixin:
                 entry.mark("fuzz")
         super().send_error(code, message, explain)
 
+
+# ------------------------------------------------------------- capsule
+
+def sketch_doc() -> dict | None:
+    """The process-wide connection census for a capture capsule's
+    ``conn.json`` (obs/triggers.py) — every live table merged, plus
+    the cumulative guard-kill counts.  ``None`` when the plane is
+    unarmed (the capsule skips the artifact, same contract as
+    drift/meter/blame)."""
+    if _config() is None:
+        return None
+    with _lock:
+        kills = dict(_kills)
+        tables = list(_tables)
+    return {
+        "guard_kills": kills,
+        "planes": [t.doc() for t in tables],
+    }

@@ -26,7 +26,17 @@ Two dispatch modes, selected per engine (``HPNN_SERVE_MODE`` or the
   another that is still being copied out.  Captures run under the
   engine lock in ``thread_local`` mode, while a lookup that finds its
   forward cached takes no lock, so other threads keep replaying their
-  graphs meanwhile.  TF32 is off (the
+  graphs meanwhile.  ``torch.cuda.graph``'s context synchronizes the
+  card and empties the allocator's cache, which the allocator does not
+  allow while another capture is underway, so every capture in the
+  process (every engine's: a router's replicas share the process) also
+  holds one module lock, ``_CAPTURE_LOCK``.  The cache it empties holds
+  the private pools of the graphs :meth:`Engine.evict` dropped, so a
+  capture hands them back to the card.  cuBLAS keeps a workspace (32
+  MiB on an H100) for each capturing thread's handle on the side
+  stream, for the process's life: a host bounds them by capturing from
+  few threads (the tenant pager captures on the requesting thread at
+  page-in, and refuses lazy captures on ``cuda``).  TF32 is off (the
   JAX engine's float32 matmul pin); under the ``bf16``/``int8`` policies
   bf16 products also keep their float32 reduction
   (``allow_bf16_reduced_precision_reduction = False``).  A failed
@@ -80,6 +90,8 @@ _POLICY_DTYPE = {"bf16": torch.bfloat16, "int8": torch.bfloat16,
                  "f32": torch.float32, "f64": torch.float64}
 # eager runs of a forward on a side stream before its capture
 _WARMUP_RUNS = 3
+# held by every capture in the process (see the module docstring)
+_CAPTURE_LOCK = threading.Lock()
 
 
 def quantize_weights(weights, *, bits: int = 8):
@@ -172,8 +184,8 @@ class _Graph:
         self.replays = 0
         with torch.cuda.device(device), torch.no_grad():
             self.static_in = torch.zeros(shape, dtype=dtype, device=device)
-            # warm up on the side stream (cuBLAS handles, the
-            # allocator's blocks), then capture on it
+            # warm up on the side stream (cuBLAS's handle and workspace,
+            # the allocator's blocks), then capture on it
             stream.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(stream):
                 for _ in range(_WARMUP_RUNS):
@@ -181,8 +193,9 @@ class _Graph:
             torch.cuda.current_stream(device).wait_stream(stream)
             self.graph = torch.cuda.CUDAGraph()
             # no pool argument: the graph's memory is its own
-            with torch.cuda.graph(self.graph, stream=stream,
-                                  capture_error_mode="thread_local"):
+            with _CAPTURE_LOCK, torch.cuda.graph(
+                    self.graph, stream=stream,
+                    capture_error_mode="thread_local"):
                 self.static_out = fn(self.static_in)
 
     def __call__(self, block: np.ndarray) -> np.ndarray:
@@ -524,11 +537,14 @@ class Engine:
         fns: dict[int, tuple] = {}
         rows = rows.astype(dtype, copy=False)
         out = np.empty((rows.shape[0], entry.n_outputs), dtype=dtype)
-        top = self.buckets[-1]
+        # one read of the menu: the tuning plane swaps it whole
+        # (grow_buckets) while batchers dispatch
+        menu = self.buckets
+        top = menu[-1]
         start = 0
         while start < rows.shape[0]:
             n = min(rows.shape[0] - start, top)
-            bucket = bucket_for(self.buckets, n)
+            bucket = bucket_for(menu, n)
             obs.count("serve.bucket_hit", kernel=entry.name,
                       bucket=bucket, rows=n)
             # pad-waste: fraction of the bucket's rows that are zero
@@ -550,18 +566,24 @@ class Engine:
                 block[:n] = rows[start:start + n]
             else:
                 block = rows[start:start + n]
-            if obs.cost.enabled():
+            if obs.cost.enabled() or obs.meter.enabled():
                 # a dispatch ends in the output's copy to the host, so
                 # the host clock around it holds the whole device work
                 t0 = time.perf_counter()
                 res = fn(block)
                 dt = time.perf_counter() - t0
-                nbytes, flops, cdt = self._dispatch_work(
-                    entry, None if self.mode == "parity" else prec, bucket)
-                obs.cost.record_dispatch(
-                    exe_name, dt, nbytes=nbytes, flops=flops, dtype=cdt,
-                    device=self.device, units=bucket, kernel=entry.name,
-                    bucket=bucket, mode=self.mode)
+                if obs.cost.enabled():
+                    nbytes, flops, cdt = self._dispatch_work(
+                        entry, None if self.mode == "parity" else prec,
+                        bucket)
+                    obs.cost.record_dispatch(
+                        exe_name, dt, nbytes=nbytes, flops=flops,
+                        dtype=cdt, device=self.device, units=bucket,
+                        kernel=entry.name, bucket=bucket, mode=self.mode)
+                # padding does the full bucket's work, so the cataloged
+                # (per-bucket) cost applies unscaled to the owning
+                # tenant's meter
+                obs.meter.note_dispatch(entry.name, dt, exe=exe_name)
             else:
                 res = fn(block)
             out[start:start + n] = res[:n]
@@ -609,6 +631,10 @@ class Engine:
             # numpy) into the per-kernel /healthz numerics verdict
             obs.probes.note_serve(entry_name, rows=int(out.shape[0]),
                                   nan=int(np.isnan(out).sum()))
+        if obs.drift.enabled():
+            # prediction-drift tap (obs/drift.py): the host numpy the
+            # copy-out already made — no graph is touched, no sync added
+            obs.drift.note_pred(entry_name, out)
         results = []
         start = 0
         for c in counts:
@@ -692,7 +718,8 @@ class Engine:
                 entries[name] = self.registry.get(name)
             groups.setdefault(fleet_key(entries[name]), []).append(i)
         results: list = [None] * len(named)
-        top = self.buckets[-1]
+        menu = self.buckets
+        top = menu[-1]
         for idxs in groups.values():
             # member order: first appearance of each kernel name
             by_name: dict[str, list[int]] = {}
@@ -714,7 +741,7 @@ class Engine:
                 continue
             members = sorted(by_name)  # stable member order
             ents = tuple(entries[m] for m in members)
-            bucket = bucket_for(self.buckets, max_rows)
+            bucket = bucket_for(menu, max_rows)
             n = len(members)
             dtype = np.asarray(
                 ents[0].kernel.weights[0]).dtype
@@ -726,15 +753,31 @@ class Engine:
             with obs.spans.span("serve.fleet_dispatch", members=n,
                                 bucket=bucket):
                 if self.mode == "parity":
-                    outs = fn([rows_for[m].astype(dtype, copy=False)
-                               for m in members])
+                    blocks = [rows_for[m].astype(dtype, copy=False)
+                              for m in members]
+                    if obs.meter.enabled():
+                        t0 = time.perf_counter()
+                        outs = fn(blocks)
+                        dt = time.perf_counter() - t0
+                        # parity blocks are unpadded, so each member's
+                        # true row count is known: split wall time
+                        # row-proportionally (the padded path below
+                        # splits evenly — every member costs a full
+                        # bucket there)
+                        total = sum(b.shape[0] for b in blocks) or 1
+                        for m, b in zip(members, blocks):
+                            obs.meter.note_dispatch(
+                                m, dt * b.shape[0] / total,
+                                rows=b.shape[0])
+                    else:
+                        outs = fn(blocks)
                 else:
                     stackb = np.zeros(
                         (n, bucket, ents[0].n_inputs), dtype=dtype)
                     for j, m in enumerate(members):
                         r = rows_for[m]
                         stackb[j, :r.shape[0]] = r
-                    if obs.cost.enabled():
+                    if obs.cost.enabled() or obs.meter.enabled():
                         t0 = time.perf_counter()
                         res = fn(stackb)
                         dt = time.perf_counter() - t0
@@ -743,13 +786,20 @@ class Engine:
                              + tuple((e.name, e.version)
                                      for e in ents),
                              bucket, dtype.str))
-                        nbytes, flops, cdt = self._dispatch_work(
-                            ents[0], None, bucket)
-                        obs.cost.record_dispatch(
-                            exe, dt, nbytes=n * nbytes, flops=n * flops,
-                            dtype=cdt, device=self.device,
-                            units=n * bucket, members=n, bucket=bucket,
-                            mode=self.mode)
+                        if obs.cost.enabled():
+                            nbytes, flops, cdt = self._dispatch_work(
+                                ents[0], None, bucket)
+                            obs.cost.record_dispatch(
+                                exe, dt, nbytes=n * nbytes,
+                                flops=n * flops, dtype=cdt,
+                                device=self.device, units=n * bucket,
+                                members=n, bucket=bucket, mode=self.mode)
+                        # one graph ran every member's bucket: split
+                        # wall time evenly, scale the cataloged
+                        # (n*bucket-unit) cost to each member's bucket
+                        for m in members:
+                            obs.meter.note_dispatch(m, dt / n,
+                                                    rows=bucket, exe=exe)
                     else:
                         res = fn(stackb)
                     outs = [res[j, :rows_for[m].shape[0]]
@@ -764,6 +814,8 @@ class Engine:
                 if obs.probes.enabled():
                     obs.probes.note_serve(
                         m, rows=got, nan=int(np.isnan(out).sum()))
+                if obs.drift.enabled():
+                    obs.drift.note_pred(m, out)
                 start = 0
                 for i in by_name[m]:
                     c = named[i][1].shape[0]
@@ -781,13 +833,31 @@ class Engine:
         return sum(getattr(fn, "replays", 0)
                    for fn in list(self._compiled.values()))
 
+    def upload(self, name: str) -> float:
+        """Put ``name``'s weights on the engine's device in its resolved
+        policy (the cast-once cache the captures read), waiting for the
+        copy: the host-to-device part of a tenant page-in, timed apart
+        from its captures.  Returns the seconds it took."""
+        entry = self.registry.get(name)
+        t0 = time.perf_counter()
+        self._device_weights(
+            entry, None if self.mode == "parity" else self._precision(entry))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return time.perf_counter() - t0
+
     def evict(self, name: str, *, keep_version: int | None = None):
         """Drop cached forwards/weights for ``name`` (all versions, or
-        all but ``keep_version``): reload housekeeping.  A dropped graph
-        takes its static buffers with it; fleet forwards whose member
-        set includes ``name`` go too, since a stacked forward holds
-        every member's weights.  A batch that already holds a forward
-        finishes on it (Python keeps it alive until then)."""
+        all but ``keep_version``): reload housekeeping, and the tenant
+        pager's page-out (tenant/pager.py).  These caches hold the only
+        references to a kernel's graphs, static buffers and device
+        weights, so a dropped graph's static buffers and its weights
+        return their memory (its private pool goes back to the card at
+        the next capture, which empties the allocator's cache); fleet
+        forwards whose member set includes
+        ``name`` go too, since a stacked forward holds every member's
+        weights.  A batch that already holds a forward finishes on it
+        (Python keeps it alive until then)."""
         def _fleet_member(k: tuple) -> bool:
             head = k[0]
             if not (isinstance(head, tuple) and head

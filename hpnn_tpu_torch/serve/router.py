@@ -346,7 +346,7 @@ class Router:
         doc["numerics"] = obs.probes.health_doc(primary.registry.names())
         doc["obs"] = obs.export.health()
         doc["slo"] = obs.slo.health_doc()
-        doc["alerts"] = {"armed": False, "rules": []}  # no alert plane
+        doc["alerts"] = obs.alerts.health_doc()
         if self.online_health is not None:
             doc["online"] = self.online_health()
         return doc

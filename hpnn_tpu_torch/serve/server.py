@@ -1,14 +1,14 @@
 """Serving front ends: the in-process ``Session`` and the HTTP shim (a
 copy of ``hpnn_tpu/serve/server.py`` over the port's engine).
 
-The planes the port has not copied yet answer as the JAX package's do
-when they are unarmed, since their knobs are refused
-(``runtime.DEFERRED_ENV``): ``/tunez``, ``/meterz`` and
-``/v1/capture`` answer 404, and ``/healthz``'s ``alerts``, ``sampler``,
-``capsules``, ``drift``, ``blame`` and ``tune`` sections say
-``{"armed": false}``.  The online-learning and tenancy layers are not
-ported either, so ``/ingest`` and ``/tenantz`` answer 404 as on a plain
-JAX serving process.
+The serving planes arm from the JAX package's knobs: ``/healthz``
+carries the ``alerts``, ``sampler``, ``capsules``, ``drift``, ``blame``
+and ``tune`` sections, ``/meterz``, ``/tunez`` and ``POST /v1/capture``
+answer when ``HPNN_METER``, ``HPNN_TUNE`` and ``HPNN_CAPSULE_DIR`` are
+armed (404 otherwise), and ``/tenantz`` answers on a
+:class:`~hpnn_tpu_torch.tenant.TenantSession`.  The online-learning
+layer is not ported, so ``/ingest`` answers 404 as on a plain JAX
+serving process.
 
 The reference's deployment story is *embedding* — a host scientific
 code calls ``_NN(run,kernel)`` in its inner loop.  :class:`Session` is
@@ -101,7 +101,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 import numpy as np
 
-from hpnn_tpu_torch import obs, runtime
+from hpnn_tpu_torch import obs, runtime, tune
 from hpnn_tpu_torch.models import kernel as kernel_mod
 from hpnn_tpu_torch.serve import compile_cache, conn
 from hpnn_tpu_torch.serve.batcher import (Batcher, DeadlineExceeded, QueueFull,
@@ -170,6 +170,15 @@ class Session:
         # so restart-under-traffic answers 503 instead of hanging
         self._ready = True
         self._ready_reason: str | None = None
+        # the self-tuning remediation plane (hpnn_tpu_torch/tune/,
+        # docs/selftuning.md): a control loop over this session's
+        # registry/engine, started only when HPNN_TUNE is armed.
+        # Hosts that own an autoscaler or a quota enforcer wire them
+        # in by rebuilding: tune.for_session(self, autoscaler=...,
+        # quota=...).
+        self.tuner = tune.for_session(self)
+        if self.tuner is not None and self._start:
+            self.tuner.start()
 
     # ------------------------------------------------------------ kernels
     def load_kernel(self, name: str, path: str, *,
@@ -325,10 +334,14 @@ class Session:
             probe_names if big else None)
         doc["obs"] = obs.export.health()
         doc["slo"] = obs.slo.health_doc()
-        # the unported planes, as the JAX package reports them unarmed
-        doc["alerts"] = {"armed": False, "rules": []}
-        for plane in ("sampler", "capsules", "drift", "blame", "tune"):
-            doc[plane] = {"armed": False}
+        doc["alerts"] = obs.alerts.health_doc()
+        doc["sampler"] = obs.forensics.health_doc()
+        doc["capsules"] = obs.triggers.health_doc()
+        doc["drift"] = obs.drift.health_doc()
+        # the rolling per-phase blame split + the remediation plane's
+        # census (obs/blame.py, hpnn_tpu_torch/tune/; docs/selftuning.md)
+        doc["blame"] = obs.blame.health_doc()
+        doc["tune"] = tune.health_doc()
         if self.online_health is not None:
             doc["online"] = self.online_health()
         return doc
@@ -389,14 +402,14 @@ class Session:
         batcher = self.batcher_for(name)
         payload = (name, rows) if self.fleet else rows
         # root of the request lifecycle: serve.queue / serve.dispatch
-        # children hang off it across the batcher threads (HPNN_SPANS;
-        # the null span otherwise, as the JAX package's request span is
-        # with its tail sampler unarmed)
+        # children hang off it across the batcher threads (HPNN_SPANS)
         sfields = {"kernel": name, "rows": rows.shape[0]}
         if req_id is not None:
             sfields["req_id"] = req_id
         sfields.update(obs.propagate.fields(trace))
-        span = obs.spans.start("serve.request", **sfields)
+        # a real span under HPNN_SPANS, a sampled/promotable one under
+        # HPNN_SAMPLE, the shared null span otherwise (obs/forensics.py)
+        span = obs.forensics.request_span("serve.request", **sfields)
         slo_on = obs.slo.enabled()
         t0 = self._clock() if slo_on else 0.0
         try:
@@ -406,27 +419,30 @@ class Session:
                                     timeout_s=timeout_s, span=span,
                                     req_id=req_id)
         except QueueFull as exc:  # Shed is a QueueFull subclass
-            obs.spans.finish(span, failed=type(exc).__name__)
+            obs.forensics.finish(span, failed=type(exc).__name__)
             if slo_on:
                 obs.slo.record("shed")
             raise
         except DeadlineExceeded as exc:
-            obs.spans.finish(span, failed=type(exc).__name__)
+            obs.forensics.finish(span, failed=type(exc).__name__)
             if slo_on:
                 obs.slo.record("expired")
             raise
         except BaseException as exc:
-            obs.spans.finish(span, failed=type(exc).__name__)
+            obs.forensics.finish(span, failed=type(exc).__name__)
             if slo_on:
                 obs.slo.record("error")
             raise
-        obs.spans.finish(span)
+        obs.forensics.finish(span)
         if slo_on:
             obs.slo.record("ok", latency_s=self._clock() - t0)
         return out[0] if single else out
 
     # ------------------------------------------------------------ close
     def close(self):
+        if self.tuner is not None:
+            self.tuner.stop()
+            self.tuner = None
         with self._lock:
             self._closed = True
             batchers = list(self._batchers.values())
@@ -544,13 +560,22 @@ class _Handler(conn.ConnHandlerMixin, BaseHTTPRequestHandler):
             else:
                 self._reply(200, tenant_doc())
         elif self.path == "/meterz":
-            # the per-tenant meter's census: not ported (HPNN_METER is
-            # refused), so the JAX package's unarmed answer
-            self._reply(404, {"error": "meter not armed"})
+            # per-tenant resource census (obs/meter.py): governed
+            # top-K + _other per axis; 404 when HPNN_METER is unarmed
+            doc = obs.meter.meterz_doc()
+            if doc is None:
+                self._reply(404, {"error": "meter not armed"})
+            else:
+                self._reply(200, doc)
         elif self.path == "/tunez":
-            # the self-tuning plane's census: not ported (HPNN_TUNE is
-            # refused), so the JAX package's unarmed answer
-            self._reply(404, {"error": "tune not armed"})
+            # the self-tuning plane's census (hpnn_tpu_torch/tune/):
+            # policy, stats, armed watch, recent decision ledger; 404
+            # when HPNN_TUNE is unarmed or no tuner is active
+            doc = tune.tunez_doc()
+            if doc is None:
+                self._reply(404, {"error": "tune not armed"})
+            else:
+                self._reply(200, doc)
         elif self.path == "/connz":
             # connection-plane census (serve/conn.py): live table,
             # close-reason + guard-kill totals; {"mode": "off"} when
@@ -590,10 +615,10 @@ class _Handler(conn.ConnHandlerMixin, BaseHTTPRequestHandler):
         elif self.path in ("/ingest", "/v1/ingest"):
             self._ingest(req)
         elif self.path == "/v1/capture":
-            # manual forensic capsule: not ported (HPNN_CAPSULE_DIR is
-            # refused), so the JAX package's unarmed answer
-            self._reply(404, {"error": "capture capsules not armed "
-                                       "(HPNN_CAPSULE_DIR)"})
+            # manual forensic capsule (obs/triggers.py): 404 when
+            # HPNN_CAPSULE_DIR is unarmed, 429 when suppressed
+            code, payload = obs.triggers.http_capture(req)
+            self._reply(code, payload)
         else:
             self._reply(404, {"error": f"no such path {self.path}"})
 

@@ -139,8 +139,8 @@ def test_missing_cuda_is_an_error(tmp_path, monkeypatch, capsys):
     (["--mesh", "1x2", "--device", "cpu"], {}),
     (["--mesh", "1x2", "--metrics", "m.jsonl", "--device", "cpu"], {}),
     (["--device", "tpu"], {}),
-    (["--device", "cpu"], {"HPNN_COLLECTOR": "http://localhost:8790"}),
-    (["--device", "cpu"], {"HPNN_ALERTS": "rules.json"}),
+    (["--device", "cpu"], {"HPNN_COMPILE_CACHE_DIR": "xla_cache"}),
+    (["--device", "cpu"], {"HPNN_SERVE_SPILL": "1"}),
 ])
 def test_unported_options_are_refused(tmp_path, monkeypatch, capsys, argv, env):
     monkeypatch.chdir(tmp_path)

@@ -2,7 +2,7 @@
 the convergence kernel (and itself across its cluster plans), the four
 batch-step entry points and the fleet epoch (#6), and the fleet path
 through ``train.fleet``; and the serve engine's CUDA graphs against
-the eager batched forward.
+the eager batched forward, and the tenant pager's page cycle on the card.
 
 Marked ``cuda``: a CUDA kernel has no CPU mode, so these skip on a
 machine without a card.  On one, run them with
@@ -667,3 +667,121 @@ def test_serve_failed_capture_raises(cuda, monkeypatch):
         assert sess.infer("k", np.zeros(784)).shape == (10,)
     finally:
         sess.close()
+
+
+def test_serve_captures_from_two_engines_at_once(cuda):
+    """Two sessions (as a router's replicas) capture from two threads at
+    once while a third kernel replays: ``torch.cuda.graph``'s sync and
+    ``empty_cache`` never overlap the other engine's capture (the
+    engine module's capture lock), and every graph answers within 1e-5
+    of the CPU float64 answer."""
+    import threading
+
+    from hpnn_tpu_torch import serve
+    from hpnn_tpu_torch.models import ann
+
+    sessions = [serve.Session(device=cuda, max_batch=64) for _ in range(2)]
+    hot = _serve_session(cuda)
+    errs, stop = [], threading.Event()
+    x = np.random.RandomState(5).uniform(-1, 1, (8, 784))
+
+    def replay():
+        while not stop.is_set():
+            hot.infer("k", x)
+
+    def register(sess, base):
+        try:
+            for i in range(6):
+                sess.register_kernel(f"k{i}", _seeded(base + i))
+        except Exception as exc:  # collected, asserted empty below
+            errs.append(repr(exc))
+
+    threads = [threading.Thread(target=register, args=(s, 10 * j))
+               for j, s in enumerate(sessions)]
+    r = threading.Thread(target=replay)
+    try:
+        r.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(120)
+        stop.set()
+        r.join(60)
+        assert not errs, errs
+        for j, sess in enumerate(sessions):
+            assert sess.engine.compiled_count() == 6 * len(sess.engine.buckets)
+            w, _ = km.to_torch(_seeded(10 * j + 5).weights, device="cpu",
+                               dtype=torch.float64)
+            with torch.no_grad():
+                ref = ann.run_batch(w, torch.from_numpy(x)).numpy()
+            got = np.asarray(sess.infer("k5", x))
+            assert float(np.max(np.abs(got - ref))) <= 1e-5
+    finally:
+        stop.set()
+        for sess in (*sessions, hot):
+            sess.close()
+
+
+def _tenant_host(dev, tmp_path, **kw):
+    from hpnn_tpu_torch import tenant
+
+    return tenant.TenantSession(device=dev, max_batch=64, max_wait_ms=1.0,
+                                resident_max=1, page_dir=str(tmp_path / "pages"), **kw)
+
+
+def _seeded(seed):
+    rng = np.random.RandomState(seed)
+    return km.Kernel(tuple(rng.uniform(-1, 1, (o, i)) / np.sqrt(i)
+                           for i, o in ((784, 300), (300, 10))))
+
+
+def test_tenant_page_cycle_is_bitwise_and_frees_the_card(cuda, tmp_path):
+    """A kernel paged out and in again recaptures graphs that answer
+    bitwise as before; paging it out returns its graphs' and weights'
+    memory (memory_allocated back within an eighth of a kernel)."""
+    host = _tenant_host(cuda, tmp_path)
+    try:
+        torch.cuda.synchronize()
+        a0 = torch.cuda.memory_allocated(cuda)
+        host.register_for("t", "a", _seeded(1))
+        torch.cuda.synchronize()
+        one = torch.cuda.memory_allocated(cuda) - a0
+        xs = [np.random.RandomState(r).uniform(-1, 1, (r, 784)) for r in (1, 8, 64)]
+        before = [np.asarray(host.infer_for("t", "a", x)) for x in xs]
+        host.register_for("t", "b", _seeded(2))      # a paged out, b in
+        torch.cuda.synchronize()
+        assert host.pager.is_paged("t:a")
+        assert abs(torch.cuda.memory_allocated(cuda) - a0 - one) <= one // 8
+        after = [np.asarray(host.infer_for("t", "a", x)) for x in xs]   # pages in
+        for b, a in zip(before, after):
+            assert np.array_equal(a, b), float(np.max(np.abs(a - b)))
+        split = host.pager.cold_split()
+        assert split and split[-1]["captures"] == len(host.engine.buckets)
+    finally:
+        host.close()
+
+
+def test_tenant_failed_capture_on_page_in_raises(cuda, tmp_path, monkeypatch):
+    """A page-in whose capture fails raises to the request, leaves the
+    kernel paged, and never answers from an eager or CPU forward."""
+    from hpnn_tpu_torch.serve import engine as eng_mod
+
+    host = _tenant_host(cuda, tmp_path)
+    try:
+        host.register_for("t", "a", _seeded(3))
+        host.register_for("t", "b", _seeded(4))      # a paged out
+        real = eng_mod.batch_forward
+
+        def syncing(*args, **kw):
+            out = real(*args, **kw)
+            torch.cuda.synchronize()
+            return out
+
+        monkeypatch.setattr(eng_mod, "batch_forward", syncing)
+        with pytest.raises(RuntimeError):
+            host.infer_for("t", "a", np.zeros(784))
+        assert host.pager.is_paged("t:a")
+        monkeypatch.setattr(eng_mod, "batch_forward", real)
+        assert host.infer_for("t", "a", np.zeros(784)).shape == (10,)
+    finally:
+        host.close()

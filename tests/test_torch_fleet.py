@@ -273,13 +273,13 @@ def test_train_fleet_refusals(monkeypatch):
         fleet.quant_probe_fleet(ks, X, T, epochs=1, batch=2, device="cpu")
     with pytest.raises(ValueError, match="unknown train dtype"):
         fleet.train_fleet(ks, X, T, epochs=1, batch=2, dtype="f16", device="cpu")
-    monkeypatch.setenv("HPNN_METER", "1")
+    monkeypatch.setenv("HPNN_COMPILE_CACHE_DIR", "xla_cache")
     with pytest.raises(NotImplementedError,
-                       match="HPNN_METER=1 selects the JAX package's fleet-telemetry"):
+                       match="HPNN_COMPILE_CACHE_DIR=xla_cache selects XLA's persistent"):
         fleet.train_fleet(ks, X, T, epochs=1, batch=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="tuning planes"):
+    with pytest.raises(NotImplementedError, match="a CUDA graph cannot be written"):
         fleet.train_sequential(ks, X, T, epochs=1, batch=2, device="cpu")
-    monkeypatch.delenv("HPNN_METER")
+    monkeypatch.delenv("HPNN_COMPILE_CACHE_DIR")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(runtime.DeviceUnavailable):
         fleet.train_fleet(ks, X, T, epochs=1, batch=2)

@@ -83,6 +83,58 @@ def test_serve_import_pulls_in_no_jax():
     assert json.loads(out.stdout.strip().splitlines()[-1]) == []
 
 
+# the serving planes and the tenant host, copied from the JAX package
+PLANE_MODULES = (
+    "hpnn_tpu_torch.obs.alerts",
+    "hpnn_tpu_torch.obs.forensics",
+    "hpnn_tpu_torch.obs.drift",
+    "hpnn_tpu_torch.obs.blame",
+    "hpnn_tpu_torch.obs.meter",
+    "hpnn_tpu_torch.obs.triggers",
+    "hpnn_tpu_torch.obs.collector",
+    "hpnn_tpu_torch.cli.obs_collector",
+    "hpnn_tpu_torch.tune",
+    "hpnn_tpu_torch.tune.engine",
+    "hpnn_tpu_torch.tenant",
+    "hpnn_tpu_torch.tenant.shards",
+    "hpnn_tpu_torch.tenant.quota",
+    "hpnn_tpu_torch.tenant.pager",
+    "hpnn_tpu_torch.tenant.host",
+)
+
+
+@pytest.fixture(scope="module")
+def _plane_imports():
+    """One fresh interpreter imports the plane modules one by one and
+    reports, after each, the jax / JAX-package modules loaded so far."""
+    code = (
+        "import importlib, json, sys\n"
+        "out = {}\n"
+        f"for m in {PLANE_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "    out[m] = [n for n in sys.modules "
+        "if n.split('.')[0] in ('jax', 'jaxlib', 'hpnn_tpu')]\n"
+        "print(json.dumps(out))\n"
+    )
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("module", PLANE_MODULES)
+def test_plane_module_imports_no_jax(_plane_imports, module):
+    """Each plane module imports neither jax nor the JAX package, and
+    its source holds no such import."""
+    assert _plane_imports[module] == []
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, *module.split("."), "__init__.py")
+    with open(path) as fp:
+        assert not _FORBIDDEN.search(fp.read())
+
+
 def test_sources_import_no_jax():
     offenders = []
     for dirpath, _dirs, files in os.walk(PKG):

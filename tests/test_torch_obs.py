@@ -14,10 +14,13 @@ the CPU in float64, held against the JAX package's.
   CLIs' obs options and refusals, and the event catalog.
 """
 
+import contextlib
 import importlib.util
+import io
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import urllib.request
@@ -425,30 +428,94 @@ def test_cli_obs_option_errors(tmp_path, monkeypatch, capsys, prog, argv, msg):
 
 
 def test_deferred_holds_only_the_unported_planes():
+    """Only XLA's executable cache and the router's tensor-parallel
+    spill stay refused: the serving planes are ported."""
     assert sorted(runtime.DEFERRED_ENV) == sorted([
-        "HPNN_COLLECTOR", "HPNN_ALERTS", "HPNN_CAPSULE_DIR", "HPNN_METER",
-        "HPNN_BLAME", "HPNN_DRIFT", "HPNN_SAMPLE", "HPNN_TUNE",
         "HPNN_COMPILE_CACHE_DIR", "HPNN_SERVE_SPILL"])
     assert list(common.DEFERRED_OPTS) == ["mesh"]
+
+
+# knob -> its value ({d}: the run's directory; {url}: an in-process
+# collector) and the plane's health census that must say it is armed
+PLANE_KNOBS = {
+    "HPNN_COLLECTOR": ("{url}", None),
+    "HPNN_ALERTS": ("lat@slo.p99_ms>10000:cooldown=0", "alerts"),
+    "HPNN_CAPSULE_DIR": ("{d}/caps", "triggers"),
+    "HPNN_METER": ("1", "meter"),
+    "HPNN_BLAME": ("1", "blame"),
+    "HPNN_DRIFT": ("1", "drift"),
+    "HPNN_SAMPLE": ("1", "forensics"),
+    "HPNN_TUNE": ("1", None),
+}
+
+
+@pytest.fixture(scope="module")
+def _trained(tmp_path_factory):
+    """A kernel trained once on one sample: the converted cases start
+    ``train_nn`` from it, so each of their rounds converges at once."""
+    d = tmp_path_factory.mktemp("trained")
+    _write_samples(str(d / "samples"), n=1)
+    run = d / "run"
+    run.mkdir()
+    cwd = os.getcwd()
+    os.chdir(run)
+    try:
+        (run / "nn.conf").write_text(CONF.format(kind="ANN", train="BP"))
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert train_nn.main(["--device", "cpu", "nn.conf"]) == 0
+    finally:
+        os.chdir(cwd)
+        _reset_both()
+        log.set_verbose(0)
+    return d
 
 
 @pytest.mark.parametrize("knob", ["HPNN_COLLECTOR", "HPNN_ALERTS", "HPNN_CAPSULE_DIR",
                                   "HPNN_METER", "HPNN_BLAME", "HPNN_DRIFT",
                                   "HPNN_SAMPLE", "HPNN_TUNE"])
-def test_each_unported_knob_is_refused(tmp_path, monkeypatch, capsys, knob):
-    _write_samples(str(tmp_path / "samples"), n=2)
-    monkeypatch.chdir(tmp_path)
-    (tmp_path / "nn.conf").write_text(CONF.replace("../samples", "./samples").format(
-        kind="ANN", train="BP"))
-    monkeypatch.setenv(knob, "1")
-    assert train_nn.main(["--device", "cpu", "nn.conf"]) != 0
-    assert f"{knob}=1 selects" in capsys.readouterr().err
-    assert run_nn.main(["--device", "cpu", "nn.conf"]) != 0
-    from hpnn_tpu_torch import config
-    from hpnn_tpu_torch.train import driver
+def test_each_unported_knob_is_refused(tmp_path, monkeypatch, capsys, _trained, knob):
+    """Each serving plane's knob was refused while its plane was not
+    ported; now it arms the plane, and ``train_nn``/``run_nn`` stdout
+    and ``kernel.opt`` stay byte-identical to a run without it."""
+    shutil.copytree(_trained / "samples", tmp_path / "samples")
+    server = obs.collector.start_collector(host="127.0.0.1", port=0)
+    url = "http://127.0.0.1:%d" % server.server_address[1]
+    outs = {}
+    try:
+        for name in ("off", "on"):
+            d = tmp_path / name
+            d.mkdir()
+            monkeypatch.chdir(d)
+            shutil.copy(_trained / "run" / "kernel.opt", d / "start.opt")
+            conf = CONF.format(kind="ANN", train="BP").replace(
+                "[init] generate", "[init] start.opt")
+            (d / "nn.conf").write_text(conf)
+            (d / "cont.conf").write_text(conf.replace("start.opt", "kernel.opt"))
+            if name == "on":
+                monkeypatch.setenv(knob, PLANE_KNOBS[knob][0].format(d=d, url=url))
+            _reset_both()
+            capsys.readouterr()
+            assert train_nn.main(["--device", "cpu", "-v", "-v", "nn.conf"]) == 0
+            assert run_nn.main(["--device", "cpu", "-v", "-v", "cont.conf"]) == 0
+            cap = capsys.readouterr()
+            assert "selects" not in cap.err
+            outs[name] = (cap.out, open(d / "kernel.opt").read())
+            if name == "on":
+                # the registry runs (file-less) for the plane, which is armed
+                assert obs.registry._active() is not None
+                plane = PLANE_KNOBS[knob][1]
+                if plane:
+                    assert getattr(obs, plane).health_doc()["armed"]
+                from hpnn_tpu_torch import config, tune
+                from hpnn_tpu_torch.train import driver
 
-    with pytest.raises(NotImplementedError, match=knob):
-        driver.train_kernel(config.load_conf("nn.conf"), device="cpu")
+                if knob == "HPNN_TUNE":
+                    assert tune.enabled()
+                driver.train_kernel(config.load_conf("nn.conf"), device="cpu")
+    finally:
+        obs.collector.stop_collector(server)
+    assert outs["on"] == outs["off"]
+    assert "N_ITER" in outs["on"][0] and "[PASS]" in outs["on"][0]
 
 
 # ------------------------------------------------------------ the catalog

@@ -632,8 +632,10 @@ def test_spill_and_compile_cache_knobs_are_refused(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,msg", [
-    (["--sample", "0.5"], "--sample is not supported"),
-    (["--capsule-dir", "caps"], "--capsule-dir is not supported"),
+    # --sample/--capsule-dir are taken (tests/test_torch_planes.py); a
+    # bad value beside them is still refused before anything is armed
+    (["--sample", "0.5", "--port", "70000"], "bad --port"),
+    (["--capsule-dir", "caps", "--max-wait-ms", "soon"], "bad --max-wait-ms"),
     (["--port", "70000"], "bad --port"),
     (["--max-batch", "0"], "bad --max-batch"),
     (["--max-wait-ms", "soon"], "bad --max-wait-ms"),
