@@ -14,10 +14,17 @@ batched eval (``run_nn``).  The observability options are the JAX
 package's: ``--metrics PATH`` (``HPNN_METRICS``), ``--ledger PATH``
 (``HPNN_LEDGER``), ``--numerics warn|abort`` (``HPNN_NUMERICS``),
 ``--export-port N`` (a live ``/metrics`` endpoint) and ``--profile DIR``
-(a ``torch.profiler`` trace of the workload).  ``--mesh`` belongs to a
-path this package does not have yet and is refused with a message, as
-are the environment knobs of ``runtime.DEFERRED_ENV`` (XLA's executable
-cache and the serve router's tensor-parallel spill).
+(a ``torch.profiler`` trace of the workload).  The environment knob of
+``runtime.DEFERRED_ENV`` (XLA's executable cache) is refused with a
+message.
+
+``--mesh DxM`` runs the work on D×M ranks (``parallel/dist.py``): D
+data shards (``--batch`` only) of M row blocks.  Under a launcher that
+sets the torchrun environment (``RANK``, ``WORLD_SIZE``,
+``MASTER_ADDR``, ``MASTER_PORT``, ``LOCAL_RANK``) each process joins
+that world; without it the CLI starts its D×M local ranks itself and
+exits with their exit code.  Rank 0 alone prints, writes the kernel
+files and serves ``--export-port``.
 """
 
 from __future__ import annotations
@@ -25,14 +32,15 @@ from __future__ import annotations
 import signal
 import sys
 
+import torch
+
 from hpnn_tpu_torch import runtime
+from hpnn_tpu_torch.parallel import mesh as mesh_mod
 
 DEVICES = ("cpu", "cuda")
 
-# long option -> the path of the JAX package it belongs to
-DEFERRED_OPTS = {
-    "mesh": "tensor parallelism (--mesh)",
-}
+# long option -> the path of the JAX package it belongs to (none left)
+DEFERRED_OPTS: dict = {}
 # the observability options both CLIs take (valued)
 OBS_OPTS = ("metrics", "ledger", "numerics", "export-port", "profile")
 
@@ -113,18 +121,16 @@ def extract_long_opts(argv: list[str], *, flags=(), valued=()):
     return rest, out
 
 
-def check_supported(opts: dict, prog: str, deferred=None) -> bool:
-    """Refuse (with a message) the options (``deferred``, default
-    :data:`DEFERRED_OPTS`) and knobs of paths this package does not
-    have, and a bad ``--device``, ``--batch``, ``--epochs``, ``--lr``,
-    ``--max-batch``, ``--max-wait-ms`` or port value; never ignore
-    them."""
-    deferred = DEFERRED_OPTS if deferred is None else deferred
+def check_supported(opts: dict, prog: str) -> bool:
+    """Refuse (with a message) the options (:data:`DEFERRED_OPTS`) and
+    knobs of paths this package does not have, and a bad ``--device``,
+    ``--batch``, ``--epochs``, ``--lr``, ``--mesh``, ``--max-batch``,
+    ``--max-wait-ms`` or port value; never ignore them."""
     for name in opts:
-        if name in deferred:
+        if name in DEFERRED_OPTS:
             sys.stderr.write(
                 f"{prog}: --{name} is not supported by hpnn_tpu_torch: "
-                f"{deferred[name]} is not ported yet (hpnn_tpu's "
+                f"{DEFERRED_OPTS[name]} is not ported yet (hpnn_tpu's "
                 f"{prog} has it)\n")
             return False
     msg = runtime.deferred_env_message(prog)
@@ -149,6 +155,12 @@ def check_supported(opts: dict, prog: str, deferred=None) -> bool:
     if dev is not None and dev not in DEVICES:
         sys.stderr.write(f"syntax error: bad --device parameter (want cpu|cuda)!\n")
         return False
+    if opts.get("mesh") is not None:
+        try:
+            mesh_mod.parse_spec(opts["mesh"])
+        except ValueError:
+            sys.stderr.write("syntax error: bad --mesh parameter (want DxM)!\n")
+            return False
     for name in ("export-port", "port"):
         port = opts.get(name)
         if port is not None and (not str(port).isdigit() or int(port) > 65535):
@@ -183,7 +195,7 @@ def configure_obs(opts: dict, prog: str):
         obs.ledger.configure(opts["ledger"])
     if "numerics" in opts:
         obs.probes.configure_mode(opts["numerics"])
-    if "export-port" not in opts:
+    if "export-port" not in opts or runtime.process_index() != 0:
         return True, None
     try:
         server = obs.export.start_export_server(port=int(opts["export-port"]))
@@ -219,6 +231,63 @@ def resolve_device(opts: dict, prog: str):
     except runtime.DeviceUnavailable as exc:
         sys.stderr.write(f"{prog}: {exc}\n")
         return None
+
+
+def tp_mesh(spec: str) -> tuple[int, int]:
+    """``(1, M)`` from a per-sample ``--mesh 1xM``.
+
+    The reference's distributed mode is ``mpirun -np X`` with every
+    layer row-split across all X ranks (ref: src/ann.c:912-936) — no
+    data axis.  A data axis > 1 only makes sense with ``--batch``."""
+    d, m = mesh_mod.parse_spec(spec)
+    if d != 1:
+        raise ValueError(
+            f"per-sample training shards the model axis only (want 1xM, "
+            f"got {spec}); use --batch for data parallelism")
+    return d, m
+
+
+def spawns(shape) -> bool:
+    """True when ``--mesh`` of ``shape`` makes this process start its
+    ranks (D×M > 1 and no torchrun environment)."""
+    from hpnn_tpu_torch.parallel import dist
+
+    return bool(shape) and shape[0] * shape[1] > 1 and not dist.in_launched_world()
+
+
+def start_world(argv: list[str], opts: dict, prog: str, shape):
+    """Run the ``--mesh`` world of ``shape`` ``(D, M)`` (None: no
+    ``--mesh``).  Returns ``("ranks", rc)`` after starting the D×M local
+    ranks of ``python -m hpnn_tpu_torch.cli.<prog> argv`` (no torchrun
+    environment, D×M > 1), ``("mesh", mesh)`` inside a world (joined
+    here: this process is one of its ranks), ``("mesh", None)`` for a
+    run of one process, or ``("error", -1)`` with the message printed
+    (no card for ``cuda``; more ranks than cards; a world whose size is
+    not D×M)."""
+    from hpnn_tpu_torch.parallel import dist
+
+    try:
+        device = runtime.resolve_device(opts.get("device", "cuda"))
+    except runtime.DeviceUnavailable as exc:
+        sys.stderr.write(f"{prog}: {exc}\n")
+        return "error", -1
+    need = shape[0] * shape[1] if shape else 1
+    if not dist.in_launched_world():
+        if need == 1:
+            return "mesh", None
+        have = torch.cuda.device_count() if device.type == "cuda" else need
+        if need > have:
+            sys.stderr.write(f"{prog}: mesh {shape[0]}x{shape[1]} needs {need} "
+                             f"devices, have {have}\n")
+            return "error", -1
+        return "ranks", dist.launch(["-m", f"hpnn_tpu_torch.cli.{prog}", *argv], need)
+    rank_device = dist.init_world(device=device)
+    world = runtime.process_count()
+    if shape and need != world:
+        sys.stderr.write(f"{prog}: mesh {shape[0]}x{shape[1]} needs {need} ranks, "
+                         f"the world has {world}\n")
+        return "error", -1
+    return "mesh", dist.hybrid_mesh(shape[1] if shape else 1, device=rank_device)
 
 
 def parse_args(argv: list[str], prog: str) -> str | None:

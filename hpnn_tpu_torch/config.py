@@ -26,7 +26,6 @@ from __future__ import annotations
 import dataclasses
 import enum
 import sys
-import time
 
 import numpy as np
 
@@ -70,8 +69,12 @@ class NNConf:
 
 
 def resolve_time_seed(seed: int) -> int:
-    """``[seed] 0`` means the clock (the reference's ``srandom(time(NULL))``)."""
-    return seed if seed != 0 else int(time.time())
+    """``[seed] 0`` means the clock (the reference's ``srandom(time(NULL))``),
+    rank 0's in a multi-process world (``parallel/dist.py``), so every
+    rank generates the same kernel."""
+    from hpnn_tpu_torch.parallel import dist
+
+    return dist.resolve_time_seed(seed)
 
 
 def _value_after(line: str, tag: str, skip: int) -> str:

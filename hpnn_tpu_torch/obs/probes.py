@@ -17,9 +17,13 @@ into a runtime signal:
   ``numerics.nan``, dumps the flight ring and, under
   ``HPNN_NUMERICS=abort``, raises :class:`NumericsError`.
 
-The JAX package also runs a cross-rank divergence sentinel over its
-collectives; this package runs one process, so there is no second rank
-to compare with until multi-process training is ported.
+* **divergence sentinel** — in a multi-process world every rank
+  all-gathers its per-layer checksums at each check
+  (``parallel/dp.divergence_check``) and compares them under the
+  reference's 1e-14/1e-12 tolerances; a disagreement emits
+  ``numerics.divergence``, dumps the flight ring and, under
+  ``abort``, raises.  Callers pass the whole kernel (a mesh gathers
+  its row blocks first), so every rank checksums the same tensors.
 
 Knobs (each read once and memoized; all unset = zero overhead):
 
@@ -164,8 +168,9 @@ def check_weights(weights, *, step, where: str, names=None) -> dict | None:
     Emits the ``numerics.checksum`` event (carrying the full checksum
     dict, so the flight ring always holds the last known-good
     checksums), per-tensor probes/gauges when ``HPNN_PROBES`` is set,
-    appends the ledger row and runs the NaN tripwire.  Returns the
-    verdict dict, or None when inactive.  Raises :class:`NumericsError`
+    appends the ledger row, and runs the NaN tripwire and the cross-rank
+    divergence sentinel.  Returns the verdict dict, or None when
+    inactive.  Raises :class:`NumericsError`
     on a tripped sentinel under ``HPNN_NUMERICS=abort``."""
     cfg = _config()
     if not cfg:
@@ -200,26 +205,47 @@ def check_weights(weights, *, step, where: str, names=None) -> dict | None:
               nan=nan_total, inf=inf_total, checksums=checksums)
     row = ledger.record(step=step, where=where, checksums=checksums,
                         shapes=shapes, nan=nan_total, inf=inf_total)
+
+    divergent = []
+    if clean:
+        # a NaN checksum would "diverge" on every rank at once; the NaN
+        # tripwire below is the honest signal for that case
+        from hpnn_tpu_torch.parallel import dp
+
+        divergent = dp.divergence_check(
+            list(names), [checksums[n] for n in names],
+            [tolerance_for(shapes[n]) for n in names])
     verdict = {
         "step": step,
         "where": where,
         "row": row,
-        "clean": clean,
+        "clean": clean and not divergent,
         "nan": nan_total,
         "inf": inf_total,
-        "divergent": False,
+        "divergent": bool(divergent),
         "mode": cfg["mode"],
     }
     _publish(verdict)
+    problems = []
     if not clean:
         obs.event("numerics.nan", step=step, where=where,
                   nan=nan_total, inf=inf_total)
+        problems.append(f"{nan_total} NaN / {inf_total} Inf values in weights "
+                        f"at {where} step {step}")
+        reason = "numerics.nan"
+    if divergent:
+        obs.event("numerics.divergence", step=step, where=where,
+                  tensors=[d["tensor"] for d in divergent], detail=divergent)
+        problems.append(
+            f"cross-rank checksum divergence at {where} step {step}: " + ", ".join(
+                f"{d['tensor']} spread={d['spread']:.3e} tol={d['tol']:.0e}"
+                for d in divergent))
+        reason = "numerics.divergence"
+    if problems:
         obs.flush()
-        flight.dump("numerics.nan")
+        flight.dump(reason)
         if cfg["mode"] == "abort":
-            raise NumericsError(
-                f"{nan_total} NaN / {inf_total} Inf values in weights "
-                f"at {where} step {step}")
+            raise NumericsError("; ".join(problems))
     return verdict
 
 

@@ -29,7 +29,8 @@ kinds: ``event``, ``count`` (with the running total), ``gauge``,
 ``timer`` (``dt`` seconds), ``hist`` (n/mean/min/max of one batch) and
 ``summary`` (cumulative aggregates, at round end and at exit).
 
-One process: ``{rank}`` in the path expands to 0.  The registry also
+Multi-process: the sink is per-process, and ``{rank}`` in the path
+expands to the ``torch.distributed`` rank (0 outside a world).  The registry also
 runs **file-less** when the flight recorder (``HPNN_FLIGHT``), an
 export server, ``HPNN_SPANS`` or ``HPNN_COST`` wants the records
 without a sink.  On the first activation it chains SIGTERM/SIGINT
@@ -191,8 +192,10 @@ def _to_py(o):
 
 
 def _process_index() -> int:
-    """This process's rank: 0, as the port runs one process."""
-    return 0
+    """This process's rank (``runtime.process_index``)."""
+    from hpnn_tpu_torch import runtime
+
+    return runtime.process_index()
 
 
 def _init():

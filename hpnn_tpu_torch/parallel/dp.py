@@ -1,10 +1,18 @@
-"""Minibatch steepest descent: the math of one data-parallel step.
+"""Minibatch steepest descent: the math of one data-parallel step, on
+one device and over a mesh (the port of ``hpnn_tpu/parallel/dp.py``).
 
-The port of ``hpnn_tpu/parallel/dp.py``'s step math, on one device:
-one step per minibatch on the MEAN sample error, at the reference's
+One step per minibatch on the MEAN sample error, at the reference's
 per-sample learning rates (the delta-rule update ``W += η·δ⊗v`` is
-``W -= η·∇Ep``).  Sharding, collectives and multi-process placement
-belong to the multi-GPU slice and are not here.
+``W -= η·∇Ep``).
+
+Over a ``(data, model)`` mesh (:func:`make_gspmd_train_step` and its
+epoch, :func:`make_gspmd_epoch_fn`; the JAX package's explicit-``pmean``
+pure-DP step is the same function on a mesh of one model rank): each
+data shard takes its B/D rows of every batch, each model rank its row block of every layer (padded as
+``parallel/tp.py`` pads, the padded outputs masked), the forward and
+deltas run through ``tp``'s batched functions, and the local mean
+gradients are averaged over the data axis with an all-reduce
+(``coll.pmean``), as is the post-update loss.
 
 * ANN: the gradient is the hand delta rule, which is what ``jax.grad``
   over the JAX package's ``ann.act`` (whose custom JVP is ``dact(y)``)
@@ -21,9 +29,12 @@ Every function computes in the dtype and on the device of its inputs.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from hpnn_tpu_torch.models import ann, snn
+from hpnn_tpu_torch.parallel import coll, tp
+from hpnn_tpu_torch.parallel.mesh import DATA_AXIS
 
 
 def _targets(T, model: str):
@@ -109,3 +120,116 @@ def train_step_math(weights, dw, X, T, *, model: str, momentum: bool,
     else:
         weights = sgd_step(weights, grads, lr)
     return weights, dw, batch_loss(weights, X, T, model=model)
+
+
+# ------------------------------------------------------------ over a mesh
+def _mesh_step(weights_loc, dw_loc, X, T, *, mesh, model: str, momentum: bool,
+               lr: float, alpha: float, n_out: int):
+    """One step over the mesh on this rank's ``(b, n)`` rows of the
+    batch: the local mean gradient of the local row blocks, averaged
+    over the data axis; returns (weights, dw, loss) with the loss the
+    batch mean after the update.  Matmuls in full float32 (TF32 off),
+    as the kernels'."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        T = _targets(T, model)
+        acts = tp.forward_local(weights_loc, X, model=model, n_out=n_out, mesh=mesh)
+        ds = tp.deltas_local(weights_loc, acts, T, model=model, mesh=mesh)
+        inv_b = 1.0 / X.shape[0]
+        grads = tuple(
+            coll.pmean(-inv_b * torch.matmul(tp._my_block(dl, mesh).T, v), mesh,
+                       DATA_AXIS, layer=i)
+            for i, (dl, v) in enumerate(zip(ds, acts[:-1])))
+        if momentum:
+            weights_loc, dw_loc = momentum_step(weights_loc, dw_loc, grads, lr, alpha)
+        else:
+            weights_loc = sgd_step(weights_loc, grads, lr)
+        out = tp.forward_local(weights_loc, X, model=model, n_out=n_out, mesh=mesh)[-1]
+        loss = torch.mean(tp.train_error(out, T, model, n_out))
+        return weights_loc, dw_loc, coll.pmean(loss, mesh, DATA_AXIS, role="loss")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def make_gspmd_train_step(mesh, *, model: str = "ann", momentum: bool = False,
+                          lr: float | None = None, alpha: float = 0.2, n_out: int):
+    """The DP × TP step: ``step(weights_loc, dw_loc, X_loc, T_loc) ->
+    (weights_loc, dw_loc, loss)`` on this rank's rows of the batch and
+    row blocks of the (padded) kernel; ``n_out`` is the real output
+    count."""
+    if lr is None:
+        lr = default_lr(model, momentum)
+
+    def step(weights_loc, dw_loc, X, T):
+        return _mesh_step(weights_loc, dw_loc, X, T, mesh=mesh, model=model,
+                          momentum=momentum, lr=lr, alpha=alpha, n_out=n_out)
+
+    return step
+
+
+def make_gspmd_epoch_fn(mesh, *, model: str = "ann", momentum: bool = False,
+                        lr: float | None = None, alpha: float = 0.2, n_out: int,
+                        gather: bool = False):
+    """A whole epoch of :func:`make_gspmd_train_step` steps:
+    ``epoch(weights_loc, dw_loc, *data) -> (weights_loc, dw_loc,
+    losses)``.  ``gather=False``: ``data`` is this rank's
+    ``(n_steps, b, n)`` shards of the epoch's batches
+    (:func:`shard_batch_steps`); ``gather=True`` (one data shard):
+    ``(X, T, idx)``, the whole bank and the ``(n_steps, B)`` row
+    indices of each step."""
+    step = make_gspmd_train_step(mesh, model=model, momentum=momentum, lr=lr,
+                                 alpha=alpha, n_out=n_out)
+
+    def epoch(weights_loc, dw_loc, *data):
+        if gather:
+            X, T, idx = data
+            batches = ((X[ix], T[ix]) for ix in idx)
+        else:
+            batches = zip(*data)
+        losses = []
+        for Xb, Tb in batches:
+            weights_loc, dw_loc, loss = step(weights_loc, dw_loc, Xb, Tb)
+            losses.append(loss)
+        return weights_loc, dw_loc, torch.stack(losses)
+
+    return epoch
+
+
+def divergence_check(names, values, tols, *, step=None, where=None):
+    """Cross-rank checksum comparison: the divergence sentinel's core.
+
+    Every rank all-gathers its same-ordered per-tensor checksums
+    (``dist.allgather_checksums``) and compares each column against
+    rank 0 under its tolerance (1e-14 vectors / 1e-12 matrices, the
+    reference's ChangeLog:33-38).  Returns finding dicts ``{"tensor",
+    "spread", "tol", "values"}``, empty when the ranks agree or the
+    process is alone."""
+    from hpnn_tpu_torch.parallel import dist
+
+    every = dist.allgather_checksums(values)
+    if every.shape[0] < 2:
+        return []
+    findings = []
+    for i, name in enumerate(names):
+        col = every[:, i]
+        if np.isnan(col).any():
+            # divergent iff SOME ranks went NaN; all-NaN ranks "agree"
+            # (the numerics.nan event covers that failure)
+            if np.isnan(col).all():
+                continue
+            spread = float("nan")
+        else:
+            spread = float(np.abs(col - col[0]).max())
+            if spread <= float(tols[i]):
+                continue
+        findings.append({"tensor": name, "spread": spread, "tol": float(tols[i]),
+                         "values": [float(v) for v in col]})
+    return findings
+
+
+def shard_batch_steps(Xs, Ts, mesh):
+    """This data shard's rows of ``(n_steps, B, n)`` epoch batches."""
+    k, i = mesh.shape[DATA_AXIS], mesh.index[DATA_AXIS]
+    b = Xs.shape[1] // k
+    return Xs[:, i * b:(i + 1) * b], Ts[:, i * b:(i + 1) * b]

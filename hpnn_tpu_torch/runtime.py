@@ -6,8 +6,10 @@ global runtime singleton, and per-backend init/deinit + setters.
 
 * ``NNCap.CUDA`` is set when ``torch.cuda`` finds a card (the
   reference probes ``cudaGetDeviceCount``, src/libhpnn.c:201-305).
-* One process: the MPI task count is 1 (multi-process is a later
-  slice of the port).
+* Multi-process: the MPI task count is the ``torch.distributed``
+  world's size (``parallel/dist.py`` joins the world the torchrun
+  environment describes); :func:`process_index` is this process's
+  rank, 0 outside a world.
 * OMP/BLAS thread counts are recorded; ``-O`` also sets torch's
   intra-op thread count.  The CUDA stream count (``-S``) is advisory:
   every launch goes to PyTorch's current stream.
@@ -34,7 +36,7 @@ class NNCap(enum.IntFlag):
 
     NONE = 0
     OMP = 1 << 0      # intra-host threading
-    MPI = 1 << 1      # multi-process; never set in this package
+    MPI = 1 << 1      # multi-process: a torch.distributed world of > 1
     CUDA = 1 << 2     # a CUDA card is present
     CUBLAS = 1 << 3   # kept for surface parity; never set
     # (1<<4) reserved for OCL in the reference
@@ -118,6 +120,34 @@ def init_cuda() -> bool:
     return True
 
 
+def process_index() -> int:
+    """This process's rank in the ``torch.distributed`` world, 0 when
+    no world was joined (the JAX package's ``jax.process_index()``)."""
+    import torch.distributed as tdist
+
+    return tdist.get_rank() if tdist.is_available() and tdist.is_initialized() else 0
+
+
+def process_count() -> int:
+    """The world's size, 1 when no world was joined."""
+    import torch.distributed as tdist
+
+    return (tdist.get_world_size()
+            if tdist.is_available() and tdist.is_initialized() else 1)
+
+
+def init_dist() -> bool:
+    """Record the joined world (replaces ``_NN(init,MPI)``'s task
+    count): ``nn_num_tasks`` is its size, and ``NNCap.MPI`` is set when
+    it holds more than one process.  ``parallel/dist.py`` joins the
+    world and calls this."""
+    n = process_count()
+    _runtime.nn_num_tasks = n
+    if n > 1:
+        _runtime.capability |= NNCap.MPI
+    return True
+
+
 def init_all(init_verbose: int = 0) -> int:
     """``_NN(init,all)`` equivalent (ref: src/libhpnn.c:326-347).
 
@@ -128,6 +158,7 @@ def init_all(init_verbose: int = 0) -> int:
     global _runtime
     _runtime = NNRuntime()
     set_verbose(init_verbose)
+    init_dist()
     init_threads()
     init_cuda()
     log.nn_out(
@@ -198,15 +229,12 @@ def compute_dtype(device: torch.device) -> torch.dtype:
 
 # ----------------------------------------------------- knobs of other paths
 # environment knob -> (value that selects the missing path or None for
-# any value, the path): the serve router's tensor-parallel spill, which
-# needs the multi-GPU slice; and XLA's persistent executable cache,
-# which has no counterpart (a CUDA graph cannot be written to disk, so
-# a serve engine captures its graphs anew in every process)
+# any value, the path): XLA's persistent executable cache, which has no
+# counterpart (a CUDA graph cannot be written to disk, so a serve
+# engine captures its graphs anew in every process)
 DEFERRED_ENV = {
     "HPNN_COMPILE_CACHE_DIR": (None, "XLA's persistent executable cache "
                                "(a CUDA graph cannot be written to disk)"),
-    "HPNN_SERVE_SPILL": ("1", "the serve router's tensor-parallel spill "
-                         "(Slice D, multi-GPU)"),
 }
 
 

@@ -1,6 +1,5 @@
 """Data-parallel serving scale-out: a request router over N replicas
-(a copy of ``hpnn_tpu/serve/router.py``, less its tensor-parallel
-spill).
+(the port of ``hpnn_tpu/serve/router.py``).
 
 A :class:`Router` owns N
 :class:`~hpnn_tpu_torch.serve.replica.Replica` instances — each a full
@@ -20,12 +19,15 @@ and the request retries on the next-best replica, so one saturated
 device degrades capacity instead of availability.  Only when every
 replica has refused does the caller see the rejection.
 
-TP spill-over: the JAX router can dispatch a row block larger than the
-bucket menu through the tensor-parallel batched forward over all
-devices (``spill=True``, ``HPNN_SERVE_SPILL=1``).  That forward belongs
-to the multi-GPU slice of the port (Slice D), which is not ported yet:
-both spellings raise ``NotImplementedError``, and an oversized block
-chunks through one replica's largest bucket.
+TP spill-over: with ``spill=True`` (``HPNN_SERVE_SPILL=1``) a row block
+larger than the bucket menu skips the replicas and runs through the
+tensor-parallel batched forward (``parallel/tp.make_spill_forward``):
+the kernel's rows split one block a local device, the activations
+gathered in process after each layer.  ``spill_devices`` names the
+devices (default: every local CUDA card on ``cuda``, the CPU once on
+the CPU); a CPU test can split one kernel into several blocks on the
+CPU.  Without the spill an oversized block chunks through one
+replica's largest bucket.
 
 Promotion fence: ``install_kernel`` (and load/register/reload) fan out
 to replicas one at a time under a single fence lock, and each replica's
@@ -51,6 +53,7 @@ import os
 import time
 
 import numpy as np
+import torch
 
 from hpnn_tpu_torch import obs, runtime
 from hpnn_tpu_torch.models import kernel as kernel_mod
@@ -59,6 +62,7 @@ from hpnn_tpu_torch.serve.batcher import QueueFull, Shed
 from hpnn_tpu_torch.serve.replica import Replica
 
 ENV_REPLICAS = "HPNN_SERVE_REPLICAS"
+ENV_SPILL = "HPNN_SERVE_SPILL"
 
 
 class _FanRegistry:
@@ -154,19 +158,17 @@ class Router:
     verbatim to each :class:`Replica`'s Session constructor."""
 
     def __init__(self, n_replicas: int | None = None, *,
-                 spill: bool | None = None, clock=time.monotonic,
-                 **session_kwargs):
+                 spill: bool | None = None, spill_devices=None,
+                 clock=time.monotonic, **session_kwargs):
         if n_replicas is None:
             n_replicas = int(os.environ.get(ENV_REPLICAS, "0") or 0) or 1
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        if spill:
-            raise NotImplementedError(
-                "Router(spill=True) selects the tensor-parallel spill, "
-                "which needs the multi-GPU slice of hpnn_tpu_torch "
-                "(Slice D), not ported yet")
-        runtime.refuse_deferred("serve.Router")  # HPNN_SERVE_SPILL=1
-        self.spill = False
+        runtime.refuse_deferred("serve.Router")
+        if spill is None:
+            spill = os.environ.get(ENV_SPILL, "") == "1"
+        self.spill = bool(spill)
+        self._spill_devices = spill_devices
         self._clock = clock
         self._session_kwargs = dict(session_kwargs)
         self.replicas = [Replica(rank, clock=clock, **session_kwargs)
@@ -178,6 +180,9 @@ class Router:
         # rank -> monotonic instant its shed cool-off expires
         self._cool_lock = obs.lockwatch.lock("serve.router.cool")
         self._cool: dict[int, float] = {}  # guarded: _cool_lock
+        # (name, version) -> (spill forward, n_out)
+        self._tp_lock = obs.lockwatch.lock("serve.router.tp")
+        self._tp_cache: dict = {}          # guarded: _tp_lock
         # the online-learning layer plugs in exactly as on a Session
         self.ingest_hook = None
         self.online_health = None
@@ -339,7 +344,7 @@ class Router:
                 "n_replicas": len(self.replicas),
                 "live_replicas": len(self._live()),
                 "spill": self.spill,
-                "spilled_kernels": [],
+                "spilled_kernels": sorted({k[0] for k in self._tp_cache}),
             },
             "replicas": replicas,
         }
@@ -386,7 +391,7 @@ class Router:
         arr = np.asarray(x)
         single = arr.ndim == 1
         n_rows = 1 if single else int(np.atleast_2d(arr).shape[0])
-        self._primary().registry.get(name)   # KeyError: unknown
+        entry = self._primary().registry.get(name)   # KeyError: unknown
         rfields = {"kernel": name, "rows": n_rows}
         if req_id is not None:
             rfields["req_id"] = req_id
@@ -395,6 +400,11 @@ class Router:
         sub = obs.propagate.ctx_from(
             rspan, trace=getattr(trace, "trace", None))
         try:
+            if (self.spill and not single
+                    and n_rows > self._primary().engine.buckets[-1]):
+                out = self._spill_infer(entry, np.atleast_2d(arr))
+                obs.spans.finish(rspan, spilled=True)
+                return out
             last_exc: Exception | None = None
             for rep in self._candidates():
                 depth = rep.begin_request(n_rows)
@@ -437,6 +447,38 @@ class Router:
             # idempotent: a success path already finished the span
             obs.spans.finish(rspan, failed=type(exc).__name__)
             raise
+
+    # ------------------------------------------------------------ TP spill
+    def _tp_forward(self, entry):
+        """The cached spill forward of ``entry`` (its rows split one
+        block a spill device, ``parallel/tp.make_spill_forward``)."""
+        key = (entry.name, entry.version)
+        with self._tp_lock:
+            cached = self._tp_cache.get(key)
+        if cached is not None:
+            return cached
+        from hpnn_tpu_torch.parallel import tp
+
+        engine = self._primary().engine
+        devices = self._spill_devices
+        if devices is None:
+            devices = ([f"cuda:{i}" for i in range(torch.cuda.device_count())]
+                       if engine.device.type == "cuda" else ["cpu"])
+        dtype = np.dtype(str(engine.native_dtype(entry)).replace("torch.", ""))
+        fwd = tp.make_spill_forward(
+            tuple(np.asarray(w, dtype=dtype) for w in entry.kernel.weights), devices,
+            model=entry.model, n_out=entry.n_outputs)
+        cached = (fwd, entry.n_outputs)
+        with self._tp_lock:
+            self._tp_cache[key] = cached
+        return cached
+
+    def _spill_infer(self, entry, rows: np.ndarray) -> np.ndarray:
+        fwd, _n_out = self._tp_forward(entry)
+        obs.count("router.spill", kernel=entry.name, rows=int(rows.shape[0]))
+        with obs.timer("router.spill_time", kernel=entry.name,
+                       rows=int(rows.shape[0])):
+            return fwd(rows)
 
     # ------------------------------------------------------------ fleet ops
     def kill_replica(self, rank: int) -> None:

@@ -1,5 +1,5 @@
 """Minibatch training (``train_nn --batch``) and batched evaluation
-(``run_nn --batch``) on one device.
+(``run_nn --batch``), on one device or over a mesh.
 
 The port of ``hpnn_tpu/train/batch.py``: one steepest-descent step per
 B-sample minibatch on the mean error (``parallel/dp.py``), the steps run
@@ -30,6 +30,15 @@ data path).  The JAX package also shrinks its blocks to a dispatch time
 budget (``HPNN_DISPATCH_BUDGET_S``); the port's launches are single
 epochs, so it has no such budget.
 
+Over a mesh of D data shards and M row blocks (``--mesh DxM``, or every
+rank of a joined world on the data axis), B rounds up to a multiple of
+D and each step is ``parallel/dp.py``'s (torch ops and collectives; the
+kernels serve one device).  One data shard keeps the bank path above;
+several permute on the host once an epoch and each takes its B/D rows
+of every batch, as the JAX package's sharded data axis does.  The
+count runs the row-split forward over the whole bank on every rank.
+Crash-resume is a one-process feature.
+
 Stdout token, after every epoch (the loss is the mean of the epoch's
 per-step losses; the count runs over the unpadded samples):
 
@@ -46,15 +55,16 @@ import numpy as np
 import torch
 
 from hpnn_tpu_torch import obs, runtime
-from hpnn_tpu_torch.config import NNConf, NNTrain, NNType, resolve_time_seed
+from hpnn_tpu_torch.config import NNConf, NNTrain, NNType
 from hpnn_tpu_torch.fileio import samples as sample_io
 from hpnn_tpu_torch.models import ann, snn
 from hpnn_tpu_torch.models import kernel as kernel_mod
 from hpnn_tpu_torch.ops import batch_step
-from hpnn_tpu_torch.parallel import dp
+from hpnn_tpu_torch.parallel import dist, dp
+from hpnn_tpu_torch.parallel import mesh as mesh_mod
 from hpnn_tpu_torch.train.driver import (
-    _body_of, _fuse_state_key, _init_identity, _load_fuse_state, _model_of,
-    _save_fuse_state, _to_host, print_verdict)
+    _body_of, _fuse_state_key, _full_weights, _init_identity, _load_fuse_state,
+    _mesh_device, _model_of, _save_fuse_state, _to_host, print_verdict)
 from hpnn_tpu_torch.utils import debug
 from hpnn_tpu_torch.utils import logging as log
 from hpnn_tpu_torch.utils import trace as trace_mod
@@ -113,15 +123,51 @@ def accuracy_counts(out: np.ndarray, T: np.ndarray, model: str) -> int:
     return int(count_correct(torch.from_numpy(out), torch.from_numpy(T), model))
 
 
+@contextlib.contextmanager
+def _count_matmul():
+    """The in-training count's matmul precision: full float32 unless
+    ``HPNN_FAST_COUNT=1``, which allows TF32 on the card for the count
+    only (the JAX package drops its HIGHEST pin there); ``run_nn``'s
+    eval keeps full precision."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = os.environ.get("HPNN_FAST_COUNT", "") == "1"
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
 def make_device_count_fn(*, model: str):
     """``count(weights, X, T) -> int``: eval and count on the device;
     only the count comes to the host."""
-    ev = make_eval_fn(model=model)
+    mod = snn if model == "snn" else ann
 
     def count(weights, X, T):
-        return int(count_correct(ev(weights, X), T, model))
+        with _count_matmul(), torch.inference_mode():
+            return int(count_correct(mod.run_batch(weights, X), T, model))
 
     return count
+
+
+def make_mesh_count_fn(mesh, *, model: str, n_out: int):
+    """:func:`make_device_count_fn` over a mesh: the row-split forward
+    of the whole bank on every rank (``parallel/tp.py``), counted over
+    the real outputs."""
+    from hpnn_tpu_torch.parallel import tp
+
+    def count(weights_loc, X, T):
+        with _count_matmul(), torch.inference_mode():
+            out = tp.forward_local(weights_loc, X, model=model, n_out=n_out, mesh=mesh)[-1]
+            return int(count_correct(out[:, :n_out], T, model))
+
+    return count
+
+
+def _write_back(dst, src) -> None:
+    """Copy the step's new tensors ``src`` (weights, dw) into ``dst``."""
+    with torch.no_grad():
+        for d, t in zip(dst, tuple(src[0]) + tuple(src[1])):
+            d.copy_(t)
 
 
 def _batch_state_key(sample_dir, model, momentum, shapes, B, lr, epochs,
@@ -133,35 +179,70 @@ def _batch_state_key(sample_dir, model, momentum, shapes, B, lr, epochs,
                            f"batch/B{B}/lr{lr}/E{epochs}/{init_key}", names=names)
 
 
+def default_mesh(spec: str | None = None):
+    """The mesh of a batch run: ``"DxM"`` over the joined world, or (no
+    spec) every rank of the world on the data axis (pure DP); None
+    outside a world (one device)."""
+    if runtime.process_count() == 1 and not spec:
+        return None
+    d, m = mesh_mod.parse_spec(spec) if spec else (runtime.process_count(), 1)
+    if d * m != runtime.process_count():
+        raise ValueError(f"mesh {d}x{m} needs {d * m} ranks, the world has "
+                         f"{runtime.process_count()}")
+    return dist.hybrid_mesh(m) if d * m > 1 else None
+
+
 def train_kernel_batched(conf: NNConf, batch_size: int, epochs: int,
-                         lr: float | None = None, *, device=None) -> bool:
+                         lr: float | None = None, *, device=None, mesh=None) -> bool:
     """Minibatch-SGD training round over ``conf.samples`` on ``device``
     (default ``cuda``; raises ``runtime.DeviceUnavailable`` when CUDA is
     absent).
 
     ``lr=None`` keeps the reference's per-sample learning rate for the
-    model and mode; ``--lr`` overrides it."""
+    model and mode; ``--lr`` overrides it.  ``mesh`` (default: every
+    rank of a joined world on the data axis): D data shards of M row
+    blocks, the steps of ``parallel/dp.py`` in place of the kernels."""
     if conf.kernel is None or conf.samples is None or conf.type == NNType.UKN:
         return False
     if conf.train not in (NNTrain.BP, NNTrain.BPM):
         return True  # CG/SPLX parse but are unimplemented (reference parity)
     runtime.refuse_deferred("train_nn")
-    if not os.path.isdir(conf.samples):
+    # the census collective runs on every rank before any filesystem-
+    # dependent return; it hashes the listing and the readable count,
+    # so ranks that read different banks stop here
+    have_dir = os.path.isdir(conf.samples)
+    all_files = sample_io.list_sample_files(conf.samples) if have_dir else []
+    names, X_np, T_np = (sample_io.read_dir(conf.samples, files=all_files)
+                         if have_dir else ([], None, None))
+    census = (all_files + ["\x00readable=%d" % len(names)] if have_dir
+              else ["\x00missing"])
+    if not dist.census_consistent(census):
+        log.nn_error(sys.stderr, "sample dir %s differs across processes "
+                     "(count, order, or readable set)!\n", conf.samples)
+        return False
+    if not have_dir:
         log.nn_error(sys.stderr, "can't open sample directory: %s\n", conf.samples)
         return False
-    names, X_np, T_np = sample_io.read_dir(conf.samples)
     n = len(names)
     if n == 0:
         log.nn_error(sys.stderr, "no samples in %s\n", conf.samples)
         return False
-    dev = runtime.resolve_device(device)
+    if mesh is None:
+        mesh = default_mesh()
+    if mesh is not None and mesh.size == 1:
+        mesh = None  # one rank: the kernels
+    dev = _mesh_device(mesh, device)
     dtype = runtime.compute_dtype(dev)
     model = _model_of(conf)
     momentum = conf.train == NNTrain.BPM
-    B = max(1, int(batch_size))
+    n_data = mesh.shape[mesh_mod.DATA_AXIS] if mesh is not None else 1
+    B = max(1, int(batch_size), n_data)
+    B += (-B) % n_data  # divisible by the data axis
     if lr is None:
         lr = dp.default_lr(model, momentum)
-    use_bank = os.environ.get("HPNN_BANK", "1") != "0"
+    # one data shard: the bank on the device (or the per-step gather);
+    # a sharded data axis: the host permutes once an epoch
+    use_bank = n_data == 1 and os.environ.get("HPNN_BANK", "1") != "0"
     bank_refresh = (max(1, int(os.environ.get("HPNN_BANK_REFRESH", "8")))
                     if use_bank else 0)
     use_dbuf = use_bank and os.environ.get("HPNN_BANK_DBUF", "") == "1"
@@ -172,22 +253,38 @@ def train_kernel_batched(conf: NNConf, batch_size: int, epochs: int,
 
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
     weights_np = [np.asarray(w, dtype=np_dtype) for w in conf.kernel.weights]
-    weights, dw = kernel_mod.to_torch(
-        weights_np, [np.zeros_like(w) for w in weights_np] if momentum else None,
-        device=dev, dtype=dtype)
-    debug.device_alloc_report(weights + dw)
+    n_out = weights_np[-1].shape[0]
     X = torch.from_numpy(X_np).to(device=dev, dtype=dtype)
     T = torch.from_numpy(T_np).to(device=dev, dtype=dtype)
-    count_fn = make_device_count_fn(model=model)
     kw = dict(model=model, momentum=momentum, lr=lr, alpha=0.2)
+    if mesh is None:
+        weights, dw = kernel_mod.to_torch(
+            weights_np, [np.zeros_like(w) for w in weights_np] if momentum else None,
+            device=dev, dtype=dtype)
+        count_fn = make_device_count_fn(model=model)
+        body = _body_of(dev)
+    else:
+        from hpnn_tpu_torch.parallel import tp
+
+        # this rank's row blocks of the padded kernel; the steps' targets
+        # padded with zero columns to the padded output rows
+        padded, _ = mesh_mod.pad_kernel(weights_np, mesh.shape[mesh_mod.MODEL_AXIS])
+        weights = tp.shard_kernel(padded, mesh, dtype=dtype)
+        dw = tuple(torch.zeros_like(w) for w in weights) if momentum else ()
+        T_pad = torch.nn.functional.pad(T, (0, padded[-1].shape[0] - n_out))
+        mesh_epoch = dp.make_gspmd_epoch_fn(mesh, n_out=n_out, gather=n_data == 1, **kw)
+        count_fn = make_mesh_count_fn(mesh, model=model, n_out=n_out)
+        body = "mesh"
+    debug.device_alloc_report(weights + dw)
     shapes = tuple(tuple(int(d) for d in w.shape) for w in weights)
-    body = _body_of(dev)
 
     # crash-resume (HPNN_FUSE_STATE): the checkpoint holds the epochs
     # done and the weights (and dw) after every block of epochs; the
     # RNG fast-forwards by replaying the done epochs' draws.  The key
     # binds the body and the data path, as the per-sample key does.
-    state_path = os.environ.get("HPNN_FUSE_STATE")
+    # One process only: in a world the ranks would race on one file
+    # (the JAX rule)
+    state_path = os.environ.get("HPNN_FUSE_STATE") if runtime.process_count() < 2 else None
     state_key = state = None
     if state_path:
         state_key = _batch_state_key(
@@ -213,7 +310,7 @@ def train_kernel_batched(conf: NNConf, batch_size: int, epochs: int,
             cap_hint = halved
         saved, _ = kernel_mod.to_torch(state["weights"], device=dev, dtype=dtype)
         weights, dw = saved[:len(weights)], saved[len(weights):]
-    conf.seed = resolve_time_seed(conf.seed)
+    conf.seed = dist.resolve_time_seed(conf.seed)
     rng = np.random.RandomState(conf.seed & 0x7FFFFFFF)
 
     def save_state(epoch_now, cap=0, resume_done=-1):
@@ -244,7 +341,7 @@ def train_kernel_batched(conf: NNConf, batch_size: int, epochs: int,
             obs.gauge("batch.acc", okc / n, epoch=epoch, ok=okc, n=n)
 
     obs.event("round.start", mode="batch", samples=n, batch=B, epochs=epochs,
-              body=body, bank=bank_refresh, data_shards=1,
+              body=body, bank=bank_refresh, data_shards=n_data,
               resumed=state is not None)
     round_span = obs.spans.start("train.round", mode="batch")
 
@@ -309,6 +406,26 @@ def train_kernel_batched(conf: NNConf, batch_size: int, epochs: int,
                 counts.append(count_fn(weights, X, T))
         return losses, counts
 
+    def run_block_mesh(perms, orders):
+        """:func:`run_block` over the mesh: each epoch through ``dp``'s
+        epoch function (one data shard: the bank's row indices a step;
+        several: each rank's rows of the permuted batches), the weights
+        written back in place."""
+        losses, counts = [], []
+        for g, perm in enumerate(perms):
+            blocks = torch.from_numpy(perm.reshape(n_steps, B)).to(dev)
+            for order in (orders[g] if use_bank else [None]):
+                idx = blocks if order is None else blocks[torch.as_tensor(order)]
+                data = ((X, T_pad, idx) if n_data == 1
+                        else dp.shard_batch_steps(X[idx], T_pad[idx], mesh))
+                w, m, ls = mesh_epoch(tuple(weights), tuple(dw), *data)
+                _write_back(weights + dw, (w, m))
+                losses.append(float(ls.mean()))
+                counts.append(count_fn(weights, X, T))
+        return losses, counts
+
+    if mesh is not None:
+        run_block = run_block_mesh
     for e in range(done_epochs):
         # resume: the crashed run printed these epochs' tokens
         replay_epoch(e)
@@ -354,11 +471,19 @@ def train_kernel_batched(conf: NNConf, batch_size: int, epochs: int,
             epoch += 1
             print_epoch(epoch, loss, okc)
         if obs.probes.enabled():
-            obs.probes.check_weights(weights, step=epoch, where="batch_block")
-        trace_mod.trace(f"w@{epoch}", weights)
+            obs.probes.check_weights(_full_weights(weights, mesh), step=epoch,
+                                     where="batch_block")
+        if trace_mod.enabled():
+            trace_mod.trace(f"w@{epoch}", _full_weights(weights, mesh))
         save_state(epoch, cap=e_cap)
-    conf.kernel = kernel_mod.Kernel(
-        tuple(w.astype(np.float64) for w in kernel_mod.to_numpy(weights)[0]))
+    if mesh is not None:
+        from hpnn_tpu_torch.parallel import tp
+
+        host = mesh_mod.unpad_kernel(tp.gather_kernel(weights, mesh),
+                                     [w.shape[0] for w in weights_np])
+    else:
+        host = kernel_mod.to_numpy(weights)[0]
+    conf.kernel = kernel_mod.Kernel(tuple(w.astype(np.float64) for w in host))
     # run completed: drop this run's checkpoint (another key's is left)
     if state_path and _load_fuse_state(state_path, state_key) is not None:
         os.remove(state_path)
@@ -398,7 +523,7 @@ def run_kernel_batched(conf: NNConf, *, device=None) -> None:
     obs.event("eval.round", files=len(all_files), batched=len(names), odd=0,
               unreadable=len(all_files) - len(names), tp=False)
 
-    conf.seed = resolve_time_seed(conf.seed)
+    conf.seed = dist.resolve_time_seed(conf.seed)
     row_of = {name: i for i, name in enumerate(names)}
     for idx in shuffled_order(conf.seed, len(all_files)):
         name = all_files[idx]

@@ -38,6 +38,16 @@ stays on the body that wrote it).  A launch that raises saves the chunk
 hint halved (from the host copy of the last checkpointed weights: the
 card may be unusable after the error) and re-raises; a rerun that finds
 no progress since the last resume halves it too.
+
+With a mesh of two or more model ranks (``--mesh 1xM``, the
+reference's ``mpirun -np M`` row split) every rank trains its row
+blocks of the zero-padded kernel through ``parallel/tp.py`` (torch
+ops and collectives; the kernel serves one device), in the same chunks
+and with the same tokens, which rank 0 alone prints; at the round's end
+the row blocks are gathered and the padding stripped.  Every rank
+checks first that all of them list the same sample files, and after
+every chunk that all of them left every sample's do-while alike.
+Crash-resume is a one-process feature, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -52,9 +62,11 @@ import numpy as np
 import torch
 
 from hpnn_tpu_torch import obs, runtime
-from hpnn_tpu_torch.config import NNConf, NNTrain, NNType, resolve_time_seed
+from hpnn_tpu_torch.config import NNConf, NNTrain, NNType
 from hpnn_tpu_torch.fileio import samples as sample_io
 from hpnn_tpu_torch.models import kernel as kernel_mod
+from hpnn_tpu_torch.parallel import dist
+from hpnn_tpu_torch.parallel import mesh as mesh_mod
 from hpnn_tpu_torch.train import loop
 from hpnn_tpu_torch.utils import debug
 from hpnn_tpu_torch.utils import logging as log
@@ -84,21 +96,58 @@ def _to_host(weights) -> tuple:
     return tuple(w.detach().cpu().numpy() for w in weights)
 
 
-def train_kernel(conf: NNConf, *, device=None) -> bool:
+def _census(directory: str, what: str):
+    """The directory's listing, checked to be every rank's (a missing
+    directory lists as a marker no real listing gives, so missing and
+    empty ranks disagree here instead of deadlocking later); None,
+    with the message printed, when the ranks differ."""
+    have = os.path.isdir(directory)
+    names = sample_io.list_sample_files(directory) if have else ["\x00missing"]
+    if not dist.census_consistent(names):
+        log.nn_error(sys.stderr, "%s dir %s differs across processes (count or order)!\n",
+                     what, directory)
+        return None
+    return names if have else []
+
+
+def _tp_shard(mesh, weights_np, dtype):
+    """Pad the layer rows to multiples of the model axis and take this
+    rank's row blocks: (row_blocks, padded_host) or None when the mesh
+    has fewer than two model ranks (the single-device path)."""
+    if mesh is None or mesh.shape[mesh_mod.MODEL_AXIS] < 2:
+        return None
+    from hpnn_tpu_torch.parallel import tp
+
+    padded, _ = mesh_mod.pad_kernel(weights_np, mesh.shape[mesh_mod.MODEL_AXIS])
+    return tp.shard_kernel(padded, mesh, dtype=dtype), padded
+
+
+def _mesh_device(mesh, device):
+    """A mesh's ranks run on its device; otherwise ``device``'s rule."""
+    return mesh.device if mesh is not None and device is None else runtime.resolve_device(device)
+
+
+def train_kernel(conf: NNConf, mesh=None, *, device=None) -> bool:
     """Train every sample in ``conf.samples`` once (one 'round') on
     ``device`` (default ``cuda``; raises ``runtime.DeviceUnavailable``
-    when CUDA is absent)."""
+    when CUDA is absent).  With a ``mesh`` (``parallel/mesh.Mesh``) of
+    two or more model ranks the round runs tensor-parallel on the
+    mesh's device; tokens and weights are the single-device round's."""
     if conf.kernel is None or conf.samples is None or conf.type == NNType.UKN:
         return False
     if conf.train not in (NNTrain.BP, NNTrain.BPM):
         # CG/SPLX parse but are unimplemented (ref: src/libhpnn.c:1253-1257)
         return True
     runtime.refuse_deferred("train_nn")
+    # the census collective runs on every rank before any
+    # filesystem-dependent return
+    census = _census(conf.samples, "sample")
+    if census is None:
+        return False
     if not os.path.isdir(conf.samples):
         log.nn_error(sys.stderr, "can't open sample directory: %s\n", conf.samples)
         return False
-    census = sample_io.list_sample_files(conf.samples)
-    dev = runtime.resolve_device(device)
+    dev = _mesh_device(mesh, device)
     dtype = runtime.compute_dtype(dev)
     momentum = conf.train == NNTrain.BPM
     model = _model_of(conf)
@@ -111,15 +160,24 @@ def train_kernel(conf: NNConf, *, device=None) -> bool:
     np_dtype = np.float32 if dtype == torch.float32 else np.float64
 
     weights_np = [np.asarray(w, dtype=np_dtype) for w in conf.kernel.weights]
-    weights, _ = kernel_mod.to_torch(weights_np, device=dev, dtype=dtype)
+    tp_state = _tp_shard(mesh, weights_np, dtype)
+    if tp_state is not None:
+        weights = tp_state[0]
+        epoch_fn = _make_tp_epoch(mesh, weights_np, kw)
+    else:
+        weights, _ = kernel_mod.to_torch(weights_np, device=dev, dtype=dtype)
+        epoch_fn = loop.train_epoch
     debug.device_alloc_report(weights)
-    body = _body_of(dev)
+    body = "tp" if tp_state is not None else _body_of(dev)
 
     # crash-resume: the key binds the round identity (census, network,
     # starting weights, body); the stored seed lets a `[seed] 0` round
     # replay the shuffle it started with, and an explicitly seeded conf
-    # never adopts a checkpoint of another seed
+    # never adopts a checkpoint of another seed.  One process only: in a
+    # world the ranks would race on one file (the JAX rule)
     state_path = os.environ.get("HPNN_FUSE_STATE")
+    if runtime.process_count() > 1:
+        state_path = None
     state_key = state = None
     if state_path:
         state_key = _fuse_state_key(
@@ -129,11 +187,12 @@ def train_kernel(conf: NNConf, *, device=None) -> bool:
         state = _load_fuse_state(state_path, state_key)
         if state is not None and conf.seed not in (0, int(state["seed"])):
             state = None  # a different seeded round asked for: start over
-    conf.seed = int(state["seed"]) if state is not None else resolve_time_seed(conf.seed)
+    conf.seed = (int(state["seed"]) if state is not None
+                 else dist.resolve_time_seed(conf.seed))
     files = [census[i] for i in shuffled_order(conf.seed, len(census))]
     # a file whose dims do not match the kernel is skipped with a
     # warning (the reference reads it into out-of-bounds C memory)
-    exp_dims = (weights[0].shape[1], weights[-1].shape[0])
+    exp_dims = (weights_np[0].shape[1], weights_np[-1].shape[0])
     parsed = bank = None
     if not _streaming():
         parsed = [_checked_sample(conf.samples, f, exp_dims) for f in files]
@@ -145,14 +204,21 @@ def train_kernel(conf: NNConf, *, device=None) -> bool:
         bank = None
         weights = _fused_round(
             conf, weights, X, T, files, readable, alpha, delta, kw, body,
-            state_path, state_key, state)
+            state_path, state_key, state, epoch_fn, mesh)
     else:
         # streaming; reuse the parse when the chunked path found no
         # trainable sample rather than re-reading the dir
         pairs = (zip(files, parsed) if parsed is not None else
                  ((f, _checked_sample(conf.samples, f, exp_dims)) for f in files))
-        _streaming_round(weights, pairs, len(files), alpha, delta, kw, np_dtype)
-    conf.kernel = kernel_mod.Kernel(_to_host(weights))
+        _streaming_round(weights, pairs, len(files), alpha, delta, kw, np_dtype,
+                         epoch_fn, dev, mesh)
+    if tp_state is not None:
+        from hpnn_tpu_torch.parallel import tp
+
+        conf.kernel = kernel_mod.Kernel(mesh_mod.unpad_kernel(
+            tp.gather_kernel(weights, mesh), [w.shape[0] for w in weights_np]))
+    else:
+        conf.kernel = kernel_mod.Kernel(_to_host(weights))
     # round completed (either path): drop THIS round's checkpoint so the
     # next round over the same samples cannot mistake it for its own
     if state_path and _load_fuse_state(state_path, state_key) is not None:
@@ -161,8 +227,52 @@ def train_kernel(conf: NNConf, *, device=None) -> bool:
     return True
 
 
+def _make_tp_epoch(mesh, weights_np, kw):
+    """The tensor-parallel chunk trainer with ``loop.train_epoch``'s
+    signature: the targets padded with zero columns to the padded
+    output rows (a fixed point of the row-split math)."""
+    from hpnn_tpu_torch.parallel import tp
+
+    n_out = weights_np[-1].shape[0]
+    pad_out = mesh_mod.pad_up(n_out, mesh.shape[mesh_mod.MODEL_AXIS])
+
+    def epoch(weights, X, T, alpha, delta, **kw2):
+        T = torch.nn.functional.pad(T, (0, pad_out - n_out))
+        return tp.train_epoch(weights, X, T, alpha, delta, n_out=n_out, mesh=mesh, **kw2)
+
+    return epoch
+
+
+def _full_weights(weights, mesh):
+    """The whole kernel on every rank (a mesh's row blocks gathered)
+    for the probes and the #DBG trace, which see what the JAX package's
+    global arrays hold."""
+    if mesh is None or mesh.shape[mesh_mod.MODEL_AXIS] < 2:
+        return weights
+    from hpnn_tpu_torch.parallel import tp
+
+    return tp.gather_kernel(weights, mesh)
+
+
+def _check_lockstep(stats, done, mesh) -> None:
+    """After a chunk, every rank of a mesh must have left every
+    sample's do-while on the same iteration with the same result (the
+    decision is made from replicated values, so any spread is a bug)."""
+    if mesh is None or runtime.process_count() < 2:
+        return
+    from hpnn_tpu_torch.parallel import dp
+
+    names = ("n_iter", "first_ok", "final_ok", "ep0", "dep")
+    vals = [float(stats[1].sum()), float(stats[3].sum()), float(stats[4].sum()),
+            float(np.abs(stats[0]).sum()), float(np.abs(stats[2]).sum())]
+    bad = dp.divergence_check(names, vals, [0.0] * len(names))
+    if bad:
+        raise RuntimeError(f"the mesh's ranks left the do-while differently after "
+                           f"{done} samples: {bad}")
+
+
 def _fused_round(conf, weights, X, T, files, readable, alpha, delta, kw, body,
-                 state_path, state_key, state):
+                 state_path, state_key, state, epoch_fn, mesh):
     """The chunked round over the stacked ``(X, T)``; returns the
     trained weights (the tensors of ``weights`` or, after a resume, the
     restored ones)."""
@@ -227,7 +337,7 @@ def _fused_round(conf, weights, X, T, files, readable, alpha, delta, kw, body,
             # host copy is the fence)
             with obs.step_annotation("hpnn.fused_chunk", chunk_i), \
                     obs.timer("driver.chunk_dispatch", done=done, size=size, body=body):
-                stats = loop.train_epoch(weights, Xc, Tc, alpha, delta, **kw)
+                stats = epoch_fn(weights, Xc, Tc, alpha, delta, **kw)
                 stats = tuple(s.cpu().numpy() for s in stats[:5])
         except Exception as exc:
             obs.spans.finish(cspan, failed=type(exc).__name__)
@@ -256,6 +366,7 @@ def _fused_round(conf, weights, X, T, files, readable, alpha, delta, kw, body,
         obs.spans.finish(cspan)
         done += size
         chunk_i += 1
+        _check_lockstep(stats, done, mesh)
         if obs.enabled():
             # the stats are host arrays already (fetched for the tokens)
             obs.observe("train.n_iter", stats[1], chunk_end=done)
@@ -267,8 +378,10 @@ def _fused_round(conf, weights, X, T, files, readable, alpha, delta, kw, body,
         if obs.probes.enabled():
             # outside the launch's try: a sentinel abort propagates
             # as itself, never as a launch error
-            obs.probes.check_weights(weights, step=done, where="fused_chunk")
-        trace_mod.trace(f"w@{done}", weights)
+            obs.probes.check_weights(_full_weights(weights, mesh), step=done,
+                                     where="fused_chunk")
+        if trace_mod.enabled():
+            trace_mod.trace(f"w@{done}", _full_weights(weights, mesh))
         if state_path:
             host_w = _to_host(weights)
             _save_fuse_state(state_path, state_key, conf.seed, done, chunk, host_w)
@@ -287,11 +400,13 @@ def _fused_round(conf, weights, X, T, files, readable, alpha, delta, kw, body,
     return weights
 
 
-def _streaming_round(weights, pairs, n_files, alpha, delta, kw, np_dtype):
+def _streaming_round(weights, pairs, n_files, alpha, delta, kw, np_dtype, epoch_fn,
+                     dev, mesh):
     """One sample at a time: parse, train (a one-row chunk: one launch
-    of the kernel on a card, the plain loop on the CPU), print."""
+    of the kernel on a card, the plain loop on the CPU, the row-split
+    loop on a mesh), print."""
     model, momentum = kw["model"], kw["momentum"]
-    dev, dtype = weights[0].device, weights[0].dtype
+    dtype = weights[0].dtype
     obs.event("round.start", mode="streaming", samples=n_files)
     round_span = obs.spans.start("train.round", mode="streaming")
     # per-round convergence stats, collected only when the sink is live
@@ -306,9 +421,10 @@ def _streaming_round(weights, pairs, n_files, alpha, delta, kw, np_dtype):
         obs.cost.synchronize(dev)
         t_disp = time.perf_counter()
         with obs.annotate("hpnn.sample_loop"):
-            stats = loop.train_epoch(weights, x, t, alpha, delta, **kw)
-            ep0, n_iter, dep, first_ok, final_ok = (
-                s.cpu().numpy()[0] for s in stats[:5])
+            stats = epoch_fn(weights, x, t, alpha, delta, **kw)
+            stats = tuple(s.cpu().numpy() for s in stats[:5])
+            ep0, n_iter, dep, first_ok, final_ok = (s[0] for s in stats)
+        _check_lockstep(stats, i + 1, mesh)
         if obs.cost.enabled():
             nbytes, flops = obs.cost.work_of(weights, 1, int(n_iter), momentum,
                                              x.element_size())
@@ -320,14 +436,15 @@ def _streaming_round(weights, pairs, n_files, alpha, delta, kw, np_dtype):
             n_iters.append(int(n_iter))
             first_oks += int(first_ok)
             final_oks += int(final_ok)
-        trace_mod.trace(f"w@{i + 1}", weights)
+        if trace_mod.enabled():
+            trace_mod.trace(f"w@{i + 1}", _full_weights(weights, mesh))
     if n_iters:
         obs.observe("train.n_iter", n_iters)
         obs.count("train.samples", n=len(n_iters))
         obs.count("train.first_ok", n=first_oks)
         obs.count("train.final_ok", n=final_oks)
     if obs.probes.enabled():
-        obs.probes.check_weights(weights, step=n_files, where="round")
+        obs.probes.check_weights(_full_weights(weights, mesh), step=n_files, where="round")
     obs.event("round.end", mode="streaming", samples=n_files)
     obs.spans.finish(round_span, samples=n_files)
     obs.device.sample("round_end")
@@ -439,38 +556,69 @@ def _print_train_tokens(ep0, first_ok, n_iter, dep, final_ok, model, momentum):
     log.flush()
 
 
-def run_kernel(conf: NNConf, *, device=None) -> None:
+def run_kernel(conf: NNConf, mesh=None, *, device=None) -> None:
     """Evaluate every sample in ``conf.tests`` (argmax vs target) on
     ``device`` (default ``cuda``).
 
     The outputs of every file that matches the kernel's dims come from
     one batched forward per ``EVAL_CHUNK`` files (a plain matmul
-    forward, ``models.kernel.KernelModule``); outputs do not depend on
-    the visit order, so precomputing keeps the seeded-shuffle token
-    stream.  Unreadable files print a header-only line; a file whose
-    dims do not match the kernel goes through the per-file forward,
-    which raises (as the JAX package's does)."""
+    forward, ``models.kernel.KernelModule``; on a mesh of two or more
+    model ranks the row-split forward of ``parallel/tp.py``); outputs do
+    not depend on the visit order, so precomputing keeps the
+    seeded-shuffle token stream.  ``HPNN_NO_BATCH_EVAL=1`` sends every
+    readable file through the per-file forward instead.  Unreadable
+    files print a header-only line; a file whose dims do not match the
+    kernel goes through the per-file forward, which raises (as the JAX
+    package's does)."""
     if conf.kernel is None or conf.tests is None or conf.type == NNType.UKN:
         return
     runtime.refuse_deferred("run_nn")
+    files = _census(conf.tests, "test")
+    if files is None:
+        return
     if not os.path.isdir(conf.tests):
         log.nn_error(sys.stderr, "can't open test directory: %s\n", conf.tests)
         return
-    files = sample_io.list_sample_files(conf.tests)
-    dev = runtime.resolve_device(device)
+    dev = _mesh_device(mesh, device)
     dtype = runtime.compute_dtype(dev)
     model = _model_of(conf)
-    weights, _ = kernel_mod.to_torch(conf.kernel.weights, device=dev, dtype=dtype)
-    net = kernel_mod.KernelModule(weights, model=model).eval()
+    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    weights_np = [np.asarray(w, dtype=np_dtype) for w in conf.kernel.weights]
+    n_in, n_out = weights_np[0].shape[1], weights_np[-1].shape[0]
+    sharded = _tp_shard(mesh, weights_np, dtype)
+    if sharded is not None:
+        from hpnn_tpu_torch.parallel import tp
+
+        weights = sharded[0]
+        run_one = tp.make_run_fn(mesh, model=model, n_out=n_out)
+        run_rows = tp.make_batched_run_fn(mesh, model=model, n_out=n_out)
+
+        def forward(x):
+            return run_one(weights, x)[:n_out]
+
+        def batched(xs):
+            return run_rows(weights, xs)[:, :n_out]
+    else:
+        weights, _ = kernel_mod.to_torch(weights_np, device=dev, dtype=dtype)
+        net = kernel_mod.KernelModule(weights, model=model).eval()
+
+        def forward(x):
+            with torch.inference_mode():
+                return loop.run_sample(weights, x, model=model)
+
+        def batched(xs):
+            with torch.inference_mode():
+                return net(xs)
     debug.device_alloc_report(weights)
     if obs.probes.enabled():
-        obs.probes.check_weights(weights, step=0, where="eval")
-    conf.seed = resolve_time_seed(conf.seed)
-    n_in, n_out = weights[0].shape[1], weights[-1].shape[0]
+        # the host copies: the checks see the kernel the user loaded
+        obs.probes.check_weights(tuple(weights_np), step=0, where="eval")
+    conf.seed = dist.resolve_time_seed(conf.seed)
+    no_batch = bool(os.environ.get("HPNN_NO_BATCH_EVAL"))
 
     targets = {}   # fname -> target vector (batchable files)
     out_of = {}    # fname -> precomputed output row
-    odd = {}       # readable but not the kernel's dims: per-file forward
+    odd = {}       # per-file forward: HPNN_NO_BATCH_EVAL, or not the kernel's dims
     bad = set()    # unreadable/malformed: header-only token line
     grp_files, grp_x = [], []
 
@@ -480,9 +628,8 @@ def run_kernel(conf: NNConf, *, device=None) -> None:
         xs = torch.from_numpy(np.stack(grp_x)).to(device=dev, dtype=dtype)
         with obs.spans.span("eval.batch_forward", files=len(grp_files)), \
                 obs.annotate("hpnn.eval_forward"), \
-                obs.timer("eval.batch_forward", size=len(grp_files)), \
-                torch.inference_mode():
-            oc = net(xs).cpu().numpy()
+                obs.timer("eval.batch_forward", size=len(grp_files)):
+            oc = batched(xs).cpu().numpy()
         for j, f in enumerate(grp_files):
             out_of[f] = oc[j]
         grp_files.clear()
@@ -492,7 +639,7 @@ def run_kernel(conf: NNConf, *, device=None) -> None:
         s = sample_io.read_sample(os.path.join(conf.tests, f))
         if s is None:
             bad.add(f)
-        elif s[0].size != n_in or s[1].size != n_out:
+        elif no_batch or s[0].size != n_in or s[1].size != n_out:
             odd[f] = s
         else:
             targets[f] = s[1]
@@ -502,7 +649,7 @@ def run_kernel(conf: NNConf, *, device=None) -> None:
                 _flush()
     _flush()
     obs.event("eval.round", files=len(files), batched=len(out_of), odd=len(odd),
-              unreadable=len(bad), tp=False)
+              unreadable=len(bad), tp=sharded is not None)
     obs.device.sample("eval")
 
     for idx in shuffled_order(conf.seed, len(files)):
@@ -516,8 +663,7 @@ def run_kernel(conf: NNConf, *, device=None) -> None:
         else:
             tr_in, tr_out = odd[fname]
             x = torch.from_numpy(tr_in).to(device=dev, dtype=dtype)
-            with torch.inference_mode():
-                o = loop.run_sample(weights, x, model=model).cpu().numpy()
+            o = forward(x).cpu().numpy()
             print_verdict(o, tr_out, model)
         trace_mod.trace(f"out@{fname}", [o])
         log.flush()

@@ -75,10 +75,13 @@ def convergence_loop(
     *,
     min_iter: int,
     max_iter: int,
+    argmax=first_argmax,
 ) -> SampleResult:
     """The reference's do-while convergence skeleton.
 
-    ``one_iteration(w, m, acts) -> (w, m, acts, dEp)``.  C-parity
+    ``one_iteration(w, m, acts) -> (w, m, acts, dEp)``; ``argmax`` maps
+    the output vector (host array) to the guessed class (the mesh path
+    masks its padded outputs).  C-parity
     quirks live here: the first iteration always runs, the max-iter
     break comes before the min-iter clamp, first_ok is captured at
     it==1, and final_ok = ok & (it > min_iter) after the loop.  The
@@ -94,7 +97,7 @@ def convergence_loop(
         w, m, acts, dep = one_iteration(w, m, acts)
         host = torch.cat([dep.reshape(1), acts[-1]]).cpu().numpy()
         dep_v = float(host[0])
-        ok = first_argmax(host[1:]) == p_trg
+        ok = argmax(host[1:]) == p_trg
         if it == 1:
             first_ok = ok
         ok_eff = ok and it > min_iter

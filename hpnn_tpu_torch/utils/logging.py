@@ -10,8 +10,8 @@ The reference defines four log levels gated on a global verbosity
 * ``NN_ERROR`` — always,        prefix ``NN(ERR): ``
 
 The tutorial monitor scripts grep these exact tokens, so they are a
-de-facto metrics API and must be byte-stable.  This package runs one
-process, so every line is rank 0's.
+de-facto metrics API and must be byte-stable.  In a multi-process
+world only rank 0 prints (the reference's ``_OUT``, MPI rank 0 only).
 """
 
 from __future__ import annotations
@@ -49,32 +49,39 @@ def _fmt(fmt: str, args) -> str:
     return fmt % args if args else fmt
 
 
+def _out(fp, msg: str) -> None:
+    from hpnn_tpu_torch import runtime
+
+    if runtime.process_index() == 0:
+        fp.write(msg)
+
+
 def nn_dbg(fp, fmt: str, *args) -> None:
     if _verbosity > 2:
-        fp.write("NN(DBG): " + _fmt(fmt, args))
+        _out(fp, "NN(DBG): " + _fmt(fmt, args))
 
 
 def nn_out(fp, fmt: str, *args) -> None:
     if _verbosity > 1:
-        fp.write("NN: " + _fmt(fmt, args))
+        _out(fp, "NN: " + _fmt(fmt, args))
 
 
 def nn_cout(fp, fmt: str, *args) -> None:
     if _verbosity > 1:
-        fp.write(_fmt(fmt, args))
+        _out(fp, _fmt(fmt, args))
 
 
 def nn_warn(fp, fmt: str, *args) -> None:
     if _verbosity > 0:
-        fp.write("NN(WARN): " + _fmt(fmt, args))
+        _out(fp, "NN(WARN): " + _fmt(fmt, args))
 
 
 def nn_error(fp, fmt: str, *args) -> None:
-    fp.write("NN(ERR): " + _fmt(fmt, args))
+    _out(fp, "NN(ERR): " + _fmt(fmt, args))
 
 
 def nn_write(fp, fmt: str, *args) -> None:
-    fp.write(_fmt(fmt, args))
+    _out(fp, _fmt(fmt, args))
 
 
 def flush() -> None:

@@ -182,16 +182,35 @@ def test_batch_option_errors_match_jax(tmp_path, monkeypatch, capsys, argv, msg)
 
 
 @pytest.mark.parametrize("prog,argv", [
-    ("train_nn", ["--batch", "4", "--mesh", "1x1"]),
+    ("train_nn", ["--batch", "4", "--mesh", "2x"]),
     ("run_nn", ["--batch", "--mesh", "1x1"]),
 ])
 def test_mesh_with_batch_is_refused(tmp_path, monkeypatch, capsys, prog, argv):
+    """``train_nn --batch`` takes ``--mesh DxM`` (a malformed one is
+    refused); ``run_nn`` refuses ``--mesh`` beside ``--batch``.  Both
+    messages are the JAX CLIs'."""
     monkeypatch.chdir(tmp_path)
     (tmp_path / "nn.conf").write_text(CONF.format(kind="ANN", train="BP"))
     main = train_nn.main if prog == "train_nn" else run_nn.main
+    jmain = jtrain_nn.main if prog == "train_nn" else jrun_nn.main
     assert main(["--device", "cpu"] + argv + ["nn.conf"]) != 0
-    assert "--mesh is not supported" in capsys.readouterr().err
+    err = capsys.readouterr().err
+    assert "--mesh" in err
+    assert jmain(argv + ["nn.conf"]) != 0
+    assert capsys.readouterr().err == err
     assert not (tmp_path / "kernel.tmp").exists()
+
+
+def test_batch_mesh_1x1_is_the_single_device_run(tmp_path, monkeypatch, capsys):
+    """``--mesh 1x1`` is one rank: the run without ``--mesh``, byte for
+    byte (tokens and kernel.opt)."""
+    _setup(tmp_path, monkeypatch, "ANN", "BP")
+    args = ["--device", "cpu", "--batch", "8", "--epochs", "2", "--lr", "0.5"]
+    got = _drive(train_nn.main, run_nn.main, args + ["--mesh", "1x1"], capsys, [],
+                 run_extra=["--device", "cpu"])
+    ref = _drive(train_nn.main, run_nn.main, args, capsys, [],
+                 run_extra=["--device", "cpu"])
+    assert got == ref and "BATCH EPOCH" in got[0]
 
 
 def test_read_dir_matches_jax(tmp_path, capsys):

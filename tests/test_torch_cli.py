@@ -135,12 +135,15 @@ def test_missing_cuda_is_an_error(tmp_path, monkeypatch, capsys):
 
 
 @pytest.mark.parametrize("argv,env", [
-    (["--batch", "4", "--mesh", "1x1", "--device", "cpu"], {}),
-    (["--mesh", "1x2", "--device", "cpu"], {}),
-    (["--mesh", "1x2", "--metrics", "m.jsonl", "--device", "cpu"], {}),
+    # --mesh is ported; a malformed spec, a data axis without --batch
+    # and a batch-only option beside it are still refused before
+    # anything starts
+    (["--batch", "4", "--mesh", "0x1", "--device", "cpu"], {}),
+    (["--mesh", "2x1", "--device", "cpu"], {}),
+    (["--mesh", "1x2x3", "--metrics", "m.jsonl", "--device", "cpu"], {}),
     (["--device", "tpu"], {}),
     (["--device", "cpu"], {"HPNN_COMPILE_CACHE_DIR": "xla_cache"}),
-    (["--device", "cpu"], {"HPNN_SERVE_SPILL": "1"}),
+    (["--mesh", "1x2", "--epochs", "2", "--device", "cpu"], {}),
 ])
 def test_unported_options_are_refused(tmp_path, monkeypatch, capsys, argv, env):
     monkeypatch.chdir(tmp_path)
@@ -149,7 +152,8 @@ def test_unported_options_are_refused(tmp_path, monkeypatch, capsys, argv, env):
     (tmp_path / "nn.conf").write_text(CONF.format(kind="ANN", train="BP"))
     assert train_nn.main(argv + ["nn.conf"]) != 0
     err = capsys.readouterr().err
-    assert "not supported" in err or "does not have" in err or "bad --device" in err
+    assert any(m in err for m in ("does not have", "bad --device", "bad --mesh",
+                                  "requires --batch"))
     assert not (tmp_path / "kernel.tmp").exists()
 
 
@@ -171,10 +175,13 @@ def test_runtime_probe_sets_cuda_bit_only_with_a_card(monkeypatch):
 
 def test_run_nn_refuses_batch(tmp_path, monkeypatch, capsys):
     """``run_nn --batch`` is a flag: it is refused with a value, and
-    beside an option of a path not ported (``--mesh``)."""
+    beside ``--mesh``, as the JAX ``run_nn`` refuses them together."""
     monkeypatch.chdir(tmp_path)
     (tmp_path / "nn.conf").write_text(CONF.format(kind="ANN", train="BP"))
     assert run_nn.main(["--batch=4", "--device", "cpu", "nn.conf"]) != 0
     assert "unrecognized option --batch" in capsys.readouterr().err
     assert run_nn.main(["--batch", "--mesh", "1x1", "--device", "cpu", "nn.conf"]) != 0
-    assert "--mesh is not supported" in capsys.readouterr().err
+    msg = "syntax error: --mesh and --batch are exclusive!\n"
+    assert capsys.readouterr().err == msg
+    assert jrun_nn.main(["--batch", "--mesh", "1x1", "nn.conf"]) != 0
+    assert capsys.readouterr().err == msg

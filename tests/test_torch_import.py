@@ -25,6 +25,10 @@ MODULES = (
     "hpnn_tpu_torch.ops.batch_step",
     "hpnn_tpu_torch.ops._build",
     "hpnn_tpu_torch.parallel.dp",
+    "hpnn_tpu_torch.parallel.coll",
+    "hpnn_tpu_torch.parallel.dist",
+    "hpnn_tpu_torch.parallel.mesh",
+    "hpnn_tpu_torch.parallel.tp",
     "hpnn_tpu_torch.train.driver",
     "hpnn_tpu_torch.train.batch",
     "hpnn_tpu_torch.train.fleet",

@@ -417,7 +417,7 @@ def test_cli_obs_options(tmp_path, monkeypatch, capsys):
 @pytest.mark.parametrize("prog,argv,msg", [
     ("train_nn", ["--numerics", "loud"], "bad --numerics parameter (want warn|abort)"),
     ("run_nn", ["--export-port", "70000"], "bad --export-port parameter"),
-    ("run_nn", ["--mesh", "1x2"], "--mesh is not supported"),
+    ("run_nn", ["--mesh", "2x1"], "bad --mesh: per-sample training shards the model axis"),
 ])
 def test_cli_obs_option_errors(tmp_path, monkeypatch, capsys, prog, argv, msg):
     monkeypatch.chdir(tmp_path)
@@ -428,11 +428,10 @@ def test_cli_obs_option_errors(tmp_path, monkeypatch, capsys, prog, argv, msg):
 
 
 def test_deferred_holds_only_the_unported_planes():
-    """Only XLA's executable cache and the router's tensor-parallel
-    spill stay refused: the serving planes are ported."""
-    assert sorted(runtime.DEFERRED_ENV) == sorted([
-        "HPNN_COMPILE_CACHE_DIR", "HPNN_SERVE_SPILL"])
-    assert list(common.DEFERRED_OPTS) == ["mesh"]
+    """Only XLA's executable cache stays refused: the serving planes,
+    ``--mesh`` and the router's tensor-parallel spill are ported."""
+    assert sorted(runtime.DEFERRED_ENV) == ["HPNN_COMPILE_CACHE_DIR"]
+    assert list(common.DEFERRED_OPTS) == []
 
 
 # knob -> its value ({d}: the run's directory; {url}: an in-process

@@ -557,6 +557,41 @@ def test_quota_squeeze_needs_the_tenant_host(monkeypatch, tmp_path):
     assert _tuner().tick()["verdict"] == "no_actuator"
 
 
+def test_a_shed_storm_on_the_tenant_host_answers_differently_by_package(
+        monkeypatch, tmp_path):
+    """The same shed storm through both packages' ``TenantSession``:
+    the port's host rebuilds its tuner over its quota, so the storm
+    applies ``quota_squeeze``; the JAX host sets its quota after
+    ``Session.__init__`` built the tuner, so the same storm answers
+    ``no_actuator`` (a fault of the reference, ROADMAP.md "Faults in
+    the reference": the JAX ``Session`` says a host that owns a quota
+    rebuilds its tuner).  Both answers are pinned side by side."""
+    from hpnn_tpu import tenant as jtenant
+    from hpnn_tpu_torch.tenant import TenantSession
+
+    _arm(monkeypatch, HPNN_BLAME="1", HPNN_TUNE="1", HPNN_TUNE_DRY="0",
+         HPNN_METRICS=str(tmp_path / "m.jsonl"))
+    mine = TenantSession(device="cpu", start=False, tenants={
+        "bronze": TenantSpec("bronze", "bronze", rate_rps=40.0)})
+    theirs = jtenant.TenantSession(start=False, tenants={
+        "bronze": jtenant.TenantSpec("bronze", "bronze", rate_rps=40.0)})
+    try:
+        verdicts = []
+        for host, mod in ((mine, blame), (theirs, jblame)):
+            _feed("shed_retry", mod=mod)
+            t = host.tuner
+            t._clock, t._p99_fn, t._burn_fn = (lambda: 0.0), (lambda: 1.0), (lambda: 3.0)
+            verdicts.append(t.tick())
+        assert verdicts[0]["verdict"] == "apply"
+        assert verdicts[0]["action"] == "quota_squeeze"
+        assert verdicts[1]["verdict"] == "no_actuator"
+        assert mine.quota.spec("bronze").rate_rps == pytest.approx(20.0)
+        assert theirs.quota.spec("bronze").rate_rps == pytest.approx(40.0)
+    finally:
+        mine.close()
+        theirs.close()
+
+
 # ----------------------------------------------------------- the lint
 def test_catalog_lint_passes_on_the_port_sink(monkeypatch, tmp_path):
     """The port's armed serve run (tail sampler, drift, meter, blame and

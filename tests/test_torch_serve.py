@@ -619,13 +619,19 @@ def test_bench_serve_window_series_interleaves_setups():
 
 # ------------------------------------------------------------- refusals
 def test_spill_and_compile_cache_knobs_are_refused(monkeypatch):
-    with pytest.raises(NotImplementedError, match="Slice D"):
-        serve.Router(2, spill=True, device="cpu")
+    """The spill is ported: ``spill=True`` and ``HPNN_SERVE_SPILL=1``
+    arm it (only "1" does); XLA's executable cache stays refused."""
+    r = serve.Router(2, spill=True, device="cpu")
+    assert r.spill and r.health()["router"]["spill"]
+    r.close()
     monkeypatch.setenv("HPNN_SERVE_SPILL", "1")
-    with pytest.raises(NotImplementedError, match="HPNN_SERVE_SPILL=1"):
-        serve.Router(2, device="cpu")
+    r = serve.Router(2, device="cpu")
+    assert r.spill
+    r.close()
     monkeypatch.setenv("HPNN_SERVE_SPILL", "0")
-    serve.Router(1, device="cpu").close()   # only "1" selects the spill
+    r = serve.Router(1, device="cpu")
+    assert not r.spill
+    r.close()
     monkeypatch.setenv("HPNN_COMPILE_CACHE_DIR", "/tmp/x")
     with pytest.raises(NotImplementedError, match="HPNN_COMPILE_CACHE_DIR"):
         serve.Session(device="cpu")
