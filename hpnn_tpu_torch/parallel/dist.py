@@ -21,6 +21,9 @@ Here one process drives one device, as ``torchrun`` lays a world out:
 * **Ranks and devices**: on ``cuda`` rank r drives ``cuda:{LOCAL_RANK}``
   over NCCL, on the CPU gloo; a caller may name both (``run(...,
   backend="gloo", device="cuda:0")`` runs two gloo ranks on one card).
+  The device defaults to ``cuda`` (``runtime.resolve_device``: no CPU
+  fallback), and a mesh built in a world lives on the device that world
+  was joined with.
 * **The rank-0 protocol**: rank 0 alone prints and writes files
   (``utils/logging.py``, the CLIs); :func:`sync_rank0_ok` gives every
   rank rank 0's outcome, :func:`resolve_time_seed` rank 0's clock,
@@ -54,7 +57,8 @@ ENV = ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK")
 DEFAULT_TIMEOUT_S = 600.0   # a collective waits at most this long for its peers
 PACKAGE_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-_device: torch.device | None = None   # the joined world's collective device
+_device: torch.device | None = None        # the joined world's collective device
+_rank_device: torch.device | None = None   # the device this rank computes on
 
 
 # ------------------------------------------------------------------ worlds
@@ -72,7 +76,7 @@ def init_world(*, device=None, backend: str | None = None,
     ``runtime.DeviceUnavailable`` for CUDA without a card: no rank moves
     to the CPU).  ``backend`` defaults to NCCL on cuda, gloo on the CPU.
     Every collective then waits at most ``timeout`` seconds."""
-    global _device
+    global _device, _rank_device
     rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     local = int(os.environ.get("LOCAL_RANK", rank))
     dev = runtime.resolve_device(device)
@@ -89,16 +93,17 @@ def init_world(*, device=None, backend: str | None = None,
     # host-level collectives (seed, census, checksums) ride tensors on
     # the backend's device: NCCL takes CUDA tensors only
     _device = dev if backend == "nccl" else torch.device("cpu")
+    _rank_device = dev
     runtime.init_dist()
     return dev
 
 
 def shutdown() -> None:
     """Leave the world (a no-op outside one)."""
-    global _device
+    global _device, _rank_device
     if tdist.is_available() and tdist.is_initialized():
         tdist.destroy_process_group()
-    _device = None
+    _device = _rank_device = None
     runtime.init_dist()
 
 
@@ -109,9 +114,11 @@ def hybrid_mesh(n_model: int = 1, *, device=None) -> Mesh:
     creates the axes' process groups, one per data row and one per
     model column, in the same order on every rank).  An axis of one
     rank gets no group unless the world has one rank, whose two axes
-    both get the world's group.  Outside a world: the 1x1 mesh with no
-    group on ``device``."""
-    dev = torch.device("cpu") if device is None else torch.device(device)
+    both get the world's group.  The mesh lives on ``device``, by
+    default the device the world was joined with (:func:`init_world`).
+    Outside a world: the 1x1 mesh with no group on ``device`` (default
+    ``cuda``; raises ``runtime.DeviceUnavailable`` without a card)."""
+    dev = runtime.resolve_device(_rank_device if device is None else device)
     if not (tdist.is_available() and tdist.is_initialized()):
         if n_model != 1:
             raise ValueError(f"a {n_model}-way model axis needs a world of "
@@ -234,8 +241,7 @@ def _relay(pipe, out):
     pipe.close()
 
 
-def launch(argv: list[str], world: int, *, timeout: float | None = None,
-           cwd: str | None = None) -> int:
+def launch(argv: list[str], world: int, *, timeout: float | None = None) -> int:
     """Run ``python <argv>`` as ``world`` local ranks of one world (the
     torchrun environment set for each, ``PYTHONPATH`` led by the
     package root) and wait for them.  Rank 0's standard output goes to
@@ -257,7 +263,7 @@ def launch(argv: list[str], world: int, *, timeout: float | None = None,
         env = dict(base, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), RANK=str(r),
                    WORLD_SIZE=str(world), LOCAL_RANK=str(r),
                    LOCAL_WORLD_SIZE=str(world))
-        p = subprocess.Popen([sys.executable, *argv], env=env, cwd=cwd,
+        p = subprocess.Popen([sys.executable, *argv], env=env,
                              stdin=subprocess.DEVNULL, stdout=subprocess.PIPE,
                              stderr=subprocess.PIPE)
         procs.append(p)
@@ -306,21 +312,23 @@ def _kill(procs) -> None:
 
 
 def run(target: str, world: int, *, mesh=(None, 1), backend: str | None = None,
-        device: str = "cpu", args: tuple = (), timeout: float = DEFAULT_TIMEOUT_S,
-        cwd: str | None = None) -> list:
+        device=None, args: tuple = (), timeout: float = DEFAULT_TIMEOUT_S) -> list:
     """Call ``target(mesh, *args)`` on each of ``world`` local ranks and
     return the ranks' results in rank order.
 
     ``target`` is ``"module:function"``, the module a dotted name or a
     path to a ``.py`` file (loaded by path, so nothing else of its
     package is imported).  Each rank joins the world with ``backend``
-    and ``device`` (:func:`init_world`), builds its ``mesh``
+    and ``device`` (:func:`init_world`: ``cuda`` unless the caller asks
+    for the CPU; raises ``runtime.DeviceUnavailable`` here, before any
+    rank starts, when there is no card), builds its ``mesh``
     (``(n_data, n_model)``; ``n_data`` None: the world over
     ``n_model``) with :func:`hybrid_mesh`, calls the target and pickles
     its result back.  ``args`` and results must pickle.  Every
     collective waits at most ``timeout`` seconds, the launch a minute
     more.  Raises ``RuntimeError`` with the exit code when the launch
     fails."""
+    runtime.resolve_device(device)
     n_data, n_model = mesh
     if n_data is not None and n_data * n_model != world:
         raise ValueError(f"mesh {n_data}x{n_model} needs {n_data * n_model} ranks, "
@@ -333,7 +341,7 @@ def run(target: str, world: int, *, mesh=(None, 1), backend: str | None = None,
         # the launch outlives a collective's own timeout, so a rank
         # stuck in one fails by itself before the launcher kills it
         rc = launch(["-m", "hpnn_tpu_torch.parallel.dist", work], world,
-                    timeout=timeout + 60.0, cwd=cwd)
+                    timeout=timeout + 60.0)
         if rc != 0:
             raise RuntimeError(f"dist.run({target!r}, world={world}) exited {rc}")
         out = []
@@ -365,10 +373,9 @@ def _rank_main(work: str) -> int:
     with open(os.path.join(work, "payload.pkl"), "rb") as fp:
         job = pickle.load(fp)
     fn = _load_target(job["target"])
-    dev = init_world(device=job["device"], backend=job["backend"],
-                     timeout=job["timeout"])
+    init_world(device=job["device"], backend=job["backend"], timeout=job["timeout"])
     try:
-        result = fn(hybrid_mesh(job["n_model"], device=dev), *job["args"])
+        result = fn(hybrid_mesh(job["n_model"]), *job["args"])
         rank = runtime.process_index()
         path = os.path.join(work, f"rank{rank}.pkl")
         with open(path + ".tmp", "wb") as fp:

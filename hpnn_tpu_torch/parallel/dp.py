@@ -123,47 +123,39 @@ def train_step_math(weights, dw, X, T, *, model: str, momentum: bool,
 
 
 # ------------------------------------------------------------ over a mesh
-def _mesh_step(weights_loc, dw_loc, X, T, *, mesh, model: str, momentum: bool,
-               lr: float, alpha: float, n_out: int):
-    """One step over the mesh on this rank's ``(b, n)`` rows of the
-    batch: the local mean gradient of the local row blocks, averaged
-    over the data axis; returns (weights, dw, loss) with the loss the
-    batch mean after the update.  Matmuls in full float32 (TF32 off),
-    as the kernels'."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        T = _targets(T, model)
-        acts = tp.forward_local(weights_loc, X, model=model, n_out=n_out, mesh=mesh)
-        ds = tp.deltas_local(weights_loc, acts, T, model=model, mesh=mesh)
-        inv_b = 1.0 / X.shape[0]
-        grads = tuple(
-            coll.pmean(-inv_b * torch.matmul(tp._my_block(dl, mesh).T, v), mesh,
-                       DATA_AXIS, layer=i)
-            for i, (dl, v) in enumerate(zip(ds, acts[:-1])))
-        if momentum:
-            weights_loc, dw_loc = momentum_step(weights_loc, dw_loc, grads, lr, alpha)
-        else:
-            weights_loc = sgd_step(weights_loc, grads, lr)
-        out = tp.forward_local(weights_loc, X, model=model, n_out=n_out, mesh=mesh)[-1]
-        loss = torch.mean(tp.train_error(out, T, model, n_out))
-        return weights_loc, dw_loc, coll.pmean(loss, mesh, DATA_AXIS, role="loss")
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
-
-
 def make_gspmd_train_step(mesh, *, model: str = "ann", momentum: bool = False,
                           lr: float | None = None, alpha: float = 0.2, n_out: int):
     """The DP × TP step: ``step(weights_loc, dw_loc, X_loc, T_loc) ->
-    (weights_loc, dw_loc, loss)`` on this rank's rows of the batch and
-    row blocks of the (padded) kernel; ``n_out`` is the real output
-    count."""
+    (weights_loc, dw_loc, loss)`` on this rank's ``(b, n)`` rows of the
+    batch and row blocks of the (padded) kernel: the local mean
+    gradient of the local row blocks, averaged over the data axis, and
+    the loss the batch mean after the update; ``n_out`` is the real
+    output count.  Matmuls in full float32 (TF32 off), as the
+    kernels'."""
     if lr is None:
         lr = default_lr(model, momentum)
 
     def step(weights_loc, dw_loc, X, T):
-        return _mesh_step(weights_loc, dw_loc, X, T, mesh=mesh, model=model,
-                          momentum=momentum, lr=lr, alpha=alpha, n_out=n_out)
+        prev = torch.backends.cuda.matmul.allow_tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        try:
+            T = _targets(T, model)
+            acts = tp.forward_local(weights_loc, X, model=model, n_out=n_out, mesh=mesh)
+            ds = tp.deltas_local(weights_loc, acts, T, model=model, mesh=mesh)
+            inv_b = 1.0 / X.shape[0]
+            grads = tuple(
+                coll.pmean(-inv_b * torch.matmul(tp._my_block(dl, mesh).T, v), mesh,
+                           DATA_AXIS, layer=i)
+                for i, (dl, v) in enumerate(zip(ds, acts[:-1])))
+            if momentum:
+                weights_loc, dw_loc = momentum_step(weights_loc, dw_loc, grads, lr, alpha)
+            else:
+                weights_loc = sgd_step(weights_loc, grads, lr)
+            out = tp.forward_local(weights_loc, X, model=model, n_out=n_out, mesh=mesh)[-1]
+            loss = torch.mean(tp.train_error(out, T, model, n_out))
+            return weights_loc, dw_loc, coll.pmean(loss, mesh, DATA_AXIS, role="loss")
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = prev
 
     return step
 

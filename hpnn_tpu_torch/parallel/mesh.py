@@ -26,7 +26,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
-import torch
+
+from hpnn_tpu_torch import runtime
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -37,7 +38,8 @@ class Mesh:
 
     ``shape[DATA_AXIS]``/``shape[MODEL_AXIS]`` are the axis sizes,
     ``index[axis]`` this rank's coordinate on each, ``device`` the
-    torch device its tensors live on.  ``group(axis)`` is the process
+    torch device its tensors live on (default ``cuda``, by
+    ``runtime.resolve_device``: no CPU fallback).  ``group(axis)`` is the process
     group of the ranks that share this rank's other coordinate, or
     None when the mesh was built without a process group (a world of
     one: every collective is the identity).  Build it with
@@ -54,7 +56,7 @@ class Mesh:
             raise ValueError(f"rank {rank} outside a {n_data}x{n_model} mesh")
         self.rank = int(rank)
         self.index = {DATA_AXIS: self.rank // n_model, MODEL_AXIS: self.rank % n_model}
-        self.device = torch.device("cpu" if device is None else device)
+        self.device = runtime.resolve_device(device)
         self._groups = dict(groups or {})
 
     def group(self, axis: str):

@@ -57,22 +57,34 @@ def _out_mask(n_padded: int, n_out: int, like):
     return (torch.arange(n_padded, device=like.device) < n_out).to(like.dtype)
 
 
-def forward_local(weights_loc, x, *, model: str, n_out: int, mesh):
+def _mesh_rows(mesh):
+    """The ranks' layer step: ``f`` of this rank's rows of the layer,
+    gathered whole over the model axis."""
+    def rows(l, w, v, f):
+        return coll.all_gather(f(_lin(w, v)), mesh, MODEL_AXIS, dim=-1, layer=l)
+
+    return rows
+
+
+def forward_local(weights_loc, x, *, model: str, n_out: int, mesh=None, rows=None):
     """Per-shard forward; the activations are gathered whole after each
-    layer.  SNN keeps the reference's softmax quirks (``exp(z - 1)``,
-    the TINY-seeded denominator, ref: src/snn.c:282-335) with the padded
-    logits masked out of the sum."""
+    layer.  ``rows(l, w, v, f)`` is the whole vector ``f(w @ v)`` of
+    layer ``l`` from its row blocks ``w`` (default: this rank's block of
+    the ``mesh``, gathered over its model axis).  SNN keeps the
+    reference's softmax quirks (``exp(z - 1)``, the TINY-seeded
+    denominator, ref: src/snn.c:282-335) with the padded logits masked
+    out of the sum."""
+    rows = rows or _mesh_rows(mesh)
     acts = [x]
     v = x
     last = len(weights_loc) - 1
     for l, w in enumerate(weights_loc):
-        z_loc = _lin(w, v)
         if model == "snn" and l == last:
-            e = coll.all_gather(torch.exp(z_loc - 1.0), mesh, MODEL_AXIS, dim=-1, layer=l)
+            e = rows(l, w, v, lambda z: torch.exp(z - 1.0))
             e = e * _out_mask(e.shape[-1], n_out, e)
             v = e / (TINY + torch.sum(e, dim=-1, keepdim=True))
         else:
-            v = coll.all_gather(ann.act(z_loc), mesh, MODEL_AXIS, dim=-1, layer=l)
+            v = rows(l, w, v, ann.act)
         acts.append(v)
     return tuple(acts)
 
@@ -227,8 +239,9 @@ def make_spill_forward(weights, devices, *, model: str, n_out: int):
     """The serve router's spill: one process's forward of a row block
     with the kernel's rows split over ``devices`` (one block a device,
     padded to a multiple of their count) and the activations gathered
-    in process onto the first device after each layer.  Returns
-    ``forward(rows_np) -> out_np`` (the real outputs only)."""
+    in process onto the first device after each layer
+    (:func:`forward_local` with a ``torch.cat`` for the gather).
+    Returns ``forward(rows_np) -> out_np`` (the real outputs only)."""
     from hpnn_tpu_torch.parallel.mesh import pad_kernel
 
     devices = [torch.device(d) for d in devices]
@@ -240,24 +253,19 @@ def make_spill_forward(weights, devices, *, model: str, n_out: int):
         blocks.append([torch.from_numpy(np.ascontiguousarray(w[i * n:(i + 1) * n])).to(d)
                        for i, d in enumerate(devices)])
     home = devices[0]
-    last = len(blocks) - 1
 
-    def forward(rows):
+    def cat_rows(l, w, v, f):
+        return torch.cat([f(_lin(b, v.to(b.device))).to(home) for b in w], dim=-1)
+
+    def forward(x):
         prev = torch.backends.cuda.matmul.allow_tf32
         torch.backends.cuda.matmul.allow_tf32 = False
         try:
             with torch.inference_mode():
-                v = torch.from_numpy(np.ascontiguousarray(rows)).to(
+                v = torch.from_numpy(np.ascontiguousarray(x)).to(
                     device=home, dtype=blocks[0][0].dtype)
-                for l, layer in enumerate(blocks):
-                    parts = [torch.matmul(v.to(d), w.mT) for w, d in zip(layer, devices)]
-                    z = torch.cat([p.to(home) for p in parts], dim=-1)
-                    if model == "snn" and l == last:
-                        e = torch.exp(z - 1.0) * _out_mask(z.shape[-1], n_out, z)
-                        v = e / (TINY + torch.sum(e, dim=-1, keepdim=True))
-                    else:
-                        v = ann.act(z)
-                return v[:, :n_out].cpu().numpy()
+                out = forward_local(blocks, v, model=model, n_out=n_out, rows=cat_rows)[-1]
+                return out[:, :n_out].cpu().numpy()
         finally:
             torch.backends.cuda.matmul.allow_tf32 = prev
 

@@ -179,17 +179,13 @@ def _batch_state_key(sample_dir, model, momentum, shapes, B, lr, epochs,
                            f"batch/B{B}/lr{lr}/E{epochs}/{init_key}", names=names)
 
 
-def default_mesh(spec: str | None = None):
-    """The mesh of a batch run: ``"DxM"`` over the joined world, or (no
-    spec) every rank of the world on the data axis (pure DP); None
+def default_mesh():
+    """The mesh of a batch run in a joined world: every rank on the data
+    axis (pure DP), on the device the world was joined with; None
     outside a world (one device)."""
-    if runtime.process_count() == 1 and not spec:
+    if runtime.process_count() == 1:
         return None
-    d, m = mesh_mod.parse_spec(spec) if spec else (runtime.process_count(), 1)
-    if d * m != runtime.process_count():
-        raise ValueError(f"mesh {d}x{m} needs {d * m} ranks, the world has "
-                         f"{runtime.process_count()}")
-    return dist.hybrid_mesh(m) if d * m > 1 else None
+    return dist.hybrid_mesh(1)
 
 
 def train_kernel_batched(conf: NNConf, batch_size: int, epochs: int,

@@ -123,8 +123,24 @@ def _tp_shard(mesh, weights_np, dtype):
 
 
 def _mesh_device(mesh, device):
-    """A mesh's ranks run on its device; otherwise ``device``'s rule."""
-    return mesh.device if mesh is not None and device is None else runtime.resolve_device(device)
+    """A mesh's ranks run on its device; otherwise ``device``'s rule.
+    Raises ``ValueError`` when both are given and name different
+    devices (a rank's inputs and its row blocks would part)."""
+    if mesh is None:
+        return runtime.resolve_device(device)
+    if device is not None and not _same_device(runtime.resolve_device(device), mesh.device):
+        raise ValueError(f"device {device} is not the mesh's device {mesh.device}")
+    return mesh.device
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """``cuda`` names the current card, as ``cuda:{current}`` does."""
+    def norm(d):
+        if d.type == "cuda" and d.index is None:
+            return torch.device("cuda", torch.cuda.current_device())
+        return d
+
+    return norm(a) == norm(b)
 
 
 def train_kernel(conf: NNConf, mesh=None, *, device=None) -> bool:

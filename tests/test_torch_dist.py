@@ -133,6 +133,8 @@ def _protocol_rank(mesh, work):
     seen["diverge"] = dp.divergence_check(["a", "b"], [1.0, 2.0 + rank], [1e-12, 1e-12])
     seen["census_same"] = dist.census_consistent(["x", "y"])
     seen["census_differs"] = dist.census_consistent(["x", "y"][:1 + rank])
+    # the mesh a batch run makes for itself is on the world's device
+    seen["devices"] = (str(mesh.device), str(batch.default_mesh().device))
     seen["modules"] = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu"))
     return seen
 
@@ -168,7 +170,7 @@ def test_rank0_protocol_in_a_2_rank_world(tmp_path, capsys):
 
     _write_samples(str(tmp_path / "same"), 4)
     got = dist.run(f"{HERE}:_protocol_rank", 2, mesh=(1, 2), args=(str(tmp_path),),
-                   timeout=120)
+                   device="cpu", timeout=120)
     r0, r1 = got
     for r, seen in enumerate(got):
         assert seen["index"] == r and seen["count"] == 2 and seen["tasks"] == 2
@@ -176,6 +178,7 @@ def test_rank0_protocol_in_a_2_rank_world(tmp_path, capsys):
         assert seen["summary"] == f"process {r}/2 local_devices=1 global_devices=2"
         assert seen["mesh"] == ({"data": 1, "model": 2}, {"data": 0, "model": r})
         assert seen["modules"] == []
+        assert seen["devices"] == ("cpu", "cpu")
     # one seed, one kernel on both ranks
     assert r0["seed"] == r1["seed"] != 0
     for a, b in zip(r0["kernel"], r1["kernel"]):
@@ -201,7 +204,7 @@ def test_rank0_protocol_in_a_2_rank_world(tmp_path, capsys):
 
 
 def test_collectives_on_a_2x2_world():
-    got = dist.run(f"{HERE}:_coll_rank", 4, mesh=(2, 2), timeout=120)
+    got = dist.run(f"{HERE}:_coll_rank", 4, mesh=(2, 2), device="cpu", timeout=120)
     for rank, (gathered, summed, mean, ops) in enumerate(got):
         d = rank // 2
         lo, hi = np.arange(4) + 10 * (2 * d), np.arange(4) + 10 * (2 * d + 1)
@@ -215,14 +218,14 @@ def test_collectives_on_a_2x2_world():
 def test_a_raising_rank_ends_its_world_quickly():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="exited"):
-        dist.run(f"{HERE}:_raising_rank", 2, mesh=(1, 2), timeout=60)
+        dist.run(f"{HERE}:_raising_rank", 2, mesh=(1, 2), device="cpu", timeout=60)
     assert time.monotonic() - t0 < 45
 
 
 def test_a_quiet_exit_ends_the_waiting_rank_within_its_timeout():
     t0 = time.monotonic()
     with pytest.raises(RuntimeError, match="exited"):
-        dist.run(f"{HERE}:_leaving_rank", 2, mesh=(1, 2), timeout=10)
+        dist.run(f"{HERE}:_leaving_rank", 2, mesh=(1, 2), device="cpu", timeout=10)
     assert time.monotonic() - t0 < 45
 
 
@@ -279,12 +282,43 @@ def test_outside_a_world_the_protocol_is_the_identity():
     assert dist.resolve_time_seed(0) > 0
     assert dist.census_consistent(["a"]) and dist.sync_rank0_ok(False) is False
     assert dist.allgather_checksums([1.0, 2.0]).shape == (1, 2)
-    m = dist.hybrid_mesh()
+    m = dist.hybrid_mesh(device="cpu")
     assert m.shape == {"data": 1, "model": 1} and m.group(mesh_mod.MODEL_AXIS) is None
     x = torch.ones(2)
     assert coll.all_gather(x, m, mesh_mod.MODEL_AXIS) is x
     with pytest.raises(ValueError):
-        dist.hybrid_mesh(2)
+        dist.hybrid_mesh(2, device="cpu")
+
+
+def test_a_mesh_lives_on_the_device_its_world_joined(monkeypatch):
+    """Without a card, every parallel entry point that is not told the
+    device raises (no rank moves to the CPU quietly); a mesh built in a
+    world joined on the CPU is on the CPU without being told."""
+    from hpnn_tpu_torch.train import driver
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(runtime.DeviceUnavailable):
+        dist.hybrid_mesh()
+    with pytest.raises(runtime.DeviceUnavailable):
+        mesh_mod.Mesh()
+    with pytest.raises(runtime.DeviceUnavailable):
+        dist.run(f"{HERE}:_coll_rank", 2, mesh=(1, 2), timeout=10)
+    cpu_mesh = mesh_mod.Mesh(device="cpu")
+    assert driver._mesh_device(cpu_mesh, None) == driver._mesh_device(cpu_mesh, "cpu") \
+        == torch.device("cpu")
+    with pytest.raises(runtime.DeviceUnavailable):
+        driver._mesh_device(cpu_mesh, "cuda")
+    for k, v in dict(RANK="0", WORLD_SIZE="1", MASTER_ADDR="127.0.0.1",
+                     MASTER_PORT=str(dist.free_port())).items():
+        monkeypatch.setenv(k, v)
+    assert dist.init_world(device="cpu") == torch.device("cpu")
+    try:
+        m = dist.hybrid_mesh()
+        assert m.device == torch.device("cpu") and m.group(mesh_mod.MODEL_AXIS) is not None
+    finally:
+        dist.shutdown()
+    with pytest.raises(runtime.DeviceUnavailable):
+        dist.hybrid_mesh()
 
 
 # ------------------------------------------------------------ on the card

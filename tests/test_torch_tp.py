@@ -220,7 +220,7 @@ def test_tp_unit_matches_jax_on_a_4_rank_world():
 
     min_it, max_it = 5, 40
     got = dist.run(f"{HERE}:_unit_rank", 4, mesh=(1, 4), args=(min_it, max_it),
-                   timeout=300)
+                   device="cpu", timeout=300)
     mesh4 = jmesh.make_mesh(n_data=2, n_model=4)
     for i, (model, momentum, n_in, hiddens, n_out) in enumerate(_unit_cases()):
         weights, x, t, X = _unit_inputs(model, n_in, hiddens, n_out)
@@ -271,7 +271,10 @@ def test_pad_helpers_match_jax():
 # ------------------------------------------------------------ on the card
 def _card_tp_rank(mesh, dtype_name):
     """The two-rank card check's body: a 784-300-10-shaped sample
-    (cut to 64 inputs) trained over two gloo ranks on one card."""
+    (cut to 64 inputs) trained over two gloo ranks on one card, and the
+    devices of the rank's mesh and of a batch run's own mesh."""
+    from hpnn_tpu_torch.train import batch
+
     dtype = getattr(torch, dtype_name)
     weights, x, t, _ = _unit_inputs("ann", 64, [30], 10)
     padded, rows = mesh_mod.pad_kernel(weights, 2)
@@ -281,19 +284,22 @@ def _card_tp_rank(mesh, dtype_name):
         torch.tensor(mesh_mod.pad_vector(t, 2), dtype=dtype, device=mesh.device),
         0.2, 1e-6, model="ann", momentum=False, min_iter=5, max_iter=60, n_out=10,
         mesh=mesh)
-    return res.n_iter, mesh_mod.unpad_kernel(tp.gather_kernel(res.weights, mesh), rows)
+    return (res.n_iter, mesh_mod.unpad_kernel(tp.gather_kernel(res.weights, mesh), rows),
+            (str(mesh.device), str(batch.default_mesh().device)))
 
 
 @pytest.mark.cuda
 def test_two_gloo_ranks_on_one_card_match_the_cpu_world():
     """Two gloo ranks on one card train the sample the CPU world trains
-    (float64: the same n_iter, weights within 1e-12)."""
+    (float64: the same n_iter, weights within 1e-12); each world's
+    meshes are on the device it joined with."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     card = dist.run(f"{HERE}:_card_tp_rank", 2, mesh=(1, 2), backend="gloo",
                     device="cuda:0", args=("float64",), timeout=300)
     cpu = dist.run(f"{HERE}:_card_tp_rank", 2, mesh=(1, 2), args=("float64",),
-                   timeout=300)
+                   device="cpu", timeout=300)
     assert card[0][0] == cpu[0][0]
+    assert card[1][2] == ("cuda:0", "cuda:0") and cpu[1][2] == ("cpu", "cpu")
     for a, b in zip(card[0][1], cpu[0][1]):
         np.testing.assert_allclose(a, b, rtol=0, atol=1e-12)
