@@ -116,7 +116,9 @@ Phases (any failure exits non-zero and prints no result line):
    ANN-BP samples (from phase 4's kernel.opt) and 8 SNN-BP samples
    (generated), ``max_iter`` capped at ``REAL_MAX_ITER``, and
    ``train_kernel_batched`` (B = 256, 2 epochs, 4096 rows) at 2x1 and
-   1x2, each in float32 and float64: float64 held to the same two-rank
+   1x2, each in float32 and float64: the SNN output's ``out_exp`` on
+   the card zero exactly where the CPU's is over its subnormal range
+   (``torch.exp``'s misses printed); float64 held to the same two-rank
    world on the CPU (every weight within 1e-12; ``tools/ledger_diff.py``
    strict, its verdict printed, failing the phase on anything but a
    matrix checksum past the 1e-12 bar), float32 to world size
@@ -126,11 +128,55 @@ Phases (any failure exits non-zero and prints no result line):
    lines give ms per TP iteration, samples/s, the share in ``coll.*``,
    ms per DP epoch and the spill's µs per row.  Two or more NCCL ranks
    need two cards, so they are not run here.
+17. online — Slice F, train-while-serve (``hpnn_tpu_torch.online``) at
+   784-300-10, under a watchdog that prints every thread's stack on
+   stdout and exits 1 past ``ONLINE_WATCHDOG_S``: (a) one
+   ``OnlineSession`` in compiled mode holding phase 4's ANN kernel.opt and
+   a generated ANN (one group: #6) and a generated SNN (alone: #4), fed
+   ``mnist_stream`` through ``POST /ingest`` while 8 clients call
+   ``infer`` and the trainer thread runs rounds every 0.25 s; (b) at
+   least one promotion of each group, every answer bitwise one version's
+   graph replay, captures after warmup = installs x buckets, all on the
+   trainer thread, no round failed, a NaN candidate rejected while the
+   clients are answered, a forced rollback (asked for from the main
+   thread, run on the trainer thread) answering bitwise as before the
+   promotion, a fresh session on the same ``HPNN_WAL_DIR`` restoring the
+   last weights bitwise, memory_allocated at the end within two cuBLAS
+   workspaces per capturing thread created (and one more) of its value
+   after warmup; (c) one trainer round in float32 and float64 on the
+   card against the CPU's float64 round (float64 within 1e-10, float32
+   losses within the fleet band); (d) ``[online]`` lines: a round's wall
+   and its training's device time, promote latency, infer p50/p99 with
+   the trainer idle and busy, the capturing threads.
 
-The last two lines are the kernel table and the device line.
+The last two lines are the kernel table and the device line.  A failed
+phase prints ``chip_smoke: FAILED in phase N (<name>): <reason>`` (and
+an exception's traceback) on stdout and stderr and exits 1.
 
 ``--planes-only`` runs phase 1 and phase 15 alone and prints no result
-line (a quick check of the planes on a card).
+line (a quick check of the planes on a card).  ``--online-only`` runs
+phase 1 and phase 17 alone (a generated ANN in place of phase 4's) and
+prints no result line.
+
+``--capture-thread`` runs phase 1 and the capture-thread probe alone
+(no result line): five cases of a thread that captures CUDA graphs
+beside serving replays (a long-lived side thread capturing; a capture
+beside a thread looping ``torch.cuda.synchronize()``; beside launches of
+#4 and #6 on the legacy default stream, and on a stream of their own;
+beside the first load of the kernels and of cuBLAS on another thread),
+each in a child process under a watchdog, three runs with
+``CUDA_LAUNCH_BLOCKING=1`` and two without; it prints each run's
+outcome (ok, raised, hung) and, for a failed one, the tail of its
+output (every thread's stack for a hang).
+
+``--tp-repeat`` runs phase 1 and a repeat probe of phase 16's float64
+TP SNN run alone (no result line): the same two-rank gloo run on the
+card three times (once after the float32 run, as phase 16's ranks do)
+and on the CPU six times (two of them on one intra-op thread a rank),
+each iteration's ``dEp`` and top-two output gap recorded; it prints
+whether the repeats agree bitwise, where two runs' trajectories first
+part, and how close each sample's stopping decision came to its
+threshold.
 
 ``--phase-split`` also builds the phase-clock variants
 (``-DHPNN_PHASE_CLOCKS``) of the convergence and batch-step kernels,
@@ -142,6 +188,7 @@ from __future__ import annotations
 
 import concurrent.futures
 import contextlib
+import faulthandler
 import io
 import json
 import math
@@ -153,6 +200,7 @@ import subprocess
 import sys
 import threading
 import time
+import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(ROOT, ".smoke")
@@ -215,6 +263,32 @@ BATCH_KERNELS = (
 
 class SmokeFailure(Exception):
     pass
+
+
+PHASE_NAMES = {
+    1: "probe", 2: "build", 3: "pinned", 4: "main", 5: "real", 6: "timing",
+    7: "batch pinned", 8: "batch main", 9: "batch timing", 10: "fleet pinned",
+    11: "fleet main", 12: "fleet timing", 13: "resume-obs-native", 14: "serve",
+    15: "planes", 16: "mesh", 17: "online", 0: "capture-thread probe",
+}
+# the phase running now, named in a failure's message
+PHASE = {"n": None, "name": "start-up"}
+
+
+def enter(n: int) -> None:
+    PHASE.update(n=n, name=PHASE_NAMES[n])
+
+
+def fail(reason: str, trace: str | None = None) -> None:
+    """Print the failure, its phase and (for an exception) the traceback
+    on stdout and on stderr."""
+    where = (f"phase {PHASE['n']} ({PHASE['name']})" if PHASE["n"] is not None
+             else PHASE["name"])
+    msg = f"chip_smoke: FAILED in {where}: {reason}"
+    for stream in (sys.stdout, sys.stderr):
+        if trace:
+            print(trace.rstrip(), file=stream)
+        print(msg, file=stream, flush=True)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -2414,6 +2488,7 @@ def mesh_phase(np, torch, dev, Xtr, Ttr, main_outs):
     from hpnn_tpu_torch.cli import train_nn
     from hpnn_tpu_torch.fileio import kernel_format
     from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.models import snn as snn_model
     from hpnn_tpu_torch.parallel import dist
     from hpnn_tpu_torch.train import batch, driver, loop
     from hpnn_tpu_torch.utils import logging as plog
@@ -2495,6 +2570,26 @@ def mesh_phase(np, torch, dev, Xtr, Ttr, main_outs):
                 worlds[(where, shape, j["name"], j["dtype"])] = r0
         log(f"[mesh] (b) the {where} worlds in {time.perf_counter() - t0:.1f} s")
 
+    # the SNN output's exp(z - 1) where it underflows: once every output
+    # is 0 a stop rests on whether the target's turns subnormal, so the
+    # card's out_exp must give 0 exactly where the CPU's does (torch.exp's
+    # own misses are printed)
+    zs = torch.linspace(-744.2, -699.0, 4_000_001, dtype=torch.float64)
+    zc = zs.to(dev)
+    got = {f: (f(zs), f(zc).cpu()) for f in (snn_model.out_exp, lambda z: torch.exp(z - 1.0))}
+    (cpu_e, card_e), (cpu_p, card_p) = got.values()
+    miss = int(((cpu_e == 0) != (card_e == 0)).sum())
+    plain_miss = (cpu_p == 0) != (card_p == 0)
+    band = (f" for z - 1 in [{float(zs[plain_miss].min()) - 1.0:.4f}, "
+            f"{float(zs[plain_miss].max()) - 1.0:.4f}]" if plain_miss.any() else "")
+    check(miss == 0, f"[mesh] SNN out_exp: {miss} of {zs.numel()} arguments give 0 on one "
+                     f"side only (card vs CPU)")
+    log(f"[mesh] (b) SNN exp(z - 1) for z in [-744.2, -699] ({zs.numel()} points), card vs "
+        f"CPU: out_exp 0 on one side only at {miss}, max |diff| "
+        f"{float((cpu_e - card_e).abs().max()):.3e}; torch.exp 0 on one side only at "
+        f"{int(plain_miss.sum())}{band}, max |diff| "
+        f"{float((cpu_p - card_p).abs().max()):.3e} -- {smi}")
+
     # float64: the card's two-rank ledger against the CPU's, and every
     # weight of the two trained kernels within the matrix bar
     for key in [k for k in worlds if k[0] == "card" and k[3] == "float64"]:
@@ -2504,8 +2599,11 @@ def mesh_phase(np, torch, dev, Xtr, Ttr, main_outs):
         rc, report = ledger_diff(a, b)
         w_err = max(float(np.abs(x - y).max()) for x, y in
                     zip(worlds[key]["weights"], worlds[("cpu",) + key[1:]]["weights"]))
-        check(w_err <= MAT_TOL, f"[mesh] {tag} f64: a weight differs by {w_err:.3e} "
-                                f"between the card and the CPU")
+        if w_err > MAT_TOL:
+            n_card, n_cpu = ([int(v) for v in re.findall(r"N_ITER=\s*(\d+)", w["out"])]
+                             for w in (worlds[key], worlds[("cpu",) + key[1:]]))
+            check(False, f"[mesh] {tag} f64: a weight differs by {w_err:.3e} between the "
+                         f"card and the CPU; N_ITER by sample, card {n_card}, CPU {n_cpu}")
         # the gate on matrices is every weight within 1e-12 (above): a
         # checksum past 8192 has ulps over 1e-12 (PERF.md §7), so its
         # strict verdict is printed, not gated; anything else fails
@@ -2629,6 +2727,860 @@ def mesh_phase(np, torch, dev, Xtr, Ttr, main_outs):
     return stats
 
 
+# ------------------------------------------------ step 0: the capture thread
+# ``--capture-thread``: the cases that could hang a card once a thread
+# other than the serving ones captures CUDA graphs (the online trainer's
+# promotions), each run in a child process of its own under a watchdog.
+CAPTURE_CASES = {
+    "side_capture": "a long-lived side thread captures (12 installs x 4 buckets) "
+                    "while the main thread and 4 clients replay",
+    "sync": "the side thread captures while a third thread loops "
+            "torch.cuda.synchronize()",
+    "kernels_legacy": "the side thread captures while a third thread launches #4 "
+                      "and #6 on the legacy default stream",
+    "kernels_stream": "the side thread captures while a third thread launches #4 "
+                      "and #6 on a stream of its own",
+    "first_load": "the side thread captures while a third thread loads "
+                  "batch_step.cu's library, launches #4 and #6 and makes its "
+                  "first cuBLAS call, all for the first time in the process",
+}
+CAPTURE_RUNS = (("1", 3), (None, 2))   # CUDA_LAUNCH_BLOCKING, runs of each case
+CAPTURE_INSTALLS = 12
+CAPTURE_CASE_S = 150                    # a child's bound (its watchdog: 30 s less)
+
+
+def capture_case(case: str) -> int:
+    """One case of the capture-thread probe, in this (child) process.
+    Prints one JSON line; a hang ends in every thread's stack on stdout
+    (``faulthandler``) and exit code 1."""
+    faulthandler.dump_traceback_later(CAPTURE_CASE_S - 30, exit=True,
+                                      file=sys.stdout)
+    import numpy as np
+    import torch
+
+    from hpnn_tpu_torch import serve
+    from hpnn_tpu_torch.models import kernel as km
+
+    t0 = time.perf_counter()
+    dev = torch.device("cuda")
+    sess = serve.Session(max_batch=64, n_buckets=4, max_wait_ms=2.0)
+    eng = sess.engine
+    kernels = [km.generate(SEED + i, N_IN, [N_HID], N_OUT)[0] for i in range(2)]
+    for i, k in enumerate(kernels):
+        sess.register_kernel(f"k{i}", k)
+    rng = np.random.default_rng(SEED)
+    X = rng.random((8, N_IN))
+    stop, capturing = threading.Event(), threading.Event()
+    errors, counts = [], {"requests": 0, "side": 0}
+    lock = threading.Lock()
+
+    def guarded(fn):
+        def run(*a):
+            try:
+                fn(*a)
+            except BaseException as exc:
+                errors.append(f"{threading.current_thread().name}: "
+                              f"{type(exc).__name__}: {exc}")
+                stop.set()
+        return run
+
+    def client(c):
+        while not stop.is_set():
+            sess.infer(f"k{c % 2}", X[:1 + c % 8])
+            with lock:
+                counts["requests"] += 1
+
+    forward_of = eng._forward_of
+
+    def forward_of_marked(*a, **kw):
+        capturing.set()
+        return forward_of(*a, **kw)
+
+    eng._forward_of = forward_of_marked
+
+    def capturer():
+        for j in range(CAPTURE_INSTALLS):
+            base = kernels[j % 2].weights
+            sess.install_kernel(f"k{j % 2}", km.Kernel(
+                weights=tuple(w * (1.0 + 1e-3 * (j + 1)) for w in base)))
+        stop.set()
+
+    def kernel_args():
+        from hpnn_tpu_torch.ops import batch_step
+
+        w = tuple(torch.tensor(a, device=dev, dtype=torch.float32)
+                  for a in kernels[0].weights)
+        # host data: a CUDA RNG call beside another thread's capture
+        # raises by itself ("Offset increment outside graph capture")
+        Xb = torch.tensor(rng.random((256, N_IN)), device=dev, dtype=torch.float32)
+        Tb = torch.tensor(rng.random((256, N_OUT)), device=dev, dtype=torch.float32)
+        order = np.arange(8, dtype=np.int32)
+        return batch_step, (w, (), Xb, Tb, order), (
+            tuple(torch.stack([a, a]).contiguous() for a in w), (),
+            torch.stack([Xb, Xb]), torch.stack([Tb, Tb]), np.stack([order, order]))
+
+    def launch_both(batch_step, one, two):
+        batch_step.train_epoch_grid_banked(*one, batch=32)
+        batch_step.train_fleet_epoch_dbuf_banked(*two, batch=32)
+        torch.cuda.current_stream().synchronize()
+        with lock:
+            counts["side"] += 2
+
+    def side():
+        if case == "sync":
+            while not stop.is_set():
+                torch.cuda.synchronize()
+                with lock:
+                    counts["side"] += 1
+        elif case in ("kernels_legacy", "kernels_stream"):
+            ctx = (torch.cuda.stream(torch.cuda.Stream()) if case == "kernels_stream"
+                   else contextlib.nullcontext())
+            with ctx:
+                args = kernel_args()
+                while not stop.is_set():
+                    launch_both(*args)
+        elif case == "first_load":
+            capturing.wait()
+            launch_both(*kernel_args())
+            a = torch.tensor(X, device=dev, dtype=torch.float32)
+            (a @ a.T).sum().item()
+            with lock:
+                counts["side"] += 1
+
+    if case in ("kernels_legacy", "kernels_stream"):
+        # the kernels' first load and launch happen here, on the main
+        # thread: this case is about their launches beside a capture
+        launch_both(*kernel_args())
+    threads = [threading.Thread(target=guarded(client), args=(c,), name=f"client{c}",
+                                daemon=True) for c in range(1, 5)]
+    threads.append(threading.Thread(target=guarded(side), name="side-work", daemon=True))
+    cap = threading.Thread(target=guarded(capturer), name="capturer", daemon=True)
+    eng.pin_captures(cap)
+    for t in threads + [cap]:
+        t.start()
+    guarded(client)(0)          # the main thread replays until the captures end
+    for t in threads + [cap]:
+        t.join(CAPTURE_CASE_S - 60)
+    alive = [t.name for t in threads + [cap] if t.is_alive()]
+    torch.cuda.synchronize()
+    faulthandler.cancel_dump_traceback_later()
+    misses = sum(st["misses"] for st in eng.cache_stats().values())
+    print(json.dumps({"case": case, "ok": not errors and not alive, "errors": errors[:3],
+                      "alive": alive, "captures": misses, "requests": counts["requests"],
+                      "side_ops": counts["side"],
+                      "seconds": round(time.perf_counter() - t0, 3)}), flush=True)
+    sess.close()
+    return 0 if not errors and not alive else 1
+
+
+def tp_probe_rank(mesh, jobs):
+    """``--tp-repeat``'s rank body: :func:`mesh_rank` on each job, with
+    every convergence iteration's ``dEp`` and the gap between its two
+    largest real outputs recorded per sample (``loop.convergence_loop``
+    wrapped; its numbers are untouched).  ``threads`` sets the rank's
+    intra-op threads."""
+    import numpy as np
+    import torch
+
+    from hpnn_tpu_torch.train import loop
+
+    real = loop.convergence_loop
+    recs = []
+
+    def recording(one_iteration, *a, **kw):
+        deps, gaps = [], []
+
+        def step(w, m, acts):
+            w, m, acts, dep = one_iteration(w, m, acts)
+            out = np.sort(acts[-1].detach().cpu().numpy()[:N_OUT])
+            deps.append(float(dep))
+            gaps.append(float(out[-1] - out[-2]))
+            return w, m, acts, dep
+
+        res = real(step, *a, **kw)
+        recs.append((deps, gaps))
+        return res
+
+    loop.convergence_loop = recording
+    out = []
+    for job in jobs:
+        if job.get("threads"):
+            torch.set_num_threads(job["threads"])
+        n0 = len(recs)
+        r = mesh_rank(mesh, [job])[0]
+        r["threads"] = torch.get_num_threads()
+        r["deps"] = [d for d, _ in recs[n0:]]
+        r["gaps"] = [g for _, g in recs[n0:]]
+        out.append(r)
+    return out
+
+
+def _parting(a, b):
+    """Where two recorded runs first differ: (sample, iteration, |a-b| of
+    that dEp, a's and b's iteration counts there), or None."""
+    for s, (da, db) in enumerate(zip(a["deps"], b["deps"])):
+        for i, (x, y) in enumerate(zip(da, db)):
+            if x != y:
+                return dict(sample=s, iteration=i + 1, dep_diff=abs(x - y),
+                            n_iter=(len(da), len(db)))
+        if len(da) != len(db):
+            return dict(sample=s, iteration=min(len(da), len(db)) + 1, dep_diff=None,
+                        n_iter=(len(da), len(db)))
+    return None
+
+
+def _margins(np, r, delta, min_iter):
+    """The run's closest calls: over every iteration past ``min_iter``,
+    min |dEp - delta| / delta and the least top-two output gap, each with
+    its (sample, iteration)."""
+    best_d, best_g = (np.inf, None), (np.inf, None)
+    for s, (deps, gaps) in enumerate(zip(r["deps"], r["gaps"])):
+        for i in range(min_iter, len(deps)):
+            d = abs(deps[i] - delta) / delta
+            if d < best_d[0]:
+                best_d = (d, (s, i + 1))
+            if gaps[i] < best_g[0]:
+                best_g = (gaps[i], (s, i + 1))
+    return dict(dep_rel_margin=best_d[0], dep_at=best_d[1], gap=best_g[0], gap_at=best_g[1])
+
+
+def tp_repeat_probe(np):
+    """``--tp-repeat`` (see the module docstring): phase 16's float64 TP
+    SNN world (two gloo ranks, mesh 1x2, the same seeds, samples and
+    conf) repeated on the card and on the CPU."""
+    import hashlib
+
+    from hpnn_tpu_torch.parallel import dist
+    from hpnn_tpu_torch.train import loop
+
+    rng = np.random.default_rng(SEED)
+    protos = (rng.random((N_OUT, N_IN)) < 0.15).astype(np.float64)
+    Xtr, Ttr = make_dataset(np, rng, N_TRAIN_ANN, protos)
+    Xte, Tte = make_dataset(np, rng, N_TEST, protos)
+    pdir = os.path.join(WORK, "tp_repeat")
+    write_samples(os.path.join(pdir, "snn"), Xtr[:MESH_SNN], Ttr[:MESH_SNN])
+    write_samples(os.path.join(pdir, "test"), Xte, Tte)
+    conf = os.path.join(pdir, "tp_snn.conf")
+    write_conf(conf, name="mesh_tp_snn", kind="SNN", train_dir=os.path.join(pdir, "snn"),
+               test_dir=os.path.join(pdir, "test"))
+    job = dict(kind="tp", conf=conf, dtype="float64", name="tp_snn", ledger=None)
+    target = f"{os.path.abspath(__file__)}:tp_probe_rank"
+    runs = []
+    # the second card world runs the float32 job first, as phase 16's
+    # ranks do; only the float64 runs are compared
+    for world, (where, device, threads, dtypes) in enumerate((
+            ("card", "cuda:0", None, ("float64", "float64")),
+            ("card", "cuda:0", None, ("float32", "float64")),
+            ("cpu", "cpu", None, ("float64", "float64")),
+            ("cpu", "cpu", None, ("float64", "float64")),
+            ("cpu", "cpu", 1, ("float64", "float64")))):
+        t0 = time.perf_counter()
+        got = dist.run(target, 2, mesh=(1, 2), backend="gloo", device=device,
+                       args=([dict(job, dtype=d, threads=threads) for d in dtypes],),
+                       timeout=600)
+        for d, r0, r1 in zip(dtypes, got[0], got[1]):
+            check(r0["ok"] and r1["ok"], f"[tp-repeat] {where} run failed")
+            check(all(np.array_equal(a, b) for a, b in zip(r0["weights"], r1["weights"])),
+                  f"[tp-repeat] {where}: the ranks' kernels differ")
+            if d != "float64":
+                continue
+            r0["where"] = f"{where}{'' if threads is None else '-1thread'}"
+            r0["process"] = world
+            r0["sha"] = hashlib.sha256(b"".join(w.tobytes() for w in r0["weights"])
+                                       ).hexdigest()[:16]
+            runs.append(r0)
+        log(f"[tp-repeat] {where} (threads {got[0][0]['threads']}) two runs in one world "
+            f"in {time.perf_counter() - t0:.1f} s")
+    report = {"runs": [], "pairs": []}
+    for i, r in enumerate(runs):
+        n_iter = [len(d) for d in r["deps"]]
+        m = _margins(np, r, loop.DELTA_BP, loop.MIN_BP_ITER)
+        report["runs"].append(dict(run=i, where=r["where"], process=r["process"],
+                                   threads=r["threads"], sha=r["sha"], n_iter=n_iter, **m))
+        log(f"[tp-repeat] run {i} {r['where']} (world {r['process']}, {r['threads']} "
+            f"threads): weights {r['sha']}, N_ITER {n_iter}; closest dEp to delta "
+            f"{m['dep_rel_margin']:.3e} relative at (sample, iteration) {m['dep_at']}, "
+            f"least top-two gap {m['gap']:.3e} at {m['gap_at']}")
+    for i, j in [(0, k) for k in range(1, len(runs))]:
+        a, b = runs[i], runs[j]
+        w = max(float(np.abs(x - y).max()) for x, y in zip(a["weights"], b["weights"]))
+        part = _parting(a, b)
+        report["pairs"].append(dict(a=i, b=j, max_weight_diff=w, parting=part))
+        log(f"[tp-repeat] run {i} {a['where']} vs run {j} {b['where']}: max |weight diff| "
+            f"{w:.3e}; first parting {part}")
+    os.makedirs(os.path.join(ROOT, "chiprun_out"), exist_ok=True)
+    with open(os.path.join(ROOT, "chiprun_out", "tp_repeat.json"), "w") as fp:
+        json.dump(dict(report, deps={i: r["deps"] for i, r in enumerate(runs)}), fp)
+
+
+def capture_thread_probe():
+    """``--capture-thread``: every case of :data:`CAPTURE_CASES`, each in
+    a child process, :data:`CAPTURE_RUNS` times with and without
+    ``CUDA_LAUNCH_BLOCKING=1``; a child that outlives its bound is killed
+    and reported as hung.  Returns {case: [outcome, ...]}."""
+    from hpnn_tpu_torch.ops import _build
+
+    enter(0)
+    t0 = time.perf_counter()
+    _build.build("batch_step", force=True)
+    log(f"[capture-thread] batch_step.cu built in {time.perf_counter() - t0:.1f} s")
+    out_dir = os.path.join(WORK, "capture_thread")
+    os.makedirs(out_dir, exist_ok=True)
+    results = {}
+    for case, what in CAPTURE_CASES.items():
+        log(f"[capture-thread] {case}: {what}")
+        for blocking, runs in CAPTURE_RUNS:
+            env = dict(os.environ, PYTHONPATH=ROOT)
+            env.pop("CUDA_LAUNCH_BLOCKING", None)
+            if blocking:
+                env["CUDA_LAUNCH_BLOCKING"] = blocking
+            for r in range(runs):
+                tag = f"{case}.{'blocking' if blocking else 'async'}.{r}"
+                t1 = time.perf_counter()
+                try:
+                    p = subprocess.run([sys.executable, os.path.abspath(__file__),
+                                        "--capture-case", case], env=env, cwd=ROOT,
+                                       capture_output=True, text=True,
+                                       timeout=CAPTURE_CASE_S)
+                    rc, text = p.returncode, p.stdout + p.stderr
+                except subprocess.TimeoutExpired as exc:
+                    rc = None
+                    text = "".join(s.decode(errors="replace") if isinstance(s, bytes)
+                                   else (s or "") for s in (exc.stdout, exc.stderr))
+                with open(os.path.join(out_dir, tag + ".log"), "w") as fp:
+                    fp.write(text)
+                doc = None
+                for line in text.splitlines()[::-1]:
+                    if line.startswith("{") and '"case"' in line:
+                        doc = json.loads(line)
+                        break
+                if rc is None or "Timeout (0:" in text:
+                    outcome = "hung"
+                elif rc == 0 and doc is not None and doc["ok"]:
+                    outcome = "ok"
+                else:
+                    outcome = "raised"
+                results.setdefault(case, []).append(
+                    {"run": tag, "outcome": outcome, "rc": rc, "doc": doc,
+                     "seconds": round(time.perf_counter() - t1, 1)})
+                log(f"[capture-thread] {tag}: {outcome} (rc {rc}, "
+                    f"{time.perf_counter() - t1:.1f} s"
+                    + (f", {doc['captures']} captures, {doc['requests']} requests, "
+                       f"{doc['side_ops']} side ops" if doc else "") + ")")
+                if outcome != "ok":
+                    for line in text.strip().splitlines()[-25:]:
+                        log(f"[capture-thread]   | {line}")
+    with open(os.path.join(out_dir, "results.json"), "w") as fp:
+        json.dump(results, fp, indent=1)
+    log("[capture-thread] " + json.dumps(
+        {c: [r["outcome"] for r in rs] for c, rs in results.items()}))
+    return results
+
+
+# --------------------------------------------------------- phase 17: online
+ONLINE_ROWS, ONLINE_BATCH, ONLINE_EPOCHS = 256, 32, 4   # a round's window
+ONLINE_INTERVAL_S = 0.25      # trainer cadence: many rounds in the phase
+ONLINE_CLIENTS = 8
+ONLINE_FEED, ONLINE_BLOCK = 3072, 64   # mnist_stream samples over POST /ingest
+ONLINE_IDLE_S = 4.0           # clients alone, the trainer not started
+ONLINE_STAGE_S = 40.0         # bound on each stage that waits for rounds
+ONLINE_WATCHDOG_S = 420       # faulthandler bound of the whole phase
+WORKSPACE_BYTES = 32 << 20    # cuBLAS's workspace a (thread, stream) on the H100
+# One trainer round on the card against the CPU's float64 round: float64
+# within the kernels' 1e-10; float32 within the fleet bands (candidate
+# weights within BATCH_TOL's epoch band, the gate's losses within
+# BAND_LOSS_REL relative).
+ONLINE_F64_TOL = 1e-10
+ONLINE_EVAL_ROWS = 64
+
+
+def _percentiles(np, xs):
+    if not xs:
+        return {"n": 0, "p50_ms": float("nan"), "p99_ms": float("nan")}
+    a = np.asarray(xs) * 1e3
+    return {"n": int(a.size), "p50_ms": float(np.percentile(a, 50)),
+            "p99_ms": float(np.percentile(a, 99))}
+
+
+def online_parity(np, torch, kernels, Xs, Ts):
+    """Phase 17 (c): one trainer round (``round_once``: the [a, b] group on
+    #6 and [s] on #4, round 0's seeds) on the same fed window and eval
+    set, in float32 and float64 on the card (``HPNN_DTYPE``) and in
+    float64 on the CPU through the plain versions.  The gate seam
+    (``candidate_hook``) collects the candidates; a gate that rejects
+    every candidate keeps the round from installing."""
+    from hpnn_tpu_torch import obs, online
+
+    window = (Xs[:ONLINE_ROWS], Ts[:ONLINE_ROWS])
+    eval_set = (Xs[ONLINE_ROWS:ONLINE_ROWS + ONLINE_EVAL_ROWS],
+                Ts[ONLINE_ROWS:ONLINE_ROWS + ONLINE_EVAL_ROWS])
+    out = {}
+    for tag, device, dtype in (("cuda-f32", "cuda", "float32"),
+                               ("cuda-f64", "cuda", "float64"),
+                               ("cpu-f64", "cpu", "float64")):
+        with knobs(obs, {"HPNN_DTYPE": dtype}):
+            o = online.OnlineSession(serve_kwargs={"device": device}, rows=ONLINE_ROWS,
+                                     batch=ONLINE_BATCH, epochs=ONLINE_EPOCHS,
+                                     interval_s=3600.0, seed=SEED, holdout=0,
+                                     eval_set=eval_set, gate=online.Gate(margin=1.0))
+            for name, (k, model) in kernels.items():
+                o.add_kernel(name, k, model=model, warmup=False)
+            cands = {}
+            o.trainer.candidate_hook = lambda name, ws: cands.setdefault(name, ws)
+            o.feed(*window)
+            summary = o.trainer.round_once()
+            check(summary["trained"] == len(kernels) and summary["promoted"] == 0,
+                  f"online parity round on {tag}: {summary}")
+            out[tag] = {n: (cands[n], o.promoter.last_losses[n][0]) for n in kernels}
+            o.close()
+    ref = out["cpu-f64"]
+    report = {}
+    for tag in ("cuda-f64", "cuda-f32"):
+        w_err = max(float(np.max(np.abs(a - b))) for n in ref
+                    for a, b in zip(out[tag][n][0], ref[n][0]))
+        l_rel = max(abs(out[tag][n][1] - ref[n][1]) / max(1.0, abs(ref[n][1]))
+                    for n in ref)
+        report[tag] = {"max_abs_weight_err": w_err, "max_rel_loss_err": l_rel}
+        if tag == "cuda-f64":
+            check(w_err <= ONLINE_F64_TOL and l_rel <= ONLINE_F64_TOL,
+                  f"online round float64: card vs CPU weights {w_err:.3e}, loss "
+                  f"{l_rel:.3e} (tol {ONLINE_F64_TOL:.0e})")
+        else:
+            band = BATCH_TOL[("float32", "epoch")]
+            check(w_err <= band and l_rel <= BAND_LOSS_REL,
+                  f"online round float32: weights {w_err:.3e} (band {band:.0e}), "
+                  f"loss {l_rel:.3e} relative (band {BAND_LOSS_REL:.0e}) against the "
+                  f"CPU's float64")
+        log(f"[online] (c) {tag} vs cpu-f64, round_once of 3 kernels (#6 on [a, b], "
+            f"#4 on [s]): max |w| err {w_err:.3e}, max gate-loss rel err {l_rel:.3e}")
+    return report
+
+
+def online_round_split(np, torch, kernels, Xs, Ts, smi):
+    """Phase 17 (d): a trainer round's wall time and the device time of its
+    groups' training (#4 and #6 with their bank gathers), from CUDA events
+    on the trainer stream; three rounds on a fresh session whose gate
+    rejects every candidate (no install), the median printed."""
+    from hpnn_tpu_torch import online
+
+    o = online.OnlineSession(serve_kwargs=dict(max_batch=64, n_buckets=4),
+                             rows=ONLINE_ROWS, batch=ONLINE_BATCH,
+                             epochs=ONLINE_EPOCHS, interval_s=3600.0, seed=SEED,
+                             gate=online.Gate(margin=1.0))
+    for name, (k, model) in kernels.items():
+        o.add_kernel(name, k, model=model)
+    o.feed(Xs[:ONLINE_FEED], Ts[:ONLINE_FEED])
+    tr = o.trainer
+    train_group = tr._train_group
+    marks = []
+
+    def timed_group(entries, X, T):
+        e0, e1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        e0.record(tr.stream)
+        res = train_group(entries, X, T)
+        e1.record(tr.stream)
+        marks.append((len(entries), e0, e1))
+        return res
+
+    tr._train_group = timed_group
+    tr.warm()
+    rows = []
+    for _ in range(3):
+        marks.clear()
+        t0 = time.perf_counter()
+        tr.round_once()
+        wall = time.perf_counter() - t0
+        tr.stream.synchronize()
+        rows.append((wall * 1e3, {("#6" if n > 1 else "#4"): e0.elapsed_time(e1)
+                                  for n, e0, e1 in marks}))
+    o.close()
+    wall_ms = statistics.median(r[0] for r in rows)
+    split = {g: statistics.median(r[1][g] for r in rows) for g in rows[0][1]}
+    share = sum(split.values()) / wall_ms
+    log(f"[online] (d) {smi}: a round of 3 kernels ({ONLINE_ROWS} rows, B={ONLINE_BATCH}, "
+        f"{ONLINE_EPOCHS} epochs): wall {wall_ms:.1f} ms (median of 3), device time of "
+        f"its training " + ", ".join(f"{g} {v:.2f} ms" for g, v in split.items())
+        + f" ({share * 100:.1f}% of the wall)")
+    return {"round_wall_ms": wall_ms, "round_train_device_ms": split,
+            "round_train_share": share}
+
+
+def online_phase(np, torch, dev, k_ann):
+    """Phase 17: Slice F, train-while-serve at 784-300-10 (the module
+    docstring lists what it holds).  ``k_ann``: phase 4's trained ANN
+    (a generated one under ``--online-only``).  Runs under a watchdog
+    that prints every thread's stack on stdout and exits 1 if the
+    phase outlives ``ONLINE_WATCHDOG_S``."""
+    faulthandler.dump_traceback_later(ONLINE_WATCHDOG_S, exit=True, file=sys.stdout)
+    try:
+        return _online_phase(np, torch, dev, k_ann)
+    except BaseException:
+        log("[online] every thread's stack at the failure:")
+        faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+        raise
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+
+
+def gpu_state() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=utilization.gpu,power.draw,clocks.sm",
+         "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    return out.stdout.strip() or out.stderr.strip()
+
+
+def stall_watch(stop, last, limit_s):
+    """Until ``stop``: when no client has been answered for ``limit_s``
+    (``last[0]``: the time of the last answer), print the card's
+    utilization and every thread's stack, once."""
+    while not stop.wait(0.5):
+        idle = time.perf_counter() - last[0]
+        if idle > limit_s:
+            log(f"[online] STALL: no answer for {idle:.1f} s; card (util, power, "
+                f"sm clock): {gpu_state()}; every thread's stack:")
+            faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+            return
+
+
+def _online_phase(np, torch, dev, k_ann):
+    import gc
+    import http.client
+
+    from hpnn_tpu_torch import online, serve
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.online import streams
+    from hpnn_tpu_torch.ops import batch_step
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    work = os.path.join(WORK, "online")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    os.environ["HPNN_WAL_DIR"] = os.path.join(work, "wal")
+    kernels = {
+        "a": (k_ann, "ann"),
+        "b": (km.generate(SEED + 17, N_IN, [N_HID], N_OUT)[0], "ann"),
+        "s": (km.generate(SEED + 19, N_IN, [N_HID], N_OUT)[0], "snn"),
+    }
+    t0 = time.perf_counter()
+    Xs, Ts = streams.take(streams.mnist_stream(SEED), ONLINE_FEED + 16)
+    probes = {n: Xs[ONLINE_FEED + i:ONLINE_FEED + i + 1] for i, n in enumerate(kernels)}
+    log(f"[online] {ONLINE_FEED + 16} mnist_stream samples rendered in "
+        f"{time.perf_counter() - t0:.1f} s")
+
+    gc.collect()
+    torch.cuda.synchronize()
+    m0 = torch.cuda.memory_allocated()
+    osess = online.OnlineSession(
+        serve_kwargs=dict(max_batch=64, n_buckets=4, max_wait_ms=2.0),
+        rows=ONLINE_ROWS, batch=ONLINE_BATCH, epochs=ONLINE_EPOCHS,
+        interval_s=ONLINE_INTERVAL_S, holdout=8, seed=SEED,
+        gate=online.Gate(margin=0.0, watch_s=3600.0))
+    check(osess.wal is not None, "HPNN_WAL_DIR did not arm the promotion WAL")
+    eng = osess.serve.engine
+    for name, (k, model) in kernels.items():
+        osess.add_kernel(name, k, model=model)
+    n_buckets = len(eng.buckets)
+
+    def misses():
+        return sum(st["misses"] for st in eng.cache_stats().values())
+
+    warm_captures = misses()
+    check(warm_captures == len(kernels) * n_buckets,
+          f"warmup captured {warm_captures} graphs, want {len(kernels) * n_buckets}")
+    torch.cuda.synchronize()
+    m1 = torch.cuda.memory_allocated()
+
+    # every version served, every install (its thread and time), every
+    # capture's thread and every verdict of the gate
+    versions = {n: [osess.serve.registry.get(n)] for n in kernels}
+    installs, capture_threads, verdicts = [], set(), []
+    lock = threading.Lock()
+    install_kernel = osess.serve.install_kernel
+    forward_of = eng._forward_of
+    consider = osess.promoter.consider
+    stage = {"name": "idle", "rollback_of": None}
+
+    def install_logged(name, kernel, **kw):
+        t = time.perf_counter()
+        entry = install_kernel(name, kernel, **kw)
+        with lock:
+            installs.append((name, entry.version, time.perf_counter() - t,
+                             threading.current_thread().name))
+            versions[name].append(entry)
+        return entry
+
+    def forward_logged(*a, **kw):
+        with lock:
+            capture_threads.add(threading.current_thread().name)
+        return forward_of(*a, **kw)
+
+    def resident_hook(name, w):
+        return tuple(np.asarray(x) for x in osess.serve.registry.get(name).kernel.weights)
+
+    def consider_logged(name, cand, eval_set, **kw):
+        outcome = consider(name, cand, eval_set, **kw)
+        poisoned = not all(np.isfinite(np.asarray(w)).all() for w in cand)
+        with lock:
+            verdicts.append(("nan" if poisoned else stage["name"], name, outcome))
+        if stage["rollback_of"] == name and outcome == "promoted":
+            # one promotion of the drill's kernel, then none (a candidate
+            # equal to the resident fails the margin)
+            osess.trainer.candidate_hook = resident_hook
+            stage["rollback_of"] = None
+        return outcome
+
+    osess.serve.install_kernel = install_logged
+    eng._forward_of = forward_logged
+    osess.promoter.consider = consider_logged
+
+    server = serve.make_server(osess.serve, port=0)
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True,
+                     name="smoke-online-http").start()
+    stop_clients = threading.Event()
+    errors, answers = [], {n: {} for n in kernels}
+    lat = {"idle": [], "busy": []}
+    fed = {"posted": 0}
+    window = {"name": "idle"}
+    names = list(kernels)
+
+    last_answer = [time.perf_counter()]
+
+    def client(c):
+        name = names[c % len(names)]
+        x = probes[name]
+        try:
+            while not stop_clients.is_set():
+                w = window["name"]
+                t = time.perf_counter()
+                y = osess.infer(name, x)
+                last_answer[0] = time.perf_counter()
+                dt = last_answer[0] - t
+                key = np.asarray(y, dtype=np.float64).tobytes()
+                with lock:
+                    lat.setdefault(w, []).append(dt)
+                    answers[name][key] = answers[name].get(key, 0) + 1
+        except Exception as exc:
+            errors.append(f"client {c}: {type(exc).__name__}: {exc}")
+
+    def post(lo, hi):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+        try:
+            for i in range(lo, hi, ONLINE_BLOCK):
+                body = json.dumps({"inputs": Xs[i:i + ONLINE_BLOCK].tolist(),
+                                   "targets": Ts[i:i + ONLINE_BLOCK].tolist()})
+                conn.request("POST", "/ingest", body=body,
+                             headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                doc = json.loads(r.read())
+                if r.status != 200:
+                    errors.append(f"POST /ingest {r.status}: {doc}")
+                    return
+                fed["posted"] += int(doc["accepted"])
+                time.sleep(0.2)
+        except Exception as exc:
+            errors.append(f"feeder: {type(exc).__name__}: {exc}")
+        finally:
+            conn.close()
+
+    def wait_for(cond, what):
+        deadline = time.perf_counter() + ONLINE_STAGE_S
+        while not cond():
+            check(not errors, f"{what}: {errors[:3]}")
+            check(osess.trainer.running(), f"{what}: the trainer thread died")
+            check(time.perf_counter() < deadline,
+                  f"{what} did not happen within {ONLINE_STAGE_S:.0f} s (last "
+                  f"verdicts {verdicts[-6:]}, trainer {osess.trainer.stats})")
+            time.sleep(0.05)
+
+    def promoted(n):
+        return sum(1 for _s, k, o in verdicts if k == n and o == "promoted")
+
+    clients = [threading.Thread(target=client, args=(c,), daemon=True,
+                                name=f"smoke-online-client{c}")
+               for c in range(ONLINE_CLIENTS)]
+    for t in clients:
+        t.start()
+    threading.Thread(target=stall_watch, args=(stop_clients, last_answer, 3.0),
+                     daemon=True, name="smoke-online-stall-watch").start()
+    # (a) the idle window: the clients and the first third of the stream,
+    # no trainer; then every launch count to 0 and the trainer started
+    third = (ONLINE_FEED // 3) // ONLINE_BLOCK * ONLINE_BLOCK
+    t_idle = time.perf_counter()
+    post(0, third)
+    time.sleep(max(0.0, ONLINE_IDLE_S - (time.perf_counter() - t_idle)))
+    for key in batch_step.launches:
+        batch_step.launches[key] = 0
+    t_start = time.perf_counter()
+    window["name"] = "busy"
+    osess.start()          # warm on this thread, then the trainer thread
+    warm_s = time.perf_counter() - t_start
+    feeder = threading.Thread(target=post, args=(third, ONLINE_FEED), daemon=True,
+                              name="smoke-online-feed")
+    feeder.start()
+    stage["name"] = "train"
+    wait_for(lambda: (promoted("a") + promoted("b")) >= 1 and promoted("s") >= 1
+             and osess.trainer.stats["rounds"] >= 4, "a promotion of each group")
+    feeder.join(ONLINE_STAGE_S)
+    check(not feeder.is_alive(), "the /ingest feeder did not finish")
+    busy_s = time.perf_counter() - t_start
+
+    # (b) a NaN candidate is rejected while the clients go on being answered
+    def poison(name, w):
+        bad = [np.asarray(x).copy() for x in w]
+        bad[0][0, 0] = np.nan
+        return tuple(bad)
+
+    stage["name"] = "poison"
+    osess.trainer.candidate_hook = poison
+    wait_for(lambda: sum(1 for s, _k, _o in verdicts if s == "nan") >= len(kernels),
+             "a judged NaN candidate")
+    osess.trainer.candidate_hook = resident_hook
+    stage["name"] = "settle"
+    nan_verdicts = [o for s, _k, o in verdicts if s == "nan"]
+    check(set(nan_verdicts) == {"sentinel"},
+          f"NaN candidates met {sorted(set(nan_verdicts))}, want only 'sentinel'")
+    n_settle = len(verdicts)
+    wait_for(lambda: len(verdicts) >= n_settle + len(kernels), "a settled round")
+    window["name"] = "quiet"
+    stop_clients.set()
+    for t in clients:
+        t.join(30)
+    check(not errors, f"phase 17 load: {errors[:3]}")
+
+    # a forced rollback: one more promotion of "a", then a rollback asked
+    # for from this thread (queued to the trainer thread)
+    y0 = osess.infer("a", probes["a"])
+    v0 = osess.serve.registry.get("a").version
+    stage.update(name="rollback", rollback_of="a")
+    osess.trainer.candidate_hook = None
+    wait_for(lambda: osess.serve.registry.get("a").version > v0,
+             "the rollback drill's promotion of a")
+    y1 = osess.infer("a", probes["a"])
+    check(osess.rollback("a") is not None, "the forced rollback found nothing to restore")
+    y2 = osess.infer("a", probes["a"])
+    check(not np.array_equal(y0, y1), "the drill's promotion did not change a's answer")
+    check(np.array_equal(y0, y2),
+          f"after the rollback a answers {y2} != {y0} before the promotion (bitwise)")
+
+    launches = {k: batch_step.launches[k] for k in ("train_epoch_grid_banked",
+                                                    "train_fleet_epoch_dbuf_banked")}
+    check(launches["train_epoch_grid_banked"] > 0, "phase 17 launched no #4")
+    check(launches["train_fleet_epoch_dbuf_banked"] > 0, "phase 17 launched no #6")
+    stats = dict(osess.trainer.stats)
+    check(stats["failed"] == 0, f"{stats['failed']} online rounds failed")
+    n_installs = len(installs)
+    n_promoted = sum(1 for _s, _k, o in verdicts if o == "promoted")
+    check(n_installs == n_promoted + 1,
+          f"{n_installs} installs for {n_promoted} promotions and 1 rollback")
+    captures = misses() - warm_captures
+    check(captures == n_installs * n_buckets,
+          f"{captures} captures after warmup for {n_installs} installs x {n_buckets} "
+          "buckets")
+    trainer_name = osess.trainer._thread.name
+    install_threads = {t for _n, _v, _dt, t in installs}
+    check(install_threads == {trainer_name},
+          f"installs ran on {sorted(install_threads)}, want the trainer thread alone")
+    new_capturers = capture_threads - {threading.current_thread().name}
+    check(new_capturers == {trainer_name},
+          f"captures after warmup ran on {sorted(capture_threads)}")
+
+    # every answer is one version's graph replay, bitwise (never a torn mix)
+    torn, by_version = [], {}
+    for name, seen in answers.items():
+        refs = {}
+        for e in versions[name]:
+            y = np.asarray(eng.eager_rows(e, probes[name]), dtype=np.float64)
+            refs.setdefault(y.tobytes(), e.version)
+        for key, count in seen.items():
+            v = refs.get(key)
+            if v is None:
+                y = np.frombuffer(key, dtype=np.float64)
+                near = min(float(np.max(np.abs(y - np.frombuffer(r, dtype=np.float64))))
+                           for r in refs)
+                torn.append((name, count, near))
+            else:
+                by_version.setdefault(name, {}).setdefault(v, 0)
+                by_version[name][v] += count
+    check(not torn, f"answers of no version (kernel, count, nearest |diff|): {torn[:5]}")
+    n_answers = sum(sum(s.values()) for s in answers.values())
+    for name in kernels:    # the eager references' weights go again
+        eng.evict(name, keep_version=osess.serve.registry.get(name).version)
+    gc.collect()
+    torch.cuda.synchronize()
+    m_end = torch.cuda.memory_allocated()
+    # the trainer thread holds two cuBLAS workspaces (its stream's, for the
+    # gate's eval, and the capture stream's), and this thread may add one
+    # on its own stream (the warm eval and the eager references)
+    bound = m1 + 2 * WORKSPACE_BYTES * len(new_capturers) + WORKSPACE_BYTES
+    check(m_end <= bound,
+          f"memory_allocated {m_end} B at the end > {bound} B (after warmup {m1} B, "
+          f"+ 2 workspaces x {len(new_capturers)} capturing thread created, + 1)")
+    final = {n: tuple(np.asarray(w) for w in osess.serve.registry.get(n).kernel.weights)
+             for n in kernels}
+    osess.close()
+    server.shutdown()
+    server.server_close()
+    check(fed["posted"] == ONLINE_FEED and osess.buffer.total_fed() == ONLINE_FEED,
+          f"/ingest accepted {fed['posted']}, buffer fed {osess.buffer.total_fed()}, "
+          f"want {ONLINE_FEED}")
+
+    # a fresh session on the same HPNN_WAL_DIR restores the last committed
+    # weights, bitwise
+    fresh = online.OnlineSession(serve_kwargs=dict(max_batch=64, n_buckets=4))
+    for name, (k, model) in kernels.items():
+        fresh.add_kernel(name, k, model=model)
+    check(sorted(fresh.restored) == sorted(kernels), f"WAL restored {fresh.restored}")
+    for name in kernels:
+        got = fresh.serve.registry.get(name).kernel.weights
+        check(all(np.asarray(g).tobytes() == f.tobytes() for g, f in zip(got, final[name])),
+              f"the WAL restore of {name} differs from the last resident weights")
+    reasons = {r["kernel"]: r["reason"] for r in osess.wal.records()}
+    fresh.close()
+    os.environ.pop("HPNN_WAL_DIR", None)
+
+    # (c) one round's parity, then (d) the printed numbers
+    parity = online_parity(np, torch, kernels, Xs, Ts)
+    prom = [dt * 1e3 for _n, _v, dt, _t in installs]
+    lat_idle, lat_busy = _percentiles(np, lat["idle"]), _percentiles(np, lat["busy"])
+    out = {
+        "launches": launches,
+        "rounds": stats["rounds"], "starved": stats["starved"],
+        "round_failed": stats["failed"],
+        "promoted": {n: promoted(n) for n in kernels},
+        "rejected_nan": len(nan_verdicts), "rollbacks": 1,
+        "installs": n_installs, "captures_after_warmup": captures,
+        "capturing_threads_created": sorted(new_capturers),
+        "answers": n_answers, "answers_by_version": by_version,
+        "memory": {"start": m0, "after_warmup": m1, "end": m_end, "bound": bound},
+        "promote_ms": {"n": len(prom), "median": statistics.median(prom),
+                       "max": max(prom)},
+        "warm_s": warm_s, "busy_s": busy_s,
+        "infer_idle": lat_idle, "infer_busy": lat_busy,
+        "wal_last_reasons": reasons, "parity": parity,
+    }
+    out.update(online_round_split(np, torch, kernels, Xs, Ts, smi))
+    log(f"[online] {smi}: {stats['rounds']} rounds ({stats['starved']} starved, "
+        f"{stats['failed']} failed) beside {n_answers} answers to {ONLINE_CLIENTS} "
+        f"clients; launches #4 {launches['train_epoch_grid_banked']}, #6 "
+        f"{launches['train_fleet_epoch_dbuf_banked']}; promotions {out['promoted']}, "
+        f"{len(nan_verdicts)} NaN candidates rejected, 1 rollback bitwise; "
+        f"{n_installs} installs x {n_buckets} buckets = {captures} captures on "
+        f"{sorted(new_capturers)}")
+    log(f"[online] {smi}: promote latency (install + {n_buckets} captures) median "
+        f"{out['promote_ms']['median']:.1f} ms, max {out['promote_ms']['max']:.1f} ms "
+        f"over {len(prom)} installs; warm-up {warm_s:.2f} s")
+    log(f"[online] {smi}: infer latency, trainer idle: p50 {lat_idle['p50_ms']:.3f} ms "
+        f"p99 {lat_idle['p99_ms']:.3f} ms (n {lat_idle['n']}); trainer busy: p50 "
+        f"{lat_busy['p50_ms']:.3f} ms p99 {lat_busy['p99_ms']:.3f} ms (n {lat_busy['n']})")
+    log(f"[online] {smi}: memory_allocated start {m0} B, after warmup {m1} B, end "
+        f"{m_end} B (bound {bound} B); capturing threads created: "
+        f"{len(new_capturers)}; last WAL records {reasons}")
+    log(f"[online] phase 17 in {time.perf_counter() - t_phase:.1f} s")
+    return out
+
+
 def load_conf_quiet(path):
     from hpnn_tpu_torch import config
 
@@ -2648,6 +3600,17 @@ def main() -> int:
                     help="time the kernels' phases (two more nvcc builds)")
     ap.add_argument("--planes-only", action="store_true",
                     help="run only phase 15 (the serving planes); no result line")
+    ap.add_argument("--online-only", action="store_true",
+                    help="run only phase 17 (online learning), from a generated "
+                         "ANN; no result line")
+    ap.add_argument("--capture-thread", action="store_true",
+                    help="run only the capture-thread probe (a child process a "
+                         "case and run); no result line")
+    ap.add_argument("--tp-repeat", action="store_true",
+                    help="run only the repeat probe of phase 16's float64 TP SNN "
+                         "world, on the card and the CPU; no result line")
+    ap.add_argument("--capture-case", choices=sorted(CAPTURE_CASES),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -2658,6 +3621,8 @@ def main() -> int:
               "beside this script)", file=sys.stderr)
         return 2
     sys.path.insert(0, ROOT)
+    if args.capture_case:
+        return capture_case(args.capture_case)
     from hpnn_tpu_torch.cli import run_nn, train_nn
     from hpnn_tpu_torch.fileio import kernel_format
     from hpnn_tpu_torch.models import kernel as km
@@ -2673,12 +3638,14 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     # 1. probe
+    enter(1)
     smi = nvidia_smi_line()
     kind = torch.cuda.get_device_name(0)
     log(f"[probe] python {sys.version.split()[0]} torch {torch.__version__} "
         f"cuda {torch.version.cuda} device {kind} count {torch.cuda.device_count()}")
     log(f"[probe] nvidia-smi: {smi}")
     if args.planes_only:
+        enter(15)
         os.makedirs(WORK, exist_ok=True)
         t15 = time.perf_counter()
         planes = planes_phase(np, torch, dev)
@@ -2687,7 +3654,26 @@ def main() -> int:
         log(f"[planes] phase 15 in {time.perf_counter() - t15:.1f} s (--planes-only: "
             f"no result line)")
         return 0
+    if args.capture_thread:
+        os.makedirs(WORK, exist_ok=True)
+        capture_thread_probe()
+        return 0
+    if args.tp_repeat:
+        enter(16)
+        os.makedirs(WORK, exist_ok=True)
+        tp_repeat_probe(np)
+        return 0
+    if args.online_only:
+        enter(17)
+        os.makedirs(WORK, exist_ok=True)
+        t0 = time.perf_counter()
+        _build.build("batch_step", force=True)
+        log(f"[build] batch_step.cu built in {time.perf_counter() - t0:.1f} s")
+        online_phase(np, torch, dev, km.generate(SEED, N_IN, [N_HID], N_OUT)[0])
+        log("[online] --online-only: no result line")
+        return 0
 
+    enter(2)
     # 2. build: one nvcc per source and g++ for the host library, all
     # started together
     t0 = time.perf_counter()
@@ -2735,6 +3721,7 @@ def main() -> int:
                 torch.tensor(T, dtype=dtype, device=dev))
 
     # 3. pinned iteration count
+    enter(3)
     max_err = {"float32": 0.0, "float64": 0.0}
     for model in ("ann", "snn"):
         for momentum in (False, True):
@@ -2769,6 +3756,7 @@ def main() -> int:
                     f"== every plan of {plans_of(convergence, w0, dtype, momentum)} (bitwise)")
 
     # 4. main path: train_nn then run_nn through the CLIs
+    enter(4)
     shutil.rmtree(WORK, ignore_errors=True)
     write_samples(os.path.join(WORK, "train"), Xtr, Ttr)
     write_samples(os.path.join(WORK, "train_snn"), Xtr[:N_TRAIN_SNN], Ttr[:N_TRAIN_SNN])
@@ -2832,6 +3820,7 @@ def main() -> int:
     main_launches = convergence.launches
     check(main_launches > 0, "the main path launched no convergence kernel")
 
+    enter(5)
     # 5. real thresholds.  ANN starts from the main path's trained
     # kernel.opt on unseen test samples (an untrained ANN-BP takes
     # thousands of iterations per sample); SNN from the generated kernel.
@@ -2869,6 +3858,7 @@ def main() -> int:
                 log(f"[real] {tag}: N_ITER kernel {nk} plain {npl} first_ok {fk}/{fp}")
 
 
+    enter(6)
     # 6. timing: 4 samples x TIMED_ITERS iterations each, every mode and
     # type, at each cluster size, in turns; the kernel row of the result
     # is ANN-BP float32, the main path's
@@ -2938,32 +3928,41 @@ def main() -> int:
         f"{chunk_iters} iterations ({chunk_ms / chunk_iters * 1e3:.2f} us/iteration)")
 
     # 7-9. the batch path
+    enter(7)
     batch_err = batch_pinned(np, torch, dev)
+    enter(8)
     batch_launches, batch_stats = batch_main(np, torch, protos)
     for name, _, on_path in BATCH_KERNELS:
         check(not on_path or batch_launches[name] > 0,
               f"the batch main path launched no {name}")
+    enter(9)
     batch_times = batch_timing(np, torch, dev, args.phase_split)
 
     # 10-12. the fleet path
+    enter(10)
     fleet_err = fleet_pinned(np, torch, dev)
+    enter(11)
     fleet_launches, fleet_stats = fleet_main(np, torch, dev, protos)
     check(fleet_launches["train_fleet_epoch_dbuf_banked"] > 0,
           "the fleet main path launched no train_fleet_epoch_dbuf_banked")
+    enter(12)
     fleet_times, fleet_cross = fleet_timing(np, torch, dev)
 
     # 13. crash-resume, streaming, the float64 ledger card vs CPU, obs, native
+    enter(13)
     t13 = time.perf_counter()
     slice6 = resume_obs_native(np, torch, dev, protos)
     log(f"[resume-obs-native] phase 13 in {time.perf_counter() - t13:.1f} s")
 
     # 14. serving: the serve stack on the card
+    enter(14)
     t14 = time.perf_counter()
     serve_stats = serve_phase(np, torch, dev, k0)
     log(f"[serve] phase 14 in {time.perf_counter() - t14:.1f} s")
 
     # 15. the serving planes: tenant host, every plane on/off, capsules,
     # drift, meter, the tuning plane
+    enter(15)
     t15 = time.perf_counter()
     planes = planes_phase(np, torch, dev)
     with open(os.path.join(WORK, "planes.json"), "w") as fp:
@@ -2972,9 +3971,15 @@ def main() -> int:
 
     # 16. multi-GPU as one card can show it: world size 1, two gloo ranks
     # on the card, the router's TP spill
+    enter(16)
     t16 = time.perf_counter()
     mesh_stats = mesh_phase(np, torch, dev, Xtr, Ttr, main_outs)
     log(f"[mesh] phase 16 in {time.perf_counter() - t16:.1f} s")
+
+    # 17. online learning: train-while-serve with promotions and rollbacks
+    enter(17)
+    _, w_ann = kernel_format.load_kernel(os.path.join(WORK, "ann", "kernel.opt"))
+    online_stats = online_phase(np, torch, dev, km.Kernel(weights=tuple(w_ann)))
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -3006,6 +4011,7 @@ def main() -> int:
         "serve": serve_stats,
         "planes": planes_summary(planes),
         "mesh": mesh_stats,
+        "online": online_stats,
     }]
     for name, replaces, on_path in BATCH_KERNELS:
         t = batch_times[name]
@@ -3034,6 +4040,8 @@ def main() -> int:
             "other_team_ms": t["other_team_ms"],
         })
     kernels[1]["main"] = batch_stats
+    next(k for k in kernels if k["name"] == "train_epoch_grid_banked")[
+        "launches_online"] = online_stats["launches"]["train_epoch_grid_banked"]
     t8 = fleet_times[FLEET_TIMED_N[0]]
     fleet_err = {d: max(e, fleet_stats["hpnn_vs_plain"][d]) for d, e in fleet_err.items()}
     kernels.append({
@@ -3059,7 +4067,8 @@ def main() -> int:
         "by_members": fleet_times,
         "crossover": fleet_cross,
         "main": fleet_stats,
-        "launches_by_entry": fleet_launches,
+        "launches_by_entry": dict(fleet_launches, **{
+            f"online.{k}": v for k, v in online_stats["launches"].items()}),
     })
     log(f"[card] {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))
@@ -3072,5 +4081,9 @@ if __name__ == "__main__":
     try:
         sys.exit(main())
     except SmokeFailure as exc:
-        print(f"chip_smoke: FAILED: {exc}", file=sys.stderr)
-        sys.exit(1)
+        fail(str(exc))
+    except Exception as exc:
+        fail(f"{type(exc).__name__}: {exc}", traceback.format_exc())
+    # a failed phase may leave threads blocked on the card: exit without
+    # waiting for them (or for the card) at interpreter shutdown
+    os._exit(1)

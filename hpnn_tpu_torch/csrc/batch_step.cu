@@ -154,6 +154,17 @@ constexpr size_t smem_bytes() {
 
 __device__ __forceinline__ float dev_exp(float x) { return expf(x); }
 __device__ __forceinline__ double dev_exp(double x) { return exp(x); }
+// exp(x) of the SNN output (x = z - 1), models/snn.py's out_exp: a
+// subnormal double result is exp(x / 2) squared, rounded once by the
+// multiply, since exp itself can return 0 there where the CPU does not
+__device__ __forceinline__ float out_exp(float x) { return expf(x); }
+__device__ __forceinline__ double out_exp(double x) {
+  if (x < -708.0) {
+    const double h = exp(0.5 * x);
+    return h * h;
+  }
+  return exp(x);
+}
 __device__ __forceinline__ float dev_log(float x) { return logf(x); }
 __device__ __forceinline__ double dev_log(double x) { return log(x); }
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
@@ -520,7 +531,7 @@ __device__ void forward(const Params<T>& p, const T* x, const T* tg, Team& team,
       T* os = wk.out();
       gemm_tile<T>(p.B, n, m, vin, m, 1, p.w[l], 1, m, tm, t % tn_count, wk,
                    [&](int r, int c, T z) {
-                     const T v = soft ? dev_exp(z - T(1)) : act(z);
+                     const T v = soft ? out_exp(z - T(1)) : act(z);
                      if (fold)
                        os[(r - tm * HPNN_TILE) * HPNN_OUT_LD + c] = v;
                      else

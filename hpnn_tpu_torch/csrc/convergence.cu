@@ -202,6 +202,17 @@ __device__ __forceinline__ void cluster_barrier() {
 
 __device__ __forceinline__ float dev_exp(float x) { return expf(x); }
 __device__ __forceinline__ double dev_exp(double x) { return exp(x); }
+// exp(x) of the SNN output (x = z - 1), models/snn.py's out_exp: a
+// subnormal double result is exp(x / 2) squared, rounded once by the
+// multiply, since exp itself can return 0 there where the CPU does not
+__device__ __forceinline__ float out_exp(float x) { return expf(x); }
+__device__ __forceinline__ double out_exp(double x) {
+  if (x < -708.0) {
+    const double h = exp(0.5 * x);
+    return h * h;
+  }
+  return exp(x);
+}
 __device__ __forceinline__ float dev_log(float x) { return logf(x); }
 __device__ __forceinline__ double dev_log(double x) { return log(x); }
 
@@ -381,7 +392,7 @@ __device__ void forward(const K& c, bool snn, T* an, const T* ao, bool momentum,
         }
       }
       acc = warp_sum(acc);
-      if (lane == 0) vout[row] = soft ? dev_exp(acc - T(1)) : act(acc);
+      if (lane == 0) vout[row] = soft ? out_exp(acc - T(1)) : act(acc);
     }
     HPNN_PHASE(c, P_FWD);
     cluster_barrier();

@@ -10,6 +10,10 @@ output and in the loss (ref: libhpnn src/snn.c, SURVEY.md §2.4):
   denominator (ref: src/snn.c:282-335; common.h:79).
 * error: cross-entropy ``Ep = -(1/N) Σ t_i log(o_i + TINY)``
   (ref: src/snn.c:444-477).
+* float64 ``exp(z - 1)`` below -708, where its result is subnormal, is
+  ``exp((z - 1) / 2)`` squared (:func:`out_exp`): the card's exp can
+  return 0 there where the CPU's gives the least subnormal, and once
+  every output has underflowed that alone decides the stop.
 * deltas: output ``δ = (t - o)`` (softmax+CE shortcut, no dact,
   ref: src/snn.c:510-512); hidden layers identical to ANN.
 * updates: same shapes as ANN but η = LEARN_RATE = 0.01 for BOTH the
@@ -26,9 +30,26 @@ TINY = 1e-14
 SNN_LEARN_RATE = 0.01
 
 
+# exp(x) is a normal float64 for every x >= -708 (exp(-708) > 2**-1022)
+SUBNORMAL_BELOW = -708.0
+
+
+def out_exp(z):
+    """``exp(z - 1)``, the output numerator.  In float64 a subnormal
+    result is ``exp(x / 2)**2``: the half is exact, its exp normal, and
+    the one multiply rounds it onto the subnormal grid the same way on
+    every device (bitwise ``torch.exp`` wherever the result is normal)."""
+    x = z - 1.0
+    if x.dtype != torch.float64:
+        return torch.exp(x)
+    small = x < SUBNORMAL_BELOW
+    h = torch.exp(torch.where(small, 0.5 * x, x))
+    return torch.where(small, h * h, h)
+
+
 def softmax_out(z):
     """``exp(z-1) / (TINY + Σ exp(z-1))`` over the last dimension."""
-    e = torch.exp(z - 1.0)
+    e = out_exp(z)
     return e / (TINY + torch.sum(e, dim=-1, keepdim=True))
 
 

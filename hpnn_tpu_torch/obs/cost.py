@@ -130,12 +130,15 @@ def peak_flops(dtype_name: str, device_type: str) -> float:
 
 # ------------------------------------------------------------ recording
 def synchronize(device) -> None:
-    """Wait for ``device``'s queued work when ``HPNN_COST`` is set and
-    it is a card; a no-op otherwise, so an unset knob times nothing."""
+    """Wait for the work queued on ``device``'s current stream (the
+    stream the timed launch runs on) when ``HPNN_COST`` is set and it is
+    a card; a no-op otherwise, so an unset knob times nothing.  It never
+    waits on the whole device: the online trainer times its launches on
+    its own stream while serving threads capture and replay."""
     if enabled() and getattr(device, "type", device) == "cuda":
         import torch
 
-        torch.cuda.synchronize(device)
+        torch.cuda.current_stream(device).synchronize()
 
 
 def catalog() -> dict[str, dict]:

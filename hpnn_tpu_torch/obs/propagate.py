@@ -35,8 +35,7 @@ edge → router → replica dispatch tree from N processes' files.
 
 The **slot** API (:func:`note` / :func:`peek`) carries a context
 across an in-process asynchrony gap that headers cannot cross (the
-JAX package's ingest → online trainer chain; the port has no online
-trainer yet, so nothing reads a slot).
+ingest → online trainer chain, ``online/trainer.py``).
 
 Contract (same as every obs knob): propagation is active iff
 ``HPNN_SPANS`` is set — one memoized check, then every call on the

@@ -80,7 +80,7 @@ def forward_local(weights_loc, x, *, model: str, n_out: int, mesh=None, rows=Non
     last = len(weights_loc) - 1
     for l, w in enumerate(weights_loc):
         if model == "snn" and l == last:
-            e = rows(l, w, v, lambda z: torch.exp(z - 1.0))
+            e = rows(l, w, v, snn.out_exp)
             e = e * _out_mask(e.shape[-1], n_out, e)
             v = e / (TINY + torch.sum(e, dim=-1, keepdim=True))
         else:

@@ -36,7 +36,27 @@ Two dispatch modes, selected per engine (``HPNN_SERVE_MODE`` or the
   MiB on an H100) for each capturing thread's handle on the side
   stream, for the process's life: a host bounds them by capturing from
   few threads (the tenant pager captures on the requesting thread at
-  page-in, and refuses lazy captures on ``cuda``).  TF32 is off (the
+  page-in, and refuses lazy captures on ``cuda``).
+
+  **The capturing threads.**  ``serve_nn`` and a plain ``Session``
+  capture on the thread that registers, loads or reloads a kernel.  An
+  online session (``online/``) captures its bucket menus on the thread
+  that builds it and, once its trainer thread runs, on that thread
+  alone: a promotion, the watch's rollback, a manual rollback and a
+  registration after boot are all queued to it.
+  :meth:`Engine.pin_captures` enforces this: while a thread is pinned,
+  a capture (a forward built on a cache miss) on any other thread
+  raises.  **The stream rule.**  Replays run on the calling thread's
+  current stream (a batcher thread's default stream); the online
+  trainer launches kernels #4 and #6, and copies and allocates, on a
+  stream of its own and waits on it alone, never on the whole device,
+  so replays never queue behind an epoch and no device-wide
+  synchronization runs beside a capture other than ``torch.cuda.graph``'s
+  own, under ``_CAPTURE_LOCK`` (on the card a ``torch.cuda.synchronize``
+  beside another thread's capture raises, and so does a CUDA RNG call:
+  ``chip_smoke.py --capture-thread``).  A graph's cuBLAS workspace is
+  its capture stream's, so no eager work runs on a capture stream once
+  a thread has captured there (:class:`_Graph`).  TF32 is off (the
   JAX engine's float32 matmul pin); under the ``bf16``/``int8`` policies
   bf16 products also keep their float32 reduction
   (``allow_bf16_reduced_precision_reduction = False``).  A failed
@@ -92,6 +112,18 @@ _POLICY_DTYPE = {"bf16": torch.bfloat16, "int8": torch.bfloat16,
 _WARMUP_RUNS = 3
 # held by every capture in the process (see the module docstring)
 _CAPTURE_LOCK = threading.Lock()
+# (capture stream, cuBLAS handle, forward signature) of every capture
+# made so far: the warmup rule of _Graph reads it.  A warmup of several
+# buckets (Engine.warmup_entry) gathers its captures in _BATCH.keys and
+# adds them here when it ends
+_CAPTURED: set = set()
+_BATCH = threading.local()
+
+
+class _Superseded(Exception):
+    """A batch asked for the forward of a version the registry has
+    replaced (and the install evicted): :meth:`Engine.dispatch` reads
+    the registry again rather than capture a graph of the old version."""
 
 
 def quantize_weights(weights, *, bits: int = 8):
@@ -159,6 +191,10 @@ def _model_of(entry: Entry):
     return snn if entry.model == "snn" else ann
 
 
+def _shapes(entry: Entry) -> tuple:
+    return tuple(tuple(int(d) for d in np.shape(w)) for w in entry.kernel.weights)
+
+
 def batch_forward(model, weights, xs, cdt=None, scales=None):
     """The batched forward of one bucket, the body every compiled-mode
     forward runs (captured on ``cuda``, eager on the CPU): ``xs`` is the
@@ -176,27 +212,54 @@ class _Graph:
     """One captured forward: a static input buffer on the card, the
     CUDA graph of ``fn`` over it, and the graph's static output.
     Calls take the graph's lock around copy-in, replay and copy-out,
-    and count the replays."""
+    and count the replays.
 
-    def __init__(self, fn, shape, dtype, device, stream):
+    A graph keeps the cuBLAS workspace of the (thread's handle, stream)
+    it was captured on, and cuBLAS's split-K GEMMs keep their counters
+    there: an eager GEMM on that workspace while such a graph replays
+    can leave a kernel spinning and the card hung (reproduced by
+    ``chip_smoke.py --capture-thread``).  So nothing runs eagerly on a capture stream
+    once the handle has captured there: the first capture of a handle
+    on ``stream`` warms up on it (cuBLAS's handle and workspace, the
+    allocator's blocks, the kernels' lazy load); a later capture of the
+    same signature ``sig`` (default: the block's shape and dtype) needs
+    no warmup, and one of a new signature warms up on the calling
+    thread's current stream.  The captures of one
+    :meth:`Engine.warmup_entry` count as one: its buckets all warm up
+    on ``stream`` when the handle had captured nothing there before it
+    began (an install serves none of them before it ends).  The
+    workspace itself is made without a kernel
+    (``torch.cuda.current_blas_handle``).  Replays run on the caller's
+    current stream, the default stream of every thread here, so two
+    replays never run at once."""
+
+    def __init__(self, fn, shape, dtype, device, stream, sig=None):
         self.device = device
         self.lock = threading.Lock()
         self.replays = 0
+        sig = (tuple(shape), str(dtype)) if sig is None else sig
         with torch.cuda.device(device), torch.no_grad():
             self.static_in = torch.zeros(shape, dtype=dtype, device=device)
-            # warm up on the side stream (cuBLAS's handle and workspace,
-            # the allocator's blocks), then capture on it
-            stream.wait_stream(torch.cuda.current_stream(device))
+            cur = torch.cuda.current_stream(device)
             with torch.cuda.stream(stream):
-                for _ in range(_WARMUP_RUNS):
-                    fn(self.static_in)
-            torch.cuda.current_stream(device).wait_stream(stream)
+                handle = torch.cuda.current_blas_handle()
+            key = (stream.cuda_stream, handle)
+            if key + (sig,) not in _CAPTURED:
+                seen = list(_CAPTURED)
+                warm = cur if any(k[:2] == key for k in seen) else stream
+                warm.wait_stream(cur)
+                with torch.cuda.stream(warm):
+                    for _ in range(_WARMUP_RUNS):
+                        fn(self.static_in)
+                cur.wait_stream(warm)
             self.graph = torch.cuda.CUDAGraph()
             # no pool argument: the graph's memory is its own
-            with _CAPTURE_LOCK, torch.cuda.graph(
-                    self.graph, stream=stream,
-                    capture_error_mode="thread_local"):
-                self.static_out = fn(self.static_in)
+            with _CAPTURE_LOCK:
+                with torch.cuda.graph(self.graph, stream=stream,
+                                      capture_error_mode="thread_local"):
+                    self.static_out = fn(self.static_in)
+                batch = getattr(_BATCH, "keys", None)
+                (_CAPTURED if batch is None else batch).add(key + (sig,))
 
     def __call__(self, block: np.ndarray) -> np.ndarray:
         x = torch.from_numpy(np.ascontiguousarray(block)).to(self.static_in.dtype)
@@ -266,14 +329,35 @@ class Engine:
         # under its own lock
         self._cache_stats: dict[tuple, dict] = {}
         self._stats_lock = threading.Lock()
-        # one side stream (warmup and capture) per engine, made at the
-        # first capture
+        # one capture stream per engine, made at the first capture
         self._stream = None
+        # the only thread that may capture, when pinned (pin_captures)
+        self._capture_thread = None
 
     @property
     def mode(self) -> str:
         """"parity" | "compiled"."""
         return self._mode
+
+    def pin_captures(self, thread: threading.Thread | None) -> None:
+        """From now on only ``thread`` may build a forward (a capture on
+        ``cuda``); a miss on any other thread raises.  ``None`` lifts
+        the pin.  The online trainer pins its thread while it runs."""
+        self._capture_thread = thread
+
+    def _superseded(self, entry: Entry) -> bool:
+        """True when the registry holds a newer version of ``entry``."""
+        try:
+            return self.registry.get(entry.name).version > entry.version
+        except KeyError:
+            return False
+
+    def _check_capture_thread(self) -> None:
+        owner = self._capture_thread
+        if owner is not None and owner is not threading.current_thread():
+            raise RuntimeError(
+                f"a capture on thread {threading.current_thread().name!r}: "
+                f"this engine captures on {owner.name!r} only")
 
     # ------------------------------------------------------------ capture
     def _precision(self, entry: Entry) -> str | None:
@@ -311,14 +395,21 @@ class Engine:
                 self._weights_cache[key] = w
         return w
 
-    def _forward_of(self, body, shape, dtype):
+    def _forward_of(self, body, shape, dtype, sig):
         """The numpy forward of ``body`` over a ``shape`` block in
-        ``dtype``: a captured graph on ``cuda``, ``body`` run eagerly on
-        the CPU.  The caller holds the engine lock."""
+        ``dtype``: a captured graph on ``cuda`` (``sig``: what else
+        decides its kernels, see :class:`_Graph`), ``body`` run eagerly
+        on the CPU.  The caller holds the engine lock."""
         if self.device.type == "cuda":
             if self._stream is None:
-                self._stream = torch.cuda.Stream(self.device)
-            return _Graph(body, shape, dtype, self.device, self._stream)
+                # from the high-priority pool: PyTorch hands out its pool
+                # streams round-robin, so a low-priority one could be the
+                # very stream another thread runs eager work on (the
+                # online trainer's), and a graph's workspace is the
+                # capture stream's (_Graph)
+                self._stream = torch.cuda.Stream(self.device, priority=-1)
+            return _Graph(body, shape, dtype, self.device, self._stream,
+                          (tuple(shape), str(dtype)) + sig)
 
         def fn(block):
             with torch.no_grad():
@@ -366,6 +457,9 @@ class Engine:
             # another thread may have built it while this one waited
             fn = self._cached(key)
             if fn is None:
+                if self._superseded(entry):
+                    raise _Superseded(entry.name)
+                self._check_capture_thread()
                 fn, fill_s = self._build_forward(entry, bucket, prec)
                 self._store(key, fn, fill_s, kernel=entry.name,
                             version=entry.version, bucket=bucket,
@@ -404,7 +498,9 @@ class Engine:
                 def body(xs, _w=weights, _s=scales, _c=cdt, _m=model):
                     return batch_forward(_m, _w, xs, _c, _s)
 
-                fn = self._forward_of(body, (bucket, entry.n_inputs), native)
+                fn = self._forward_of(
+                    body, (bucket, entry.n_inputs), native,
+                    (entry.model, prec, _shapes(entry)))
         return fn, time.perf_counter() - t_fill
 
     @staticmethod
@@ -492,23 +588,37 @@ class Engine:
         names = self.registry.names() if names is None else list(names)
         n = 0
         for name in names:
-            entry = self.registry.get(name)
-            dt = dtype or np.asarray(entry.kernel.weights[0]).dtype
-            prec = self._precision(entry)
-            for bucket in self.buckets:
-                fn = self._compiled_forward(entry, bucket, dt,
-                                            prec=prec)
-                n += 1
-            if prec is not None and self.mode == "compiled":
-                obs.event("serve.precision", kernel=name,
-                          precision=prec, version=entry.version,
-                          source="warmup")
-                # fn is the top-bucket forward from the loop above
-                self._probe_quant_err(entry, fn, self.buckets[-1],
-                                      dt, prec)
+            n += self.warmup_entry(self.registry.get(name), dtype=dtype)
         obs.event("serve.warmup", kernels=len(names),
                   buckets=len(self.buckets))
         return n
+
+    def warmup_entry(self, entry: Entry, *, dtype=None) -> int:
+        """Capture the bucket menu of ``entry``, registered or about to
+        be: ``Session.install_kernel`` warms the new version before the
+        registry publishes it, so no batcher meets a version without its
+        forwards (and captures on its own thread).  Returns the number
+        of forwards built or found."""
+        dt = dtype or np.asarray(entry.kernel.weights[0]).dtype
+        prec = self._precision(entry)
+        outer = getattr(_BATCH, "keys", None) is None
+        if outer:
+            _BATCH.keys = set()
+        try:
+            for bucket in self.buckets:
+                fn = self._compiled_forward(entry, bucket, dt, prec=prec)
+        finally:
+            if outer:
+                with _CAPTURE_LOCK:
+                    _CAPTURED.update(_BATCH.keys)
+                _BATCH.keys = None
+        if prec is not None and self.mode == "compiled":
+            obs.event("serve.precision", kernel=entry.name,
+                      precision=prec, version=entry.version,
+                      source="warmup")
+            # fn is the top-bucket forward from the loop above
+            self._probe_quant_err(entry, fn, self.buckets[-1], dt, prec)
+        return len(self.buckets)
 
     # ------------------------------------------------------------ run
     def _dispatch_work(self, entry: Entry, prec, bucket: int):
@@ -623,9 +733,19 @@ class Engine:
                     f"payload width {b.shape[1]} != kernel n_inputs "
                     f"{entry.n_inputs}")
         counts = [b.shape[0] for b in blocks]
+        rows = np.concatenate(blocks, axis=0)
         with obs.timer("serve.forward", kernel=entry_name,
                        rows=sum(counts)):
-            out = self.run_rows(entry, np.concatenate(blocks, axis=0))
+            while True:
+                try:
+                    out = self.run_rows(entry, rows)
+                    break
+                except _Superseded:
+                    # an install published a newer version between the
+                    # read above and this batch's first lookup: answer
+                    # from the newer one (old or new, never a capture
+                    # of the old)
+                    entry = self.registry.get(entry_name)
         if obs.probes.enabled():
             # serve-side NaN tripwire: census the outputs (already host
             # numpy) into the per-kernel /healthz numerics verdict
@@ -665,6 +785,7 @@ class Engine:
             fn = self._cached(key)
             if fn is not None:
                 return fn
+            self._check_capture_thread()
             first = entries[0]
             model = _model_of(first)
             native = self.native_dtype(first)
@@ -687,7 +808,8 @@ class Engine:
                         return _m.run_batch(_w, xs)
 
                     fn = self._forward_of(
-                        body, (len(entries), bucket, first.n_inputs), native)
+                        body, (len(entries), bucket, first.n_inputs), native,
+                        (first.model, "fleet", _shapes(first)))
             self._store(key, fn, time.perf_counter() - t_fill,
                         kernel="(fleet)", members=len(entries),
                         bucket=bucket, dtype=dtype.str)

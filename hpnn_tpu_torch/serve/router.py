@@ -128,6 +128,14 @@ class _FanEngine:
     def mode(self):
         return self._router._primary().engine.mode
 
+    @property
+    def device(self):
+        return self._router._primary().engine.device
+
+    def pin_captures(self, thread) -> None:
+        for rep in self._router.replicas:
+            rep.engine.pin_captures(thread)
+
     def warmup(self, names=None, *, dtype=None) -> int:
         return sum(rep.engine.warmup(names, dtype=dtype)
                    for rep in self._router.replicas if not rep._closed)

@@ -6,9 +6,9 @@ carries the ``alerts``, ``sampler``, ``capsules``, ``drift``, ``blame``
 and ``tune`` sections, ``/meterz``, ``/tunez`` and ``POST /v1/capture``
 answer when ``HPNN_METER``, ``HPNN_TUNE`` and ``HPNN_CAPSULE_DIR`` are
 armed (404 otherwise), and ``/tenantz`` answers on a
-:class:`~hpnn_tpu_torch.tenant.TenantSession`.  The online-learning
-layer is not ported, so ``/ingest`` answers 404 as on a plain JAX
-serving process.
+:class:`~hpnn_tpu_torch.tenant.TenantSession`.  ``POST /ingest`` feeds
+an attached :class:`~hpnn_tpu_torch.online.OnlineSession` (it answers 404
+on a plain serving process, as in the JAX package).
 
 The reference's deployment story is *embedding* — a host scientific
 code calls ``_NN(run,kernel)`` in its inner loop.  :class:`Session` is
@@ -34,7 +34,7 @@ same Session, for drivers that aren't Python:
 * ``POST /ingest`` (alias ``/v1/ingest``)
   ``{"kernel": n?, "inputs": [...], "targets": [...]}`` → feed the
   online-learning sample buffer when an ``OnlineSession`` is attached
-  (hpnn_tpu/online/; docs/online.md); 404 on a plain serving process.
+  (hpnn_tpu_torch/online/; docs/online.md); 404 on a plain serving process.
   Carries the same ``X-Request-Id`` echo as ``/v1/infer`` and runs
   under a ``serve.ingest`` span parented to the caller's trace.
 
@@ -156,9 +156,13 @@ class Session:
         self._clock = clock
         self._start = bool(start)
         self._lock = threading.Lock()
+        # held by every method below that gives a kernel a new version:
+        # an install captures the next version before publishing it, so
+        # no other method may take that version number meanwhile
+        self._versions = threading.RLock()
         self._batchers: dict[str, Batcher] = {}
         self._closed = False
-        # the online-learning layer (hpnn_tpu/online/) plugs in here:
+        # the online-learning layer (hpnn_tpu_torch/online/) plugs in here:
         # ingest_hook(kernel|None, X, T) -> dict serves POST /ingest;
         # online_health() -> dict becomes /healthz's "online" section.
         # Both stay None on a plain serving process (route answers 404)
@@ -185,9 +189,10 @@ class Session:
                     model: str = "ann", warmup: bool = True):
         """Load a kernel file, install it, optionally pre-compile the
         whole bucket menu so serving never hits a compile stall."""
-        entry = self.registry.load(name, path, model=model)
-        if warmup:
-            self.engine.warmup([name])
+        with self._versions:
+            entry = self.registry.load(name, path, model=model)
+            if warmup:
+                self.engine.warmup([name])
         return entry
 
     def register_kernel(self, name: str, kernel: kernel_mod.Kernel, *,
@@ -199,27 +204,30 @@ class Session:
         the entry a reload source (the online WAL-restore path hands a
         checkpoint here); without them there is no file backing and no
         hot-reload."""
-        entry = self.registry.register(name, kernel, model=model,
-                                       path=path, mtime=mtime, sig=sig)
-        if warmup:
-            self.engine.warmup([name])
+        with self._versions:
+            entry = self.registry.register(name, kernel, model=model,
+                                           path=path, mtime=mtime, sig=sig)
+            if warmup:
+                self.engine.warmup([name])
         return entry
 
     def reload(self, name: str, *, warmup: bool = True):
         """Force a re-read of ``name``'s kernel file and re-warm it."""
-        entry = self.registry.reload(name)
-        if warmup:
-            self.engine.warmup([name])
-        self.engine.evict(name, keep_version=entry.version)
+        with self._versions:
+            entry = self.registry.reload(name)
+            if warmup:
+                self.engine.warmup([name])
+            self.engine.evict(name, keep_version=entry.version)
         return entry
 
     def maybe_reload(self, name: str) -> bool:
         """Hot-reload ``name`` if its file changed on disk."""
-        if not self.registry.maybe_reload(name):
-            return False
-        entry = self.registry.get(name)
-        self.engine.warmup([name])
-        self.engine.evict(name, keep_version=entry.version)
+        with self._versions:
+            if not self.registry.maybe_reload(name):
+                return False
+            entry = self.registry.get(name)
+            self.engine.warmup([name])
+            self.engine.evict(name, keep_version=entry.version)
         return True
 
     def install_kernel(self, name: str, kernel: kernel_mod.Kernel, *,
@@ -229,11 +237,25 @@ class Session:
         round-trip): registry entry swap, engine warmed on the new
         version, old executables evicted.  In-flight batches finish
         on the entry they dispatched with — a request observes the
-        old or the new version, never a torn mix (docs/online.md)."""
-        entry = self.registry.install(name, kernel)
-        if warmup:
-            self.engine.warmup([name])
-        self.engine.evict(name, keep_version=entry.version)
+        old or the new version, never a torn mix (docs/online.md).
+        The new version's forwards are captured BEFORE the registry
+        publishes it, on the calling thread, so no batcher meets the
+        new version without them and captures on its own thread."""
+        with self._versions:
+            if warmup and kernel_mod.validate(kernel):
+                try:
+                    prev = self.registry.get(name)
+                except KeyError:
+                    prev = None     # the registry's install refuses it
+                if prev is not None:
+                    self.engine.warmup_entry(prev._replace(
+                        kernel=kernel, version=prev.version + 1))
+            entry = self.registry.install(name, kernel)
+            if warmup:
+                # finds every forward built above (a version change
+                # outside this session, e.g. a precision retag, builds)
+                self.engine.warmup([name])
+            self.engine.evict(name, keep_version=entry.version)
         return entry
 
     def kernels(self) -> list[str]:

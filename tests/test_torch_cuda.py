@@ -785,3 +785,124 @@ def test_tenant_failed_capture_on_page_in_raises(cuda, tmp_path, monkeypatch):
         assert host.infer_for("t", "a", np.zeros(784)).shape == (10,)
     finally:
         host.close()
+
+
+# ------------------------------------------------------------------ online
+def _online_session(rows=64, batch=16, **kw):
+    from hpnn_tpu_torch import online
+
+    return online.OnlineSession(
+        serve_kwargs=dict(max_batch=16, n_buckets=2, max_wait_ms=1.0),
+        rows=rows, batch=batch, epochs=2, holdout=4, seed=3,
+        gate=online.Gate(margin=0.0, watch_s=3600.0), **kw)
+
+
+def _online_block(n, n_in=784, n_out=10, seed=5):
+    rng = np.random.default_rng(seed)
+    X = rng.random((n, n_in))
+    T = np.eye(n_out)[rng.integers(0, n_out, n)]
+    return X, T
+
+
+def test_online_round_launches_4_and_6_on_the_trainer_stream(cuda, monkeypatch):
+    """A round trains a 2-member group with one #6 launch an epoch and a
+    singleton with #4, on the trainer's own stream, and never calls
+    torch.cuda.synchronize; its candidates equal the CPU float64 round's
+    within the kernels' float64 bar when run in float64."""
+    from hpnn_tpu_torch import online
+
+    kernels = {"a": (km.generate(7, 784, [32], 10)[0], "ann"),
+               "b": (km.generate(8, 784, [32], 10)[0], "ann"),
+               "s": (km.generate(9, 784, [32], 10)[0], "snn")}
+    X, T = _online_block(64)
+    res = {}
+    for dev_name in ("cuda", "cpu"):
+        monkeypatch.setenv("HPNN_DTYPE", "float64")
+        o = online.OnlineSession(serve_kwargs={"device": dev_name}, rows=64,
+                                 batch=16, epochs=2, seed=3)
+        for n, (k, m) in kernels.items():
+            o.add_kernel(n, k, model=m, warmup=False)
+        tr = o.trainer
+        assert (tr.stream is not None) == (dev_name == "cuda")
+        before = dict(batch_step.launches)
+        seen = []
+        launch = batch_step._launch_fleet
+
+        def on_stream(*a, **k):
+            seen.append(torch.cuda.current_stream() == tr.stream)
+            return launch(*a, **k)
+
+        monkeypatch.setattr(batch_step, "_launch_fleet", on_stream)
+        monkeypatch.setattr(torch.cuda, "synchronize", None)
+        out = {}
+        with tr._on_stream():
+            Xd, Td = tr._window(X, T)
+            for entries in tr._groups(list(kernels)).values():
+                out.update(tr._train_group(entries, Xd, Td))
+        monkeypatch.undo()
+        res[dev_name] = out
+        if dev_name == "cuda":
+            assert seen and all(seen)
+            assert batch_step.launches["train_fleet_epoch_dbuf_banked"] \
+                == before["train_fleet_epoch_dbuf_banked"] + 2
+            assert batch_step.launches["train_epoch_grid_banked"] \
+                == before["train_epoch_grid_banked"] + 2
+        o.close()
+    for n in kernels:
+        (wc, lc), (wp, lp) = res["cuda"][n], res["cpu"][n]
+        assert max(float(np.max(np.abs(a - b))) for a, b in zip(wc, wp)) <= TOL64
+        assert abs(lc - lp) <= TOL64
+
+
+def test_online_promotion_captures_on_the_trainer_thread(cuda):
+    """Started, the session warms on this thread, then promotes on the
+    trainer thread alone: every capture after warmup runs there, a
+    rollback asked for from this thread runs there too and changes the
+    answer back, and no round fails."""
+    import threading
+    import time
+
+    o = _online_session(interval_s=0.05)
+    k = km.generate(11, 784, [32], 10)[0]
+    o.add_kernel("k", k)
+    eng = o.serve.engine
+    threads = []
+    forward_of = eng._forward_of
+
+    def logged(*a, **kw):
+        threads.append(threading.current_thread().name)
+        return forward_of(*a, **kw)
+
+    eng._forward_of = logged
+    x = _online_block(1, seed=9)[0]
+    o.feed(*_online_block(256))
+    o.start()
+    deadline = time.monotonic() + 60
+    while o.promoter.stats["promoted"] < 1 and time.monotonic() < deadline:
+        time.sleep(0.02)
+    assert o.promoter.stats["promoted"] >= 1
+    o.trainer.candidate_hook = lambda name, w: tuple(
+        np.asarray(a) for a in o.serve.registry.get(name).kernel.weights)
+    time.sleep(0.3)                 # a round in flight may still promote
+    y1 = o.infer("k", x)
+    assert o.rollback("k") is not None
+    y2 = o.infer("k", x)
+    assert not np.array_equal(y1, y2)
+    assert set(threads) == {"hpnn-online-trainer"}
+    assert o.trainer.stats["failed"] == 0
+    o.close()
+
+
+def test_online_capture_elsewhere_raises_while_pinned(cuda):
+    """While the trainer thread runs, a capture asked for from another
+    thread raises instead of capturing there."""
+    o = _online_session(interval_s=3600.0)
+    o.add_kernel("k", km.generate(12, 784, [32], 10)[0])
+    o.start()
+    with pytest.raises(RuntimeError, match="captures on"):
+        o.serve.install_kernel("k", km.generate(13, 784, [32], 10)[0])
+    o.close()
+    o2 = _online_session()
+    o2.add_kernel("k", km.generate(12, 784, [32], 10)[0])
+    assert o2.serve.install_kernel("k", km.generate(13, 784, [32], 10)[0]).version == 1
+    o2.close()

@@ -106,15 +106,36 @@ PLANE_MODULES = (
     "hpnn_tpu_torch.tenant.host",
 )
 
+# the online-learning layer, its CLI, the data tools its streams use and
+# the SNN stop diagnosis
+ONLINE_MODULES = (
+    "hpnn_tpu_torch.online",
+    "hpnn_tpu_torch.online.ingest",
+    "hpnn_tpu_torch.online.wal",
+    "hpnn_tpu_torch.online.streams",
+    "hpnn_tpu_torch.online.promote",
+    "hpnn_tpu_torch.online.trainer",
+    "hpnn_tpu_torch.online.session",
+    "hpnn_tpu_torch.cli.online_nn",
+    "hpnn_tpu_torch.tools.sgdata",
+    "hpnn_tpu_torch.tools.synth_mnist",
+    "hpnn_tpu_torch.tools.synth_rruff",
+    "hpnn_tpu_torch.tools.pmnist",
+    "hpnn_tpu_torch.tools.pdif",
+    "hpnn_tpu_torch.tools.gen_ann",
+    "hpnn_tpu_torch.tools.snn_stops",
+)
+
 
 @pytest.fixture(scope="module")
 def _plane_imports():
-    """One fresh interpreter imports the plane modules one by one and
-    reports, after each, the jax / JAX-package modules loaded so far."""
+    """One fresh interpreter imports the plane and online modules one by
+    one and reports, after each, the jax / JAX-package modules loaded so
+    far."""
     code = (
         "import importlib, json, sys\n"
         "out = {}\n"
-        f"for m in {PLANE_MODULES!r}:\n"
+        f"for m in {PLANE_MODULES + ONLINE_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "    out[m] = [n for n in sys.modules "
         "if n.split('.')[0] in ('jax', 'jaxlib', 'hpnn_tpu')]\n"
@@ -131,6 +152,19 @@ def _plane_imports():
 def test_plane_module_imports_no_jax(_plane_imports, module):
     """Each plane module imports neither jax nor the JAX package, and
     its source holds no such import."""
+    assert _plane_imports[module] == []
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, *module.split("."), "__init__.py")
+    with open(path) as fp:
+        assert not _FORBIDDEN.search(fp.read())
+
+
+@pytest.mark.parametrize("module", ONLINE_MODULES)
+def test_online_module_imports_no_jax(_plane_imports, module):
+    """Each online module, ``online_nn`` and each data tool imports
+    neither jax nor the JAX package, and its source holds no such
+    import."""
     assert _plane_imports[module] == []
     path = os.path.join(ROOT, *module.split(".")) + ".py"
     if not os.path.exists(path):

@@ -116,6 +116,51 @@ def test_snn_quirks():
     assert (ann.BP_LEARN_RATE, ann.BPM_LEARN_RATE) == (jann.BP_LEARN_RATE, jann.BPM_LEARN_RATE)
 
 
+def test_snn_out_exp_subnormal_results():
+    """``out_exp`` is ``torch.exp(z - 1)`` bit for bit wherever the result
+    is a normal float64, and in float32; below it is within one subnormal
+    ulp of the correctly rounded exp, zero exactly where that is zero
+    (the CPU's exp, which an SNN stop rests on once every output has
+    underflowed)."""
+    import math
+
+    z = torch.linspace(-746.0, 40.0, 200_001, dtype=torch.float64) + 1.0
+    got, plain = snn.out_exp(z), torch.exp(z - 1.0)
+    normal = (z - 1.0) >= snn.SUBNORMAL_BELOW
+    assert torch.equal(got[normal], plain[normal])
+    z32 = z.to(torch.float32)
+    assert torch.equal(snn.out_exp(z32), torch.exp(z32 - 1.0))
+    sub = z[~normal][::7]
+    ref = torch.tensor([math.exp(v - 1.0) for v in sub.tolist()], dtype=torch.float64)
+    low = got[~normal][::7]
+    assert torch.equal(low == 0, ref == 0)
+    assert float((low - ref).abs().max()) <= math.ulp(0.0)
+    # the least subnormal where the exp's argument is -744.878 (a stop
+    # that the card's exp moved by one iteration)
+    assert float(snn.out_exp(torch.tensor(-743.878, dtype=torch.float64))) == math.ulp(0.0)
+
+
+def test_snn_stops_finds_the_round_order():
+    """``tools/snn_stops`` recovers the order a round trained its samples
+    in from the round's N_ITER list (exact: the same plain loop)."""
+    from hpnn_tpu_torch.tools import snn_stops
+    from hpnn_tpu_torch.train import loop
+
+    rng = np.random.default_rng(7)
+    w0 = tuple(_t(rng.uniform(-0.5, 0.5, s)) for s in ((8, 12), (4, 8)))
+    X = _t(rng.uniform(0.0, 1.0, (4, 12)))
+    T = _t(np.where(np.eye(4)[[2, 0, 3, 1]] > 0, 1.0, -1.0))
+    order, w, n_iter = [2, 0, 3, 1], w0, []
+    for i in order:
+        r = loop.train_sample(w, (), X[i], T[i], 0.2, loop.DELTA_BP, model="snn",
+                              max_iter=400)
+        w = r.weights
+        n_iter.append(r.n_iter)
+    found = snn_stops.orders(w0, X, T, n_iter, 400)
+    assert order in [o for o, _ in found]
+    assert all(len(stops) == 4 for _, stops in found)
+
+
 @pytest.mark.parametrize("model", ["ann", "snn"])
 def test_batched_run_matches_per_sample(model):
     """The eval path's batched forward (KernelModule) equals the JAX
