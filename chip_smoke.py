@@ -47,6 +47,13 @@ Phases (any failure exits non-zero and prints no result line):
    and SNN, float and double; then bitwise: member i of #6 == #5 and
    #4 on bank i with orders[i], #6 == itself run again, and #6 at
    every cluster size (1, 2, 4, 8, 16 CTAs a member) == #6 planned.
+   Then the bf16 build of #6 (bf16 storage, float32 products) against
+   its plain version (the step math on bf16 tensors) at 784-300-10,
+   ANN-BP, ANN-BPM and SNN-BP: weights within ``BF16_BAND["w"]``, each
+   layer's change over the epoch within ``BF16_BAND["update_rel"]`` of
+   plain's, losses within ``BF16_BAND["loss_rel"]`` relative; member i of bf16 #6
+   == bf16 #4 on bank i (bitwise); and ``train.fleet.quant_probe_fleet``
+   (bf16 against float32) on the card below the JAX package's 1e-1.
 11. fleet main — ``train.fleet.train_fleet`` on 8 members of 784-300-10
    ANN-BP, 4096 synthetic MNIST-shaped rows, B = 256, 8 epochs, with
    the launch counts read around it; bitwise: ``train_sequential`` ==
@@ -55,19 +62,29 @@ Phases (any failure exits non-zero and prints no result line):
    the bands; then the HPNN-sized fleet (64 members of 32-16-4, B = 1,
    30 ticks), one launch a tick against one per member, bitwise equal,
    and one such tick of #6 against its plain version (ANN/SNN x BP/BPM,
-   float and double), the weights held to have moved.
+   float and double), the weights held to have moved.  Last, the
+   bf16 fleet: ``train_fleet(dtype="bf16")`` on the same 8 members, the
+   launch counts set to 0 just before and read just after (the bf16 #6
+   row's launches), its loss falling and its weights within
+   ``BF16_VS_F32_W`` of the float32 fleet's.
 12. fleet timing — #6 over one epoch of 8 and of 32 members' 60000-row
    banks at each cluster size, against its plain version (8 members),
    its bound and the members' #5 epochs run one after another; then #6
    planned at 1-32 members against N times one #5 epoch, and the
-   least N at which the fleet is the faster.
+   least N at which the fleet is the faster; then bf16 #6 for 8 members
+   in turns with float32 #6 (f32, bf16, bf16, f32), its plain version
+   and its bound (bf16 bytes at 3.35 TB/s against the same operations
+   at bf16's 989 TFLOP/s; beside it, the same operations at the
+   67 TFLOP/s of the float32 FMA its products run on).
 13. resume, streaming, ledger, obs, native — on phase 4's ANN round
    (256 samples, chunks of 64) and phase 8's batch round: the launch of
    chunk 2 raises and ``HPNN_FUSE_STATE`` resumes (tokens and kernel.opt
    byte-identical to an uninterrupted run), and a batch run stopped
    after epoch 2 of 5 resumes the same way; ``HPNN_FUSE_EPOCH=0``
    launches #1 once a sample with the chunked run's stdout and
-   kernel.opt; the per-sample, batch and 8-member fleet rounds in
+   kernel.opt; the per-sample (its first ``F64_SAMPLES`` samples from
+   the generated kernel, at most ``F64_MAX_ITER`` iterations each),
+   batch and 8-member fleet rounds in
    float64 on the card and on the CPU, each with ``HPNN_LEDGER`` and
    ``HPNN_TRACE``: ``tools/ledger_diff.py`` exits 0 and the #DBG lines
    agree tag by tag within 1e-12; every obs knob on leaves stdout and
@@ -91,7 +108,7 @@ Phases (any failure exits non-zero and prints no result line):
 15. planes — the serving planes on the card: (a) the tenant host
    (``tenant.TenantSession`` through ``bench_serve.run_bench_tenant``):
    256 distinct 784-300-10 ANN kernels across 8 tenants, 32 resident,
-   Zipf 1.2 traffic from 16 clients of 1-8 rows for 10 s with the hot
+   Zipf 1.2 traffic from 16 clients of 1-8 rows for ``TENANT_SECONDS`` (6 s) with the hot
    tenant ``silver`` at 50 requests/s, every page-in capturing the
    bucket menu: cold hits split into checkpoint read, copy and
    captures, memory_allocated held under (cap + clients) x one
@@ -99,7 +116,7 @@ Phases (any failure exits non-zero and prints no result line):
    thread, sheds on the hot tenant only, every answer within 1e-5 of
    the CPU float64 answer, a probe kernel bitwise across a page cycle,
    and what a capture costs a replaying neighbour; (b) the bench
-   preset's load in 5 s windows with every plane off and on (A B B A),
+   preset's load in 3 s windows with every plane off and on (A B B A),
    probe rows bitwise alike; (c) a ``POST /v1/capture`` capsule whose
    ``torch.profiler`` window holds the graph launches, an input shift
    firing the drift alert, ``/meterz`` device-seconds against the
@@ -112,7 +129,7 @@ Phases (any failure exits non-zero and prints no result line):
    without ``--mesh``, and one NCCL rank's all_gather and all-reduce
    through ``parallel/coll.py``; (b) two gloo ranks on the one card
    (``dist.run(..., backend="gloo", device="cuda:0")``): per-sample TP
-   (``driver.train_kernel`` then ``run_kernel``) at 784-300-10 on 32
+   (``driver.train_kernel`` then ``run_kernel``) at 784-300-10 on 8
    ANN-BP samples (from phase 4's kernel.opt) and 8 SNN-BP samples
    (generated), ``max_iter`` capped at ``REAL_MAX_ITER``, and
    ``train_kernel_batched`` (B = 256, 2 epochs, 4096 rows) at 2x1 and
@@ -148,6 +165,26 @@ Phases (any failure exits non-zero and prints no result line):
    losses within the fleet band); (d) ``[online]`` lines: a round's wall
    and its training's device time, promote latency, infer p50/p99 with
    the trainer idle and busy, the capturing threads.
+18. fleet — the serving fleet (``hpnn_tpu_torch.fleet``) at 784-300-10:
+   (a) a ``WorkerSupervisor`` spawns two ``online_nn`` worker processes
+   on ``cuda`` (trainer parked, ``--interval-s 600``) sharing one
+   ``HPNN_WAL_DIR`` whose seed version they restore, behind a
+   ``ClusterRouter`` (``CheckpointPublisher(wal_dir=...)``) bound by
+   ``serve.make_server``; (b) ``FLEET_CLIENTS`` clients infer through
+   the edge while ``FLEET_INSTALLS`` fenced installs run: every answer
+   bitwise one version's (as read from every worker after its install,
+   the workers agreeing bitwise), each version within 1e-5 of the CPU
+   float64 forward, the workers converged on the last; (c) one worker
+   SIGKILLed under that load: no answer but a retriable one, the
+   supervisor reaps and replaces it, and the replacement serves the last
+   WAL version bitwise; (d) a worker drained with SIGTERM exits 0, then
+   an ``Autoscaler`` with a tight ``Policy``, fed the requests in flight
+   at the edge per worker, grows the fleet 1 -> 2 under a load ramp and
+   drains it back to 1 (exit 0, no SIGKILL) once the load has stopped;
+   (e) ``[fleet]`` lines: each worker's spawn -> ready seconds
+   (no compile cache: its captures included), the install fan-out's
+   ms, p50/p99 through the edge, the loss-recovery seconds, and each
+   worker's device memory (``nvidia-smi --query-compute-apps``).
 
 The last two lines are the kernel table and the device line.  A failed
 phase prints ``chip_smoke: FAILED in phase N (<name>): <reason>`` (and
@@ -156,7 +193,9 @@ an exception's traceback) on stdout and stderr and exits 1.
 ``--planes-only`` runs phase 1 and phase 15 alone and prints no result
 line (a quick check of the planes on a card).  ``--online-only`` runs
 phase 1 and phase 17 alone (a generated ANN in place of phase 4's) and
-prints no result line.
+prints no result line.  ``--fleet-only`` runs phase 1 and phase 18
+alone (``batch_step.cu`` built first, as the workers' trainers launch
+#4) and prints no result line.
 
 ``--capture-thread`` runs phase 1 and the capture-thread probe alone
 (no result line): five cases of a thread that captures CUDA graphs
@@ -251,6 +290,23 @@ FLEET_LR = 0.003
 HPNN_FLEET = (64, (32, 16, 4), 30)            # bench.py: members, shape, ticks
 FLEET_TIMED_N = (8, 32)                       # phase 12: members timed at every C
 FLEET_CROSS_N = (1, 2, 4, 8, 16, 32)          # phase 12: members against sequential #5
+# The bf16 build of #6 against its plain version (phase 10).  Both
+# store every weight, activation and delta in bf16 (8 bits of
+# mantissa), but the kernel rounds once where it stores a product's
+# float32 sum and the plain version after each tensor operation, so the
+# two trajectories part by a bf16 ulp or two of the weights over S = 8
+# steps.  Set from the card's readings (NVIDIA H100 80GB HBM3, 700.00 W;
+# PERF.md): weights 2.441e-04-4.883e-04 apart (one or two ulps of the
+# ~0.04 weights), held within 2e-3; each layer's change over the epoch,
+# w - w0, 1.9e-02-1.004e-01 from plain's relative to plain's, held
+# within 0.25 (a change of the wrong sign reads 2, none 1); the losses
+# 2.1e-03-3.5e-03 relative, held within 2e-2.
+BF16_BAND = {"w": 2e-3, "update_rel": 0.25, "loss_rel": 2e-2}
+# the bf16 fleet of phase 11 against the float32 one: 2.060e-02 apart in
+# every card run (a step of 0.003/256 of an outer product is under half
+# a bf16 ulp of most weights and rounds away)
+BF16_VS_F32_W = 4e-2
+QUANT_ERR_BAR = 1e-1                          # tests/test_quant.py's bar
 EPOCH_RE = re.compile(r"BATCH EPOCH +(\d+) loss= (\S+) acc= +\S+% \((\d+)/(\d+)\)")
 BATCH_KERNELS = (
     # entry point, TPU kernel it replaces (pallas_call line), on the main path
@@ -269,7 +325,7 @@ PHASE_NAMES = {
     1: "probe", 2: "build", 3: "pinned", 4: "main", 5: "real", 6: "timing",
     7: "batch pinned", 8: "batch main", 9: "batch timing", 10: "fleet pinned",
     11: "fleet main", 12: "fleet timing", 13: "resume-obs-native", 14: "serve",
-    15: "planes", 16: "mesh", 17: "online", 0: "capture-thread probe",
+    15: "planes", 16: "mesh", 17: "online", 18: "fleet", 0: "capture-thread probe",
 }
 # the phase running now, named in a failure's message
 PHASE = {"n": None, "name": "start-up"}
@@ -389,6 +445,14 @@ def same_run(a, b):
 # ---------------------------------------------------------- batch phases
 def state_err(a, b):
     return max(float((x - y).abs().max()) for x, y in zip(a, b))
+
+
+def update_err(w, wp, w0):
+    """Over the layers, the largest distance between the kernel's change
+    ``w - w0`` and its plain version's ``wp - w0``, relative to the
+    plain change."""
+    return max(float(((a.float() - z.float()) - (b.float() - z.float())).norm()
+                     / (b.float() - z.float()).norm()) for a, b, z in zip(w, wp, w0))
 
 
 def loss_err(a, b):
@@ -738,7 +802,8 @@ def batch_timing(np, torch, dev, phase_split=False):
 # ---------------------------------------------------------- fleet phases
 def fleet_pinned(np, torch, dev):
     """Phase 10: the fleet epoch (#6) against its plain version, then
-    the bitwise agreements with #5 and #4.  Returns {dtype: max error}."""
+    the bitwise agreements with #5 and #4; then the bf16 build.  Returns
+    ({dtype: max error}, the bf16 build's errors)."""
     from hpnn_tpu_torch.models import kernel as km
     from hpnn_tpu_torch.ops import batch_step as bs
 
@@ -795,7 +860,78 @@ def fleet_pinned(np, torch, dev):
                     f"max|kernel - plain| {e:.2e} (tol {tol:.0e}); member i == #5 == #4 "
                     f"on bank i, #6 == #6 again, #6 at C = "
                     f"{', '.join(map(str, bs.CLUSTER_SIZES))} == #6 planned (C={plan}) (bitwise)")
-    return err
+    return err, fleet_pinned_bf16(np, torch, dev, rng)
+
+
+def fleet_pinned_bf16(np, torch, dev, rng):
+    """Phase 10, the bf16 build of #6 at 784-300-10 against its plain
+    version on the same bf16 inputs (``BF16_BAND``), member i against
+    bf16 #4 on bank i (bitwise), and ``quant_probe_fleet`` (bf16 against
+    float32) on the card.  Returns the errors."""
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.ops import batch_step as bs
+    from hpnn_tpu_torch.train import fleet
+
+    bf16 = torch.bfloat16
+    shape = (N_IN, N_HID, N_OUT)
+    ks = [km.generate(SEED + i, N_IN, [N_HID], N_OUT)[0] for i in range(FLEET_N)]
+    W = [np.stack([k.weights[l] for k in ks]) for l in range(2)]
+    dW = [rng.uniform(-1e-3, 1e-3, w.shape) for w in W]
+    banks = [batch_bank(np, rng, shape, PINNED_S * BATCH) for _ in range(FLEET_N)]
+    orders = np.stack([rng.permutation(PINNED_S) for _ in range(FLEET_N)])
+    Xd = torch.tensor(np.stack([x for x, _ in banks]), dtype=bf16, device=dev)
+    Td = torch.tensor(np.stack([t for _, t in banks]), dtype=bf16, device=dev)
+    out = {"w": 0.0, "loss_rel": 0.0}
+    for model, momentum in (("ann", False), ("ann", True), ("snn", False)):
+        kw = dict(batch=BATCH, model=model, momentum=momentum)
+        tag = f"{model}-{'BPM' if momentum else 'BP'} {'-'.join(map(str, shape))} bf16"
+
+        def fresh():
+            return ([torch.tensor(w, dtype=bf16, device=dev) for w in W],
+                    [torch.tensor(m, dtype=bf16, device=dev) for m in dW] if momentum else [])
+
+        (wk, dwk), (wp, dwp), (w0, dw0) = fresh(), fresh(), fresh()
+        lk = bs.train_fleet_epoch_dbuf_banked(wk, dwk, Xd, Td, orders, **kw)[2]
+        lp = bs.train_fleet_epoch_dbuf_banked_plain(wp, dwp, Xd, Td, orders, **kw)[2]
+        torch.cuda.synchronize()
+        check(lk.dtype == torch.float32 and wk[0].dtype == bf16,
+              f"fleet {tag}: losses {lk.dtype}, weights {wk[0].dtype}")
+        we = state_err([t.float() for t in wk + dwk], [t.float() for t in wp + dwp])
+        ue = update_err(wk, wp, w0)
+        le = float(((lk - lp).abs() / lp.abs()).max())
+        check(math.isfinite(we) and we <= BF16_BAND["w"],
+              f"fleet {tag}: |kernel - plain| weights {we:.3e} > {BF16_BAND['w']:.0e}")
+        check(math.isfinite(ue) and ue <= BF16_BAND["update_rel"],
+              f"fleet {tag}: the kernel's change of a layer is {ue:.3e} of plain's away "
+              f"from it (> {BF16_BAND['update_rel']})")
+        check(math.isfinite(le) and le <= BF16_BAND["loss_rel"],
+              f"fleet {tag}: |kernel - plain| losses {le:.3e} relative > "
+              f"{BF16_BAND['loss_rel']:.0e}")
+        check(all(not torch.equal(a, b) for a, b in zip(wk, w0)),
+              f"fleet {tag}: the kernel left a layer unchanged")
+        out["w"], out["loss_rel"] = max(out["w"], we), max(out["loss_rel"], le)
+        out["update_rel"] = max(out.get("update_rel", 0.0), ue)
+        for i in range(FLEET_N):
+            wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
+            li = bs.train_epoch_grid_banked(wi, dwi, Xd[i], Td[i], orders[i], **kw)[2]
+            check(torch.equal(li, lk[i])
+                  and all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, wk + dwk)),
+                  f"fleet {tag}: member {i} differs bitwise from bf16 #4")
+        log(f"[fleet-pinned] {tag}, N={FLEET_N} B={BATCH} S={PINNED_S}: max|kernel - plain| "
+            f"weights {we:.3e} (band {BF16_BAND['w']:.0e}), each layer's change {ue:.3e} "
+            f"relative (band {BF16_BAND['update_rel']}), losses {le:.3e} relative "
+            f"(band {BF16_BAND['loss_rel']:.0e}); member i == bf16 #4 on bank i (bitwise)")
+    # the fleet's quant probe: the same plan in float32 and in bf16
+    X, T = batch_bank(np, rng, shape, 8 * BATCH)
+    t0 = time.perf_counter()
+    _, _, qerr = fleet.quant_probe_fleet(ks, X, T, epochs=2, batch=BATCH, lr=FLEET_LR)
+    check(0.0 < qerr < QUANT_ERR_BAR,
+          f"quant_probe_fleet bf16 vs float32 err {qerr:.3e} not in (0, {QUANT_ERR_BAR})")
+    out["quant_err"] = qerr
+    log(f"[fleet-pinned] quant_probe_fleet {FLEET_N} x 784-300-10 ANN-BP, {8 * BATCH} rows, "
+        f"B={BATCH}, 2 epochs: bf16 vs float32 weights max|diff| {qerr:.3e} (bar "
+        f"{QUANT_ERR_BAR:.0e}) in {time.perf_counter() - t0:.2f} s")
+    return out
 
 
 def fleet_main(np, torch, dev, protos):
@@ -914,6 +1050,35 @@ def fleet_main(np, torch, dev, protos):
         f"({n_m} launches)")
     path_launches = dict(bs.launches)
     stats["hpnn_vs_plain"] = hpnn_tick_vs_plain(np, torch, dev, rng, hks)
+
+    # the bf16 fleet's main path: its own launch counts, from 0
+    for name in bs.launches:
+        bs.launches[name] = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bf = fleet.train_fleet(ks, X, T, seeds=seeds, dtype="bf16", **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launched = {k: v for k, v in bs.launches.items() if v}
+    check(launched == {"train_fleet_epoch_dbuf_banked": E},
+          f"bf16 fleet: launches {launched}, expected {E} of #6")
+    _, bl, bc = bf
+    check(bl.dtype == np.float32 and bl.shape == (N, E, S) and np.isfinite(bl).all(),
+          "bf16 fleet: losses not finite float32 of the fleet's shape")
+    b_epoch = bl.mean(axis=2)
+    check((b_epoch[:, -1] < b_epoch[:, 0]).all(), "bf16 fleet: a member's loss did not fall")
+    werr = max(float(np.max(np.abs(a - b))) for ka, kb in zip(bf[0], fl[0])
+               for a, b in zip(ka.weights, kb.weights))
+    check(werr < BF16_VS_F32_W,
+          f"bf16 fleet: weights {werr:.3e} from the float32 fleet's (band {BF16_VS_F32_W:.0e})")
+    stats["bf16"] = dict(seconds=secs, launches=launched, w_vs_f32=werr,
+                         loss_first=float(b_epoch[:, 0].mean()),
+                         loss_last=float(b_epoch[:, -1].mean()))
+    log(f"[fleet-main] train_fleet dtype=bf16, the same {N} members and plan: {secs:.2f} s, "
+        f"launches {launched}, mean loss {b_epoch[:, 0].mean():.6f} -> "
+        f"{b_epoch[:, -1].mean():.6f} (float32: {by_epoch[:, -1].mean():.6f}), count "
+        f"{bc[:, -1].min()}..{bc[:, -1].max()}/{FLEET_ROWS}, weights max|bf16 - f32| "
+        f"{werr:.3e} (band {BF16_VS_F32_W:.0e})")
     return path_launches, stats
 
 
@@ -972,8 +1137,9 @@ def fleet_timing(np, torch, dev):
     ANN-BP 784-300-10 float32, for FLEET_TIMED_N members at every
     cluster size; against its plain version (the first N), its bound and
     the members' #5 epochs one after another.  Then #6 as planned for
-    FLEET_CROSS_N members against N times one #5 epoch.  Returns
-    ({N: timings}, crossover)."""
+    FLEET_CROSS_N members against N times one #5 epoch, and bf16 #6 for
+    the first N in turns with float32 #6.  Returns ({N: timings},
+    crossover, the bf16 timings)."""
     from hpnn_tpu_torch.models import kernel as km
     from hpnn_tpu_torch.obs.cost import batch_work, bound_ms
     from hpnn_tpu_torch.ops import batch_step as bs
@@ -1047,6 +1213,8 @@ def fleet_timing(np, torch, dev):
             f"{b_ms:.4f} ms ({b_by})"
             + (f"; plain {plain_ms:.1f} ms" if plain_ms is not None else ""))
         del W, members
+    bf16_times = fleet_timing_bf16(np, torch, dev, W_all, Xb_all, Tb_all, orders_all,
+                                   shapes, S, kw, cap)
     # where the fleet overtakes its members' #5 epochs one after another
     one = [t[0].clone() for t in W_all]
     t5 = statistics.median(cuda_ms(torch, lambda: bs.train_epoch_dbuf_banked(
@@ -1067,13 +1235,71 @@ def fleet_timing(np, torch, dev):
     del Xb_all, Tb_all, W_all
     torch.cuda.empty_cache()
     return out, dict(dbuf_epoch_ms=t5, by_members=cross, overtakes_at=overtakes,
-                     clusters_at_once=cap)
+                     clusters_at_once=cap), bf16_times
+
+
+def fleet_timing_bf16(np, torch, dev, W_all, Xb_all, Tb_all, orders_all, shapes, S, kw,
+                      cap):
+    """Phase 12, bf16: #6's bf16 build for FLEET_TIMED_N[0] members over
+    the same banks (cast once), in turns with the float32 build (f32,
+    bf16, bf16, f32, each as planned), its plain version once, and its
+    bound: bf16 bytes at 3.35 TB/s against the same operations at bf16's
+    989 TFLOP/s; beside it, the operations at float32's 67 TFLOP/s (the
+    FMA its products run on), a note and not the bound."""
+    from hpnn_tpu_torch.obs.cost import batch_work, bound_ms
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    N = FLEET_TIMED_N[0]
+    cap16 = bs.cluster_capacity(torch.bfloat16, dev)
+    check(cap16 == cap, f"bf16 #6's cluster capacity {cap16} differs from float32's {cap}")
+    plan = bs.fleet_cluster(N, shapes, BATCH, cap16)
+    W32 = [t[:N].clone() for t in W_all]
+    W16 = [t[:N].to(torch.bfloat16) for t in W_all]
+    X16, T16 = Xb_all[:N].to(torch.bfloat16), Tb_all[:N].to(torch.bfloat16)
+    fns = {"float32": lambda: bs.train_fleet_epoch_dbuf_banked(
+               W32, [], Xb_all[:N], Tb_all[:N], orders_all[:N], **kw),
+           "bfloat16": lambda: bs.train_fleet_epoch_dbuf_banked(
+               W16, [], X16, T16, orders_all[:N], **kw)}
+    runs = {k: [] for k in fns}
+    for k in ("float32", "bfloat16", "bfloat16", "float32"):
+        runs[k].append(cuda_ms(torch, fns[k]))
+    by = {k: statistics.median(v) for k, v in runs.items()}
+    Wp = [t[:N].to(torch.bfloat16) for t in W_all]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bs.train_fleet_epoch_dbuf_banked_plain(Wp, [], X16, T16, orders_all[:N], **kw)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    check(all(torch.isfinite(t.float()).all() for t in W16 + Wp),
+          "bf16 fleet timing: weights not finite")
+    nbytes, flops = batch_work(shapes, S, False, 2, BATCH)
+    b_ms, b_by = bound_ms(N * nbytes, N * flops, "bfloat16")
+    fma_ms, _ = bound_ms(N * nbytes, N * flops, "float32")
+    out = dict(members=N, cluster=plan, ms=by["bfloat16"], f32_ms=by["float32"],
+               runs_ms=runs, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+               f32_fma_bound_ms=fma_ms,
+               ms_per_step=by["bfloat16"] / S, bank_bytes=(X16.numel() + T16.numel()) * 2)
+    log(f"[fleet-timing] bf16 #6, {N} members x one epoch of {S} steps, B={BATCH}, planned "
+        f"C={plan}: {by['bfloat16']:.3f} ms (runs {', '.join(f'{t:.3f}' for t in runs['bfloat16'])}) "
+        f"against float32 #6 {by['float32']:.3f} ms (runs "
+        f"{', '.join(f'{t:.3f}' for t in runs['float32'])}), in turns; plain {plain_ms:.1f} ms; "
+        f"bound {b_ms:.4f} ms ({b_by}: {N * nbytes} B of bf16, {N * flops} flop at bf16's "
+        f"rate; {fma_ms:.4f} ms at float32's FMA rate, the products' own)")
+    del W32, W16, Wp, X16, T16
+    return out
 
 
 # ------------------------------------------- crash-resume, streaming, obs
 # Phase 13: the reference's cross-backend bars (ChangeLog:33-38), on the
 # #DBG trace as tools/ledger_diff.py holds the ledger to them
 VEC_TOL, MAT_TOL = 1e-14, 1e-12
+# the float64 per-sample round, card against CPU, on phase 4's first
+# F64_SAMPLES samples from the generated kernel, each capped at
+# F64_MAX_ITER iterations: uncapped, those samples take ~2600 iterations
+# each and the CPU's float64 round was most of the script's run (~90-99 s
+# on the host of an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md)
+F64_SAMPLES, F64_MAX_ITER = 32, 400
+N_ITER_RE = re.compile(r"N_ITER=\s*(\d+)")
 DBG_RE = re.compile(r"#DBG: acc\[(.+)/(\d+)\]=(\S+)")
 
 
@@ -1163,7 +1389,7 @@ def resume_obs_native(np, torch, dev, protos):
     cwd = os.getcwd()
     stats = {}
 
-    def cli(label, argv, env=(), raises=None):
+    def cli(label, argv, env=(), raises=None, train_dir=None, init="generate"):
         """train_nn in its own directory: (stdout, kernel.opt text or
         None, seconds, the directory).  ``raises``: the exception the
         run must end with (its stdout is still returned)."""
@@ -1172,7 +1398,8 @@ def resume_obs_native(np, torch, dev, protos):
         os.chdir(run_dir)
         try:
             write_conf("nn.conf", name="smoke_ann", kind="ANN",
-                       train_dir=b_dir if "--batch" in argv else ps_dir, test_dir=ps_dir)
+                       train_dir=train_dir or (b_dir if "--batch" in argv else ps_dir),
+                       test_dir=ps_dir, init=init)
             buf = io.StringIO()
             t0 = time.perf_counter()
             with knobs(obs, dict(env)), contextlib.redirect_stdout(buf):
@@ -1276,13 +1503,22 @@ def resume_obs_native(np, torch, dev, protos):
 
     # 3. float64 ledger and trace, the card against the CPU
     f64 = {"HPNN_DTYPE": "float64", "HPNN_TRACE": "1"}
+    f64_dir = os.path.join(sdir, "train_f64")
+    os.makedirs(f64_dir)
+    for name in sorted(os.listdir(ps_dir))[:F64_SAMPLES]:
+        shutil.copy(os.path.join(ps_dir, name), f64_dir)
     diffs = {}
-    for what, argv in (("per-sample", []), ("batch", bargv)):
+    max_iter = loop.MAX_BP_ITER
+    for what, argv, tdir in (("per-sample", [], f64_dir), ("batch", bargv, None)):
         runs = {}
         for where, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
             lpath = os.path.join(sdir, f"ledger_{what}_{where}.jsonl")
-            runs[where] = cli(f"f64_{what}_{where}", extra + argv,
-                              dict(f64, HPNN_LEDGER=lpath)) + (lpath,)
+            loop.MAX_BP_ITER = F64_MAX_ITER if tdir else max_iter
+            try:
+                runs[where] = cli(f"f64_{what}_{where}", extra + argv,
+                                  dict(f64, HPNN_LEDGER=lpath), train_dir=tdir) + (lpath,)
+            finally:
+                loop.MAX_BP_ITER = max_iter
         rc, report = ledger_diff(runs["cuda"][4], runs["cpu"][4])
         check(rc == 0, f"{what} f64: ledger_diff card vs cpu exit {rc}:\n{report}")
         ok, worst, n = traces_agree(runs["cuda"][0], runs["cpu"][0])
@@ -1292,10 +1528,14 @@ def resume_obs_native(np, torch, dev, protos):
                         and "[GPU]" not in ln] ==
                        [ln for ln in runs["cpu"][0].splitlines() if "#DBG" not in ln])
         max_abs = re.search(r"max \|a-b\|: (\S+)", report).group(1)
+        iters = sum(int(m) for m in N_ITER_RE.findall(runs["cpu"][0]))
         diffs[what] = dict(ledger_max_abs_diff=float(max_abs), trace_max_abs_diff=worst,
-                           trace_lines=n, tokens_identical=same_tokens,
+                           trace_lines=n, tokens_identical=same_tokens, iterations=iters,
                            cuda_seconds=runs["cuda"][2], cpu_seconds=runs["cpu"][2])
-        log(f"[ledger] {what} round in float64, card vs CPU: ledger_diff exit 0 (max |a-b| "
+        each = (f" ({F64_SAMPLES} samples, {iters} iterations, at most {F64_MAX_ITER} "
+                f"each)" if tdir else "")
+        log(f"[ledger] {what} round{each} in float64, "
+            f"card vs CPU: ledger_diff exit 0 (max |a-b| "
             f"{max_abs}), {n} #DBG lines within 1e-12 (max |diff| {worst:.3e}), tokens "
             f"{'byte-identical' if same_tokens else 'differ'}; card {runs['cuda'][2]:.2f} s, "
             f"CPU {runs['cpu'][2]:.2f} s")
@@ -1358,7 +1598,6 @@ def resume_obs_native(np, torch, dev, protos):
                                  cwd=ROOT)
             check(out.returncode == 0,
                   f"check_obs_catalog.py {flag} ({label}): {out.stderr.strip()}")
-    ledger_f32 = all_on("per-sample")["HPNN_LEDGER"]
     stats["obs"] = dict(
         per_sample_seconds=secs_o, per_sample_seconds_off=secs_a, batch_seconds=secs_ob,
         batch_seconds_off=secs_b, fleet_seconds=secs_of,
@@ -1371,10 +1610,18 @@ def resume_obs_native(np, torch, dev, protos):
     for name, v in stats["obs"]["mfu"].items():
         log(f"[obs] perf.mfu {name}: mean {v['mean']:.4e} over {v['n']} launches "
             f"({v['min']:.4e}..{v['max']:.4e})")
+    # the card's float32 round of the float64 rounds' samples, its ledger
+    # against the CPU's float64 one
+    ledger_f32 = os.path.join(sdir, "ledger_per-sample_cuda_f32.jsonl")
+    loop.MAX_BP_ITER = F64_MAX_ITER
+    try:
+        cli("f32_per-sample_cuda", [], {"HPNN_LEDGER": ledger_f32}, train_dir=f64_dir)
+    finally:
+        loop.MAX_BP_ITER = max_iter
     rel = ledger_rel_dev(ledger_f32, os.path.join(sdir, "ledger_per-sample_cpu.jsonl"))
     stats["f32_card_vs_f64_cpu_ledger_max_rel_dev"] = rel
-    log(f"[obs] per-sample ledger, card float32 vs CPU float64: max relative deviation "
-        f"{rel:.3e} (reported, not gated)")
+    log(f"[obs] per-sample ledger ({F64_SAMPLES} samples), card float32 vs CPU float64: max "
+        f"relative deviation {rel:.3e} (reported, not gated)")
 
     # 5. the native parse
     check(native.lib() is not None, "the native host library did not load")
@@ -1887,8 +2134,8 @@ def serve_phase(np, torch, dev, k0):
 
 # ------------------------------------------------------------------ planes
 TENANT_KERNELS, TENANT_RESIDENT, TENANT_N = 256, 32, 8   # phase 15 (a)
-TENANT_SECONDS = 10.0
-PLANE_WINDOW_S = 5.0                                   # phase 15 (b)
+TENANT_SECONDS = 6.0
+PLANE_WINDOW_S = 3.0                                   # phase 15 (b)
 TUNE_COOLDOWN_S, TUNE_WATCH_S, TUNE_SECONDS = 3.0, 1.0, 8.0
 # every plane on: the rule watches the SLO window
 PLANE_RULES = "lat@slo.p99_ms>10000:cooldown=0"
@@ -2069,7 +2316,7 @@ def tenant_host(np, torch, dev, stats):
 
 
 def plane_windows(np, torch, dev, url, stats):
-    """Phase 15 (b): the bench preset's load in 5 s windows, every plane
+    """Phase 15 (b): the bench preset's load in ``PLANE_WINDOW_S`` windows, every plane
     off (A) and on (B), A B B A; fixed probe rows answer bitwise alike."""
     from hpnn_tpu_torch import obs, serve
     from hpnn_tpu_torch.models import kernel as km
@@ -2392,7 +2639,10 @@ def planes_phase(np, torch, dev):
 
 
 # --------------------------------------------------------- phase 16: mesh
-MESH_ANN, MESH_SNN = 32, 8          # per-sample TP samples (phase 4's data)
+# per-sample TP samples (phase 4's data): few ANN samples, since a gloo
+# TP iteration costs 5-15 ms of host time (PERF.md), and the 8 SNN
+# samples whose last stops rest on a subnormal exp
+MESH_ANN, MESH_SNN = 8, 8
 MESH_EPOCHS = 2                      # batch epochs over the mesh
 MESH_SPILL_ROWS = 4096               # the spill's request
 
@@ -3581,6 +3831,312 @@ def _online_phase(np, torch, dev, k_ann):
     return out
 
 
+# ------------------------------------------------------------ the fleet
+FLEET_CLIENTS = 6            # phase 18: clients through the edge
+FLEET_INSTALLS = 3           # fenced installs under their load
+FLEET_READY_S = 240.0        # a worker's spawn -> ready bound
+FLEET_SCALE_S = 120.0        # bound on each autoscaler edge awaited
+FLEET_ANSWER_TOL = 1e-5      # a version's card answer against CPU float64
+FLEET_WORKER_ARGS = ("--interval-s", "600")   # online_nn flags: the trainer parked
+
+
+def _edge_infer(port, body):
+    """One ``POST /v1/infer`` to the fleet's edge: (status, doc)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=30)
+    try:
+        conn.request("POST", "/v1/infer", body=body,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        raw = resp.read()
+        try:
+            return resp.status, json.loads(raw)
+        except ValueError:
+            return resp.status, raw.decode("utf-8", "replace")
+    finally:
+        conn.close()
+
+
+def _apps_memory():
+    """{pid: MiB} of the card's compute processes, as nvidia-smi reads them
+    (empty when it shows none)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    mem = {}
+    for line in out.stdout.strip().splitlines():
+        parts = [p.strip() for p in line.split(",")]
+        if len(parts) == 2 and parts[0].isdigit() and parts[1].isdigit():
+            mem[int(parts[0])] = int(parts[1])
+    return mem
+
+
+class _FleetLoad:
+    """Clients in back-to-back loops through the fleet's edge: answers
+    by bytes, latencies, retriable answers (429/503/504) and anything
+    else as an error."""
+
+    def __init__(self, np, port, body, n):
+        self.np, self.port, self.body = np, port, body
+        self.stop = threading.Event()
+        self.lock = threading.Lock()
+        self.answers, self.lat, self.retriable, self.errors = {}, [], 0, []
+        self.threads = []
+        self.add(n)
+
+    def add(self, n):
+        for _ in range(n):
+            t = threading.Thread(target=self._loop, daemon=True)
+            t.start()
+            self.threads.append(t)
+
+    def _loop(self):
+        while not self.stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                status, doc = _edge_infer(self.port, self.body)
+            except OSError as exc:
+                status, doc = 0, repr(exc)
+            dt = time.perf_counter() - t0
+            with self.lock:
+                if status == 200:
+                    key = self.np.asarray(doc["outputs"], dtype=self.np.float64).tobytes()
+                    self.answers[key] = self.answers.get(key, 0) + 1
+                    self.lat.append(dt)
+                elif status in (429, 503, 504):
+                    self.retriable += 1
+                else:
+                    self.errors.append((status, str(doc)[:200]))
+
+    def close(self):
+        self.stop.set()
+        for t in self.threads:
+            t.join(60)
+
+
+def fleet_phase(np, torch, dev):
+    """Phase 18: the serving fleet over two ``online_nn`` worker
+    processes on the card (module doc).  Returns its statistics."""
+    from hpnn_tpu_torch import fleet, obs, serve
+    from hpnn_tpu_torch.fleet.router import CheckpointPublisher
+    from hpnn_tpu_torch.models import ann
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.online import wal as wal_mod
+
+    t_phase = time.perf_counter()
+    smi = nvidia_smi_line()
+    work = os.path.join(WORK, "fleet")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    conf = os.path.join(work, "nn.conf")
+    with open(conf, "w") as fp:
+        fp.write(f"[name] fleet\n[type] ANN\n[init] generate\n[seed] {SEED}\n"
+                 f"[input] {N_IN}\n[hidden] {N_HID}\n[output] {N_OUT}\n[train] BP\n")
+    wal_dir = os.path.join(work, "wal")
+    ks = [km.generate(SEED + 18 + v, N_IN, [N_HID], N_OUT)[0]
+          for v in range(FLEET_INSTALLS + 1)]
+    wal_mod.PromotionWAL(wal_dir).commit("fleet", ks[0].weights, version=1, reason="seed")
+    rng = np.random.default_rng(SEED + 18)
+    probe = rng.random(N_IN)
+    body = json.dumps({"kernel": "fleet", "inputs": probe.tolist(),
+                       "timeout_s": 10.0}).encode()
+    sink = os.path.join(work, "fleet.jsonl")
+    obs.configure(sink)
+    sup = fleet.WorkerSupervisor(conf, workdir=work, kind="online", wal_dir=wal_dir,
+                                 args=FLEET_WORKER_ARGS, ready_timeout_s=FLEET_READY_S,
+                                 drain_timeout_s=30.0,
+                                 # the sink above is this process's: the
+                                 # workers record nothing
+                                 env={"HPNN_METRICS": ""})
+    router = edge = load = scaler = None
+    out = {}
+    try:
+        # (a) two workers, spawned at once, the router and its edge
+        free0 = torch.cuda.mem_get_info()[0]
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            spawn_s = [f.result() - t0 for f in [pool.submit(
+                lambda: (sup.spawn(), time.perf_counter())[1]) for _ in range(2)]]
+        router = fleet.ClusterRouter(supervisor=sup,
+                                     publisher=CheckpointPublisher(wal_dir=wal_dir))
+        inside = []     # seconds each edge request spent in ClusterRouter.infer
+        route = router.infer
+
+        def timed_route(*a, **kw):
+            t = time.perf_counter()
+            try:
+                return route(*a, **kw)
+            finally:
+                inside.append(time.perf_counter() - t)
+
+        router.infer = timed_route
+        edge = serve.make_server(router)
+        threading.Thread(target=edge.serve_forever, daemon=True).start()
+        port = edge.server_address[1]
+        # what the two workers took of the card, device-wide (nvidia-smi
+        # may list no compute process from inside a container)
+        per_worker_mib = (free0 - torch.cuda.mem_get_info()[0]) / 2 / 2**20
+        mem = _apps_memory()
+        worker_mem = {f"r{r}": mem.get(sup.workers[r].pid) for r in sup.ranks()}
+
+        def cpu_answer(k):
+            ws = [torch.tensor(w, dtype=torch.float64) for w in k.weights]
+            return ann.run(ws, torch.tensor(probe, dtype=torch.float64)).numpy()
+
+        refs = {}
+
+        def version_answer(v):
+            """Every worker's answer to the probe now: bitwise alike, and
+            within FLEET_ANSWER_TOL of the CPU's float64 forward of ks[v]."""
+            got = [np.asarray(h.infer("fleet", probe, timeout_s=30.0), dtype=np.float64)
+                   for h in sup.handles()]
+            check(all(np.array_equal(g, got[0]) for g in got),
+                  f"fleet version {v}: the workers answer differently: {got}")
+            err = float(np.max(np.abs(got[0] - cpu_answer(ks[v]))))
+            check(err <= FLEET_ANSWER_TOL,
+                  f"fleet version {v}: |card - cpu f64| {err:.3e} > {FLEET_ANSWER_TOL:.0e}")
+            refs[got[0].tobytes()] = v
+            return got[0], err
+
+        y0, e0 = version_answer(0)
+        cpu_err = [e0]
+        # (b) fenced installs under load
+        load = _FleetLoad(np, port, body, FLEET_CLIENTS)
+        fan_ms = []
+        for v in range(1, FLEET_INSTALLS + 1):
+            time.sleep(0.3)
+            t0 = time.perf_counter()
+            router.install_kernel("fleet", ks[v])
+            fan_ms.append((time.perf_counter() - t0) * 1e3)
+            cpu_err.append(version_answer(v)[1])
+        time.sleep(0.3)
+        # (c) one worker SIGKILLed under the same load
+        y_last = version_answer(FLEET_INSTALLS)[0]
+        victim = sup.ranks()[0]
+        t_kill = time.perf_counter()
+        sup.kill9(victim)
+        sup.workers[victim].proc.wait(30)
+        time.sleep(0.5)
+        replaced = sup.replace_dead()
+        recovery_s = time.perf_counter() - t_kill
+        check(len(replaced) == 1 and sup.width() == 2,
+              f"fleet: {len(replaced)} workers replaced, width {sup.width()}")
+        y_rep = np.asarray(replaced[0].handle.infer("fleet", probe, timeout_s=30.0),
+                           dtype=np.float64)
+        check(np.array_equal(y_rep, y_last),
+              "fleet: the replacement's answer differs bitwise from the last version's")
+        last_wal = max(r["version"] for r in wal_mod.PromotionWAL(wal_dir).records()
+                       if r["kernel"] == "fleet")
+        restored = (replaced[0].handle.health() or {}).get("online", {}).get("wal", {})
+        check(restored.get("restored") == {"fleet": last_wal},
+              f"fleet: the replacement restored {restored.get('restored')}, want WAL "
+              f"version {last_wal}")
+        time.sleep(0.5)
+        load.close()
+        retriable = load.retriable
+        check(not load.errors, f"fleet load: non-retriable answers {load.errors[:3]}")
+        torn = {k: n for k, n in load.answers.items() if k not in refs}
+        check(not torn, f"fleet load: {sum(torn.values())} answers of no version")
+        by_version = {}
+        for k, n in load.answers.items():
+            by_version[refs[k]] = by_version.get(refs[k], 0) + n
+        lat = _percentiles(np, load.lat)
+        routed = _percentiles(np, inside)
+        check(lat["n"] > 0, "fleet load: no answer")
+        for h in sup.handles():
+            check(np.array_equal(np.asarray(h.infer("fleet", probe, timeout_s=30.0),
+                                            dtype=np.float64), y_last),
+                  f"fleet: worker r{h.rank} did not converge on the last version")
+        mem = _apps_memory()
+        worker_mem.update({f"r{r}": mem.get(sup.workers[r].pid) for r in sup.ranks()})
+        # (d) a SIGTERM drain, then the autoscaler's ride 1 -> 2 -> 1
+        rc = sup.drain_and_kill(sup.ranks()[-1])
+        check(rc == 0 and sup.width() == 1, f"fleet: the drained worker exited {rc}")
+        policy = fleet.Policy(min_width=1, max_width=2, up_step=1, down_step=1,
+                              up_outstanding=1.0, down_outstanding=0.5,
+                              up_cooldown_s=1.0, down_cooldown_s=2.0, down_for_s=2.0)
+        # on the Autoscaler's default signals: the router's outstanding
+        # rows per worker, its shed total and the SLO burn
+        load = _FleetLoad(np, port, body, 0)
+        scaler = fleet.Autoscaler(sup, router, policy=policy, interval_s=0.25)
+        scaler.start()
+        t_ramp = time.perf_counter()
+        load.add(2)
+        deadline = t_ramp + FLEET_SCALE_S
+        while sup.width() < 2 and time.perf_counter() < deadline:
+            if len(load.threads) < 8:
+                load.add(2)       # the ramp: two more clients a second
+            time.sleep(1.0)
+        up_s = time.perf_counter() - t_ramp
+        check(sup.width() == 2, f"fleet: the autoscaler did not grow the fleet in "
+                                f"{FLEET_SCALE_S:.0f} s")
+        load.close()
+        check(not load.errors, f"fleet ramp: non-retriable answers {load.errors[:3]}")
+        t_calm = time.perf_counter()
+        while sup.width() > 1 and time.perf_counter() < t_calm + FLEET_SCALE_S:
+            time.sleep(0.25)
+        down_s = time.perf_counter() - t_calm
+        check(sup.width() == 1, f"fleet: the autoscaler did not drain back to 1 in "
+                                f"{FLEET_SCALE_S:.0f} s")
+        scaler.stop()
+        scaler = None
+        obs.configure(None)
+        recs = [json.loads(line) for line in open(sink) if line.strip()]
+        ups = [r for r in recs if r.get("ev") == "fleet.scale_up"]
+        downs = [r for r in recs if r.get("ev") == "fleet.scale_down"]
+        gone = [r for r in recs if r.get("ev") == "fleet.worker_down"
+                and r.get("reason") == "scale_down"]
+        check([(u["from_width"], u["to_width"]) for u in ups] == [(1, 2)]
+              and [(d["from_width"], d["to_width"]) for d in downs] == [(2, 1)],
+              f"fleet: scale events up {ups} down {downs}")
+        check(gone and all(r["returncode"] == 0 and not r["escalated"] for r in gone),
+              f"fleet: drained workers {gone}")
+        worker_up = [r for r in recs if r.get("ev") == "fleet.worker_up"]
+        out = dict(spawn_ready_s=spawn_s, worker_up_s=[r["spawn_s"] for r in worker_up],
+                   fanout_ms=fan_ms, edge_latency=lat, in_router=routed,
+                   answers_by_version=by_version,
+                   retriable=retriable, recovery_s=recovery_s, cpu_err=cpu_err,
+                   worker_mem_mib=worker_mem, per_worker_mib=per_worker_mib,
+                   scale_up_s=up_s, scale_down_s=down_s,
+                   scale_up=ups, scale_down=downs)
+        log(f"[fleet] {smi}: 2 online_nn workers, spawn -> ready "
+            f"{', '.join(f'{t:.2f}' for t in spawn_s)} s (no compile cache: the bucket "
+            f"captures and the trainer's warm round included); every spawn: "
+            f"{', '.join(f'{r['spawn_s']:.2f}' for r in worker_up)} s")
+        log(f"[fleet] {smi}: {FLEET_INSTALLS} fenced installs under {FLEET_CLIENTS} clients, "
+            f"fan-out {', '.join(f'{t:.1f}' for t in fan_ms)} ms; answers by version "
+            f"{dict(sorted(by_version.items()))}, none torn; each version within "
+            f"{max(cpu_err):.3e} of the CPU float64 forward")
+        log(f"[fleet] {smi}: through the edge p50 {lat['p50_ms']:.3f} ms p99 "
+            f"{lat['p99_ms']:.3f} ms (n {lat['n']}); inside ClusterRouter.infer (the "
+            f"worker's HTTP round trip) p50 {routed['p50_ms']:.3f} ms p99 "
+            f"{routed['p99_ms']:.3f} ms (n {routed['n']})")
+        log(f"[fleet] {smi}: SIGKILL of r{victim} under load -> replacement "
+            f"r{replaced[0].rank} ready in {recovery_s:.2f} s, serving WAL version "
+            f"{last_wal} bitwise; retriable answers under the installs and the loss: "
+            f"{retriable}")
+        log(f"[fleet] {smi}: autoscaler 1 -> 2 in {up_s:.2f} s of a ramp to 8 clients, "
+            f"2 -> 1 in {down_s:.2f} s of calm, drained workers exit 0")
+        log(f"[fleet] {smi}: device memory a worker: {per_worker_mib:.0f} MiB (the card's free "
+            f"memory before and after the first two spawns, halved); nvidia-smi "
+            f"--query-compute-apps (MiB): {worker_mem}")
+        log(f"[fleet] phase 18 in {time.perf_counter() - t_phase:.1f} s")
+        return out
+    finally:
+        obs.configure(None)
+        if scaler is not None:
+            scaler.stop()
+        if load is not None:
+            load.close()
+        if edge is not None:
+            edge.shutdown()
+            edge.server_close()
+        if router is not None:
+            router.close()
+        sup.close()
+
+
 def load_conf_quiet(path):
     from hpnn_tpu_torch import config
 
@@ -3603,6 +4159,9 @@ def main() -> int:
     ap.add_argument("--online-only", action="store_true",
                     help="run only phase 17 (online learning), from a generated "
                          "ANN; no result line")
+    ap.add_argument("--fleet-only", action="store_true",
+                    help="run only phase 18 (the serving fleet over online_nn worker "
+                         "processes); no result line")
     ap.add_argument("--capture-thread", action="store_true",
                     help="run only the capture-thread probe (a child process a "
                          "case and run); no result line")
@@ -3662,6 +4221,15 @@ def main() -> int:
         enter(16)
         os.makedirs(WORK, exist_ok=True)
         tp_repeat_probe(np)
+        return 0
+    if args.fleet_only:
+        enter(18)
+        os.makedirs(WORK, exist_ok=True)
+        t0 = time.perf_counter()
+        _build.build("batch_step", force=True)
+        log(f"[build] batch_step.cu built in {time.perf_counter() - t0:.1f} s")
+        fleet_phase(np, torch, dev)
+        log("[fleet] --fleet-only: no result line")
         return 0
     if args.online_only:
         enter(17)
@@ -3940,13 +4508,13 @@ def main() -> int:
 
     # 10-12. the fleet path
     enter(10)
-    fleet_err = fleet_pinned(np, torch, dev)
+    fleet_err, fleet_bf16 = fleet_pinned(np, torch, dev)
     enter(11)
     fleet_launches, fleet_stats = fleet_main(np, torch, dev, protos)
     check(fleet_launches["train_fleet_epoch_dbuf_banked"] > 0,
           "the fleet main path launched no train_fleet_epoch_dbuf_banked")
     enter(12)
-    fleet_times, fleet_cross = fleet_timing(np, torch, dev)
+    fleet_times, fleet_cross, fleet_bf16_times = fleet_timing(np, torch, dev)
 
     # 13. crash-resume, streaming, the float64 ledger card vs CPU, obs, native
     enter(13)
@@ -3980,6 +4548,10 @@ def main() -> int:
     enter(17)
     _, w_ann = kernel_format.load_kernel(os.path.join(WORK, "ann", "kernel.opt"))
     online_stats = online_phase(np, torch, dev, km.Kernel(weights=tuple(w_ann)))
+
+    # 18. the serving fleet: online_nn worker processes behind a router
+    enter(18)
+    fleet_stats_18 = fleet_phase(np, torch, dev)
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -4069,6 +4641,33 @@ def main() -> int:
         "main": fleet_stats,
         "launches_by_entry": dict(fleet_launches, **{
             f"online.{k}": v for k, v in online_stats["launches"].items()}),
+        "fleet_processes": fleet_stats_18,
+    })
+    tb = fleet_bf16_times
+    kernels.append({
+        "name": "train_fleet_epoch_dbuf_banked (bf16)",
+        "route": "cuda",
+        "source": "hpnn_tpu_torch/csrc/batch_step.cu",
+        "replaces": "hpnn_tpu/ops/pallas_train.py:1041",
+        "launches": fleet_stats["bf16"]["launches"]["train_fleet_epoch_dbuf_banked"],
+        "on_main_path": True,
+        "max_abs_err": fleet_bf16["w"],
+        "max_loss_rel": fleet_bf16["loss_rel"],
+        "band": BF16_BAND,
+        "quant_err": fleet_bf16["quant_err"],
+        "ms": tb["ms"],
+        "plain_ms": tb["plain_ms"],
+        "bound_ms": tb["bound_ms"],
+        "bound_by": tb["bound_by"],
+        "library_ms": None,
+        "timed": (f"ANN-BP 784-300-10, bf16 storage and float32 products, {tb['members']} "
+                  f"members x one epoch of {math.ceil(TIMED_ROWS / BATCH)} steps of "
+                  f"B={BATCH} over {TIMED_ROWS}-row banks"),
+        "f32_ms": tb["f32_ms"],
+        "f32_fma_bound_ms": tb["f32_fma_bound_ms"],
+        "runs_ms": tb["runs_ms"],
+        "cluster": tb["cluster"],
+        "main": fleet_stats["bf16"],
     })
     log(f"[card] {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))

@@ -87,9 +87,18 @@
 // bitwise on the same blocks: member i of #6 equals #5 (and #4) run on
 // bank i with orders[i].
 //
-// Built for float (the card's default type) and double.
+// Built for float (the card's default type) and double, and for bf16
+// storage (dtype 2, the fleet's `dtype="bf16"`): weights, dw, the banks,
+// activations and deltas are __nv_bfloat16 in device memory; every
+// product accumulates in float (the k-tiles are staged in shared memory
+// as float), the epilogues run in float, and each value is rounded to
+// bf16 (round to nearest even) where it is stored, as the JAX program
+// holds each of those arrays in bf16.  The row losses and the losses are
+// float.  The float and double builds are the same code as before: acc_t
+// of their type is the type itself and every conversion is the identity.
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -116,8 +125,35 @@ static_assert(HPNN_WORKER * 4 * HPNN_CW == HPNN_TILE * HPNN_TILE &&
 
 namespace {
 
+typedef __nv_bfloat16 bf16;
+
+// The type a value of storage type T is computed in: T itself, or float
+// for bf16.
+template <typename T>
+struct Acc {
+  typedef T type;
+};
+template <>
+struct Acc<bf16> {
+  typedef float type;
+};
+template <typename T>
+using acc_t = typename Acc<T>::type;
+
+// A computed value as stored in T (rounded to nearest even for bf16), and
+// a stored value as computed.  The bf16 conversions are the intrinsics:
+// the build may define __CUDA_NO_BFLOAT16_CONVERSIONS__.
+template <typename T>
+__device__ __forceinline__ T to_t(acc_t<T> v) { return v; }
+template <>
+__device__ __forceinline__ bf16 to_t<bf16>(float v) { return __float2bfloat16_rn(v); }
+__device__ __forceinline__ float ld(const float* p) { return *p; }
+__device__ __forceinline__ double ld(const double* p) { return *p; }
+__device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
+
 template <typename T>
 struct Params {
+  typedef acc_t<T> A;
   int n_layers;
   int dims[HPNN_MAX_LAYERS + 1];  // dims[0] = n_in, dims[l+1] = rows of W_l
   size_t off[HPNN_MAX_LAYERS];    // offset of layer l's (B, dims[l+1]) block
@@ -128,17 +164,18 @@ struct Params {
   const int* order;  // (S,) block ids in device memory, or null:
   int first;         // then step s reads block first + s
   int B, S;
-  T lr, alpha, inv_b;
+  A lr, alpha, inv_b;
   T* acts;     // sum over layers of (B, dims[l+1])
   T* ds;       // the same shape as acts
-  T* rowloss;  // (B,)
-  T* losses;   // (S,)
+  A* rowloss;  // (B,)
+  A* losses;   // (S,)
   int snn, momentum, prefetch;
 };
 
 // Shared memory of one block, in values of T: per worker two stages of
 // an A and a B k-tile (HPNN_TILE k-rows of ld<T>() values each, k-major)
-// and a staged output tile.  ops/batch_step.py::shared_bytes mirrors it.
+// and a staged output tile.  It holds computed values, so a bf16 build's
+// is a float build's.  ops/batch_step.py::shared_bytes mirrors it.
 template <typename T>
 __host__ __device__ constexpr int stage_ld() { return HPNN_TILE + 16 / (int)sizeof(T); }
 template <typename T>
@@ -149,7 +186,7 @@ __host__ __device__ constexpr int worker_values() {
 }
 template <typename T>
 constexpr size_t smem_bytes() {
-  return (size_t)HPNN_WORKERS * worker_values<T>() * sizeof(T);
+  return (size_t)HPNN_WORKERS * worker_values<acc_t<T>>() * sizeof(acc_t<T>);
 }
 
 __device__ __forceinline__ float dev_exp(float x) { return expf(x); }
@@ -169,6 +206,10 @@ __device__ __forceinline__ float dev_log(float x) { return logf(x); }
 __device__ __forceinline__ double dev_log(double x) { return log(x); }
 __device__ __forceinline__ float ldcg(const float* p) { return __ldcg(p); }
 __device__ __forceinline__ double ldcg(const double* p) { return __ldcg(p); }
+__device__ __forceinline__ float ldcg(const bf16* p) {
+  return __bfloat162float(
+      __ushort_as_bfloat16(__ldcg(reinterpret_cast<const unsigned short*>(p))));
+}
 
 // N (4 or 2) consecutive values of an N-value aligned shared-memory row
 template <int N>
@@ -312,14 +353,15 @@ struct ClusterTeam {
 // the staged output tile at out).
 template <typename T>
 struct Worker {
-  T* sm;
+  typedef acc_t<T> A;
+  A* sm;
   int id, w;
   __device__ explicit Worker(unsigned char* smem)
-      : sm(reinterpret_cast<T*>(smem) +
-           (size_t)(threadIdx.x / HPNN_WORKER) * worker_values<T>()),
+      : sm(reinterpret_cast<A*>(smem) +
+           (size_t)(threadIdx.x / HPNN_WORKER) * worker_values<A>()),
         id(threadIdx.x / HPNN_WORKER), w(threadIdx.x % HPNN_WORKER) {}
-  __device__ T* stage(int o, int s) const { return sm + (2 * o + s) * stage_values<T>(); }
-  __device__ T* out() const { return sm + 4 * stage_values<T>(); }
+  __device__ A* stage(int o, int s) const { return sm + (2 * o + s) * stage_values<A>(); }
+  __device__ A* out() const { return sm + 4 * stage_values<A>(); }
   __device__ void sync() const {
     asm volatile("bar.sync %0, %1;" ::"r"(1 + id), "r"(HPNN_WORKER) : "memory");
   }
@@ -369,11 +411,12 @@ __device__ __forceinline__ Operand<T> operand(const T* P, size_t sx, size_t sk, 
   return o;
 }
 
-// k-tile kt of the operand (K deep) into the thread's registers; 0
-// outside the matrix.
+// k-tile kt of the operand (K deep) into the thread's registers, as
+// computed; 0 outside the matrix.
 template <typename T>
-__device__ __forceinline__ void load_tile(T (&v)[HPNN_LOADS], const Operand<T>& o, int kt,
-                                          int K) {
+__device__ __forceinline__ void load_tile(acc_t<T> (&v)[HPNN_LOADS], const Operand<T>& o,
+                                          int kt, int K) {
+  typedef acc_t<T> A;
   const T* p = o.base + (size_t)kt * o.kstep;
   const int kleft = K - kt * HPNN_TILE - o.kb;  // value k offsets below it are inside
   if (o.kfast) {
@@ -382,18 +425,19 @@ __device__ __forceinline__ void load_tile(T (&v)[HPNN_LOADS], const Operand<T>& 
 #pragma unroll
       for (int j = 0; j < 4; ++j)
         v[4 * g + j] = ((o.rows >> g) & 1u) && 8 * j < kleft
-                           ? ldcg(p + g * o.step + 8 * j) : T(0);
+                           ? ldcg(p + g * o.step + 8 * j) : A(0);
   } else {
 #pragma unroll
     for (int q = 0; q < HPNN_LOADS; ++q)
-      v[q] = o.rows && q * (HPNN_WORKER / 32) < kleft ? ldcg(p + q * o.step) : T(0);
+      v[q] = o.rows && q * (HPNN_WORKER / 32) < kleft ? ldcg(p + q * o.step) : A(0);
   }
 }
 
 // The registers of load_tile into a stage, k-major: S[k][x].
 template <typename T>
-__device__ __forceinline__ void store_tile(T* S, const T (&v)[HPNN_LOADS], const Operand<T>& o) {
-  constexpr int LD = stage_ld<T>();
+__device__ __forceinline__ void store_tile(acc_t<T>* S, const acc_t<T> (&v)[HPNN_LOADS],
+                                           const Operand<T>& o) {
+  constexpr int LD = stage_ld<acc_t<T>>();
   if (o.kfast) {
 #pragma unroll
     for (int g = 0; g < HPNN_LOADS / 4; ++g)
@@ -416,17 +460,18 @@ template <typename T, typename Epi>
 __device__ void gemm_tile(int M, int N, int K, const T* A, size_t sar, size_t sak,
                           const T* Bm, size_t sbk, size_t sbc, int tm, int tn,
                           const Worker<T>& wk, Epi epi) {
+  typedef acc_t<T> V;
   const int ty = wk.w / HPNN_TX, tx = wk.w % HPNN_TX;
   const int r0 = tm * HPNN_TILE, c0 = tn * HPNN_TILE;
-  constexpr int LD = stage_ld<T>();
+  constexpr int LD = stage_ld<V>();
   const Operand<T> oa = operand(A, sar, sak, r0, M, wk.w);
   const Operand<T> ob = operand(Bm, sbc, sbk, c0, N, wk.w);
-  T acc[4][HPNN_CW];
+  V acc[4][HPNN_CW];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < HPNN_CW; ++j) acc[i][j] = T(0);
-  T va[HPNN_LOADS], vb[HPNN_LOADS];
+    for (int j = 0; j < HPNN_CW; ++j) acc[i][j] = V(0);
+  V va[HPNN_LOADS], vb[HPNN_LOADS];
   load_tile(va, oa, 0, K);
   load_tile(vb, ob, 0, K);
   store_tile(wk.stage(0, 0), va, oa);
@@ -440,12 +485,12 @@ __device__ void gemm_tile(int M, int N, int K, const T* A, size_t sar, size_t sa
       load_tile(va, oa, kt + 1, K);
       load_tile(vb, ob, kt + 1, K);
     }
-    const T* As = wk.stage(0, s) + 4 * ty;
-    const T* Bs = wk.stage(1, s) + HPNN_CW * tx;
+    const V* As = wk.stage(0, s) + 4 * ty;
+    const V* Bs = wk.stage(1, s) + HPNN_CW * tx;
     const int kmax = min(HPNN_TILE, K - kt * HPNN_TILE);
 #pragma unroll 4
     for (int kk = 0; kk < kmax; ++kk) {
-      T a[4], b[HPNN_CW];
+      V a[4], b[HPNN_CW];
       ldv<4>(a, As + kk * LD);
       ldv<HPNN_CW>(b, Bs + kk * LD);
 #pragma unroll
@@ -476,25 +521,26 @@ __device__ void gemm_tile(int M, int N, int K, const T* A, size_t sar, size_t sa
 // is where the row's outputs go in acts.  The same operations in the
 // same order as output_rows.
 template <typename T>
-__device__ void finish_row(const Params<T>& p, const T* os, T* o, const T* t, int b,
+__device__ void finish_row(const Params<T>& p, const acc_t<T>* os, T* o, const T* t, int b,
                            bool loss) {
+  typedef acc_t<T> A;
   const int n = p.dims[p.n_layers];
-  const T tiny = T(1e-14);
-  T dv = T(1);
+  const A tiny = A(1e-14);
+  A dv = A(1);
   if (p.snn) {
-    T s = T(0);
+    A s = A(0);
     for (int i = 0; i < n; ++i) s += os[i];
     dv = tiny + s;
   }
   if (loss) {
-    T acc = T(0);
+    A acc = A(0);
     for (int i = 0; i < n; ++i) {
-      const T oi = p.snn ? os[i] / dv : os[i];
-      o[i] = oi;
+      const A oi = p.snn ? os[i] / dv : os[i];
+      o[i] = to_t<T>(oi);
       if (p.snn) {
-        acc += clamp0(t[i]) * dev_log(oi + tiny);
+        acc += clamp0(ld(t + i)) * dev_log(oi + tiny);
       } else {
-        const T d = t[i] - oi;
+        const A d = ld(t + i) - oi;
         acc += d * d;
       }
     }
@@ -502,9 +548,9 @@ __device__ void finish_row(const Params<T>& p, const T* os, T* o, const T* t, in
   } else {
     T* d = p.ds + p.off[p.n_layers - 1] + (size_t)b * n;
     for (int i = 0; i < n; ++i) {
-      const T oi = p.snn ? os[i] / dv : os[i];
-      o[i] = oi;
-      d[i] = p.snn ? clamp0(t[i]) - oi : (t[i] - oi) * dact(oi);
+      const A oi = p.snn ? os[i] / dv : os[i];
+      o[i] = to_t<T>(oi);
+      d[i] = to_t<T>(p.snn ? clamp0(ld(t + i)) - oi : (ld(t + i) - oi) * dact(oi));
     }
   }
 }
@@ -527,15 +573,16 @@ __device__ void forward(const Params<T>& p, const T* x, const T* tg, Team& team,
     const int tn_count = cdiv(n, HPNN_TILE);
     const int tiles = cdiv(p.B, HPNN_TILE) * tn_count;
     for (int t = wk.first(team); t < tiles; t += wk.stride(team)) {
+      typedef acc_t<T> A;
       const int tm = t / tn_count;
-      T* os = wk.out();
+      A* os = wk.out();
       gemm_tile<T>(p.B, n, m, vin, m, 1, p.w[l], 1, m, tm, t % tn_count, wk,
-                   [&](int r, int c, T z) {
-                     const T v = soft ? out_exp(z - T(1)) : act(z);
+                   [&](int r, int c, A z) {
+                     const A v = soft ? out_exp(z - A(1)) : act(z);
                      if (fold)
                        os[(r - tm * HPNN_TILE) * HPNN_OUT_LD + c] = v;
                      else
-                       vout[(size_t)r * n + c] = v;
+                       vout[(size_t)r * n + c] = to_t<T>(v);
                    });
       if (fold) {
         wk.sync();  // the tile's outputs are staged
@@ -556,26 +603,27 @@ __device__ void forward(const Params<T>& p, const T* x, const T* tg, Team& team,
 template <typename T, typename Team>
 __device__ void output_rows(const Params<T>& p, const T* tg, const Team& team,
                             bool loss) {
+  typedef acc_t<T> A;
   const int L = p.n_layers, n = p.dims[L];
-  const T tiny = T(1e-14);
+  const A tiny = A(1e-14);
   const int stride = team.size() * blockDim.x;
   for (int b = team.rank() * blockDim.x + threadIdx.x; b < p.B; b += stride) {
     T* o = p.acts + p.off[L - 1] + (size_t)b * n;
     const T* t = tg + (size_t)b * n;
     if (p.snn) {
-      T s = T(0);
+      A s = A(0);
       for (int i = 0; i < n; ++i) s += ldcg(o + i);
-      const T dv = tiny + s;
-      for (int i = 0; i < n; ++i) o[i] = ldcg(o + i) / dv;
+      const A dv = tiny + s;
+      for (int i = 0; i < n; ++i) o[i] = to_t<T>(ldcg(o + i) / dv);
     }
     if (loss) {
-      T acc = T(0);
+      A acc = A(0);
       for (int i = 0; i < n; ++i) {
-        const T oi = ldcg(o + i);
+        const A oi = ldcg(o + i);
         if (p.snn) {
-          acc += clamp0(t[i]) * dev_log(oi + tiny);
+          acc += clamp0(ld(t + i)) * dev_log(oi + tiny);
         } else {
-          const T d = t[i] - oi;
+          const A d = ld(t + i) - oi;
           acc += d * d;
         }
       }
@@ -583,8 +631,8 @@ __device__ void output_rows(const Params<T>& p, const T* tg, const Team& team,
     } else {
       T* d = p.ds + p.off[L - 1] + (size_t)b * n;
       for (int i = 0; i < n; ++i) {
-        const T oi = ldcg(o + i);
-        d[i] = p.snn ? clamp0(t[i]) - oi : (t[i] - oi) * dact(oi);
+        const A oi = ldcg(o + i);
+        d[i] = to_t<T>(p.snn ? clamp0(ld(t + i)) - oi : (ld(t + i) - oi) * dact(oi));
       }
     }
   }
@@ -602,9 +650,9 @@ __device__ void hidden_deltas(const Params<T>& p, Team& team, const Worker<T>& w
     const int tiles = cdiv(p.B, HPNN_TILE) * tn_count;
     for (int t = wk.first(team); t < tiles; t += wk.stride(team))
       gemm_tile<T>(p.B, n, k, dn, k, 1, p.w[l + 1], n, 1, t / tn_count,
-                   t % tn_count, wk, [&](int r, int c, T z) {
+                   t % tn_count, wk, [&](int r, int c, acc_t<T> z) {
                      const size_t q = (size_t)r * n + c;
-                     d[q] = z * dact(ldcg(a + q));
+                     d[q] = to_t<T>(z * dact(ldcg(a + q)));
                    });
     team.sync();
   }
@@ -631,14 +679,14 @@ __device__ void update(const Params<T>& p, const T* x, Team& team, const Worker<
     T* DW = p.dw[l];
     const int tn_count = cdiv(N, HPNN_TILE);
     gemm_tile<T>(M, N, p.B, d, 1, M, v, N, 1, tt / tn_count, tt % tn_count, wk,
-                 [&](int i, int j, T outer) {
+                 [&](int i, int j, acc_t<T> outer) {
                    const size_t q = (size_t)i * N + j;
                    if (p.momentum) {
-                     const T m = ldcg(DW + q) + p.lr * outer;
-                     W[q] = ldcg(W + q) + m;
-                     DW[q] = p.alpha * m;
+                     const acc_t<T> m = ldcg(DW + q) + p.lr * outer;
+                     W[q] = to_t<T>(ldcg(W + q) + m);
+                     DW[q] = to_t<T>(p.alpha * m);
                    } else {
-                     W[q] = ldcg(W + q) + p.lr * outer;
+                     W[q] = to_t<T>(ldcg(W + q) + p.lr * outer);
                    }
                  });
   }
@@ -698,11 +746,12 @@ __device__ void epoch(const Params<T>& p, Team& team, const Worker<T>& wk, Clock
     // rowloss is next written after this step's syncs, so the team's
     // first warp sums it while the team starts the next step
     if (team.rank() == 0 && threadIdx.x < 32) {
-      T acc = T(0);
+      typedef acc_t<T> A;
+      A acc = A(0);
       for (int b = threadIdx.x; b < p.B; b += 32) acc += ldcg(p.rowloss + b);
       for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
       if (threadIdx.x == 0)
-        p.losses[s] = p.snn ? -acc * p.inv_b / T(n_out) : T(0.5) * acc * p.inv_b;
+        p.losses[s] = p.snn ? -acc * p.inv_b / A(n_out) : A(0.5) * acc * p.inv_b;
     }
   }
 }
@@ -732,7 +781,7 @@ __global__ void __launch_bounds__(HPNN_THREADS, 1) batch_train(Params<T> p) {
 // Member strides of a fleet launch, in elements of T.
 struct Fleet {
   size_t x, t;     // one member's bank of X (bank_rows*n_in) and of T
-  size_t scratch;  // 2*B*sum(dims[1:]) + B
+  size_t scratch;  // 2*B*sum(dims[1:]) + B*sizeof(acc_t<T>)/sizeof(T)
 };
 
 // Cluster i trains member i: `p` holds member 0's pointers, moved here
@@ -754,7 +803,7 @@ __global__ void __launch_bounds__(HPNN_THREADS, 1) cluster_train(Params<T> p, Fl
   if (p.order) p.order += i * p.S;
   p.acts += i * f.scratch;
   p.ds += i * f.scratch;
-  p.rowloss += i * f.scratch;
+  p.rowloss = reinterpret_cast<acc_t<T>*>(reinterpret_cast<T*>(p.rowloss) + i * f.scratch);
   p.losses += i * p.S;
   run_epoch(p, team, Worker<T>(smem));
 }
@@ -796,8 +845,9 @@ int grid_blocks(int* blocks) {
 }
 
 // The launch's Params (member 0's, for a fleet), the scratch laid out
-// as acts | ds | rowloss.  Returns the number of values of one scratch
-// (2*B*sum(dims[1:]) + B), or 0 for a shape the kernel does not take.
+// as acts | ds | rowloss, rowloss in acc_t<T>.  Returns the number of
+// values of T of one scratch (2*B*sum(dims[1:]) + B*sizeof(acc_t<T>) /
+// sizeof(T)), or 0 for a shape the kernel does not take.
 template <typename T>
 size_t make_params(Params<T>* p, int snn, int momentum, int n_layers,
                    const int* dims, void* const* w, void* const* dw,
@@ -820,17 +870,18 @@ size_t make_params(Params<T>* p, int snn, int momentum, int n_layers,
   p->first = first;
   p->B = B;
   p->S = S;
-  p->lr = (T)lr_eff;
-  p->alpha = (T)alpha;
-  p->inv_b = (T)inv_b;
+  typedef acc_t<T> A;
+  p->lr = (A)lr_eff;
+  p->alpha = (A)alpha;
+  p->inv_b = (A)inv_b;
   p->acts = static_cast<T*>(scratch);
   p->ds = p->acts + total;
-  p->rowloss = p->ds + total;
-  p->losses = static_cast<T*>(losses);
+  p->rowloss = reinterpret_cast<A*>(p->ds + total);
+  p->losses = static_cast<A*>(losses);
   p->snn = snn;
   p->momentum = momentum;
   p->prefetch = prefetch;
-  return 2 * total + B;
+  return 2 * total + (size_t)B * (sizeof(A) / sizeof(T));
 }
 
 // The launch of `members` clusters of `cluster` CTAs (1, 2, 4, 8 or 16)
@@ -931,8 +982,9 @@ int launch_fleet(int members, int cluster, int snn, int momentum, int n_layers,
 // `blocks` unused.  `dims`, `w` and `dw` are HOST arrays (of n_layers+1
 // ints and n_layers device pointers); every other pointer is a device
 // pointer.  `order` may be null: step s then reads block first + s.
-// `scratch` holds 2*B*sum(dims[1:]) + B values.  dtype: 0 = float,
-// 1 = double.  Ask hpnn_batch_grid_blocks or hpnn_fleet_max_clusters on
+// `scratch` holds 2*B*sum(dims[1:]) + B values (of T; B floats, or 2*B
+// bf16 values, for bf16).  dtype: 0 = float, 1 = double, 2 = bf16
+// storage (then `losses` is float).  Ask hpnn_batch_grid_blocks or hpnn_fleet_max_clusters on
 // the device first: they opt the kernels in to their shared memory.
 // Returns the cudaError_t of the launch (0 = launched).
 extern "C" int hpnn_batch_train(int dtype, int blocks, int cluster, int snn, int momentum,
@@ -952,6 +1004,10 @@ extern "C" int hpnn_batch_train(int dtype, int blocks, int cluster, int snn, int
     return launch<double>(blocks, cluster, snn, momentum, n_layers, dims, w, dw, X, Tg,
                           B, ord, first, S, lr_eff, alpha, inv_b, scratch, losses,
                           prefetch, st);
+  if (dtype == 2)
+    return launch<bf16>(blocks, cluster, snn, momentum, n_layers, dims, w, dw, X, Tg,
+                        B, ord, first, S, lr_eff, alpha, inv_b, scratch, losses,
+                        prefetch, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -982,6 +1038,10 @@ extern "C" int hpnn_fleet_train(int dtype, int members, int cluster, int snn, in
     return launch_fleet<double>(members, cluster, snn, momentum, n_layers, dims, w, dw,
                                 X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b,
                                 scratch, losses, st);
+  if (dtype == 2)
+    return launch_fleet<bf16>(members, cluster, snn, momentum, n_layers, dims, w, dw, X,
+                              Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b, scratch,
+                              losses, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -992,6 +1052,7 @@ extern "C" int hpnn_batch_grid_blocks(int dtype, int* blocks) {
   *blocks = 0;
   if (dtype == 0) return grid_blocks<float>(blocks);
   if (dtype == 1) return grid_blocks<double>(blocks);
+  if (dtype == 2) return grid_blocks<bf16>(blocks);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1002,6 +1063,7 @@ extern "C" int hpnn_fleet_max_clusters(int dtype, int cluster, int* n) {
   *n = 0;
   if (dtype == 0) return max_clusters<float>(cluster, n);
   if (dtype == 1) return max_clusters<double>(cluster, n);
+  if (dtype == 2) return max_clusters<bf16>(cluster, n);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1009,6 +1071,7 @@ extern "C" int hpnn_fleet_max_clusters(int dtype, int cluster, int* n) {
 extern "C" long long hpnn_batch_smem_bytes(int dtype) {
   if (dtype == 0) return (long long)smem_bytes<float>();
   if (dtype == 1) return (long long)smem_bytes<double>();
+  if (dtype == 2) return (long long)smem_bytes<bf16>();
   return 0;
 }
 

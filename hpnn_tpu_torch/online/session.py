@@ -29,8 +29,9 @@ On the card (``serve/engine.py`` names the rules): :meth:`start` warms
 the trainer on the calling thread (kernels built and loaded, one round
 of each topology group on the trainer's stream, the eval forward once)
 and then starts the trainer thread, which from then on is the only
-thread that captures: :meth:`rollback` and :meth:`add_kernel` called
-from any other thread are queued to it and awaited.
+thread that captures: :meth:`rollback`, :meth:`add_kernel` and
+:meth:`reload` (``POST /v1/reload``) called from any other thread are
+queued to it and awaited.
 """
 
 from __future__ import annotations
@@ -99,6 +100,9 @@ class OnlineSession:
         # grow the HTTP front end: POST /ingest + /healthz "online"
         self.serve.ingest_hook = self._ingest
         self.serve.online_health = self.health_doc
+        # POST /v1/reload: the re-read version is captured on the
+        # trainer thread once it runs
+        self.serve.reload_hook = self.reload
         if start:
             self.start()
 
@@ -180,6 +184,12 @@ class OnlineSession:
         if not self.trainer.running():
             self.trainer.warm()
         self.trainer.start()
+
+    def reload(self, name: str):
+        """Re-read ``name``'s backing file as a new version (the
+        ``POST /v1/reload`` of a fleet's install fan-out), on the
+        trainer thread while it runs."""
+        return self.trainer.call(lambda: self.serve.reload(name))
 
     def rollback(self, name: str, *, reason: str = "manual"):
         """Re-install ``name``'s pre-promotion weights (see

@@ -20,11 +20,12 @@ loss):
 
 All five return ``(weights, dw, loss | losses)`` and update ``weights``
 (and ``dw`` with momentum) IN PLACE.  A CUDA tensor goes through the
-kernel, one launch on the current stream (float32 or float64; anything
-else raises); a CPU tensor takes the ``*_plain`` twin, which runs
+kernel, one launch on the current stream (float32, float64, or bfloat16
+storage with float32 products and float32 losses; anything else
+raises); a CPU tensor takes the ``*_plain`` twin, which runs
 ``parallel.dp.train_step_math`` once per step (per member and step for
-the fleet).  There is no other route.  ``launches`` counts each entry
-point's kernel launches in this process.
+the fleet) on the tensors' own dtype.  There is no other route.
+``launches`` counts each entry point's kernel launches in this process.
 
 The launch's *team*: #2-#5 run on the cooperative grid (one block per
 SM); #6 runs one cluster of :func:`fleet_cluster` CTAs per member
@@ -61,7 +62,8 @@ TILE = 32        # HPNN_TILE: output tile edge and k-tile depth
 WORKERS = 2      # HPNN_WORKERS: 128-thread tile workers a block
 MAX_SHARED_BYTES = 232448  # dynamic shared memory one H100 block can use
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # the cluster sizes the kernel takes
-_DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
+_DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_BUILT_FOR = "float32 and float64 (and bfloat16 storage)"
 _libs: dict = {}       # define (None: the shipped build) -> loaded library
 _variant = None        # the build the entry points launch (phase_clocks sets it)
 _team = 0              # #2-#5's team: 0 the grid, C one cluster (_cluster_team sets it)
@@ -177,12 +179,19 @@ def grid_blocks(dtype, device) -> int:
     return _grids[key]
 
 
+def loss_dtype(dtype):
+    """The dtype the kernel computes and returns losses in for storage
+    ``dtype``: float32 for bfloat16, else ``dtype`` itself."""
+    return torch.float32 if dtype == torch.bfloat16 else dtype
+
+
 def shared_bytes(dtype) -> int:
     """Dynamic shared memory of one block of the kernel (the layout of
     csrc/batch_step.cu's ``smem_bytes``): per tile worker two stages of
     an A and a B k-tile, each TILE k-rows of TILE values plus a 16-byte
-    pad, and a TILE x (TILE + 1) staged output tile."""
-    b = torch.empty((), dtype=dtype).element_size()
+    pad, and a TILE x (TILE + 1) staged output tile, in the computed
+    type (:func:`loss_dtype`)."""
+    b = torch.empty((), dtype=loss_dtype(dtype)).element_size()
     stage = TILE * (TILE + 16 // b)
     return WORKERS * (4 * stage + TILE * (TILE + 1)) * b
 
@@ -311,16 +320,20 @@ def _order(order, n_blocks: int) -> torch.Tensor:
 
 def _layers(weights, dw, momentum, batch):
     """One kernel's C arrays (the layer widths and the weight and dw
-    pointers) and the values of its scratch: the activations and deltas
-    of every layer for the B rows and the B row losses (the counterpart
-    of the Pallas kernel's VMEM scratch)."""
+    pointers) and the values of its scratch, in the weights' dtype: the
+    activations and deltas of every layer for the B rows and the B row
+    losses in :func:`loss_dtype` (the counterpart of the Pallas kernel's
+    VMEM scratch)."""
     n_layers = len(weights)
     dims = (ctypes.c_int * (n_layers + 1))(
         weights[0].shape[1], *(int(w.shape[0]) for w in weights))
     w_ptrs = (ctypes.c_void_p * n_layers)(*(w.data_ptr() for w in weights))
     dw_ptrs = (ctypes.c_void_p * n_layers)(
         *((m.data_ptr() for m in dw) if momentum else [None] * n_layers))
-    return dims, w_ptrs, dw_ptrs, (2 * sum(dims[1:]) + 1) * batch
+    dt = weights[0].dtype
+    per_loss = (torch.empty((), dtype=loss_dtype(dt)).element_size()
+                // torch.empty((), dtype=dt).element_size())
+    return dims, w_ptrs, dw_ptrs, (2 * sum(dims[1:]) + per_loss) * batch
 
 
 def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
@@ -330,7 +343,7 @@ def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
     if X.device.type != "cuda":
         raise ValueError(f"unsupported device {X.device}")
     if X.dtype not in _DTYPE_CODE:
-        raise TypeError(f"the kernel is built for float32 and float64, not {X.dtype}")
+        raise TypeError(f"the kernel is built for {_BUILT_FOR}, not {X.dtype}")
     dev = X.device
     cluster = _team
     if cluster:
@@ -345,7 +358,7 @@ def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
     first = 0 if S > 1 else int(order[0])
     dims, w_ptrs, dw_ptrs, n_scratch = _layers(weights, dw, momentum, batch)
     scratch = torch.empty(n_scratch, dtype=X.dtype, device=dev)
-    losses = torch.empty(S, dtype=X.dtype, device=dev)
+    losses = torch.empty(S, dtype=loss_dtype(X.dtype), device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         # lr·(1/B) in double on the host, as the JAX Python-scalar product is
@@ -367,7 +380,8 @@ def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
 
 def _plain_epoch(weights, dw, X, T, order, batch, *, model, momentum, lr, alpha):
     """``dp.train_step_math`` on each block in ``order``; weights and dw
-    updated in place; the (S,) losses."""
+    updated in place; the (S,) losses in :func:`loss_dtype` (a bfloat16
+    step's loss is a bfloat16 value)."""
     losses = []
     state_w, state_dw = tuple(weights), tuple(dw) if momentum else ()
     for k in order.tolist():
@@ -380,7 +394,7 @@ def _plain_epoch(weights, dw, X, T, order, batch, *, model, momentum, lr, alpha)
         for dst, src in zip(tuple(weights) + tuple(dw if momentum else ()),
                             state_w + state_dw):
             dst.copy_(src)
-    return torch.stack(losses)
+    return torch.stack(losses).to(loss_dtype(X.dtype))
 
 
 def _run(name, weights, dw, X, T, order, batch, *, prefetch, model="ann",
@@ -416,7 +430,7 @@ def _check_fleet(weights, dw, X_banks, T_banks, orders, batch, model, momentum):
                          f"orders: {sorted(n)}")
     for t in (X_banks, T_banks, *state):
         if t.dtype not in _DTYPE_CODE:
-            raise TypeError(f"the kernel is built for float32 and float64, not {t.dtype}")
+            raise TypeError(f"the kernel is built for {_BUILT_FOR}, not {t.dtype}")
         if not t.is_contiguous():
             raise ValueError("stacked weights, dw and banks must be contiguous")
     # one member's shapes, types and devices, as for #2-#5
@@ -444,7 +458,7 @@ def _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, *, model,
     dims, w_ptrs, dw_ptrs, n_scratch = _layers(
         [w[0] for w in weights], [m[0] for m in dw] if momentum else (), momentum, batch)
     scratch = torch.empty(N * n_scratch, dtype=X_banks.dtype, device=dev)
-    losses = torch.empty((N, S), dtype=X_banks.dtype, device=dev)
+    losses = torch.empty((N, S), dtype=loss_dtype(X_banks.dtype), device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         # lr·(1/B) in double on the host, as the JAX Python-scalar product is

@@ -238,12 +238,13 @@ DEFERRED_ENV = {
 }
 
 
-def deferred_env_message(prog: str) -> str | None:
-    """The refusal of the first set knob of :data:`DEFERRED_ENV`, or
-    None: the CLIs and the library entry points refuse such a knob,
-    never ignore it."""
+def deferred_env_message(prog: str, env=None) -> str | None:
+    """The refusal of the first set knob of :data:`DEFERRED_ENV` in
+    ``env`` (default ``os.environ``), or None: the CLIs and the library
+    entry points refuse such a knob, never ignore it."""
+    env = os.environ if env is None else env
     for knob, (value, path) in DEFERRED_ENV.items():
-        cur = os.environ.get(knob)
+        cur = env.get(knob)
         if cur and (value is None or cur == value):
             return (f"{prog}: {knob}={cur} selects {path}, which "
                     f"hpnn_tpu_torch does not have yet; unset it")

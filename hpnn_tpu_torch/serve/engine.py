@@ -42,8 +42,10 @@ Two dispatch modes, selected per engine (``HPNN_SERVE_MODE`` or the
   capture on the thread that registers, loads or reloads a kernel.  An
   online session (``online/``) captures its bucket menus on the thread
   that builds it and, once its trainer thread runs, on that thread
-  alone: a promotion, the watch's rollback, a manual rollback and a
-  registration after boot are all queued to it.
+  alone: a promotion, the watch's rollback, a manual rollback, a
+  registration after boot and a reload (``POST /v1/reload``) are all
+  queued to it.  A reload, like an install, captures the next version
+  before the registry publishes it.
   :meth:`Engine.pin_captures` enforces this: while a thread is pinned,
   a capture (a forward built on a cache miss) on any other thread
   raises.  **The stream rule.**  Replays run on the calling thread's

@@ -86,7 +86,7 @@ class Registry:
     ``register`` installs in-memory weights; ``load`` reads a kernel
     text file through the standard loader (``models.kernel.load`` →
     ``fileio.kernel_format``) and remembers the path + mtime so
-    ``maybe_reload``/``reload`` can refresh it.  Every install runs
+    ``stale``/``reread`` can refresh it.  Every install runs
     ``kernel.validate`` — a serving process must never hold a kernel
     whose layer chain is inconsistent.
     """
@@ -231,50 +231,72 @@ class Registry:
             self._entries.pop(name, None)
 
     # ------------------------------------------------------------ reload
-    def reload(self, name: str) -> Entry:
-        """Force a re-read of ``name``'s kernel file (new version)."""
+    def _reread(self, entry: Entry) -> Entry:
+        """``entry``'s file read into the entry a reload publishes: the
+        next version, the new staleness signature, NOT installed."""
+        try:
+            st = os.stat(entry.path)
+            _fname, kernel = kernel_mod.load(entry.path)
+        except OSError as exc:
+            raise RegistryError(
+                f"cannot read kernel file {entry.path}: {exc}")
+        if not kernel_mod.validate(kernel):
+            raise RegistryError(f"kernel {entry.name!r} failed validation")
+        return entry._replace(kernel=kernel, version=entry.version + 1,
+                              mtime=st.st_mtime,
+                              sig=(st.st_mtime_ns, st.st_size))
+
+    def reread(self, name: str) -> Entry:
+        """The entry a forced reload of ``name`` would publish (see
+        :meth:`publish`): the serving session captures it first."""
         entry = self.get(name)
         if entry.path is None:
             raise RegistryError(
                 f"kernel {name!r} was registered from memory; "
                 "nothing to reload")
         chaos.inject("registry.reload")  # seam: forced reload
-        new = self.load(name, entry.path, model=entry.model)
-        obs.count("serve.reload", kernel=name, version=new.version)
+        return self._reread(entry)
+
+    def publish(self, entry: Entry) -> Entry:
+        """Install an entry of :meth:`reread` or :meth:`stale` under its
+        own version (a new version of a file-backed kernel)."""
+        new = self.register(entry.name, entry.kernel, model=entry.model,
+                            path=entry.path, mtime=entry.mtime,
+                            sig=entry.sig, version=entry.version,
+                            precision=entry.precision)
+        obs.count("serve.reload", kernel=entry.name, version=new.version)
         return new
 
-    def maybe_reload(self, name: str) -> bool:
-        """Hot-reload ``name`` if its file changed since the last
-        (re)load.  Staleness compares ``(st_mtime_ns, st_size)`` —
-        float mtime misses a same-second rewrite on coarse-timestamp
-        filesystems (and two rewrites within the double's ~200 ns
-        resolution), while the size catches even an equal-timestamp
-        overwrite.  Returns True when a new version was installed.
-        A vanished or unreadable file keeps the resident version (a
-        serving process must not drop a kernel over a torn overwrite);
-        the failed probe is counted, not raised."""
+    def stale(self, name: str) -> Entry | None:
+        """The entry a hot-reload of ``name`` would publish when its
+        file changed since the last (re)load, else None
+        (``Session.maybe_reload`` captures it, then publishes it).  Staleness
+        compares ``(st_mtime_ns, st_size)`` — float mtime misses a
+        same-second rewrite on coarse-timestamp filesystems (and two
+        rewrites within the double's ~200 ns resolution), while the
+        size catches even an equal-timestamp overwrite.  A vanished or
+        unreadable file keeps the resident version (a serving process
+        must not drop a kernel over a torn overwrite); the failed probe
+        is counted, not raised."""
         entry = self.get(name)
         if entry.path is None:
-            return False
+            return None
         try:
             st = os.stat(entry.path)
         except OSError:
             obs.count("serve.reload_failed", kernel=name, reason="stat")
-            return False
+            return None
         if entry.sig is not None:
             if (st.st_mtime_ns, st.st_size) == tuple(entry.sig):
-                return False
+                return None
         elif entry.mtime is not None and st.st_mtime == entry.mtime:
-            return False  # pre-sig entry (registered with mtime only)
+            return None  # pre-sig entry (registered with mtime only)
         try:
             # seam inside the guard: an injected fault degrades to a
             # counted failed probe, resident version kept — the same
             # contract as a torn file overwrite
             chaos.inject("registry.reload")
-            self.load(name, entry.path, model=entry.model)
+            return self._reread(entry)
         except Exception:
             obs.count("serve.reload_failed", kernel=name, reason="load")
-            return False
-        obs.count("serve.reload", kernel=name,
-                  version=self.get(name).version)
-        return True
+            return None

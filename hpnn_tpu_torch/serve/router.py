@@ -103,8 +103,7 @@ class _FanRegistry:
             name, versioned=False)
 
     def reload(self, name):
-        return self._router._fan(
-            "reload", lambda rep: rep.registry.reload(name), name)
+        return self._router.reload(name)
 
     def maybe_reload(self, name):
         return self._router.maybe_reload(name)

@@ -168,6 +168,9 @@ class Session:
         # Both stay None on a plain serving process (route answers 404)
         self.ingest_hook = None
         self.online_health = None
+        # POST /v1/reload calls reload_hook(name) in place of reload
+        # when set: an online session queues it to its trainer thread
+        self.reload_hook = None
         # readiness (distinct from liveness): a session is born ready
         # for the embed-and-go paths; drivers that bind the HTTP edge
         # before warmup/WAL-replay flip it with mark_unready/mark_ready
@@ -211,23 +214,30 @@ class Session:
                 self.engine.warmup([name])
         return entry
 
+    def _publish(self, new, *, warmup: bool = True):
+        """Publish ``new`` (an entry the registry re-read from its file)
+        with its forwards captured first, on the calling thread, as
+        :meth:`install_kernel` does; then evict the older versions."""
+        if warmup:
+            self.engine.warmup_entry(new)
+        entry = self.registry.publish(new)
+        if warmup:
+            self.engine.warmup([entry.name])
+        self.engine.evict(entry.name, keep_version=entry.version)
+        return entry
+
     def reload(self, name: str, *, warmup: bool = True):
         """Force a re-read of ``name``'s kernel file and re-warm it."""
         with self._versions:
-            entry = self.registry.reload(name)
-            if warmup:
-                self.engine.warmup([name])
-            self.engine.evict(name, keep_version=entry.version)
-        return entry
+            return self._publish(self.registry.reread(name), warmup=warmup)
 
     def maybe_reload(self, name: str) -> bool:
         """Hot-reload ``name`` if its file changed on disk."""
         with self._versions:
-            if not self.registry.maybe_reload(name):
+            new = self.registry.stale(name)
+            if new is None:
                 return False
-            entry = self.registry.get(name)
-            self.engine.warmup([name])
-            self.engine.evict(name, keep_version=entry.version)
+            self._publish(new)
         return True
 
     def install_kernel(self, name: str, kernel: kernel_mod.Kernel, *,
@@ -804,8 +814,9 @@ class _Handler(conn.ConnHandlerMixin, BaseHTTPRequestHandler):
 
     def _reload(self, req: dict):
         name = req.get("kernel", "default")
+        reload = getattr(self.session, "reload_hook", None) or self.session.reload
         try:
-            entry = self.session.reload(name)
+            entry = reload(name)
         except KeyError:
             self._reply(404, {"error": f"unknown kernel {name!r}"})
         except RegistryError as exc:

@@ -125,8 +125,11 @@ class ShardedRegistry:
                 "shard_min": min(per), "shard_max": max(per)}
 
     # ------------------------------------------------------------ reload
-    def reload(self, name: str):
-        return self._shard(name).reload(name)
+    def reread(self, name: str):
+        return self._shard(name).reread(name)
 
-    def maybe_reload(self, name: str) -> bool:
-        return self._shard(name).maybe_reload(name)
+    def publish(self, entry):
+        return self._shard(entry.name).publish(entry)
+
+    def stale(self, name: str):
+        return self._shard(name).stale(name)

@@ -42,8 +42,11 @@ JAX package: ``fleet.size`` gauge, ``fleet.round`` / ``fleet.multi_round``
 ``HPNN_COST`` the ``perf.*`` gauges of every launch of #6
 (``fleet.epoch``) and #4 (``fleet.member_epoch``).
 
-Not ported: ``dtype="bf16"``, which raises until a bf16 build of the
-kernel exists.
+``dtype="bf16"`` runs the kernel's bf16 build: weights, dw and the data
+cast once to bfloat16 before the first launch, every product
+accumulated in float32 inside the kernel, and the results cast back
+through float32 to the members' dtype, as the JAX package casts them.
+On the CPU the plain version runs the step math on bfloat16 tensors.
 """
 
 from __future__ import annotations
@@ -74,9 +77,10 @@ __all__ = [
     "quant_probe_fleet",
 ]
 
-# the ``dtype=`` names of the JAX package; bf16 is not built yet
+# the ``dtype=`` names of the JAX package
 TRAIN_DTYPES = ("bf16", "f32", "f64")
-_TORCH_DTYPES = {"f32": torch.float32, "f64": torch.float64}
+_TORCH_DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32,
+                 "f64": torch.float64}
 
 
 def _train_dtype(name, dev):
@@ -86,10 +90,6 @@ def _train_dtype(name, dev):
         return runtime.compute_dtype(dev)
     if name not in TRAIN_DTYPES:
         raise ValueError(f"unknown train dtype {name!r}; one of {TRAIN_DTYPES}")
-    if name == "bf16":
-        raise NotImplementedError(
-            "dtype='bf16' is not ported yet: the fleet kernel is built for "
-            "float32 and float64 (pass 'f32' or 'f64')")
     return _TORCH_DTYPES[name]
 
 
@@ -128,8 +128,9 @@ def stack_kernels(kernels, *, device=None, dtype=None) -> tuple:
 def unstack_kernels(stacked) -> list:
     """Inverse of :func:`stack_kernels`: split the member axis back into
     a list of :class:`Kernel` (host numpy copies, in the tensors'
-    dtype)."""
-    mats = [w.detach().to("cpu", copy=True).numpy() for w in stacked]
+    dtype; bfloat16, which numpy lacks, comes back as float32)."""
+    mats = [(w.float() if w.dtype == torch.bfloat16 else w)
+            .detach().to("cpu", copy=True).numpy() for w in stacked]
     return [kernel_mod.Kernel(weights=tuple(m[i] for m in mats))
             for i in range(mats[0].shape[0])]
 
@@ -212,10 +213,12 @@ def _timed(name, fn, weights, n_steps, batch, members, momentum, kernel):
     nbytes, flops = obs.cost.batch_work(
         [tuple(w.shape) for w in weights], n_steps, momentum,
         weights[0].element_size(), batch)
+    # against the card's peak for the stored type (bf16's is its
+    # tensor-core rate, though the kernel's products run on float32 FMA)
     return obs.cost.timed_launch(
         name, fn, nbytes=members * nbytes, flops=members * flops,
-        dtype=weights[0].dtype, device=weights[0].device, kernel=kernel,
-        members=members)
+        dtype=weights[0].dtype, device=weights[0].device,
+        kernel=kernel, members=members)
 
 
 def make_member_epoch_fn(n_steps: int, *, model: str = "ann",
@@ -371,9 +374,9 @@ def train_fleet(kernels, X, T, *, epochs: int, batch: int, seeds=None,
     Returns ``(kernels_out, losses[N, epochs, S], counts[N, epochs])``
     where member ``i`` trained on its own RNG stream ``seeds[i]``
     (default ``0..N-1``).  Runs on ``device`` (default ``cuda``; raises
-    ``runtime.DeviceUnavailable`` without a card) in ``dtype`` ("f32",
-    "f64"; default ``runtime.compute_dtype``); the weights come back in
-    the members' own dtype."""
+    ``runtime.DeviceUnavailable`` without a card) in ``dtype`` ("bf16",
+    "f32", "f64"; default ``runtime.compute_dtype``); the weights come
+    back in the members' own dtype."""
     seeds = _seeds(seeds, len(kernels))
     dev, cdt, host_dtype, Xd, Td = _setup("train_fleet", kernels, X, T, dtype, device)
     stacked = stack_kernels(kernels, device=dev, dtype=cdt)
@@ -446,8 +449,9 @@ def quant_probe_fleet(kernels, X, T, *, epochs: int, batch: int,
     """Paired low-precision/full-precision fleet round: :func:`train_fleet`
     twice with identical RNG plans, at the compute dtype and under
     ``dtype``; returns ``(out_low, out_ref, err)`` with ``err`` the max
-    over members and layers of ``|low - ref|``.  The JAX default,
-    ``"bf16"``, is not ported yet and raises before either run."""
+    over members and layers of ``|low - ref|``, and the
+    ``numerics.quant_err`` gauge.  An unknown ``dtype`` raises before
+    either run."""
     if dtype is not None:
         _train_dtype(dtype, None)
     out_ref, _, _ = train_fleet(kernels, X, T, epochs=epochs, batch=batch,

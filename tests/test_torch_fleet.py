@@ -13,6 +13,9 @@ plain twin of kernel #6) held against the JAX package on the CPU.
 * ``train_fleet_epoch_dbuf_banked_plain`` against the Pallas kernel in
   interpret mode, float32: weights and dw within 1e-5, losses within
   1e-5 relative (the epoch tolerance of tests/test_torch_batch_step.py);
+* ``dtype="bf16"``: the port's plain bf16 run against the JAX package's
+  bf16 run, within a band (``BF16_W``, ``BF16_LOSS``, ``BF16_COUNT``:
+  both round every bf16 array, in different places);
 * the refusals.
 
 Inputs are made from a seed with numpy and handed to both packages.
@@ -267,12 +270,10 @@ def test_train_fleet_refusals(monkeypatch):
     X, T = _data()
     with pytest.raises(ValueError, match="seeds"):
         fleet.train_fleet(ks, X, T, epochs=1, batch=2, seeds=[1], device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fleet.train_fleet(ks, X, T, epochs=1, batch=2, dtype="bf16", device="cpu")
-    with pytest.raises(NotImplementedError, match="bf16"):
-        fleet.quant_probe_fleet(ks, X, T, epochs=1, batch=2, device="cpu")
     with pytest.raises(ValueError, match="unknown train dtype"):
         fleet.train_fleet(ks, X, T, epochs=1, batch=2, dtype="f16", device="cpu")
+    with pytest.raises(ValueError, match="unknown train dtype"):
+        fleet.quant_probe_fleet(ks, X, T, epochs=1, batch=2, dtype="f16", device="cpu")
     monkeypatch.setenv("HPNN_COMPILE_CACHE_DIR", "xla_cache")
     with pytest.raises(NotImplementedError,
                        match="HPNN_COMPILE_CACHE_DIR=xla_cache selects XLA's persistent"):
@@ -294,3 +295,67 @@ def test_quant_probe_fleet_f32_against_native():
                                                     lr=LR, device="cpu")
     assert out_low[0].weights[0].dtype == np.float64  # cast back to the members' dtype
     assert 0.0 < err < 1e-5
+
+
+# --------------------------------------------------------------- bf16
+# The port's plain bf16 version rounds after each tensor operation in
+# torch; XLA rounds where its fusions end.  Measured on these inputs:
+# weights up to 7.8e-3 apart (a few bf16 ulps of values near 1), losses
+# 1.2e-2 relative, counts up to 1 apart; the band is about twice that.
+BF16_W, BF16_LOSS = 2e-2, 2e-2
+
+
+def BF16_COUNT(n_rows):
+    return max(2, n_rows // 20)
+
+
+@pytest.mark.parametrize("model,momentum", MODES)
+@pytest.mark.parametrize("n_rows,n_in,hiddens,n_out,batch", [
+    (8, 8, (5,), 2, 2), (64, 16, (12,), 4, 8)])
+def test_train_fleet_bf16_matches_jax_within_band(model, momentum, n_rows, n_in,
+                                                  hiddens, n_out, batch):
+    ks = _kernels(3, n_in=n_in, hiddens=hiddens, n_out=n_out)
+    X, T = _data(n_rows, n_in, n_out)
+    kw = dict(epochs=4, batch=batch, model=model, momentum=momentum, lr=LR, dtype="bf16")
+    kg, lg, cg = fleet.train_fleet(ks, X, T, device="cpu", **kw)
+    kr, lr, cr = jfleet.train_fleet(ks, X, T, **kw)
+    assert lg.dtype == np.float32 and lg.shape == np.shape(lr)
+    for a, b in zip(kg, kr):
+        for wa, wb in zip(a.weights, b.weights):
+            assert wa.dtype == np.float64  # cast back through float32
+            np.testing.assert_allclose(wa, np.asarray(wb), rtol=0, atol=BF16_W)
+    np.testing.assert_allclose(lg, np.asarray(lr), rtol=BF16_LOSS, atol=0)
+    assert np.max(np.abs(cg - np.asarray(cr))) <= BF16_COUNT(n_rows)
+
+
+@pytest.mark.parametrize("model,momentum", MODES)
+def test_quant_probe_fleet_default_is_bf16_in_both_packages(model, momentum):
+    """``quant_probe_fleet``'s default (bf16 against the members' f64) in
+    both packages: each error below the JAX package's own bar (1e-1,
+    tests/test_quant.py), neither zero."""
+    ks = _kernels(3, n_in=16, hiddens=(12,), n_out=4)
+    X, T = _data(64, 16, 4)
+    kw = dict(epochs=2, batch=8, model=model, momentum=momentum, lr=LR)
+    _, _, err = fleet.quant_probe_fleet(ks, X, T, device="cpu", **kw)
+    _, _, jerr = jfleet.quant_probe_fleet(ks, X, T, **kw)
+    assert 0.0 < err < 1e-1 and 0.0 < jerr < 1e-1
+
+
+@pytest.mark.parametrize("momentum", [False, True])
+def test_train_fleet_multi_bf16_equals_chained_train_fleet(momentum):
+    """K bf16 rounds in one call equal K chained bf16 ``train_fleet``
+    calls bitwise: a bf16 value survives the cast back through float32
+    to float64 and down again.  With momentum the chained calls restart
+    dw, so one round is compared."""
+    ks = _kernels(3, n_in=16, hiddens=(12,), n_out=4)
+    X, T = _data(64, 16, 4)
+    rounds = 1 if momentum else 3
+    seed_rounds = [[10 * k + i for i in range(3)] for k in range(rounds)]
+    kw = dict(epochs=2, batch=8, momentum=momentum, lr=LR, dtype="bf16", device="cpu")
+    multi = fleet.train_fleet_multi(ks, X, T, rounds=rounds, seed_rounds=seed_rounds, **kw)
+    cur, losses, counts = ks, [], []
+    for seeds in seed_rounds:
+        cur, l_k, c_k = fleet.train_fleet(cur, X, T, seeds=seeds, **kw)
+        losses.append(l_k)
+        counts.append(c_k)
+    _assert_bitwise(multi, (cur, np.stack(losses, axis=1), np.stack(counts, axis=1)))

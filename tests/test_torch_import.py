@@ -126,6 +126,16 @@ ONLINE_MODULES = (
     "hpnn_tpu_torch.tools.snn_stops",
 )
 
+# the serving fleet over worker processes and its autoscale ride
+FLEET_MODULES = (
+    "hpnn_tpu_torch.fleet",
+    "hpnn_tpu_torch.fleet.client",
+    "hpnn_tpu_torch.fleet.worker",
+    "hpnn_tpu_torch.fleet.router",
+    "hpnn_tpu_torch.fleet.autoscaler",
+    "hpnn_tpu_torch.tools.bench_autoscale",
+)
+
 
 @pytest.fixture(scope="module")
 def _plane_imports():
@@ -135,7 +145,7 @@ def _plane_imports():
     code = (
         "import importlib, json, sys\n"
         "out = {}\n"
-        f"for m in {PLANE_MODULES + ONLINE_MODULES!r}:\n"
+        f"for m in {PLANE_MODULES + ONLINE_MODULES + FLEET_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "    out[m] = [n for n in sys.modules "
         "if n.split('.')[0] in ('jax', 'jaxlib', 'hpnn_tpu')]\n"
@@ -152,6 +162,18 @@ def _plane_imports():
 def test_plane_module_imports_no_jax(_plane_imports, module):
     """Each plane module imports neither jax nor the JAX package, and
     its source holds no such import."""
+    assert _plane_imports[module] == []
+    path = os.path.join(ROOT, *module.split(".")) + ".py"
+    if not os.path.exists(path):
+        path = os.path.join(ROOT, *module.split("."), "__init__.py")
+    with open(path) as fp:
+        assert not _FORBIDDEN.search(fp.read())
+
+
+@pytest.mark.parametrize("module", FLEET_MODULES)
+def test_fleet_module_imports_no_jax(_plane_imports, module):
+    """Each fleet module and the autoscale ride import neither jax nor
+    the JAX package, and their sources hold no such import."""
     assert _plane_imports[module] == []
     path = os.path.join(ROOT, *module.split(".")) + ".py"
     if not os.path.exists(path):
