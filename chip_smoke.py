@@ -47,13 +47,16 @@ Phases (any failure exits non-zero and prints no result line):
    and SNN, float and double; then bitwise: member i of #6 == #5 and
    #4 on bank i with orders[i], #6 == itself run again, and #6 at
    every cluster size (1, 2, 4, 8, 16 CTAs a member) == #6 planned.
-   Then the bf16 build of #6 (bf16 storage, float32 products) against
-   its plain version (the step math on bf16 tensors) at 784-300-10,
-   ANN-BP, ANN-BPM and SNN-BP: weights within ``BF16_BAND["w"]``, each
-   layer's change over the epoch within ``BF16_BAND["update_rel"]`` of
-   plain's, losses within ``BF16_BAND["loss_rel"]`` relative; member i of bf16 #6
-   == bf16 #4 on bank i (bitwise); and ``train.fleet.quant_probe_fleet``
-   (bf16 against float32) on the card below the JAX package's 1e-1.
+   Then the bf16 build of #6 (bf16 storage, products on the tensor
+   cores with float32 sums) against its plain version (the step math on
+   bf16 tensors) at 784-300-10 and 851-230-230, ANN/SNN x BP/BPM:
+   weights within ``BF16_BAND["w"]``, each layer's change over the epoch
+   within ``BF16_BAND["update_rel"]`` of plain's, losses within
+   ``BF16_BAND["loss_rel"]`` relative; bitwise: bf16 #6 == itself run
+   again and at every cluster size, member i == bf16 #5 == bf16 #4 on
+   bank i, and #6 on each member's first block alone == bf16 #2 == #3
+   on it; and ``train.fleet.quant_probe_fleet`` (bf16 against float32)
+   on the card below the JAX package's 1e-1.
 11. fleet main — ``train.fleet.train_fleet`` on 8 members of 784-300-10
    ANN-BP, 4096 synthetic MNIST-shaped rows, B = 256, 8 epochs, with
    the launch counts read around it; bitwise: ``train_sequential`` ==
@@ -72,10 +75,11 @@ Phases (any failure exits non-zero and prints no result line):
    its bound and the members' #5 epochs run one after another; then #6
    planned at 1-32 members against N times one #5 epoch, and the
    least N at which the fleet is the faster; then bf16 #6 for 8 members
-   in turns with float32 #6 (f32, bf16, bf16, f32), its plain version
-   and its bound (bf16 bytes at 3.35 TB/s against the same operations
-   at bf16's 989 TFLOP/s; beside it, the same operations at the
-   67 TFLOP/s of the float32 FMA its products run on).
+   in turns with float32 #6 (f32, bf16, bf16, f32) and at each cluster
+   size, its plain version and its bound (bf16 bytes at 3.35 TB/s
+   against the same operations at the 989 TFLOP/s of the bf16 tensor
+   cores its products run on; beside it, the same operations at
+   float32's 67 TFLOP/s).
 13. resume, streaming, ledger, obs, native — on phase 4's ANN round
    (256 samples, chunks of 64) and phase 8's batch round: the launch of
    chunk 2 raises and ``HPNN_FUSE_STATE`` resumes (tokens and kernel.opt
@@ -220,7 +224,10 @@ threshold.
 ``--phase-split`` also builds the phase-clock variants
 (``-DHPNN_PHASE_CLOCKS``) of the convergence and batch-step kernels,
 holds each bitwise against its kernel and prints where an iteration's
-time goes in phase 6 and a #4 step's (on each team) in phase 9.
+time goes in phase 6 and a #4 step's (on each team) in phase 9; and,
+in phase 9, a #4 step's phases and its tiles' k-tiles by part (loads,
+stage stores, fragment loads, products, barrier) in float32 and in
+bf16, with every build's registers and spills from ptxas.
 """
 
 from __future__ import annotations
@@ -401,6 +408,55 @@ def run_cli(main, argv):
     with contextlib.redirect_stdout(buf):
         rc = main(argv)
     return rc, buf.getvalue(), time.perf_counter() - t0
+
+
+# an entry function in a ptxas -v report, and its kernel template's
+# name and arguments in the mangled name
+PTXAS_ENTRY_RE = re.compile(r"Compiling entry function '(\S+)'")
+PTXAS_KERNEL_RE = re.compile(
+    r"(batch_train|cluster_train|convergence_cluster)I(13__nv_bfloat16|[fd])((?:Lb[01]E)*)")
+
+
+def kernel_name(mangled: str) -> str:
+    """``cluster_train<bf16>``, ``convergence_cluster<float, 0, 1>``, or
+    the mangled name of another kernel."""
+    m = PTXAS_KERNEL_RE.search(mangled)
+    if not m:
+        return mangled
+    args = [{"f": "float", "d": "double"}.get(m.group(2), "bf16")]
+    return f"{m.group(1)}<{', '.join(args + re.findall(r'Lb([01])E', m.group(3)))}>"
+
+
+def ptxas_report(out: str) -> list:
+    """One line per entry function of a ``ptxas -v`` report: its kernel
+    and type, registers, spill stores and loads."""
+    lines, name, spill = [], None, ""
+    for line in out.splitlines():
+        m = PTXAS_ENTRY_RE.search(line)
+        if m:
+            name = kernel_name(m.group(1))
+        elif "spill" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line)
+            lines.append(f"{name}: {regs.group(1) if regs else '?'} registers; {spill}")
+    return lines
+
+
+def build_all(_build, builds):
+    """Phase 2: one nvcc per (source, define) of ``builds`` and g++ for
+    the host library, all started together, then loaded; each kernel's
+    registers and spills from ptxas."""
+    with concurrent.futures.ThreadPoolExecutor(len(builds) + 1) as pool:
+        native = pool.submit(_build.build_host, "hpnn_native", force=True)
+        list(pool.map(lambda b: _build.build(b[0], force=True, define=b[1]), builds))
+        native.result()
+    for name, define in builds:
+        _build.load(name, define)
+        secs, out = _build.build_log[(name, define) if define else name]
+        log(f"[build] {name}.cu{' -D' + define if define else ''} built in {secs:.1f} s")
+        for line in ptxas_report(out):
+            log(f"[build]   {line}")
 
 
 def cuda_ms(torch, fn, reps=3):
@@ -688,13 +744,11 @@ def batch_main(np, torch, protos):
     return main_launches, stats
 
 
-def batch_timing(np, torch, dev, phase_split=False):
-    """Phase 9: each entry point over one epoch of a 60000-row bank at
-    784-300-10 ANN-BP float32, its plain version, and the bound; with
-    ``phase_split``, where a #4 step's time goes on each team."""
+def timing_bank(np, torch, dev):
+    """Phase 9's inputs: the permuted 60000-row bank of one epoch (its
+    tail wrapped as train_kernel_batched does), the block order and the
+    float32 weights of a generated 784-300-10 ANN; and S."""
     from hpnn_tpu_torch.models import kernel as km
-    from hpnn_tpu_torch.obs.cost import batch_work, bound_ms
-    from hpnn_tpu_torch.ops import batch_step as bs
 
     S = math.ceil(TIMED_ROWS / BATCH)
     g = torch.Generator(device=dev)
@@ -703,14 +757,67 @@ def batch_timing(np, torch, dev, phase_split=False):
     labels = torch.randint(0, N_OUT, (TIMED_ROWS,), generator=g, device=dev)
     T = -torch.ones((TIMED_ROWS, N_OUT), device=dev)
     T[torch.arange(TIMED_ROWS, device=dev), labels] = 1.0
-    # the epoch's permuted bank, its tail wrapped as train_kernel_batched does
     perm = np.resize(np.random.RandomState(SEED).permutation(TIMED_ROWS), S * BATCH)
     perm = torch.from_numpy(perm).to(dev)
-    Xp, Tp = X[perm], T[perm]
-    del X, T
     order = np.random.RandomState(SEED + 1).permutation(S)
     k, _ = km.generate(SEED, N_IN, [N_HID], N_OUT)
     w = list(km.to_torch(k.weights, device=dev, dtype=torch.float32)[0])
+    return X[perm], T[perm], order, w, S
+
+
+def ktile_split(np, torch, dev, Xp, Tp, order, w, S):
+    """A #4 step on the grid (ANN-BP 784-300-10, B = 256, phase 9's
+    epoch) by phase, and its tiles' k-tiles by part, in float32 and in
+    bf16, each from the phase-clock build's second epoch, timed with CUDA
+    events around that epoch.  Rank 0's thread 0 clocks; the cycles of
+    its whole epoch over the epoch's time give the SM clock that turns a
+    k-tile's cycles into ns."""
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    kw = dict(model="ann", momentum=False)
+    out = {}
+    for label in ("float32", "bf16"):
+        dtype = torch.float32 if label == "float32" else torch.bfloat16
+        X, T = Xp.to(dtype), Tp.to(dtype)
+        wc = [t.to(dtype, copy=True) for t in w]
+
+        def timed_epoch():
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            losses = bs.train_epoch_grid_banked(wc, [], X, T, order, batch=BATCH, **kw)[2]
+            e1.record()
+            return losses, e0, e1
+
+        bs.phase_clocks(timed_epoch)  # a warm-up epoch (the first also loads the build)
+        (losses, e0, e1), clocks, parts = bs.phase_clocks(timed_epoch)
+        ms = e0.elapsed_time(e1)
+        check(torch.isfinite(losses).all() and all(torch.isfinite(t.float()).all() for t in wc),
+              f"k-tile split, {label}: not finite")
+        cyc = sum(clocks.values())
+        n_kt = parts.pop(bs.KTILES)
+        ghz = cyc / (ms * 1e6)
+        split = {k: v / cyc * ms / S * 1e3 for k, v in clocks.items() if v}
+        per_kt = {k: v / n_kt / ghz for k, v in parts.items()}
+        out[label] = dict(epoch_ms=ms, us_per_step=split, ktiles=n_kt,
+                          sm_ghz=ghz, ns_per_ktile=per_kt, clocks=clocks, ktile_clocks=parts)
+        log(f"[batch-timing] k-tile split, #4 {label} (its epoch "
+            f"{ms:.3f} ms, {ms / S * 1e3:.2f} us/step; SM clock {ghz:.3f} GHz from rank 0's "
+            f"cycles): us/step by phase " + ", ".join(f"{k} {v:.2f}" for k, v in split.items())
+            + f"; {n_kt} k-tiles of rank 0's thread 0, ns a k-tile by part: "
+            + ", ".join(f"{k} {v:.1f}" for k, v in per_kt.items())
+            + f" ({sum(per_kt.values()):.1f} in all)")
+    return out
+
+
+def batch_timing(np, torch, dev, phase_split=False):
+    """Phase 9: each entry point over one epoch of a 60000-row bank at
+    784-300-10 ANN-BP float32, its plain version, and the bound; with
+    ``phase_split``, where a #4 step's time goes on each team, and the
+    k-tile split of float32 and bf16 (``ktile_split``)."""
+    from hpnn_tpu_torch.obs.cost import batch_work, bound_ms
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    Xp, Tp, order, w, S = timing_bank(np, torch, dev)
     kw = dict(model="ann", momentum=False)
 
     def rows(b):
@@ -777,7 +884,7 @@ def batch_timing(np, torch, dev, phase_split=False):
                     wc, [], Xp, Tp, order, batch=BATCH, **kw)[2])()
 
             wa, wb = [t.clone() for t in w], [t.clone() for t in w]
-            la, clocks = bs.phase_clocks(lambda: epoch(wa))
+            la, clocks, _ = bs.phase_clocks(lambda: epoch(wa))
             lb = epoch(wb)
             check(all(torch.equal(a, b) for a, b in zip([la] + wa, [lb] + wb)),
                   f"the batch-step phase-clock build differs bitwise on {team_name(c)}")
@@ -787,6 +894,8 @@ def batch_timing(np, torch, dev, phase_split=False):
             out["train_epoch_grid_banked"].setdefault("split_us_per_step", {})[team_name(c)] = split
             log(f"[batch-timing] #4 on {team_name(c)}: us/step by phase (rank 0's thread 0, "
                 f"sync waits included): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+        out["train_epoch_grid_banked"]["ktile_split"] = ktile_split(
+            np, torch, dev, Xp, Tp, order, [t.clone() for t in w], S)
     # where a step's time goes: the grid epoch's time per step against
     # the rows per step (SCALING_STEPS leading blocks of the bank)
     scaling = {}
@@ -864,64 +973,103 @@ def fleet_pinned(np, torch, dev):
 
 
 def fleet_pinned_bf16(np, torch, dev, rng):
-    """Phase 10, the bf16 build of #6 at 784-300-10 against its plain
-    version on the same bf16 inputs (``BF16_BAND``), member i against
-    bf16 #4 on bank i (bitwise), and ``quant_probe_fleet`` (bf16 against
-    float32) on the card.  Returns the errors."""
+    """Phase 10, the bf16 build of #6 (its products on the tensor cores)
+    at 784-300-10 and 851-230-230, ANN/SNN x BP/BPM, against its plain
+    version on the same bf16 inputs (``BF16_BAND``); bitwise: #6 run
+    again, #6 at every cluster size against the plan, member i against
+    bf16 #5 and #4 on bank i, and #6 on each member's first block alone
+    against bf16 #2 and #3 on it; then ``quant_probe_fleet`` (bf16
+    against float32) on the card.  Returns the errors."""
     from hpnn_tpu_torch.models import kernel as km
     from hpnn_tpu_torch.ops import batch_step as bs
     from hpnn_tpu_torch.train import fleet
 
     bf16 = torch.bfloat16
+    out = {"w": 0.0, "loss_rel": 0.0, "update_rel": 0.0}
+    for shape in ((N_IN, N_HID, N_OUT), XRD):
+        ks = [km.generate(SEED + i, shape[0], [shape[1]], shape[2])[0] for i in range(FLEET_N)]
+        W = [np.stack([k.weights[l] for k in ks]) for l in range(2)]
+        dW = [rng.uniform(-1e-3, 1e-3, w.shape) for w in W]
+        banks = [batch_bank(np, rng, shape, PINNED_S * BATCH) for _ in range(FLEET_N)]
+        orders = np.stack([rng.permutation(PINNED_S) for _ in range(FLEET_N)])
+        Xd = torch.tensor(np.stack([x for x, _ in banks]), dtype=bf16, device=dev)
+        Td = torch.tensor(np.stack([t for _, t in banks]), dtype=bf16, device=dev)
+        for model, momentum in (("ann", False), ("ann", True), ("snn", False), ("snn", True)):
+            kw = dict(batch=BATCH, model=model, momentum=momentum)
+            tag = f"{model}-{'BPM' if momentum else 'BP'} {'-'.join(map(str, shape))} bf16"
+
+            def fresh():
+                return ([torch.tensor(w, dtype=bf16, device=dev) for w in W],
+                        [torch.tensor(m, dtype=bf16, device=dev) for m in dW] if momentum
+                        else [])
+
+            def same(a, b):
+                return all(torch.equal(x, y) for x, y in zip(a, b))
+
+            (wk, dwk), (wp, dwp), (w0, dw0) = fresh(), fresh(), fresh()
+            lk = bs.train_fleet_epoch_dbuf_banked(wk, dwk, Xd, Td, orders, **kw)[2]
+            lp = bs.train_fleet_epoch_dbuf_banked_plain(wp, dwp, Xd, Td, orders, **kw)[2]
+            torch.cuda.synchronize()
+            check(lk.dtype == torch.float32 and wk[0].dtype == bf16,
+                  f"fleet {tag}: losses {lk.dtype}, weights {wk[0].dtype}")
+            we = state_err([t.float() for t in wk + dwk], [t.float() for t in wp + dwp])
+            ue = update_err(wk, wp, w0)
+            le = float(((lk - lp).abs() / lp.abs()).max())
+            check(math.isfinite(we) and we <= BF16_BAND["w"],
+                  f"fleet {tag}: |kernel - plain| weights {we:.3e} > {BF16_BAND['w']:.0e}")
+            check(math.isfinite(ue) and ue <= BF16_BAND["update_rel"],
+                  f"fleet {tag}: the kernel's change of a layer is {ue:.3e} of plain's away "
+                  f"from it (> {BF16_BAND['update_rel']})")
+            check(math.isfinite(le) and le <= BF16_BAND["loss_rel"],
+                  f"fleet {tag}: |kernel - plain| losses {le:.3e} relative > "
+                  f"{BF16_BAND['loss_rel']:.0e}")
+            check(all(not torch.equal(a, b) for a, b in zip(wk, w0)),
+                  f"fleet {tag}: the kernel left a layer unchanged")
+            out["w"], out["loss_rel"] = max(out["w"], we), max(out["loss_rel"], le)
+            out["update_rel"] = max(out["update_rel"], ue)
+            # bitwise: #6 again and at every cluster size
+            for C in (None,) + bs.CLUSTER_SIZES:
+                wc, dwc = fresh()
+                lc = bs.train_fleet_epoch_dbuf_banked(wc, dwc, Xd, Td, orders, cluster=C,
+                                                      **kw)[2]
+                check(same(wk + dwk + [lk], wc + dwc + [lc]),
+                      f"fleet {tag}: #6 " + ("run again" if C is None else f"at {C} CTAs a "
+                                             f"member") + " differs bitwise from the plan's")
+            # member i against #5 and #4 on its bank, and #6 on each
+            # member's first block against #2 and #3 on it
+            w1, dw1 = fresh()
+            l1 = bs.train_fleet_epoch_dbuf_banked(w1, dw1, Xd, Td, orders[:, :1], **kw)[2]
+            for i in range(FLEET_N):
+                for fn in (bs.train_epoch_dbuf_banked, bs.train_epoch_grid_banked):
+                    wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
+                    li = fn(wi, dwi, Xd[i], Td[i], orders[i], **kw)[2]
+                    check(torch.equal(li, lk[i]) and same(wi + dwi, [t[i] for t in wk + dwk]),
+                          f"fleet {tag}: member {i} differs bitwise from bf16 {fn.__name__}")
+                k = int(orders[i][0])
+                rows = slice(k * BATCH, (k + 1) * BATCH)
+                step = dict(model=model, momentum=momentum)
+                for name, call in (
+                        ("#2", lambda wi, dwi: bs.train_step_fused_batch(
+                            wi, dwi, Xd[i][rows].contiguous(), Td[i][rows].contiguous(),
+                            **step)),
+                        ("#3", lambda wi, dwi: bs.train_step_fused_banked(
+                            wi, dwi, Xd[i], Td[i], k, **kw))):
+                    wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
+                    li = call(wi, dwi)[2]
+                    check(torch.equal(li, l1[i][0]) and same(wi + dwi, [t[i] for t in w1 + dw1]),
+                          f"fleet {tag}: member {i}'s first block differs bitwise from "
+                          f"bf16 {name}")
+            plan = bs.fleet_cluster(FLEET_N, [tuple(t.shape[1:]) for t in wk], BATCH,
+                                    bs.cluster_capacity(bf16, dev))
+            log(f"[fleet-pinned] {tag}, N={FLEET_N} B={BATCH} S={PINNED_S}: max|kernel - "
+                f"plain| weights {we:.3e} (band {BF16_BAND['w']:.0e}), each layer's change "
+                f"{ue:.3e} relative (band {BF16_BAND['update_rel']}), losses {le:.3e} "
+                f"relative (band {BF16_BAND['loss_rel']:.0e}); bitwise: #6 == #6 again, #6 at "
+                f"C = {', '.join(map(str, bs.CLUSTER_SIZES))} == #6 planned (C={plan}), "
+                f"member i == bf16 #5 == #4 on bank i, first block == #2 == #3")
+    # the fleet's quant probe: the same plan in float32 and in bf16
     shape = (N_IN, N_HID, N_OUT)
     ks = [km.generate(SEED + i, N_IN, [N_HID], N_OUT)[0] for i in range(FLEET_N)]
-    W = [np.stack([k.weights[l] for k in ks]) for l in range(2)]
-    dW = [rng.uniform(-1e-3, 1e-3, w.shape) for w in W]
-    banks = [batch_bank(np, rng, shape, PINNED_S * BATCH) for _ in range(FLEET_N)]
-    orders = np.stack([rng.permutation(PINNED_S) for _ in range(FLEET_N)])
-    Xd = torch.tensor(np.stack([x for x, _ in banks]), dtype=bf16, device=dev)
-    Td = torch.tensor(np.stack([t for _, t in banks]), dtype=bf16, device=dev)
-    out = {"w": 0.0, "loss_rel": 0.0}
-    for model, momentum in (("ann", False), ("ann", True), ("snn", False)):
-        kw = dict(batch=BATCH, model=model, momentum=momentum)
-        tag = f"{model}-{'BPM' if momentum else 'BP'} {'-'.join(map(str, shape))} bf16"
-
-        def fresh():
-            return ([torch.tensor(w, dtype=bf16, device=dev) for w in W],
-                    [torch.tensor(m, dtype=bf16, device=dev) for m in dW] if momentum else [])
-
-        (wk, dwk), (wp, dwp), (w0, dw0) = fresh(), fresh(), fresh()
-        lk = bs.train_fleet_epoch_dbuf_banked(wk, dwk, Xd, Td, orders, **kw)[2]
-        lp = bs.train_fleet_epoch_dbuf_banked_plain(wp, dwp, Xd, Td, orders, **kw)[2]
-        torch.cuda.synchronize()
-        check(lk.dtype == torch.float32 and wk[0].dtype == bf16,
-              f"fleet {tag}: losses {lk.dtype}, weights {wk[0].dtype}")
-        we = state_err([t.float() for t in wk + dwk], [t.float() for t in wp + dwp])
-        ue = update_err(wk, wp, w0)
-        le = float(((lk - lp).abs() / lp.abs()).max())
-        check(math.isfinite(we) and we <= BF16_BAND["w"],
-              f"fleet {tag}: |kernel - plain| weights {we:.3e} > {BF16_BAND['w']:.0e}")
-        check(math.isfinite(ue) and ue <= BF16_BAND["update_rel"],
-              f"fleet {tag}: the kernel's change of a layer is {ue:.3e} of plain's away "
-              f"from it (> {BF16_BAND['update_rel']})")
-        check(math.isfinite(le) and le <= BF16_BAND["loss_rel"],
-              f"fleet {tag}: |kernel - plain| losses {le:.3e} relative > "
-              f"{BF16_BAND['loss_rel']:.0e}")
-        check(all(not torch.equal(a, b) for a, b in zip(wk, w0)),
-              f"fleet {tag}: the kernel left a layer unchanged")
-        out["w"], out["loss_rel"] = max(out["w"], we), max(out["loss_rel"], le)
-        out["update_rel"] = max(out.get("update_rel", 0.0), ue)
-        for i in range(FLEET_N):
-            wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
-            li = bs.train_epoch_grid_banked(wi, dwi, Xd[i], Td[i], orders[i], **kw)[2]
-            check(torch.equal(li, lk[i])
-                  and all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, wk + dwk)),
-                  f"fleet {tag}: member {i} differs bitwise from bf16 #4")
-        log(f"[fleet-pinned] {tag}, N={FLEET_N} B={BATCH} S={PINNED_S}: max|kernel - plain| "
-            f"weights {we:.3e} (band {BF16_BAND['w']:.0e}), each layer's change {ue:.3e} "
-            f"relative (band {BF16_BAND['update_rel']}), losses {le:.3e} relative "
-            f"(band {BF16_BAND['loss_rel']:.0e}); member i == bf16 #4 on bank i (bitwise)")
-    # the fleet's quant probe: the same plan in float32 and in bf16
     X, T = batch_bank(np, rng, shape, 8 * BATCH)
     t0 = time.perf_counter()
     _, _, qerr = fleet.quant_probe_fleet(ks, X, T, epochs=2, batch=BATCH, lr=FLEET_LR)
@@ -1132,17 +1280,12 @@ def hpnn_tick_vs_plain(np, torch, dev, rng, hks):
     return err
 
 
-def fleet_timing(np, torch, dev):
-    """Phase 12: #6 over one epoch of each member's 60000-row bank,
-    ANN-BP 784-300-10 float32, for FLEET_TIMED_N members at every
-    cluster size; against its plain version (the first N), its bound and
-    the members' #5 epochs one after another.  Then #6 as planned for
-    FLEET_CROSS_N members against N times one #5 epoch, and bf16 #6 for
-    the first N in turns with float32 #6.  Returns ({N: timings},
-    crossover, the bf16 timings)."""
+def fleet_banks(np, torch, dev, n_max):
+    """Phase 12's inputs: the stacked float32 weights of n_max generated
+    784-300-10 ANNs, each member's permuted 60000-row bank (its tail
+    wrapped as train_kernel_batched does; the first N members' banks are
+    a leading slice), their block orders, and S."""
     from hpnn_tpu_torch.models import kernel as km
-    from hpnn_tpu_torch.obs.cost import batch_work, bound_ms
-    from hpnn_tpu_torch.ops import batch_step as bs
 
     S = math.ceil(TIMED_ROWS / BATCH)
     g = torch.Generator(device=dev)
@@ -1151,24 +1294,35 @@ def fleet_timing(np, torch, dev):
     labels = torch.randint(0, N_OUT, (TIMED_ROWS,), generator=g, device=dev)
     T = -torch.ones((TIMED_ROWS, N_OUT), device=dev)
     T[torch.arange(TIMED_ROWS, device=dev), labels] = 1.0
-    n_max = max(FLEET_TIMED_N + FLEET_CROSS_N)
     ks = [km.generate(SEED + i, N_IN, [N_HID], N_OUT)[0] for i in range(n_max)]
+    perm = np.stack([np.resize(np.random.RandomState(SEED + i).permutation(TIMED_ROWS),
+                               S * BATCH) for i in range(n_max)])
+    idx = torch.from_numpy(perm).to(dev)
+    orders = np.stack([np.random.RandomState(SEED + 100 + i).permutation(S)
+                       for i in range(n_max)])
+    W = [torch.tensor(np.stack([k.weights[l] for k in ks]), dtype=torch.float32, device=dev)
+         for l in range(2)]
+    return W, X[idx], T[idx], orders, S
+
+
+def fleet_timing(np, torch, dev):
+    """Phase 12: #6 over one epoch of each member's 60000-row bank,
+    ANN-BP 784-300-10 float32, for FLEET_TIMED_N members at every
+    cluster size; against its plain version (the first N), its bound and
+    the members' #5 epochs one after another.  Then #6 as planned for
+    FLEET_CROSS_N members against N times one #5 epoch, and bf16 #6 for
+    the first N in turns with float32 #6.  Returns ({N: timings},
+    crossover, the bf16 timings)."""
+    from hpnn_tpu_torch.obs.cost import batch_work, bound_ms
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    n_max = max(FLEET_TIMED_N + FLEET_CROSS_N)
+    W_all, Xb_all, Tb_all, orders_all, S = fleet_banks(np, torch, dev, n_max)
+    shapes = [tuple(t.shape[1:]) for t in W_all]
     kw = dict(batch=BATCH, model="ann", momentum=False)
     cap = bs.cluster_capacity(torch.float32, dev)
     log(f"[fleet-timing] clusters the card holds at once, by CTAs a cluster: "
         + ", ".join(f"{C}: {n}" for C, n in cap.items()))
-    # each member's permuted bank, its tail wrapped as train_kernel_batched
-    # does; the first N members' banks are a leading slice
-    perm = np.stack([np.resize(np.random.RandomState(SEED + i).permutation(TIMED_ROWS),
-                               S * BATCH) for i in range(n_max)])
-    idx = torch.from_numpy(perm).to(dev)
-    Xb_all, Tb_all = X[idx], T[idx]
-    del idx, X, T
-    orders_all = np.stack([np.random.RandomState(SEED + 100 + i).permutation(S)
-                           for i in range(n_max)])
-    W_all = [torch.tensor(np.stack([k.weights[l] for k in ks]), dtype=torch.float32,
-                          device=dev) for l in range(2)]
-    shapes = [tuple(t.shape[1:]) for t in W_all]
 
     def fleet_fn(W, N, C):
         return lambda: bs.train_fleet_epoch_dbuf_banked(
@@ -1242,15 +1396,23 @@ def fleet_timing_bf16(np, torch, dev, W_all, Xb_all, Tb_all, orders_all, shapes,
                       cap):
     """Phase 12, bf16: #6's bf16 build for FLEET_TIMED_N[0] members over
     the same banks (cast once), in turns with the float32 build (f32,
-    bf16, bf16, f32, each as planned), its plain version once, and its
-    bound: bf16 bytes at 3.35 TB/s against the same operations at bf16's
-    989 TFLOP/s; beside it, the operations at float32's 67 TFLOP/s (the
-    FMA its products run on), a note and not the bound."""
+    bf16, bf16, f32, each as planned), then at every cluster size, its
+    plain version once, and its bound: bf16 bytes at 3.35 TB/s against
+    the same operations at bf16's 989 TFLOP/s (the tensor cores its
+    products run on); beside it, the operations at float32's 67 TFLOP/s,
+    a note and not the bound."""
     from hpnn_tpu_torch.obs.cost import batch_work, bound_ms
     from hpnn_tpu_torch.ops import batch_step as bs
 
     N = FLEET_TIMED_N[0]
+    # bf16's CTA stages its k-tiles in bf16, in less shared memory than
+    # float32's; its registers still hold one CTA an SM, so the card holds
+    # as many of its clusters at once and the two plan alike
     cap16 = bs.cluster_capacity(torch.bfloat16, dev)
+    log(f"[fleet-timing] bf16 #6: clusters the card holds at once, by CTAs a cluster: "
+        + ", ".join(f"{C}: {n}" for C, n in cap16.items())
+        + f" ({bs.shared_bytes(torch.bfloat16)} bytes of shared memory a CTA; float32 "
+        + ", ".join(f"{C}: {n}" for C, n in cap.items()) + ")")
     check(cap16 == cap, f"bf16 #6's cluster capacity {cap16} differs from float32's {cap}")
     plan = bs.fleet_cluster(N, shapes, BATCH, cap16)
     W32 = [t[:N].clone() for t in W_all]
@@ -1264,6 +1426,8 @@ def fleet_timing_bf16(np, torch, dev, W_all, Xb_all, Tb_all, orders_all, shapes,
     for k in ("float32", "bfloat16", "bfloat16", "float32"):
         runs[k].append(cuda_ms(torch, fns[k]))
     by = {k: statistics.median(v) for k, v in runs.items()}
+    by_c = {C: cuda_ms(torch, lambda C=C: bs.train_fleet_epoch_dbuf_banked(
+        W16, [], X16, T16, orders_all[:N], cluster=C, **kw)) for C in bs.CLUSTER_SIZES}
     Wp = [t[:N].to(torch.bfloat16) for t in W_all]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1277,14 +1441,15 @@ def fleet_timing_bf16(np, torch, dev, W_all, Xb_all, Tb_all, orders_all, shapes,
     fma_ms, _ = bound_ms(N * nbytes, N * flops, "float32")
     out = dict(members=N, cluster=plan, ms=by["bfloat16"], f32_ms=by["float32"],
                runs_ms=runs, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-               f32_fma_bound_ms=fma_ms,
+               f32_fma_bound_ms=fma_ms, ms_by_cluster=by_c, clusters_at_once=cap16,
                ms_per_step=by["bfloat16"] / S, bank_bytes=(X16.numel() + T16.numel()) * 2)
     log(f"[fleet-timing] bf16 #6, {N} members x one epoch of {S} steps, B={BATCH}, planned "
         f"C={plan}: {by['bfloat16']:.3f} ms (runs {', '.join(f'{t:.3f}' for t in runs['bfloat16'])}) "
         f"against float32 #6 {by['float32']:.3f} ms (runs "
-        f"{', '.join(f'{t:.3f}' for t in runs['float32'])}), in turns; plain {plain_ms:.1f} ms; "
-        f"bound {b_ms:.4f} ms ({b_by}: {N * nbytes} B of bf16, {N * flops} flop at bf16's "
-        f"rate; {fma_ms:.4f} ms at float32's FMA rate, the products' own)")
+        f"{', '.join(f'{t:.3f}' for t in runs['float32'])}), in turns; by CTAs a member "
+        + ", ".join(f"C={C} {v:.3f} ms" for C, v in by_c.items())
+        + f"; plain {plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}: {N * nbytes} B of bf16, "
+        f"{N * flops} flop at bf16's tensor-core rate; {fma_ms:.4f} ms at float32's FMA rate)")
     del W32, W16, Wp, X16, T16
     return out
 
@@ -4248,17 +4413,7 @@ def main() -> int:
     builds = (("convergence", None), ("batch_step", None))
     if args.phase_split:
         builds += (("convergence", "HPNN_PHASE_CLOCKS"), ("batch_step", "HPNN_PHASE_CLOCKS"))
-    with concurrent.futures.ThreadPoolExecutor(len(builds) + 1) as pool:
-        host = pool.submit(_build.build_host, "hpnn_native", force=True)
-        list(pool.map(lambda b: _build.build(b[0], force=True, define=b[1]), builds))
-        host.result()
-    for name, define in builds:
-        _build.load(name, define)
-        secs, out = _build.build_log[(name, define) if define else name]
-        log(f"[build] {name}.cu{' -D' + define if define else ''} built in {secs:.1f} s")
-        for line in out.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build]   {line.strip()}")
+    build_all(_build, builds)
     from hpnn_tpu_torch import native
     check(native.lib() is not None, "the native host library (csrc/hpnn_native.cpp) did not load")
     log(f"[build] hpnn_native.cpp built in {_build.build_log['hpnn_native'][0]:.1f} s and "
@@ -4660,7 +4815,8 @@ def main() -> int:
         "bound_ms": tb["bound_ms"],
         "bound_by": tb["bound_by"],
         "library_ms": None,
-        "timed": (f"ANN-BP 784-300-10, bf16 storage and float32 products, {tb['members']} "
+        "timed": (f"ANN-BP 784-300-10, bf16 storage, products on the tensor cores with "
+                  f"float32 sums, {tb['members']} "
                   f"members x one epoch of {math.ceil(TIMED_ROWS / BATCH)} steps of "
                   f"B={BATCH} over {TIMED_ROWS}-row banks"),
         "f32_ms": tb["f32_ms"],

@@ -48,9 +48,10 @@
 //     do not fit at once run in waves.
 // A block is 2 tile workers of 128 threads, each with its own named
 // barrier (`bar.sync 1+w, 128`): worker w of rank r takes tiles
-// r + size*w, then every 2*size-th.  A tile is a 32x32 output block of
-// a SIMT GEMM, FP32 (or FP64) FMA, no tensor cores, no fast math, each
-// thread a 4x2 register block.  Its k-tiles (32 deep) are pipelined
+// r + size*w, then every 2*size-th.  A tile is a 32x32 output block; in
+// the float and double builds that of a SIMT GEMM, FP32 (or FP64) FMA,
+// no tensor cores, no fast math, each thread a 4x2 register block (the
+// bf16 build's tile is below).  Its k-tiles (32 deep) are pipelined
 // through two shared-memory stages: the loads of k-tile k+1 are issued
 // (`ld.global.cg`, into registers, from addresses laid out once a tile)
 // before k-tile k is computed, stored into the other stage after it,
@@ -59,9 +60,9 @@
 // since this one last read them; cp.async's 4- and 8-byte forms go
 // through L1, and its 16-byte form needs 16-byte aligned rows, which
 // the 10-wide output layer of 784-300-10 and the 851- and 230-wide
-// rows of XRD do not give.  Loads two k-tiles ahead (a second register
-// set) were measured no faster (PERF.md): the k-tile is bound by
-// the worker's own instructions, not by L2.  Each stage is stored
+// rows of XRD do not give.  In the SIMT tile, loads two k-tiles ahead
+// (a second register set) were measured no faster (PERF.md): its
+// k-tile is bound by the worker's own instructions, not by L2.  Each stage is stored
 // k-major with a 16-byte pad a row, so the stores of a transposed tile
 // and the fragment loads of the FMA loop are free of bank conflicts.
 // The worker is 128 threads (4x2 blocks): of the other sizes measured
@@ -79,7 +80,8 @@
 // the 50 MB L2.
 //
 // Determinism: every output element is summed by one thread as the
-// single chain fma(a_k, b_k, acc), k = 0..K-1 in order, from 0; each
+// single chain fma(a_k, b_k, acc), k = 0..K-1 in order, from 0 (bf16: by
+// one warp's chain of mma over k16 steps in order, from 0); each
 // row's softmax sum and error by one thread in column order; the batch
 // loss by one warp in a fixed tree.  No atomics, no split K.  So the
 // same inputs give bitwise the same outputs whatever the team, the
@@ -88,19 +90,45 @@
 // bank i with orders[i].
 //
 // Built for float (the card's default type) and double, and for bf16
-// storage (dtype 2, the fleet's `dtype="bf16"`): weights, dw, the banks,
-// activations and deltas are __nv_bfloat16 in device memory; every
-// product accumulates in float (the k-tiles are staged in shared memory
-// as float), the epilogues run in float, and each value is rounded to
-// bf16 (round to nearest even) where it is stored, as the JAX program
-// holds each of those arrays in bf16.  The row losses and the losses are
-// float.  The float and double builds are the same code as before: acc_t
-// of their type is the type itself and every conversion is the identity.
+// (dtype 2, the fleet's `dtype="bf16"`): weights, dw, the banks,
+// activations and deltas are __nv_bfloat16 in device memory; the
+// epilogues run in float, and each value is rounded to bf16 (round to
+// nearest even) where it is stored, as the JAX program holds each of
+// those arrays in bf16.  The row losses and the losses are float.  The
+// float and double builds take the SIMT tile above: acc_t of their type
+// is the type itself and every conversion is the identity.
+//
+// The bf16 build's tiles run on the tensor cores (gemm_tile_mma), as the
+// TPU kernel's three dots on bf16 operands run on the MXU
+// (`preferred_element_type=f32`: exact bf16 products, float32 sums):
+// `mma.sync.m16n8k16.row.col.f32.bf16.bf16.f32`.  The worker keeps its
+// 32x32 output tile; each of its 4 warps owns a 16x16 quadrant, two
+// m16n8 fragments, 8 float accumulators a thread.  A k-tile is staged
+// raw, in bf16, in the layout device memory holds it (32 rows of 32
+// contiguous values: rows x for an operand contiguous in k, rows k
+// otherwise), each row padded to 40 values (80 bytes) so that the 8
+// row addresses of an ldmatrix phase fall in 8 different 16-byte bank
+// groups; `ldmatrix` (`.trans` for a k-row stage) loads the fragments,
+// 2 k16 steps a k-tile, 4 ldmatrix and 4 mma a warp.  The loads stay
+// `ld.global.cg`, two k-tiles in flight, raw (the body before converted
+// each value to float as it loaded it, so every load waited for its
+// data: PERF.md): 16-byte loads where the rows and the matrix edge are
+// 16-byte aligned (the 784-wide X bank and W0), 2-byte loads, a warp on
+// 32 consecutive values of a row, elsewhere (the 300- and 10-wide rows,
+// the 851/230-wide XRD rows); no cp.async or TMA, whose 16-byte L2-only
+// copies need 16-byte aligned rows.  Each output element is summed by
+// one warp's mma chain in a fixed k order, with exact zeros outside the
+// matrix, so the bf16 build keeps the bitwise rules below.  (mma.sync
+// rather than wgmma: wgmma takes 64 rows at least, which would part the
+// bf16 build's tile walk, its folded output rows and its staged output
+// tile from the float/double builds that share the body.)
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -172,21 +200,22 @@ struct Params {
   int snn, momentum, prefetch;
 };
 
-// Shared memory of one block, in values of T: per worker two stages of
-// an A and a B k-tile (HPNN_TILE k-rows of ld<T>() values each, k-major)
-// and a staged output tile.  It holds computed values, so a bf16 build's
-// is a float build's.  ops/batch_step.py::shared_bytes mirrors it.
+// Shared memory of one block: per worker two stages of an A and a B
+// k-tile (HPNN_TILE rows of stage_ld<T>() values of T each: as computed
+// for float and double, raw for bf16's tensor cores) and a staged output
+// tile of acc_t<T>.  ops/batch_step.py::shared_bytes mirrors it.
+template <typename S>
+__host__ __device__ constexpr int stage_ld() { return HPNN_TILE + 16 / (int)sizeof(S); }
+template <typename S>
+__host__ __device__ constexpr int stage_values() { return HPNN_TILE * stage_ld<S>(); }
 template <typename T>
-__host__ __device__ constexpr int stage_ld() { return HPNN_TILE + 16 / (int)sizeof(T); }
-template <typename T>
-__host__ __device__ constexpr int stage_values() { return HPNN_TILE * stage_ld<T>(); }
-template <typename T>
-__host__ __device__ constexpr int worker_values() {
-  return 4 * stage_values<T>() + HPNN_TILE * HPNN_OUT_LD;
+__host__ __device__ constexpr size_t worker_bytes() {
+  return 4 * stage_values<T>() * sizeof(T) +
+         HPNN_TILE * HPNN_OUT_LD * sizeof(acc_t<T>);
 }
 template <typename T>
 constexpr size_t smem_bytes() {
-  return (size_t)HPNN_WORKERS * worker_values<acc_t<T>>() * sizeof(acc_t<T>);
+  return (size_t)HPNN_WORKERS * worker_bytes<T>();
 }
 
 __device__ __forceinline__ float dev_exp(float x) { return expf(x); }
@@ -275,6 +304,54 @@ struct NoClock {
   __device__ void to(int) {}
 };
 
+// Parts of a tile's k-tiles, clocked by the same thread in the same
+// build: issuing the loads of a later k-tile; storing a k-tile into its
+// stage (waiting for its loads included); the fragment loads
+// (ldmatrix; none apart in the SIMT tile, whose shared-memory loads
+// interleave with its FMA); the products (mma, or the SIMT loop); the
+// worker's barrier.
+enum KPart { K_LOADS, K_STORES, K_FRAGS, K_PRODUCTS, K_BARRIER, N_KPARTS };
+
+#ifdef HPNN_PHASE_CLOCKS
+// cycles by KPart, then the number of k-tiles they cover
+__device__ unsigned long long g_ktile_clocks[N_KPARTS + 1];
+
+// Cycles of one thread by KPart over one tile: to(k) closes the part
+// under way as k, next() counts a k-tile, flush() adds the tile's cycles
+// and k-tiles to g_ktile_clocks.
+struct KClock {
+  bool on;
+  long long last;
+  unsigned long long acc[N_KPARTS + 1];
+  __device__ explicit KClock(bool on_) : on(on_) {
+    for (int k = 0; k <= N_KPARTS; ++k) acc[k] = 0;
+  }
+  __device__ void start() {
+    if (on) last = clock64();
+  }
+  __device__ void to(int k) {
+    if (on) {
+      const long long t = clock64();
+      acc[k] += (unsigned long long)(t - last);
+      last = t;
+    }
+  }
+  __device__ void next() { ++acc[N_KPARTS]; }
+  __device__ void flush() {
+    if (on)
+      for (int k = 0; k <= N_KPARTS; ++k) atomicAdd(&g_ktile_clocks[k], acc[k]);
+  }
+};
+#else
+struct KClock {
+  __device__ explicit KClock(bool) {}
+  __device__ void start() {}
+  __device__ void to(int) {}
+  __device__ void next() {}
+  __device__ void flush() {}
+};
+#endif
+
 #ifdef HPNN_PHASE_CLOCKS
 __device__ unsigned long long g_phase_clocks[N_PHASES];
 
@@ -354,14 +431,27 @@ struct ClusterTeam {
 template <typename T>
 struct Worker {
   typedef acc_t<T> A;
-  A* sm;
+  unsigned char* sm;
   int id, w;
+#ifdef HPNN_PHASE_CLOCKS
+  bool timed = false;  // this thread clocks its tiles' k-tiles (KClock)
+#endif
   __device__ explicit Worker(unsigned char* smem)
-      : sm(reinterpret_cast<A*>(smem) +
-           (size_t)(threadIdx.x / HPNN_WORKER) * worker_values<A>()),
+      : sm(smem + (size_t)(threadIdx.x / HPNN_WORKER) * worker_bytes<T>()),
         id(threadIdx.x / HPNN_WORKER), w(threadIdx.x % HPNN_WORKER) {}
-  __device__ A* stage(int o, int s) const { return sm + (2 * o + s) * stage_values<A>(); }
-  __device__ A* out() const { return sm + 4 * stage_values<A>(); }
+  __device__ T* stage(int o, int s) const {
+    return reinterpret_cast<T*>(sm) + (2 * o + s) * stage_values<T>();
+  }
+  __device__ A* out() const {
+    return reinterpret_cast<A*>(sm + 4 * stage_values<T>() * sizeof(T));
+  }
+  __device__ bool clocked() const {
+#ifdef HPNN_PHASE_CLOCKS
+    return timed;
+#else
+    return false;
+#endif
+  }
   __device__ void sync() const {
     asm volatile("bar.sync %0, %1;" ::"r"(1 + id), "r"(HPNN_WORKER) : "memory");
   }
@@ -453,17 +543,19 @@ __device__ __forceinline__ void store_tile(acc_t<T>* S, const acc_t<T> (&v)[HPNN
 
 // One 32x32 tile (tm, tn) of C(r, c) = sum_k A(r, k) * Bm(k, c) with
 // A(r, k) = A[r*sar + k*sak] and Bm(k, c) = Bm[k*sbk + c*sbc], by the
-// worker `wk`; calls epi(r, c, acc) for each element inside (M, N).
-// Thread (ty, tx) of 8 x HPNN_TX owns rows 4ty..4ty+3 and columns
-// HPNN_CW*tx..HPNN_CW*tx+HPNN_CW-1.
+// worker `wk`, on the SIMT FMA (float, double); calls epi(r, c, acc) for
+// each element inside (M, N).  Thread (ty, tx) of 8 x HPNN_TX owns rows
+// 4ty..4ty+3 and columns HPNN_CW*tx..HPNN_CW*tx+HPNN_CW-1.
 template <typename T, typename Epi>
-__device__ void gemm_tile(int M, int N, int K, const T* A, size_t sar, size_t sak,
-                          const T* Bm, size_t sbk, size_t sbc, int tm, int tn,
-                          const Worker<T>& wk, Epi epi) {
+__device__ void gemm_tile_simt(int M, int N, int K, const T* A, size_t sar, size_t sak,
+                               const T* Bm, size_t sbk, size_t sbc, int tm, int tn,
+                               const Worker<T>& wk, Epi epi) {
   typedef acc_t<T> V;
   const int ty = wk.w / HPNN_TX, tx = wk.w % HPNN_TX;
   const int r0 = tm * HPNN_TILE, c0 = tn * HPNN_TILE;
   constexpr int LD = stage_ld<V>();
+  KClock kc(wk.clocked());
+  kc.start();
   const Operand<T> oa = operand(A, sar, sak, r0, M, wk.w);
   const Operand<T> ob = operand(Bm, sbc, sbk, c0, N, wk.w);
   V acc[4][HPNN_CW];
@@ -474,9 +566,12 @@ __device__ void gemm_tile(int M, int N, int K, const T* A, size_t sar, size_t sa
   V va[HPNN_LOADS], vb[HPNN_LOADS];
   load_tile(va, oa, 0, K);
   load_tile(vb, ob, 0, K);
+  kc.to(K_LOADS);
   store_tile(wk.stage(0, 0), va, oa);
   store_tile(wk.stage(1, 0), vb, ob);
+  kc.to(K_STORES);
   wk.sync();
+  kc.to(K_BARRIER);
   const int nk = cdiv(K, HPNN_TILE);
   for (int kt = 0; kt < nk; ++kt) {
     const int s = kt & 1;
@@ -485,6 +580,7 @@ __device__ void gemm_tile(int M, int N, int K, const T* A, size_t sar, size_t sa
       load_tile(va, oa, kt + 1, K);
       load_tile(vb, ob, kt + 1, K);
     }
+    kc.to(K_LOADS);
     const V* As = wk.stage(0, s) + 4 * ty;
     const V* Bs = wk.stage(1, s) + HPNN_CW * tx;
     const int kmax = min(HPNN_TILE, K - kt * HPNN_TILE);
@@ -498,14 +594,19 @@ __device__ void gemm_tile(int M, int N, int K, const T* A, size_t sar, size_t sa
 #pragma unroll
         for (int j = 0; j < HPNN_CW; ++j) acc[i][j] = fma(a[i], b[j], acc[i][j]);
     }
+    kc.to(K_PRODUCTS);
     if (more) {
       store_tile(wk.stage(0, s ^ 1), va, oa);
       store_tile(wk.stage(1, s ^ 1), vb, ob);
     }
+    kc.to(K_STORES);
     // the one barrier a k-tile: stage s^1 is full, and nobody still
     // reads stage s, which k-tile kt+2 overwrites
     wk.sync();
+    kc.to(K_BARRIER);
+    kc.next();
   }
+  kc.flush();
 #pragma unroll
   for (int i = 0; i < 4; ++i)
 #pragma unroll
@@ -513,6 +614,216 @@ __device__ void gemm_tile(int M, int N, int K, const T* A, size_t sar, size_t sa
       const int r = r0 + 4 * ty + i, c = c0 + HPNN_CW * tx + j;
       if (r < M && c < N) epi(r, c, acc[i][j]);
     }
+}
+
+// ---- the bf16 tile on the tensor cores
+
+// A thread's share of the 32 x 32 k-tiles of one bf16 operand, staged as
+// device memory holds them: stage row i, column j is P(x0 + i, k0 + j)
+// for an operand contiguous in k (P[x*sx + k]) and P(x0 + j, k0 + i)
+// otherwise (P[x + k*sk]).  Vector: the thread loads row `row`, the 8
+// columns from `col`, in one 16-byte load; else column `col` of rows
+// row + 4j, j < 8, by 2-byte loads, a warp 64 consecutive bytes of a row
+// (loads of 4 or 8 bytes where the rows allow them were measured slower:
+// PERF.md).  The addresses are laid out once a tile: `base` is the
+// thread's first value at k-tile 0.
+struct Tile16 {
+  const bf16* base;
+  size_t rstep;   // from the thread's row j to row j+1 (2-byte loads)
+  size_t kstep;   // from one k-tile to the next
+  int row, col;   // the thread's first stage row and column
+  int xleft;      // rows (k-contiguous) or columns (else) inside the matrix
+  bool kfast, vec;
+};
+
+__device__ __forceinline__ Tile16 tile16(const bf16* P, size_t sx, size_t sk, int x0,
+                                         int xlim, int K, int w) {
+  Tile16 o;
+  o.kfast = sk == 1;
+  const size_t rs = o.kfast ? sx : sk;  // from one stage row to the next
+  // 16-byte loads need 16-byte aligned rows and a matrix edge on 8 values
+  o.vec = rs % 8 == 0 && (o.kfast ? K : xlim) % 8 == 0 &&
+          reinterpret_cast<uintptr_t>(P) % 16 == 0;
+  if (o.vec) {
+    o.row = w >> 2, o.col = 8 * (w & 3);
+  } else {
+    o.row = w >> 5, o.col = w & 31;
+  }
+  o.rstep = 4 * rs;
+  o.kstep = o.kfast ? HPNN_TILE : HPNN_TILE * sk;
+  o.xleft = xlim - x0;
+  o.base = o.kfast ? P + (size_t)(x0 + o.row) * sx + o.col
+                   : P + (size_t)x0 + o.col + (size_t)o.row * sk;
+  return o;
+}
+
+// A k-tile in flight: 16 bytes (vector) or 8 values of 2 bytes.
+struct Ld16 {
+  unsigned u[8];
+};
+
+// k-tile kt of the operand (K deep) into the thread's registers, raw;
+// 0 outside the matrix.
+__device__ __forceinline__ void load16(Ld16& v, const Tile16& o, int kt, int K) {
+  const int kleft = K - kt * HPNN_TILE;
+  const int rows = o.kfast ? o.xleft : kleft, cols = o.kfast ? kleft : o.xleft;
+  const bf16* p = o.base + (size_t)kt * o.kstep;
+  if (o.vec) {
+    uint4 q = make_uint4(0u, 0u, 0u, 0u);
+    if (o.row < rows && o.col < cols) q = __ldcg(reinterpret_cast<const uint4*>(p));
+    v.u[0] = q.x, v.u[1] = q.y, v.u[2] = q.z, v.u[3] = q.w;
+  } else {
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+      v.u[j] = o.row + 4 * j < rows && o.col < cols
+                   ? __ldcg(reinterpret_cast<const unsigned short*>(p + j * o.rstep)) : 0u;
+  }
+}
+
+// The registers of load16 into a stage.
+__device__ __forceinline__ void store16(bf16* S, const Ld16& v, const Tile16& o) {
+  constexpr int LD = stage_ld<bf16>();
+  if (o.vec) {
+    *reinterpret_cast<uint4*>(S + o.row * LD + o.col) = make_uint4(v.u[0], v.u[1], v.u[2], v.u[3]);
+  } else {
+    unsigned short* h = reinterpret_cast<unsigned short*>(S);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) h[(o.row + 4 * j) * LD + o.col] = (unsigned short)v.u[j];
+  }
+}
+
+// The stage offset of the row that `lane` gives `ldmatrix.x4` for a
+// 16 x 16 (x, k) block at x offset xw: the four 8 x 8 matrices in the
+// order of an A fragment, (x, k) blocks (0, 0), (8, 0), (0, 8), (8, 8),
+// or of two B fragments, (0, 0), (0, 8), (8, 0), (8, 8).  A stage of x
+// rows is read as stored, one of k rows transposed (.trans).
+__device__ __forceinline__ int frag_off(bool kfast, bool a_order, int xw, int lane) {
+  constexpr int LD = stage_ld<bf16>();
+  const int m = lane >> 3;
+  const int xo = 8 * (a_order ? m & 1 : m >> 1), ko = 8 * (a_order ? m >> 1 : m & 1);
+  return kfast ? (xw + xo + (lane & 7)) * LD + ko : (ko + (lane & 7)) * LD + xw + xo;
+}
+
+__device__ __forceinline__ void ldsm4(unsigned (&r)[4], const bf16* p, bool trans) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(p);
+  if (trans)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// d += a . b on the tensor cores: exact bf16 products, float32 sums
+__device__ __forceinline__ void mma16816(float (&d)[4], const unsigned (&a)[4], unsigned b0,
+                                         unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The tile of gemm_tile_simt for bf16, on the tensor cores.  Warp q owns
+// the quadrant of rows 16(q/2).. and columns 16(q%2)..; its lane l holds
+// the m16n8 accumulators of rows l/4 and l/4 + 8, columns 2(l%4) and
+// 2(l%4) + 1 of each of its two 8-column fragments.  K-tile kt+1 and
+// kt+2 are in flight while kt is multiplied: `hold` carries kt+1 (stored
+// after the products), `next` takes kt+2's loads.
+template <typename T, typename Epi>
+__device__ void gemm_tile_mma(int M, int N, int K, const T* A, size_t sar, size_t sak,
+                              const T* Bm, size_t sbk, size_t sbc, int tm, int tn,
+                              const Worker<T>& wk, Epi epi) {
+  static_assert(std::is_same<T, bf16>::value, "the tensor-core tile takes bf16");
+  const int lane = wk.w & 31, warp = wk.w >> 5;
+  const int r0 = tm * HPNN_TILE, c0 = tn * HPNN_TILE;
+  const int wr = 16 * (warp >> 1), wc = 16 * (warp & 1);
+  KClock kc(wk.clocked());
+  kc.start();
+  const Tile16 oa = tile16(A, sar, sak, r0, M, K, wk.w);
+  const Tile16 ob = tile16(Bm, sbc, sbk, c0, N, K, wk.w);
+  constexpr int LD = stage_ld<bf16>();
+  const int fa = frag_off(oa.kfast, true, wr, lane), fb = frag_off(ob.kfast, false, wc, lane);
+  const int ia = oa.kfast ? 16 : 16 * LD, ib = ob.kfast ? 16 : 16 * LD;  // one k16 step
+  // a quadrant wholly outside C stages its share of the k-tiles and
+  // multiplies nothing
+  const bool live = r0 + wr < M && c0 + wc < N;
+  float acc[2][4] = {};
+  const int nk = cdiv(K, HPNN_TILE);
+  Ld16 ha, hb, na, nb;
+  load16(ha, oa, 0, K);
+  load16(hb, ob, 0, K);
+  kc.to(K_LOADS);
+  store16(wk.stage(0, 0), ha, oa);
+  store16(wk.stage(1, 0), hb, ob);
+  kc.to(K_STORES);
+  if (nk > 1) {
+    load16(ha, oa, 1, K);
+    load16(hb, ob, 1, K);
+  }
+  kc.to(K_LOADS);
+  wk.sync();
+  kc.to(K_BARRIER);
+  auto ktile = [&](int kt, Ld16& hold_a, Ld16& hold_b, Ld16& next_a, Ld16& next_b) {
+    const int s = kt & 1;
+    if (kt + 2 < nk) {
+      load16(next_a, oa, kt + 2, K);
+      load16(next_b, ob, kt + 2, K);
+    }
+    kc.to(K_LOADS);
+    if (live) {
+      const bf16* As = wk.stage(0, s) + fa;
+      const bf16* Bs = wk.stage(1, s) + fb;
+      // the second k16 step only where the k-tile reaches it
+      const int steps = K - kt * HPNN_TILE > 16 ? 2 : 1;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (h < steps) {
+          unsigned a[4], b[4];
+          ldsm4(a, As + h * ia, !oa.kfast);
+          ldsm4(b, Bs + h * ib, !ob.kfast);
+          kc.to(K_FRAGS);
+          mma16816(acc[0], a, b[0], b[1]);
+          mma16816(acc[1], a, b[2], b[3]);
+          kc.to(K_PRODUCTS);
+        }
+      }
+    }
+    if (kt + 1 < nk) {
+      store16(wk.stage(0, s ^ 1), hold_a, oa);
+      store16(wk.stage(1, s ^ 1), hold_b, ob);
+    }
+    kc.to(K_STORES);
+    // stage s^1 is full, and nobody still reads stage s, which k-tile
+    // kt+2 overwrites
+    wk.sync();
+    kc.to(K_BARRIER);
+    kc.next();
+  };
+  for (int kt = 0; kt < nk; kt += 2) {
+    ktile(kt, ha, hb, na, nb);
+    if (kt + 1 < nk) ktile(kt + 1, na, nb, ha, hb);
+  }
+  kc.flush();
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int f = 0; f < 2; ++f)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = r0 + wr + g + 8 * (e >> 1), c = c0 + wc + 8 * f + 2 * q + (e & 1);
+      if (r < M && c < N) epi(r, c, acc[f][e]);
+    }
+}
+
+// One 32x32 tile of C = A . Bm by the worker (gemm_tile_simt's contract):
+// on the tensor cores for bf16, on the SIMT FMA for float and double.
+template <typename T, typename Epi>
+__device__ __forceinline__ void gemm_tile(int M, int N, int K, const T* A, size_t sar,
+                                          size_t sak, const T* Bm, size_t sbk, size_t sbc,
+                                          int tm, int tn, const Worker<T>& wk, Epi epi) {
+  if constexpr (std::is_same<T, bf16>::value)
+    gemm_tile_mma(M, N, K, A, sar, sak, Bm, sbk, sbc, tm, tn, wk, epi);
+  else
+    gemm_tile_simt(M, N, K, A, sar, sak, Bm, sbk, sbc, tm, tn, wk, epi);
 }
 
 // One output row b held whole in shared memory (`os`, its n values as
@@ -761,9 +1072,12 @@ template <typename T, typename Team>
 __device__ void run_epoch(const Params<T>& p, Team& team, const Worker<T>& wk) {
 #ifdef HPNN_PHASE_CLOCKS
   PhaseClock clk;
-  clk.start(team.rank() == 0 && threadIdx.x == 0);
+  const bool on = team.rank() == 0 && threadIdx.x == 0;
+  clk.start(on);
+  Worker<T> clocked = wk;
+  clocked.timed = on;
   TimedTeam<Team> timed{team, clk};
-  epoch(p, timed, wk, clk);
+  epoch(p, timed, clocked, clk);
   clk.flush();
 #else
   NoClock clk;
@@ -1076,13 +1390,19 @@ extern "C" long long hpnn_batch_smem_bytes(int dtype) {
 }
 
 #ifdef HPNN_PHASE_CLOCKS
-// The SM cycles rank 0's thread 0 spent in each phase (enum Phase), summed
-// over the launches since the last reset; then zero them if `reset`.
+// The SM cycles rank 0's thread 0 spent in each phase (enum Phase), then
+// in each part of its tiles' k-tiles (enum KPart), then the number of
+// those k-tiles: N_PHASES + N_KPARTS + 1 values summed over the launches
+// since the last reset; then zero them if `reset`.
 extern "C" int hpnn_batch_phase_clocks(unsigned long long* out, int reset) {
   cudaError_t err = cudaMemcpyFromSymbol(out, g_phase_clocks, sizeof(g_phase_clocks));
+  if (err == cudaSuccess)
+    err = cudaMemcpyFromSymbol(out + N_PHASES, g_ktile_clocks, sizeof(g_ktile_clocks));
   if (err != cudaSuccess || !reset) return (int)err;
-  static const unsigned long long zero[N_PHASES] = {};
-  return (int)cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
+  static const unsigned long long zero[N_PHASES + N_KPARTS + 1] = {};
+  err = cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(g_phase_clocks));
+  if (err == cudaSuccess) err = cudaMemcpyToSymbol(g_ktile_clocks, zero, sizeof(g_ktile_clocks));
+  return (int)err;
 }
 #endif
 

@@ -21,8 +21,8 @@ loss):
 All five return ``(weights, dw, loss | losses)`` and update ``weights``
 (and ``dw`` with momentum) IN PLACE.  A CUDA tensor goes through the
 kernel, one launch on the current stream (float32, float64, or bfloat16
-storage with float32 products and float32 losses; anything else
-raises); a CPU tensor takes the ``*_plain`` twin, which runs
+storage with its products on the tensor cores, float32 sums and float32
+losses; anything else raises); a CPU tensor takes the ``*_plain`` twin, which runs
 ``parallel.dp.train_step_math`` once per step (per member and step for
 the fleet) on the tensors' own dtype.  There is no other route.
 ``launches`` counts each entry point's kernel launches in this process.
@@ -119,17 +119,23 @@ def _library(define: str | None = None):
 # the phases of csrc/batch_step.cu's `enum Phase`, in order
 PHASES = ("forward tiles", "output rows apart", "hidden-delta tiles", "update tiles",
           "team syncs", "step start and loss")
+# the parts of a tile's k-tiles, `enum KPart`, in order, then their count
+KTILE_PARTS = ("loads", "stage stores", "fragment loads", "products", "barrier")
+KTILES = "k-tiles"
 
 
 def phase_clocks(run):
     """``run()`` (kernel launches through the entry points above, on CUDA
     tensors) with the kernel's phase-clock build (``-DHPNN_PHASE_CLOCKS``):
-    returns ``run()``'s result and the SM cycles that rank 0's thread 0
-    spent in each of ``PHASES``, waits at the team's syncs included.  A
-    measuring tool: its launches do not count in ``launches``."""
+    returns ``run()``'s result, the SM cycles that rank 0's thread 0
+    spent in each of ``PHASES`` (waits at the team's syncs included), and
+    its cycles in each of ``KTILE_PARTS`` of its tiles' k-tiles (a share
+    of the tile phases) with, under ``KTILES``, the number of those
+    k-tiles.  A measuring tool: its launches do not count in
+    ``launches``."""
     global _variant
     lib = _library("HPNN_PHASE_CLOCKS")
-    clocks = (ctypes.c_ulonglong * len(PHASES))()
+    clocks = (ctypes.c_ulonglong * (len(PHASES) + len(KTILE_PARTS) + 1))()
 
     def read_and_zero():
         rc = lib.hpnn_batch_phase_clocks(ctypes.addressof(clocks), 1)
@@ -147,7 +153,9 @@ def phase_clocks(run):
         _variant = None
         launches.update(counted)
     read_and_zero()
-    return out, dict(zip(PHASES, (int(v) for v in clocks)))
+    values = [int(v) for v in clocks]
+    return (out, dict(zip(PHASES, values)),
+            dict(zip(KTILE_PARTS + (KTILES,), values[len(PHASES):])))
 
 
 def _raise_on(lib, rc: int, what: str) -> None:
@@ -188,12 +196,14 @@ def loss_dtype(dtype):
 def shared_bytes(dtype) -> int:
     """Dynamic shared memory of one block of the kernel (the layout of
     csrc/batch_step.cu's ``smem_bytes``): per tile worker two stages of
-    an A and a B k-tile, each TILE k-rows of TILE values plus a 16-byte
-    pad, and a TILE x (TILE + 1) staged output tile, in the computed
-    type (:func:`loss_dtype`)."""
-    b = torch.empty((), dtype=loss_dtype(dtype)).element_size()
-    stage = TILE * (TILE + 16 // b)
-    return WORKERS * (4 * stage + TILE * (TILE + 1)) * b
+    an A and a B k-tile, each TILE rows of TILE values plus a 16-byte
+    pad, in ``dtype`` (bfloat16 is staged raw for the tensor cores), and
+    a TILE x (TILE + 1) staged output tile in the computed type
+    (:func:`loss_dtype`)."""
+    t = torch.empty((), dtype=dtype).element_size()
+    a = torch.empty((), dtype=loss_dtype(dtype)).element_size()
+    stage = TILE * (TILE + 16 // t)
+    return WORKERS * (4 * stage * t + TILE * (TILE + 1) * a)
 
 
 def largest_gemm_tiles(shapes, batch: int) -> int:

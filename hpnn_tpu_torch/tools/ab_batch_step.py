@@ -1,6 +1,7 @@
 """Hold this checkout's batch-step kernels (#2-#6, ``csrc/batch_step.cu``)
-against another checkout's on one card: bitwise on the same inputs, and
-timed in turns (parent, change, change, parent).
+against another checkout's on one card: bitwise on the same inputs
+(float and double; bf16 within a band), and timed in turns (parent,
+change, change, parent).
 
     git archive <parent> | tar -x -C .archive/parent
     python3 -m hpnn_tpu_torch.tools.ab_batch_step --parent .archive/parent
@@ -17,6 +18,12 @@ What a turn runs, on inputs made from one seed:
   784-300-10 BP and 851-230-230 BPM, ANN/SNN, float and double, B =
   256, S = 8) through #6 as planned, #4 and #5 on member 0's bank, and
   #2 and #3 on its first block;
+* the same in bf16, and bf16 #6 over the 8-member epoch below (timed;
+  a float32 #6 epoch right after it is timed as an item of its own):
+  held to the other side within ``BF16_BAND`` (``chip_smoke.py``'s band
+  of the bf16 build against its plain version), since a change of the
+  bf16 body may round differently, and each side bitwise to its own
+  other turn;
 * bitwise and timed (CUDA events, after one untimed run): one 235-step
   epoch of a 60000-row bank, 784-300-10 ANN-BP float32, B = 256,
   through #2 and #3 (235 launches each), #4 and #5 (one launch), and #6
@@ -27,10 +34,13 @@ What a turn runs, on inputs made from one seed:
   device time a tick spends in each kernel and copy, and 90 more for the
   median time the host spends in #6's entry point a tick.
 
-Each result is compared by the SHA-256 of its bytes.  Prints one line
-per timed item and one JSON object as its last line (also written to
-``--out``); exits 1 when a result differs between the sides or between
-two turns of one side.
+Each result is compared by the SHA-256 of its bytes (a bf16 result
+across the sides by its values, kept in a ``.pt`` file beside the
+turn's JSON).  Prints one line per timed item and one JSON object as
+its last line (also written to ``--out``); exits 1 when a float or
+double result differs between the sides or between two turns of one
+side, or a bf16 result between two turns of one side or out of the
+band between the sides.
 """
 
 from __future__ import annotations
@@ -58,11 +68,16 @@ PINNED_N = 4
 HPNN_FLEET = (64, (32, 16, 4), 30)  # members, shape, ticks a timed run
 TICK_RUNS = 3
 TURNS = ("parent", "change", "change", "parent")
+# chip_smoke.py's BF16_BAND: weights, each layer's change relative to
+# the other's, losses relative
+BF16_BAND = {"w": 2e-3, "update_rel": 0.25, "loss_rel": 2e-2}
 
 
 def digest(tensors) -> list:
-    return [hashlib.sha256(t.detach().cpu().contiguous().numpy().tobytes()).hexdigest()
-            for t in tensors]
+    def raw(t):
+        t = t.detach().cpu().contiguous()
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+    return [hashlib.sha256(raw(t).numpy().tobytes()).hexdigest() for t in tensors]
 
 
 def events_ms(fn) -> float:
@@ -96,9 +111,21 @@ def build(checkout: str) -> None:
     _build.build("batch_step")
 
 
-def turn(checkout: str) -> dict:
+def bf16_gap(a, b) -> dict:
+    """Two sides' bf16 results of one item, each (losses, w0, w, dw) as
+    float32 CPU tensors: their distance in ``BF16_BAND``'s terms."""
+    ([la], w0, wa, dwa), ([lb], _, wb, dwb) = a, b
+    da = torch.cat([(x - z).flatten() for x, z in zip(wa, w0)])
+    db = torch.cat([(y - z).flatten() for y, z in zip(wb, w0)])
+    return dict(w=max(float((x - y).abs().max()) for x, y in zip(wa + dwa, wb + dwb)),
+                update_rel=float((da - db).norm() / db.norm()),
+                loss_rel=float(((la - lb).abs() / lb.abs()).max()))
+
+
+def turn(checkout: str, keep: str | None = None) -> dict:
     """Every item of the module docstring through the ``hpnn_tpu_torch``
-    of ``checkout``: {"hash": {item: [sha256, ...]}, "ms": {item: [ms]}}."""
+    of ``checkout``: {"hash": {item: [sha256, ...]}, "hash_bf16": {...},
+    "ms": {item: [ms]}}; the bf16 results' tensors go to ``keep``."""
     sys.path.insert(0, checkout)
     import hpnn_tpu_torch
     from hpnn_tpu_torch.models import kernel as km
@@ -108,7 +135,11 @@ def turn(checkout: str) -> dict:
         raise RuntimeError(f"imported {hpnn_tpu_torch.__file__}, not {checkout}'s package")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    hashes, times = {}, {}
+    hashes, times, hashes16, kept = {}, {}, {}, {}
+
+    def held16(name, loss, w0, w, dw):
+        hashes16[name] = digest([loss] + w + dw)
+        kept[name] = tuple([t.float().cpu() for t in ts] for ts in ([loss], w0, w, dw))
 
     # phase 10's shapes, bitwise only
     rng = np.random.default_rng(SEED + 10)
@@ -124,7 +155,7 @@ def turn(checkout: str) -> dict:
         first = int(orders[0, 0])
         rows = slice(first * BATCH, (first + 1) * BATCH)
         for model in ("ann", "snn"):
-            for dtype in (torch.float32, torch.float64):
+            for dtype in (torch.float32, torch.float64, torch.bfloat16):
                 tag = (f"{model}-{'BPM' if momentum else 'BP'} {'-'.join(map(str, shape))} "
                        f"{str(dtype).split('.')[1]}")
                 kw = dict(model=model, momentum=momentum)
@@ -132,31 +163,41 @@ def turn(checkout: str) -> dict:
                 Td = torch.tensor(T, dtype=dtype, device=dev)
 
                 def fresh():
-                    w, dw = km.to_torch(W, dW, device=dev, dtype=dtype)
-                    return list(w), list(dw)
+                    if dtype != torch.bfloat16:
+                        w, dw = km.to_torch(W, dW, device=dev, dtype=dtype)
+                        return list(w), list(dw)
+                    w, dw = km.to_torch(W, dW, device=dev, dtype=torch.float32)
+                    return [t.to(dtype) for t in w], [t.to(dtype) for t in dw]
 
                 def member():
                     w, dw = fresh()
                     return [t[0].clone() for t in w], [t[0].clone() for t in dw]
 
+                def result(name, loss, w, dw, stacked=False):
+                    if dtype != torch.bfloat16:
+                        hashes[name] = digest([loss] + w + dw)
+                    else:
+                        held16(name, loss, fresh()[0] if stacked else member()[0], w, dw)
+
                 w, dw = fresh()
                 loss = bs.train_fleet_epoch_dbuf_banked(w, dw, Xd, Td, orders, batch=BATCH,
                                                         **kw)[2]
-                hashes[f"#6 pinned {tag}"] = digest([loss] + w + dw)
+                result(f"#6 pinned {tag}", loss, w, dw, stacked=True)
                 for name, fn in (("#4", bs.train_epoch_grid_banked),
                                  ("#5", bs.train_epoch_dbuf_banked)):
                     w, dw = member()
                     loss = fn(w, dw, Xd[0], Td[0], orders[0], batch=BATCH, **kw)[2]
-                    hashes[f"{name} pinned {tag}"] = digest([loss] + w + dw)
+                    result(f"{name} pinned {tag}", loss, w, dw)
                 w, dw = member()
                 loss = bs.train_step_fused_batch(w, dw, Xd[0][rows].contiguous(),
                                                  Td[0][rows].contiguous(), **kw)[2]
-                hashes[f"#2 pinned {tag}"] = digest([loss] + w + dw)
+                result(f"#2 pinned {tag}", loss.reshape(1), w, dw)
                 w, dw = member()
                 loss = bs.train_step_fused_banked(w, dw, Xd[0], Td[0], first, batch=BATCH,
                                                   **kw)[2]
-                hashes[f"#3 pinned {tag}"] = digest([loss] + w + dw)
-    print(f"[ab] {checkout}: {len(hashes)} pinned results", flush=True)
+                result(f"#3 pinned {tag}", loss.reshape(1), w, dw)
+    print(f"[ab] {checkout}: {len(hashes)} pinned results, {len(hashes16)} of them bf16",
+          flush=True)
 
     # one 60000-row epoch, timed
     S = math.ceil(ROWS / BATCH)
@@ -207,6 +248,22 @@ def turn(checkout: str) -> dict:
             w, [], Xb, Tb, orders, batch=BATCH, **kw)[2]] + w)
         times[name] = [events_ms(lambda: bs.train_fleet_epoch_dbuf_banked(
             w, [], Xb, Tb, orders, batch=BATCH, **kw))]
+        if N == FLEET_N[0]:
+            # bf16 on the same banks, then float32 again: a float32 epoch
+            # right after a bf16 one is timed apart from the float32 item
+            # above, as it depends on the bf16 body that ran before it
+            X16, T16 = Xb.to(torch.bfloat16), Tb.to(torch.bfloat16)
+            w16 = [t.to(torch.bfloat16) for t in w]
+            w0 = [t.clone() for t in w16]
+            name16 = f"#6 epoch, {N} members, bf16"
+            held16(name16, bs.train_fleet_epoch_dbuf_banked(
+                w16, [], X16, T16, orders, batch=BATCH, **kw)[2], w0, w16, [])
+            times[name16] = [events_ms(lambda: bs.train_fleet_epoch_dbuf_banked(
+                w16, [], X16, T16, orders, batch=BATCH, **kw))]
+            times[f"{name}, f32 after bf16"] = [events_ms(
+                lambda: bs.train_fleet_epoch_dbuf_banked(w, [], Xb, Tb, orders, batch=BATCH,
+                                                         **kw))]
+            del X16, T16
         del Xb, Tb
         torch.cuda.empty_cache()
     del X, T
@@ -252,7 +309,9 @@ def turn(checkout: str) -> dict:
     hashes[name] = digest(stacked)
     print(f"[ab] {checkout}: " + "; ".join(
         f"{k} {', '.join(f'{t:.3f}' for t in v)} ms" for k, v in times.items()), flush=True)
-    return dict(hash=hashes, ms=times, tick_device_us=tick_device)
+    if keep:
+        torch.save(kept, keep)
+    return dict(hash=hashes, hash_bf16=hashes16, ms=times, tick_device_us=tick_device)
 
 
 def main(argv=None) -> int:
@@ -267,7 +326,7 @@ def main(argv=None) -> int:
         build(os.path.abspath(args.build))
         return 0
     if args.turn:
-        result = turn(os.path.abspath(args.turn))
+        result = turn(os.path.abspath(args.turn), args.json + ".pt")
         with open(args.json, "w") as fp:
             json.dump(result, fp)
         return 0
@@ -298,6 +357,20 @@ def main(argv=None) -> int:
             res.append(json.load(fp))
     items = list(res[0]["hash"])
     differ = [k for k in items if any(r["hash"].get(k) != res[0]["hash"][k] for r in res)]
+    # bf16: bitwise within each side, within the band across the sides
+    items16 = list(res[0]["hash_bf16"])
+    for a, b in ((0, 3), (1, 2)):
+        differ += [f"{k} ({TURNS[a]}'s turns)" for k in items16
+                   if res[a]["hash_bf16"][k] != res[b]["hash_bf16"].get(k)]
+    kept = [torch.load(os.path.join(work, f"turn{i}.json.pt")) for i in (0, 1)]
+    gaps, out_of_band = {}, []
+    for k in items16:
+        gaps[k] = bf16_gap(kept[1][k], kept[0][k])
+        if not all(math.isfinite(v) and v <= BF16_BAND[m] for m, v in gaps[k].items()):
+            out_of_band.append(k)
+        print(f"[ab] {k}: change against parent " + ", ".join(
+            f"{m} {v:.3e}" for m, v in gaps[k].items()) + (
+            " OUT OF BAND" if k in out_of_band else ""), flush=True)
     times = {}
     for k in res[0]["ms"]:
         times[k] = dict(parent_ms=res[0]["ms"][k] + res[3]["ms"][k],
@@ -313,16 +386,21 @@ def main(argv=None) -> int:
         print(f"[ab] {side} (turn {i + 1}), device us a tick: {sum(us.values()):.2f} in all; "
               + "; ".join(f"{k[:60]} {v:.2f}" for k, v in sorted(us.items(), key=lambda kv: -kv[1])),
               flush=True)
-    result = dict(card=card, bitwise_equal=len(items) - len(differ), differ=differ,
+    float_differ = [k for k in differ if k in items]
+    result = dict(card=card, bitwise_equal=len(items) - len(float_differ), differ=differ,
+                  bf16_band=BF16_BAND, bf16_gaps=gaps, bf16_out_of_band=out_of_band,
                   times=times, tick_device_us=tick_device, seconds=time.perf_counter() - t0)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as fp:
             json.dump(result, fp, indent=1)
-    print(f"[ab] {len(items) - len(differ)} of {len(items)} results bitwise equal in all "
-          f"four turns" + (f"; DIFFER: {differ}" if differ else ""), flush=True)
+    print(f"[ab] {len(items) - len(float_differ)} of {len(items)} float/double results "
+          f"bitwise equal in all four turns; {len(items16) - len(out_of_band)} of "
+          f"{len(items16)} bf16 results within the band of the parent's"
+          + (f"; DIFFER: {differ}" if differ else "")
+          + (f"; OUT OF BAND: {out_of_band}" if out_of_band else ""), flush=True)
     print(json.dumps(result))
-    return 1 if differ else 0
+    return 1 if differ or out_of_band else 0
 
 
 if __name__ == "__main__":

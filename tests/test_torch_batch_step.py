@@ -8,6 +8,8 @@ against the JAX package on the CPU.
   an epoch (S = 4 steps) to 1e-5 and 1e-5.
 * ``parallel.dp.train_step_math`` against the JAX package's, in
   float64, within 1e-12.
+* A lane-by-lane model of the bf16 tile's maps (stage loads, ldmatrix,
+  mma fragments) against ``A @ B``, within 1e-12 in float64.
 
 Inputs are made from a seed with numpy and handed to both packages.
 """
@@ -232,15 +234,20 @@ def test_largest_gemm_tiles():
 
 def test_shared_bytes_of_the_stages():
     """Two workers, each two stages of two 32 x (32 + 16 bytes) k-tiles
-    and a 32 x 33 output tile: within one H100 block's shared memory."""
+    and a 32 x 33 output tile: within one H100 block's shared memory.
+    bf16 stages its k-tiles raw (rows of 40 bf16) and its output tile
+    in float."""
     f32 = 2 * (4 * 32 * 36 + 32 * 33) * 4
     f64 = 2 * (4 * 32 * 34 + 32 * 33) * 8
+    bf16 = 2 * (4 * 32 * 40 * 2 + 32 * 33 * 4)
     assert batch_step.shared_bytes(torch.float32) == f32 == 45312
     assert batch_step.shared_bytes(torch.float64) == f64 == 86528
+    assert batch_step.shared_bytes(torch.bfloat16) == bf16 == 28928
     assert f64 <= batch_step.MAX_SHARED_BYTES
     # each stage row and each worker's share keep 16-byte alignment
     assert (32 + 16 // 4) * 4 % 16 == 0 and (32 + 16 // 8) * 8 % 16 == 0
-    assert f32 // 4 % 16 == 0 and f64 // 4 % 16 == 0
+    assert (32 + 16 // 2) * 2 % 16 == 0 and (4 * 32 * 40 * 2) % 16 == 0
+    assert f32 // 4 % 16 == 0 and f64 // 4 % 16 == 0 and bf16 // 2 % 16 == 0
 
 
 def test_entry_points_check_the_team_on_the_cpu():
@@ -277,3 +284,158 @@ def test_entry_points_check_the_team_on_the_cpu():
     with pytest.raises(ValueError, match="cluster size"):
         batch_step.train_fleet_epoch_dbuf_banked(ws, [], Xs, Ts, [[0], [0]], batch=8,
                                                  cluster=12)
+
+
+# ---- a model of the bf16 tile's maps (csrc/batch_step.cu, gemm_tile_mma)
+#
+# tile16/load16/store16, frag_off and the PTX fragment layouts of
+# ldmatrix.x4[.trans] and mma.m16n8k16.row.col, lane by lane in numpy,
+# walking every tile and k-tile of C = A . Bm as the 128-thread worker
+# does.  A change to those maps in the kernel is made here too; the card
+# tests hold the kernel itself.
+
+_TILE, _LD, _WORKER = 32, 40, 128  # HPNN_TILE, stage_ld<bf16>(), HPNN_WORKER
+
+
+def _tile16(P0, sx, sk, x0, xlim, K, w):
+    """tile16: the thread w's share of an operand's k-tiles, P(x, k) =
+    P[P0 + x*sx + k*sk] (P0: the pointer's offset in values)."""
+    kfast = sk == 1
+    rs = sx if kfast else sk
+    vec = rs % 8 == 0 and (K if kfast else xlim) % 8 == 0 and P0 % 8 == 0
+    row, col = (w >> 2, 8 * (w & 3)) if vec else (w >> 5, w & 31)
+    base = P0 + ((x0 + row) * sx + col if kfast else x0 + col + row * sk)
+    return dict(base=base, rstep=4 * rs, kstep=_TILE if kfast else _TILE * sk, row=row,
+                col=col, xleft=xlim - x0, kfast=kfast, vec=vec)
+
+
+def _load_store16(S, P, o, kt, K):
+    """load16 of k-tile kt, then store16 into the stage S (32 x 40)."""
+    kleft = K - kt * _TILE
+    rows, cols = (o["xleft"], kleft) if o["kfast"] else (kleft, o["xleft"])
+    p = o["base"] + kt * o["kstep"]
+    r, c = o["row"], o["col"]
+    if o["vec"]:
+        S[r, c:c + 8] = P[p:p + 8] if r < rows and c < cols else 0.0
+    else:
+        for j in range(8):
+            S[r + 4 * j, c] = P[p + j * o["rstep"]] if r + 4 * j < rows and c < cols else 0.0
+
+
+def _frag_off(kfast, a_order, xw, lane):
+    m = lane >> 3
+    xo = 8 * ((m & 1) if a_order else (m >> 1))
+    ko = 8 * ((m >> 1) if a_order else (m & 1))
+    return (xw + xo + (lane & 7)) * _LD + ko if kfast else (ko + (lane & 7)) * _LD + xw + xo
+
+
+def _ldsm4(S, offs, trans):
+    """ldmatrix.x4[.trans]: lanes 8m..8m+7 name the rows of matrix m;
+    lane t gets row t/4, columns 2(t%4), +1 (transposed: column t/4,
+    rows 2(t%4), +1) of each.  Registers [lane, m, half]."""
+    flat = S.reshape(-1)
+    regs = np.empty((32, 4, 2))
+    for m in range(4):
+        mat = np.stack([flat[offs[8 * m + i]:offs[8 * m + i] + 8] for i in range(8)])
+        for t in range(32):
+            g, q = t >> 2, t & 3
+            regs[t, m] = mat[2 * q:2 * q + 2, g] if trans else mat[g, 2 * q:2 * q + 2]
+    return regs
+
+
+def _mma16816(d, a, b0, b1):
+    """mma.m16n8k16.row.col: the 16 x 16 A, 16 x 8 B and 16 x 8 D
+    fragments of PTX's layout, lane by lane."""
+    A, B = np.empty((16, 16)), np.empty((16, 8))
+    for t in range(32):
+        g, q = t >> 2, t & 3
+        for h in range(2):
+            A[g, 2 * q + h], A[g + 8, 2 * q + h] = a[t, 0, h], a[t, 1, h]
+            A[g, 2 * q + 8 + h], A[g + 8, 2 * q + 8 + h] = a[t, 2, h], a[t, 3, h]
+            B[2 * q + h, g], B[2 * q + 8 + h, g] = b0[t, h], b1[t, h]
+    D = A @ B
+    for t in range(32):
+        g, q = t >> 2, t & 3
+        d[t] += [D[g, 2 * q], D[g, 2 * q + 1], D[g + 8, 2 * q], D[g + 8, 2 * q + 1]]
+
+
+def _gemm_mma_model(M, N, K, A, A0, sar, sak, Bm, B0, sbk, sbc):
+    """C = A . Bm through the model of gemm_tile_mma, every tile; stage
+    values that no store16 wrote are NaN, so a fragment that reads one
+    shows.  Returns C and the load widths taken (vec for A, for Bm)."""
+    C = np.full((M, N), np.nan)
+    widths = set()
+    for tm in range(-(-M // _TILE)):
+        for tn in range(-(-N // _TILE)):
+            r0, c0 = tm * _TILE, tn * _TILE
+            oa = [_tile16(A0, sar, sak, r0, M, K, w) for w in range(_WORKER)]
+            ob = [_tile16(B0, sbc, sbk, c0, N, K, w) for w in range(_WORKER)]
+            widths.add((oa[0]["vec"], ob[0]["vec"]))
+            acc = np.zeros((4, 2, 32, 4))
+            for kt in range(-(-K // _TILE)):
+                Sa, Sb = np.full((_TILE, _LD), np.nan), np.full((_TILE, _LD), np.nan)
+                for w in range(_WORKER):
+                    _load_store16(Sa, A, oa[w], kt, K)
+                    _load_store16(Sb, Bm, ob[w], kt, K)
+                ka, kb = oa[0]["kfast"], ob[0]["kfast"]
+                for warp in range(4):
+                    wr, wc = 16 * (warp >> 1), 16 * (warp & 1)
+                    if not (r0 + wr < M and c0 + wc < N):
+                        continue
+                    ia, ib = (16 if ka else 16 * _LD), (16 if kb else 16 * _LD)
+                    for h in range(2 if K - kt * _TILE > 16 else 1):
+                        a = _ldsm4(Sa, [_frag_off(ka, True, wr, ln) + h * ia
+                                        for ln in range(32)], not ka)
+                        b = _ldsm4(Sb, [_frag_off(kb, False, wc, ln) + h * ib
+                                        for ln in range(32)], not kb)
+                        _mma16816(acc[warp, 0], a, b[:, 0], b[:, 1])
+                        _mma16816(acc[warp, 1], a, b[:, 2], b[:, 3])
+            for warp in range(4):
+                wr, wc = 16 * (warp >> 1), 16 * (warp & 1)
+                for ln in range(32):
+                    g, q = ln >> 2, ln & 3
+                    for f in range(2):
+                        for e in range(4):
+                            r, c = r0 + wr + g + 8 * (e >> 1), c0 + wc + 8 * f + 2 * q + (e & 1)
+                            if r < M and c < N:
+                                C[r, c] = acc[warp, f, ln, e]
+    return C, widths
+
+
+@pytest.mark.parametrize("product,rows,n_out,n_in,vec", [
+    # the forward, NT: acts (B, n) = vin (B, m) . W (n, m)^T
+    ("forward", 40, 24, 72, True),
+    ("forward", 40, 10, 30, False),
+    # the hidden deltas, NN: d (B, k) = dn (B, n) . W (n, k)
+    ("deltas", 48, 40, 72, True),
+    ("deltas", 36, 10, 30, False),
+    # the update, TN: dW (M, N) = d (B, M)^T . v (B, N)
+    ("update", 56, 24, 72, True),
+    ("update", 37, 10, 30, False),
+])
+def test_bf16_tile_maps_model_is_the_product(product, rows, n_out, n_in, vec):
+    """The maps of the bf16 tile, modelled lane by lane, give A . Bm for
+    each of the step's three products with the strides the kernel passes
+    (batch_step.cu's gemm_tile calls), on ragged edges, with 16-byte loads
+    (rows and edge on 8 values) and with 2-byte loads."""
+    rng = np.random.default_rng(rows + n_out + n_in)
+    off = 8 if vec else 3  # each operand at an offset into its buffer
+    if product == "forward":
+        X, W = rng.standard_normal((rows, n_in)), rng.standard_normal((n_out, n_in))
+        want = X @ W.T
+        args = (rows, n_out, n_in, np.r_[np.zeros(off), X.ravel()], off, n_in, 1,
+                np.r_[np.zeros(off), W.ravel()], off, 1, n_in)
+    elif product == "deltas":
+        D, W = rng.standard_normal((rows, n_in)), rng.standard_normal((n_in, n_out))
+        want = D @ W
+        args = (rows, n_out, n_in, np.r_[np.zeros(off), D.ravel()], off, n_in, 1,
+                np.r_[np.zeros(off), W.ravel()], off, n_out, 1)
+    else:
+        M, N = n_out, n_in
+        D, V = rng.standard_normal((rows, M)), rng.standard_normal((rows, N))
+        want = D.T @ V
+        args = (M, N, rows, np.r_[np.zeros(off), D.ravel()], off, 1, M,
+                np.r_[np.zeros(off), V.ravel()], off, N, 1)
+    C, widths = _gemm_mma_model(*args)
+    assert widths == {(vec, vec)}
+    np.testing.assert_allclose(C, want, rtol=1e-12, atol=1e-12)

@@ -325,14 +325,15 @@ def test_batch_shared_bytes_match_the_kernel(cuda):
 @pytest.mark.parametrize("cluster", [0, 16])
 def test_batch_phase_clock_build(cuda, cluster):
     """The -DHPNN_PHASE_CLOCKS build gives the kernel's bits, counts no
-    launch, and clocks the tiles and the syncs of each step."""
+    launch, and clocks the tiles and the syncs of each step, and the
+    tiles' k-tiles by part."""
     B, S = 16, 4
     kw = dict(model="snn", momentum=True, lr=0.05, alpha=0.2, batch=B)
     w, dw, X, T = _bank(cuda, torch.float32, "snn", True, B=B, S=S)
     wa, dwa, wb, dwb = _clone(w), _clone(dw), _clone(w), _clone(dw)
     before = dict(batch_step.launches)
     with batch_step._cluster_team(cluster) if cluster else contextlib.nullcontext():
-        la, clocks = batch_step.phase_clocks(
+        la, clocks, ktiles = batch_step.phase_clocks(
             lambda: batch_step.train_epoch_grid_banked(wa, dwa, X, T, [3, 1, 0, 2], **kw)[2])
         assert batch_step.launches == before
         lb = batch_step.train_epoch_grid_banked(wb, dwb, X, T, [3, 1, 0, 2], **kw)[2]
@@ -342,6 +343,11 @@ def test_batch_phase_clock_build(cuda, cluster):
     for phase in ("forward tiles", "hidden-delta tiles", "update tiles", "team syncs"):
         assert clocks[phase] > 0, phase
     assert clocks["output rows apart"] == 0  # n_out = 6: folded into the forward
+    assert set(ktiles) == set(batch_step.KTILE_PARTS + (batch_step.KTILES,))
+    assert ktiles[batch_step.KTILES] > 0
+    for part in ("loads", "stage stores", "products", "barrier"):
+        assert ktiles[part] > 0, part
+    assert ktiles["fragment loads"] == 0  # float32: the SIMT tile has none apart
 
 
 def test_batch_kernel_refuses_what_it_cannot_take(cuda):
@@ -537,9 +543,10 @@ def test_fleet_kernel_refuses_what_it_cannot_take(cuda):
 
 
 # ---------------------------------------------------- the bf16 build
-# bf16 storage, float32 products: the kernel rounds each stored value
-# once, the plain version (dp step math on bf16 tensors) after each
-# tensor operation, so the two are held to a band, not to rounding.
+# bf16 storage, products on the tensor cores with float32 sums: the
+# kernel rounds each stored value once, the plain version (dp step math
+# on bf16 tensors) after each tensor operation, so the two are held to a
+# band, not to rounding.
 # Set from the card's readings at these shapes and lr (NVIDIA H100 80GB
 # HBM3, 700.00 W): weights up to 9.766e-04 apart (an ulp of the largest);
 # the change of all layers together over the epoch 3.9e-02-2.41e-01 of
@@ -588,19 +595,87 @@ def test_bf16_kernels_within_band_of_plain(cuda, model, momentum):
     held("#6", w, dw, wp, dwp, w0, lk, lp)
 
 
-@pytest.mark.parametrize("model,momentum", [("ann", True), ("snn", False)])
-def test_bf16_fleet_member_equals_grid_bitwise(cuda, model, momentum):
-    """The bf16 build keeps the body's rule: member i of #6 is bitwise
-    #4 on bank i with orders[i]."""
+# The bf16 body runs on the tensor cores (mma.sync, bf16 in, float32
+# sums): shapes that take its 16-byte loads (rows of 64 and 40 values)
+# and its 2-byte loads (12, 16, 6 and 10), with ragged k-tiles and tiles
+# whose quadrants lie outside the matrix.
+BF16_SHAPES = {"12-16-8-6": (12, (16, 8), 6), "64-40-10": (64, (40,), 10)}
+
+
+@pytest.mark.parametrize("shape", list(BF16_SHAPES))
+@pytest.mark.parametrize("model,momentum", [("ann", False), ("snn", True)])
+def test_bf16_fleet_bitwise_across_reruns_and_cluster_sizes(cuda, shape, model, momentum):
+    """bf16 #6 run again, and at every cluster size, gives the planned
+    run's bits: each output element is one warp's mma chain in a fixed
+    k order, whatever the team."""
     kw = dict(model=model, momentum=momentum, lr=0.05, alpha=0.2, batch=16)
-    w, dw, X, T, orders = _fleet(cuda, torch.bfloat16, model, momentum)
-    single = [([t[i].clone() for t in w], [t[i].clone() for t in dw]) for i in range(3)]
+    w0, dw0, X, T, orders = _fleet(cuda, torch.bfloat16, model, momentum,
+                                   shape=BF16_SHAPES[shape])
+    runs = []
+    for cluster in (None, None) + batch_step.CLUSTER_SIZES:
+        w, dw = _clone(w0), _clone(dw0)
+        _, _, lk = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders,
+                                                            cluster=cluster, **kw)
+        runs.append(w + dw + [lk])
+    torch.cuda.synchronize()
+    assert not torch.equal(runs[0][0], w0[0])
+    for run in runs[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(run, runs[0]))
+
+
+@pytest.mark.parametrize("shape", list(BF16_SHAPES))
+@pytest.mark.parametrize("model,momentum", [("ann", True), ("snn", False)])
+def test_bf16_fleet_member_equals_grid_bitwise(cuda, shape, model, momentum):
+    """The bf16 build keeps the body's rule: member i of #6 is bitwise
+    #5 and #4 on bank i with orders[i]; #6 on each member's first block
+    alone is bitwise #2 and #3 on that block."""
+    kw = dict(model=model, momentum=momentum, lr=0.05, alpha=0.2, batch=16)
+    w0, dw0, X, T, orders = _fleet(cuda, torch.bfloat16, model, momentum,
+                                   shape=BF16_SHAPES[shape])
+    w, dw = _clone(w0), _clone(dw0)
     _, _, lk = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders, **kw)
-    for i, (wi, dwi) in enumerate(single):
-        _, _, li = batch_step.train_epoch_grid_banked(
-            wi, dwi, X[i].contiguous(), T[i].contiguous(), orders[i], **kw)
-        assert all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, w + dw))
-        assert torch.equal(li, lk[i])
+    w1, dw1 = _clone(w0), _clone(dw0)
+    _, _, l1 = batch_step.train_fleet_epoch_dbuf_banked(w1, dw1, X, T, orders[:, :1], **kw)
+    for i in range(len(orders)):
+        for fn in (batch_step.train_epoch_dbuf_banked, batch_step.train_epoch_grid_banked):
+            wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
+            _, _, li = fn(wi, dwi, X[i].contiguous(), T[i].contiguous(), orders[i], **kw)
+            assert all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, w + dw)), fn.__name__
+            assert torch.equal(li, lk[i]), fn.__name__
+        k = int(orders[i][0])
+        rows = slice(k * 16, (k + 1) * 16)
+        wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
+        _, _, li = batch_step.train_step_fused_batch(
+            wi, dwi, X[i][rows].contiguous(), T[i][rows].contiguous(),
+            **{k: v for k, v in kw.items() if k != "batch"})
+        assert all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, w1 + dw1)), "#2"
+        assert torch.equal(li, l1[i][0]), "#2"
+        wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
+        _, _, li = batch_step.train_step_fused_banked(
+            wi, dwi, X[i].contiguous(), T[i].contiguous(), k, **kw)
+        assert all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, w1 + dw1)), "#3"
+        assert torch.equal(li, l1[i][0]), "#3"
+
+
+@pytest.mark.parametrize("shape", [(784, (300,), 10), (851, (230,), 230)])
+@pytest.mark.parametrize("model,momentum", [
+    ("ann", False), ("ann", True), ("snn", False), ("snn", True),
+])
+def test_bf16_fleet_at_real_widths_within_band_of_plain(cuda, shape, model, momentum):
+    """bf16 #6 at 784-300-10 and 851-230-230, B = 256, the default rate,
+    against its bf16 plain version, within the bands above."""
+    kw = dict(model=model, momentum=momentum, batch=256)
+    w, dw, X, T, orders = _fleet(cuda, torch.bfloat16, model, momentum, N=2, B=256,
+                                 S=4, shape=shape)
+    wp, dwp, w0 = _clone(w), _clone(dw), _clone(w)
+    _, _, lk = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders, **kw)
+    _, _, lp = batch_step.train_fleet_epoch_dbuf_banked_plain(wp, dwp, X, T, orders, **kw)
+    torch.cuda.synchronize()
+    we, ue = _max_diff(w + dw, wp + dwp), _update_err(w, wp, w0)
+    le = float((lk - lp).abs().max()) / float(lp.abs().max())
+    print(f"bf16 #6 {shape} {model} momentum={momentum}: weights {we:.3e}, "
+          f"change {ue:.3e}, losses {le:.3e}")
+    assert we <= BF16_W and ue <= BF16_UPDATE and le <= BF16_LOSS
 
 
 # ------------------------------------------------------------ serving

@@ -68,6 +68,11 @@ CROSS_TOL = 4.4e-16
 
 @pytest.fixture(autouse=True)
 def _no_obs_knobs(monkeypatch):
+    """Clear the knobs and the memos around each test, and leave the
+    environment as the test found it: a ``configure`` exports its knob
+    (``HPNN_BLAME``, ``HPNN_METRICS``), which would arm the next test's
+    registry in this process."""
+    env = dict(os.environ)
     for knob in (*runtime.DEFERRED_ENV, *obs.ENV_KNOBS, "HPNN_WAL_DIR",
                  "HPNN_TUNE", "HPNN_BLAME", "HPNN_SERVE_MODE",
                  "HPNN_SERVE_DTYPE", "HPNN_DTYPE", "HPNN_SERVE_RATE_CAP",
@@ -75,6 +80,9 @@ def _no_obs_knobs(monkeypatch):
         monkeypatch.delenv(knob, raising=False)
     _reset()
     yield
+    for knob in set(os.environ) - set(env):
+        del os.environ[knob]
+    os.environ.update(env)
     _reset()
 
 

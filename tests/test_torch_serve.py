@@ -18,6 +18,7 @@ No test spawns a process.  Card-only cases live in test_torch_cuda.py.
 
 import http.client
 import json
+import os
 import threading
 
 import numpy as np
@@ -51,11 +52,18 @@ SERVE_KNOBS = ("HPNN_CHAOS", "HPNN_CHAOS_SEED", "HPNN_SERVE_MODE",
 @pytest.fixture(autouse=True)
 def _no_obs_knobs(monkeypatch):
     """Clear every knob of both packages and forget their memos (obs,
-    chaos, slo, conn, the forward-cache census) around each test."""
+    chaos, slo, conn, the forward-cache census) around each test, and
+    leave the environment as the test found it: ``obs.configure``
+    exports ``HPNN_METRICS``, which would arm the next test's registry
+    in this process."""
+    env = dict(os.environ)
     for knob in (*runtime.DEFERRED_ENV, *obs.ENV_KNOBS, *SERVE_KNOBS):
         monkeypatch.delenv(knob, raising=False)
     _reset_all()
     yield
+    for knob in set(os.environ) - set(env):
+        del os.environ[knob]
+    os.environ.update(env)
     _reset_all()
 
 

@@ -52,13 +52,17 @@ TENANT_KNOBS = ("HPNN_TENANTS", "HPNN_TENANT_SHARDS", "HPNN_TENANT_RESIDENT",
 
 @pytest.fixture(autouse=True)
 def _no_knobs(monkeypatch):
+    """Clear the knobs around each test and leave the environment as the
+    test found it (``obs.configure`` exports ``HPNN_METRICS``)."""
+    env = dict(os.environ)
     for knob in (*runtime.DEFERRED_ENV, *obs.ENV_KNOBS, *TENANT_KNOBS):
         monkeypatch.delenv(knob, raising=False)
     obs._reset_for_tests()
     jobs._reset_for_tests()
     yield
-    for knob in obs.ENV_KNOBS:
-        os.environ.pop(knob, None)
+    for knob in set(os.environ) - set(env):
+        del os.environ[knob]
+    os.environ.update(env)
     obs._reset_for_tests()
     jobs._reset_for_tests()
 
