@@ -189,6 +189,23 @@ Phases (any failure exits non-zero and prints no result line):
    (no compile cache: its captures included), the install fan-out's
    ms, p50/p99 through the edge, the loss-recovery seconds, and each
    worker's device memory (``nvidia-smi --query-compute-apps``).
+19. deep — nets deeper than 16 layers, at 784-(300x19)-10 (20 layers,
+   1.86 M weights of gain ~1, seeded): (a) #1 (ANN-BP, ANN-BPM, SNN-BP;
+   its weights and dw streamed from device memory, ``DEEP_PINNED_K`` + 1
+   iterations a sample) bitwise at 8 and 16 CTAs, #2-#5 (ANN-BP,
+   SNN-BPM; B = 256, S = 8) and #6 (4 members) against their plain
+   versions, float64 within 1e-10 and float32 within the shallow bars
+   (``TOL``, ``BATCH_TOL``); bf16 #6 against its bf16 plain version,
+   printed and gated on being finite (no band at this depth is
+   measured); each kernel's time there; (b) ``train_nn`` (4 samples, at
+   most ``DEEP_MAX_ITER`` iterations each) then ``run_nn``, and
+   ``train_nn --batch 256 --epochs 1`` on 512 files, in float64 on the
+   card and on the CPU: the training and ``run_nn`` tokens identical,
+   ``kernel.opt`` within 1e-12, the ``BATCH EPOCH`` count equal and its
+   loss within 1e-12, #1 and #4 launched in the card runs; docs/api.md's
+   flow through ``hpnn_tpu_torch.train_kernel``/``run_kernel`` with no
+   device argument, on the card.  Every kernel's entry on the kernels
+   line gains ``deepest_layers`` and its errors and times at this depth.
 
 The last two lines are the kernel table and the device line.  A failed
 phase prints ``chip_smoke: FAILED in phase N (<name>): <reason>`` (and
@@ -332,7 +349,8 @@ PHASE_NAMES = {
     1: "probe", 2: "build", 3: "pinned", 4: "main", 5: "real", 6: "timing",
     7: "batch pinned", 8: "batch main", 9: "batch timing", 10: "fleet pinned",
     11: "fleet main", 12: "fleet timing", 13: "resume-obs-native", 14: "serve",
-    15: "planes", 16: "mesh", 17: "online", 18: "fleet", 0: "capture-thread probe",
+    15: "planes", 16: "mesh", 17: "online", 18: "fleet", 19: "deep",
+    0: "capture-thread probe",
 }
 # the phase running now, named in a failure's message
 PHASE = {"n": None, "name": "start-up"}
@@ -418,13 +436,16 @@ PTXAS_KERNEL_RE = re.compile(
 
 
 def kernel_name(mangled: str) -> str:
-    """``cluster_train<bf16>``, ``convergence_cluster<float, 0, 1>``, or
-    the mangled name of another kernel."""
+    """``cluster_train<bf16>``, ``convergence_cluster<float, 0, 1>`` (``,
+    table`` for the build that reads its layers from the table in device
+    memory), or the mangled name of another kernel."""
     m = PTXAS_KERNEL_RE.search(mangled)
     if not m:
         return mangled
     args = [{"f": "float", "d": "double"}.get(m.group(2), "bf16")]
-    return f"{m.group(1)}<{', '.join(args + re.findall(r'Lb([01])E', m.group(3)))}>"
+    args += re.findall(r'Lb([01])E', m.group(3))
+    args += ["table"] if "TableLayers" in mangled else []
+    return f"{m.group(1)}<{', '.join(args)}>"
 
 
 def ptxas_report(out: str) -> list:
@@ -4302,6 +4323,415 @@ def fleet_phase(np, torch, dev):
         sup.close()
 
 
+# ------------------------------------------------------------ deep nets
+# Phase 19: every kernel at full MNIST width and 20 layers.  The weights
+# are uniform in +-2*sqrt(3/m), a gain of about one a layer through the
+# tanh-sigmoid: the generator's 1/sqrt(m) shrinks the signal by ~0.3 a
+# layer, so a generated net this deep is dead (outputs 0, deltas 0).
+DEEP_HIDDEN = [N_HID] * 19     # 784-(300x19)-10: 20 layers, 1.86 M weights
+DEEP_PINNED_K = 10             # #1: max_iter, so K+1 iterations a sample
+DEEP_SAMPLES = 4               # #1 against plain, and the per-sample round
+DEEP_MAX_ITER = 30             # the per-sample round's cap, card and CPU
+DEEP_TESTS = 16                # run_nn's files
+DEEP_ROWS = 2 * BATCH          # the --batch epoch's files: two steps
+DEEP_FLEET_N = 4
+
+
+def deep_layers():
+    return len(DEEP_HIDDEN) + 1
+
+
+def deep_shape():
+    return f"{N_IN}-({DEEP_HIDDEN[0]}x{len(DEEP_HIDDEN)})-{N_OUT}"
+
+
+def deep_weights(np, rng, lead=()):
+    """784-(300x19)-10 weights (``lead``: stacked members) of gain ~1."""
+    dims = [N_IN] + DEEP_HIDDEN + [N_OUT]
+    return [rng.uniform(-2 * math.sqrt(3 / m), 2 * math.sqrt(3 / m), tuple(lead) + (n, m))
+            for m, n in zip(dims[:-1], dims[1:])]
+
+
+def write_deep_conf(path, *, kind="ANN", train_dir, test_dir, init):
+    with open(path, "w") as fp:
+        fp.write(f"[name] smoke_deep\n[type] {kind}\n[init] {init}\n[seed] {SEED}\n"
+                 f"[input] {N_IN}\n[hidden] {' '.join(map(str, DEEP_HIDDEN))}\n"
+                 f"[output] {N_OUT}\n[train] BP\n[sample_dir] {train_dir}\n"
+                 f"[test_dir] {test_dir}\n")
+
+
+def deep_kernels(np, torch, dev, Xtr, Ttr):
+    """Phase 19 (a): #1, #2-#5 and #6 (4 members) against their plain
+    versions at 784-(300x19)-10, float32 at the shallow bars and float64
+    within 1e-10; bf16 #6 against its bf16 plain version, printed and
+    gated on being finite; each kernel's time at this depth.  Returns
+    {kernel: {dtype: max error}} and the times."""
+    from hpnn_tpu_torch.obs.cost import batch_work, bound_ms, work_of
+    from hpnn_tpu_torch.ops import batch_step as bs
+    from hpnn_tpu_torch.ops import convergence
+
+    rng = np.random.default_rng(SEED + 19)
+    W = deep_weights(np, rng)
+    err = {k: {} for k in ["convergence"] + [n for n, _, _ in BATCH_KERNELS]
+           + ["train_fleet_epoch_dbuf_banked", "train_fleet_epoch_dbuf_banked (bf16)"]}
+    times = {}
+
+    def note(name, dname, e):
+        err[name][dname] = max(err[name].get(dname, 0.0), e)
+
+    # #1: the weights stream from device memory (they do not fit the
+    # cluster's shared memory), dw too with momentum
+    for model, momentum in (("ann", False), ("ann", True), ("snn", False)):
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[1]
+            tag = f"{model}-{'BPM' if momentum else 'BP'} {dname}"
+            T = Ttr[:DEEP_SAMPLES].copy()
+            if model == "snn":
+                T = np.where(T > 0, 1.0, 0.0)
+            X = torch.tensor(Xtr[:DEEP_SAMPLES], dtype=dtype, device=dev)
+            T = torch.tensor(T, dtype=dtype, device=dev)
+            w0 = [torch.tensor(w, dtype=dtype, device=dev) for w in W]
+            kw = dict(model=model, momentum=momentum, min_iter=5, max_iter=DEEP_PINNED_K)
+            p = convergence.plan(w0, dtype, momentum)
+            check(not p.weights_resident, f"#1 {tag}: the plan keeps 1.86 M weights resident")
+            wk, wp = [t.clone() for t in w0], [t.clone() for t in w0]
+            sk = convergence.train_epoch(wk, X, T, 0.2, -1e30, **kw)
+            sp = convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
+            torch.cuda.synchronize()
+            check(sk.n_iter.tolist() == sp.n_iter.tolist() == [DEEP_PINNED_K + 1] * DEEP_SAMPLES,
+                  f"#1 {tag}: n_iter {sk.n_iter.tolist()} / {sp.n_iter.tolist()}")
+            check(sk.first_ok.tolist() == sp.first_ok.tolist(), f"#1 {tag}: first_ok differs")
+            e = max(state_err(wk, wp), state_err([sk.out], [sp.out]))
+            check(math.isfinite(e) and e <= TOL[dname],
+                  f"#1 {tag} at {deep_layers()} layers: |kernel - plain| {e:.3e} > "
+                  f"{TOL[dname]:.0e}")
+            check(any(not torch.equal(a, b) for a, b in zip(wk, w0)),
+                  f"#1 {tag}: the kernel left every layer unchanged")
+            note("convergence", dname, e)
+            for C in CLUSTERS:   # the same bits at either cluster size
+                wc = [t.clone() for t in w0]
+                sc = convergence.train_epoch(wc, X, T, 0.2, -1e30, cluster=C, **kw)
+                check(same_run((wc, sc), (wk, sk)),
+                      f"#1 {tag}: {C} CTAs differ bitwise from the plan's {p.cluster}")
+            log(f"[deep] #1 {tag} {deep_shape()}, {DEEP_SAMPLES} samples x "
+                f"{DEEP_PINNED_K + 1} iterations: "
+                f"max|kernel - plain| {e:.3e} (tol {TOL[dname]:.0e}); plan {plan_str(p)}; "
+                f"C = {', '.join(map(str, CLUSTERS))} bitwise alike")
+    wt = [torch.tensor(w, dtype=torch.float32, device=dev) for w in W]
+    X = torch.tensor(Xtr[:DEEP_SAMPLES], dtype=torch.float32, device=dev)
+    T = torch.tensor(Ttr[:DEEP_SAMPLES], dtype=torch.float32, device=dev)
+    kw = dict(model="ann", min_iter=5, max_iter=DEEP_PINNED_K)
+    k_ms = cuda_ms(torch, lambda: convergence.train_epoch(wt, X, T, 0.2, -1e30, **kw))
+    iters = DEEP_SAMPLES * (DEEP_PINNED_K + 1)
+    nbytes, flops = work_of(wt, DEEP_SAMPLES, iters, False, 4)
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    times["convergence"] = dict(ms=k_ms, us_per_iter=k_ms / iters * 1e3, bound_ms=b_ms,
+                                bound_by=b_by)
+    log(f"[deep] #1 ANN-BP float32 {deep_shape()}, {DEEP_SAMPLES} samples x "
+        f"{DEEP_PINNED_K + 1} iterations: {k_ms:.3f} ms ({k_ms / iters * 1e3:.2f} us/iteration), "
+        f"bound {b_ms:.4f} ms ({b_by})")
+
+    # #2-#5: S = 8 steps of B = 256 on a 2048-row bank
+    shapes = [tuple(w.shape) for w in W]
+    Xb, Tb = batch_bank(np, rng, (N_IN, N_HID, N_OUT), PINNED_S * BATCH)
+    order = rng.permutation(PINNED_S)
+    for model, momentum in (("ann", False), ("snn", True)):
+        dW = [rng.uniform(-1e-3, 1e-3, w.shape) for w in W] if momentum else None
+        kw = dict(model=model, momentum=momentum)
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[1]
+            tag = f"{model}-{'BPM' if momentum else 'BP'} {dname}"
+            Xd = torch.tensor(Xb, dtype=dtype, device=dev)
+            Td = torch.tensor(Tb, dtype=dtype, device=dev)
+
+            def fresh():
+                return ([torch.tensor(w, dtype=dtype, device=dev) for w in W],
+                        [torch.tensor(m, dtype=dtype, device=dev) for m in dW] if momentum
+                        else [])
+
+            line = []
+            for name, _, _ in BATCH_KERNELS:
+                fn, plain = getattr(bs, name), getattr(bs, name + "_plain")
+                (wk, dwk), (wp, dwp) = fresh(), fresh()
+                if "epoch" in name:
+                    lk = fn(wk, dwk, Xd, Td, order, batch=BATCH, **kw)[2]
+                    lp = plain(wp, dwp, Xd, Td, order, batch=BATCH, **kw)[2]
+                else:
+                    lk, lp = [], []
+                    for s, blk in enumerate(order):
+                        for f, w, dw, ls in ((fn, wk, dwk, lk), (plain, wp, dwp, lp)):
+                            if name == "train_step_fused_batch":
+                                rows = slice(int(blk) * BATCH, (int(blk) + 1) * BATCH)
+                                ls.append(f(w, dw, Xd[rows], Td[rows], **kw)[2])
+                            else:
+                                ls.append(f(w, dw, Xd, Td, int(blk), batch=BATCH, **kw)[2])
+                        if s == 0:
+                            torch.cuda.synchronize()
+                            e1 = max(state_err(wk + dwk, wp + dwp),
+                                     loss_err(lk[0].reshape(1), lp[0].reshape(1)))
+                            tol1 = BATCH_TOL[(dname, "step")]
+                            check(math.isfinite(e1) and e1 <= tol1,
+                                  f"{name} {tag} at {deep_layers()} layers: first step "
+                                  f"|kernel - plain| {e1:.3e} > {tol1:.0e}")
+                    lk, lp = torch.stack(lk), torch.stack(lp)
+                torch.cuda.synchronize()
+                e = max(state_err(wk + dwk, wp + dwp), loss_err(lk, lp))
+                tol = BATCH_TOL[(dname, "epoch")]
+                check(math.isfinite(e) and e <= tol,
+                      f"{name} {tag} at {deep_layers()} layers: {PINNED_S} steps "
+                      f"|kernel - plain| {e:.3e} > {tol:.0e}")
+                note(name, dname, e)
+                line.append(f"{name.replace('train_', '')} {e:.2e}")
+            log(f"[deep] {tag} {deep_shape()}, B={BATCH} S={PINNED_S}: max|kernel - plain| "
+                + ", ".join(line))
+    Xd = torch.tensor(Xb, dtype=torch.float32, device=dev)
+    Td = torch.tensor(Tb, dtype=torch.float32, device=dev)
+    wt = [torch.tensor(w, dtype=torch.float32, device=dev) for w in W]
+    g_ms = cuda_ms(torch, lambda: bs.train_epoch_grid_banked(wt, [], Xd, Td, order,
+                                                             batch=BATCH))
+    nbytes, flops = batch_work(shapes, PINNED_S, False, 4, BATCH)
+    b_ms, b_by = bound_ms(nbytes, flops, "float32")
+    times["train_epoch_grid_banked"] = dict(ms=g_ms, us_per_step=g_ms / PINNED_S * 1e3,
+                                            bound_ms=b_ms, bound_by=b_by)
+    log(f"[deep] #4 ANN-BP float32, one epoch of {PINNED_S} steps of B={BATCH}: {g_ms:.3f} ms "
+        f"({g_ms / PINNED_S * 1e3:.1f} us/step), bound {b_ms:.4f} ms ({b_by})")
+
+    # #6: 4 members, each its own bank and order; then its bf16 build
+    N = DEEP_FLEET_N
+    Wf = deep_weights(np, rng, (N,))
+    banks = [batch_bank(np, rng, (N_IN, N_HID, N_OUT), PINNED_S * BATCH) for _ in range(N)]
+    orders = np.stack([rng.permutation(PINNED_S) for _ in range(N)])
+    for model, momentum in (("ann", False), ("snn", True)):
+        dWf = [rng.uniform(-1e-3, 1e-3, w.shape) for w in Wf] if momentum else None
+        kw = dict(batch=BATCH, model=model, momentum=momentum)
+        for dtype in (torch.float32, torch.float64, torch.bfloat16):
+            dname = str(dtype).split(".")[1]
+            tag = f"{model}-{'BPM' if momentum else 'BP'} {dname}"
+            Xd = torch.tensor(np.stack([x for x, _ in banks]), dtype=dtype, device=dev)
+            Td = torch.tensor(np.stack([t for _, t in banks]), dtype=dtype, device=dev)
+
+            def fresh():
+                return ([torch.tensor(w, dtype=dtype, device=dev) for w in Wf],
+                        [torch.tensor(m, dtype=dtype, device=dev) for m in dWf] if momentum
+                        else [])
+
+            (wk, dwk), (wp, dwp), (w0, _) = fresh(), fresh(), fresh()
+            lk = bs.train_fleet_epoch_dbuf_banked(wk, dwk, Xd, Td, orders, **kw)[2]
+            lp = bs.train_fleet_epoch_dbuf_banked_plain(wp, dwp, Xd, Td, orders, **kw)[2]
+            torch.cuda.synchronize()
+            plan = bs.fleet_cluster(N, shapes, BATCH, bs.cluster_capacity(dtype, dev))
+            if dtype == torch.bfloat16:
+                we = state_err([t.float() for t in wk + dwk], [t.float() for t in wp + dwp])
+                ue = update_err(wk, wp, w0)
+                le = float(((lk - lp).abs() / lp.abs()).max())
+                check(all(math.isfinite(v) for v in (we, ue, le)),
+                      f"bf16 #6 {tag} at {deep_layers()} layers: errors not finite "
+                      f"({we}, {ue}, {le})")
+                name = "train_fleet_epoch_dbuf_banked (bf16)"
+                err[name][model + ("-BPM" if momentum else "-BP")] = dict(
+                    w=we, update_rel=ue, loss_rel=le)
+                log(f"[deep] bf16 #6 {tag}, N={N} B={BATCH} S={PINNED_S}, C={plan}: "
+                    f"max|kernel - plain| weights {we:.3e}, each layer's change {ue:.3e} "
+                    f"relative, losses {le:.3e} relative (no band at this depth: printed, "
+                    f"gated on being finite; BF16_BAND at 2 layers is {BF16_BAND})")
+                continue
+            e = max(state_err(wk + dwk, wp + dwp), loss_err(lk, lp))
+            tol = BATCH_TOL[(dname, "epoch")]
+            check(math.isfinite(e) and e <= tol,
+                  f"#6 {tag} at {deep_layers()} layers: |kernel - plain| {e:.3e} > {tol:.0e}")
+            note("train_fleet_epoch_dbuf_banked", dname, e)
+            log(f"[deep] #6 {tag}, N={N} B={BATCH} S={PINNED_S}, C={plan}: max|kernel - "
+                f"plain| {e:.3e} (tol {tol:.0e})")
+    for dtype, name in ((torch.float32, "train_fleet_epoch_dbuf_banked"),
+                        (torch.bfloat16, "train_fleet_epoch_dbuf_banked (bf16)")):
+        wt = [torch.tensor(w, dtype=dtype, device=dev) for w in Wf]
+        Xd = torch.tensor(np.stack([x for x, _ in banks]), dtype=dtype, device=dev)
+        Td = torch.tensor(np.stack([t for _, t in banks]), dtype=dtype, device=dev)
+        f_ms = cuda_ms(torch, lambda: bs.train_fleet_epoch_dbuf_banked(
+            wt, [], Xd, Td, orders, batch=BATCH))
+        dname = str(dtype).split(".")[1]
+        nbytes, flops = batch_work(shapes, PINNED_S, False, wt[0].element_size(), BATCH)
+        b_ms, b_by = bound_ms(N * nbytes, N * flops, dname)
+        times[name] = dict(ms=f_ms, members=N, bound_ms=b_ms, bound_by=b_by)
+        log(f"[deep] #6 {dname} ANN-BP, {N} members x one epoch of {PINNED_S} steps of "
+            f"B={BATCH}: {f_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return err, times
+
+
+def deep_entry_points(np, torch, dev, Xtr, Ttr, Xte, Tte, protos):
+    """Phase 19 (b): ``train_nn`` (a per-sample round, then ``run_nn``)
+    and ``train_nn --batch`` (one epoch) on a 784-(300x19)-10 conf, on
+    the card in float64 and on the CPU in float64, the launch counts set
+    to 0 just before each card run and read just after: the tokens
+    equal, ``kernel.opt`` within 1e-12, ``BATCH EPOCH`` counts equal
+    and its loss within 1e-12; then docs/api.md's flow through
+    ``hpnn_tpu_torch.train_kernel``/``run_kernel`` with no device
+    argument (the card, float32).  Returns statistics."""
+    import hpnn_tpu_torch
+    from hpnn_tpu_torch import obs
+    from hpnn_tpu_torch.cli import run_nn, train_nn
+    from hpnn_tpu_torch.fileio import kernel_format
+    from hpnn_tpu_torch.ops import batch_step as bs
+    from hpnn_tpu_torch.ops import convergence
+    from hpnn_tpu_torch.train import loop
+    from hpnn_tpu_torch.utils import logging as nn_log
+
+    ddir = os.path.join(WORK, "deep")
+    write_samples(os.path.join(ddir, "train"), Xtr[:DEEP_SAMPLES], Ttr[:DEEP_SAMPLES])
+    write_samples(os.path.join(ddir, "test"), Xte[:DEEP_TESTS], Tte[:DEEP_TESTS])
+    rng = np.random.default_rng(SEED + 23)
+    Xb, Tb = make_dataset(np, rng, DEEP_ROWS, protos)
+    write_samples(os.path.join(ddir, "batch"), Xb, Tb)
+    with open(os.path.join(ddir, "deep.opt"), "w") as fp:
+        kernel_format.dump_kernel("smoke_deep", deep_weights(np, rng), fp)
+    cwd = os.getcwd()
+    stats = {}
+
+    def cli(label, main, argv, conf_init, env):
+        run_dir = os.path.join(ddir, label)
+        os.makedirs(run_dir, exist_ok=True)
+        os.chdir(run_dir)
+        try:
+            write_deep_conf("nn.conf", train_dir="../batch" if "--batch" in argv else "../train",
+                            test_dir="../test", init=conf_init)
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with knobs(obs, env), contextlib.redirect_stdout(buf):
+                rc = main(argv + ["-v", "-v", "nn.conf"])
+            check(rc == 0, f"deep {label}: exit {rc}")
+            return buf.getvalue(), time.perf_counter() - t0, run_dir
+        finally:
+            os.chdir(cwd)
+
+    def weights_err(a, b):
+        wa = kernel_format.load_kernel(os.path.join(a, "kernel.opt"))[1]
+        wb = kernel_format.load_kernel(os.path.join(b, "kernel.opt"))[1]
+        check([w.shape for w in wa] == [w.shape for w in wb], "deep: kernel.opt shapes differ")
+        check(len(wa) == deep_layers(), f"deep: kernel.opt holds {len(wa)} layers")
+        return max(float(np.abs(x - y).max()) for x, y in zip(wa, wb))
+
+    f64 = {"HPNN_DTYPE": "float64"}
+    max_iter = loop.MAX_BP_ITER
+    loop.MAX_BP_ITER = DEEP_MAX_ITER
+    try:
+        runs = {}
+        for where, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            convergence.launches = 0
+            out, secs, rdir = cli(f"ps_{where}", train_nn.main, extra, "../deep.opt", f64)
+            launched = convergence.launches
+            runs[where] = (out, secs, rdir, launched)
+        check(runs["cuda"][3] > 0, "deep: the card's per-sample round launched no #1")
+        check(runs["cpu"][3] == 0, "deep: the CPU's per-sample round launched #1")
+        lines = {w: training_lines(r[0]) for w, r in runs.items()}
+        check(len(lines["cuda"]) == DEEP_SAMPLES, f"deep: {len(lines['cuda'])} token lines")
+        check(lines["cuda"] == lines["cpu"],
+              "deep per-sample f64: the card's tokens differ from the CPU's:\n"
+              + "\n".join(lines["cuda"] + lines["cpu"]))
+        e_ps = weights_err(runs["cuda"][2], runs["cpu"][2])
+        check(e_ps <= MAT_TOL, f"deep per-sample f64: kernel.opt card vs CPU {e_ps:.3e}")
+        iters = sum(int(m) for m in N_ITER_RE.findall(runs["cpu"][0]))
+        evals = {}
+        for where, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            out, secs, _ = cli(f"ps_{where}", run_nn.main, extra, "kernel.opt", f64)
+            evals[where] = (out, secs)
+        tested = {w: [ln for ln in r[0].splitlines() if "TESTING FILE" in ln]
+                  for w, r in evals.items()}
+        check(len(tested["cuda"]) == DEEP_TESTS, f"deep run_nn: {len(tested['cuda'])} eval lines")
+        check(tested["cuda"] == tested["cpu"], "deep run_nn f64: the card's tokens differ from "
+              "the CPU's:\n" + "\n".join(tested["cuda"] + tested["cpu"]))
+        stats["per_sample"] = dict(
+            samples=DEEP_SAMPLES, iterations=iters, launches=runs["cuda"][3],
+            kernel_opt_max_abs_diff=e_ps, cuda_seconds=runs["cuda"][1],
+            cpu_seconds=runs["cpu"][1], run_nn_cuda_seconds=evals["cuda"][1],
+            run_nn_cpu_seconds=evals["cpu"][1])
+        log(f"[deep] train_nn {deep_shape()} ANN-BP float64, {DEEP_SAMPLES} samples at most "
+            f"{DEEP_MAX_ITER} iterations ({iters} in all): card {runs['cuda'][3]} launches of "
+            f"#1 in {runs['cuda'][1]:.2f} s, CPU {runs['cpu'][1]:.2f} s; tokens identical, "
+            f"kernel.opt within {e_ps:.3e}; run_nn on {DEEP_TESTS} files: tokens identical "
+            f"(card {evals['cuda'][1]:.2f} s, CPU {evals['cpu'][1]:.2f} s)")
+
+        bargv = ["--batch", str(BATCH), "--epochs", "1"]
+        bruns = {}
+        for where, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            for k in bs.launches:
+                bs.launches[k] = 0
+            out, secs, rdir = cli(f"batch_{where}", train_nn.main, extra + bargv,
+                                  "../deep.opt", f64)
+            bruns[where] = (out, secs, rdir, dict(bs.launches))
+        check(bruns["cuda"][3]["train_epoch_grid_banked"] > 0,
+              f"deep --batch: the card launched no #4 ({bruns['cuda'][3]})")
+        check(not any(bruns["cpu"][3].values()), "deep --batch: the CPU run launched a kernel")
+        ep = {w: epochs_of(r[0]) for w, r in bruns.items()}
+        check(len(ep["cuda"]) == 1 and len(ep["cpu"]) == 1, f"deep --batch: epochs {ep}")
+        (_, lc, okc, nc), (_, lp, okp, np_) = ep["cuda"][0], ep["cpu"][0]
+        check((okc, nc) == (okp, np_), f"deep --batch: counts {okc}/{nc} vs {okp}/{np_}")
+        check(abs(lc - lp) <= MAT_TOL, f"deep --batch: loss {lc!r} vs {lp!r}")
+        e_b = weights_err(bruns["cuda"][2], bruns["cpu"][2])
+        check(e_b <= MAT_TOL, f"deep --batch f64: kernel.opt card vs CPU {e_b:.3e}")
+        stats["batch"] = dict(rows=DEEP_ROWS, launches=bruns["cuda"][3], loss_cuda=lc,
+                              loss_cpu=lp, count=okc, kernel_opt_max_abs_diff=e_b,
+                              cuda_seconds=bruns["cuda"][1], cpu_seconds=bruns["cpu"][1])
+        log(f"[deep] train_nn --batch {BATCH} --epochs 1 float64 on {DEEP_ROWS} files: "
+            f"card {bruns['cuda'][3]['train_epoch_grid_banked']} launch of #4 in "
+            f"{bruns['cuda'][1]:.2f} s, CPU {bruns['cpu'][1]:.2f} s; BATCH EPOCH loss "
+            f"{lc:.12f} vs {lp:.12f}, count {okc}/{nc} both; kernel.opt within {e_b:.3e}")
+
+        # docs/api.md's flow on the card: no device argument
+        hpnn_tpu_torch.runtime.init_all(0)
+        conf = hpnn_tpu_torch.NNConf(
+            name="embedded_deep", type=hpnn_tpu_torch.NNType.ANN,
+            train=hpnn_tpu_torch.NNTrain.BP, seed=SEED,
+            f_kernel=os.path.join(ddir, "deep.opt"))
+        check(hpnn_tpu_torch.load_kernel(conf), "deep api: load_kernel failed")
+        check(len(conf.kernel.weights) == deep_layers(), "deep api: layers")
+        conf.samples = os.path.join(ddir, "train")
+        conf.tests = os.path.join(ddir, "test")
+        convergence.launches = 0
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            nn_log.set_verbose(2)
+            try:
+                check(hpnn_tpu_torch.train_kernel(conf), "deep api: train_kernel failed")
+                hpnn_tpu_torch.run_kernel(conf)
+            finally:
+                nn_log.set_verbose(0)
+        api_s, api_launches = time.perf_counter() - t0, convergence.launches
+        out = buf.getvalue()
+        check(api_launches > 0, "deep api: train_kernel launched no #1 on the card")
+        check(out.count("TRAINING FILE") == DEEP_SAMPLES and
+              out.count("TESTING FILE") == DEEP_TESTS, "deep api: token lines")
+        api_opt = os.path.join(ddir, "api.opt")
+        with open(api_opt, "w") as fp:
+            hpnn_tpu_torch.dump_kernel(conf, fp)
+        wa = kernel_format.load_kernel(api_opt)[1]
+        check(len(wa) == deep_layers() and all(np.isfinite(w).all() for w in wa),
+              "deep api: the dumped kernel is malformed or not finite")
+        stats["api"] = dict(launches=api_launches, seconds=api_s,
+                            passed=out.count("[PASS]"), dtype="float32")
+        log(f"[deep] docs/api.md flow on the card (hpnn_tpu_torch.train_kernel/run_kernel, "
+            f"no device argument, float32): {api_launches} launches of #1, "
+            f"{DEEP_SAMPLES} samples trained and {DEEP_TESTS} tested in {api_s:.2f} s "
+            f"(PASS {out.count('[PASS]')}/{DEEP_TESTS})")
+    finally:
+        loop.MAX_BP_ITER = max_iter
+    return stats
+
+
+def deep_phase(np, torch, dev, Xtr, Ttr, Xte, Tte, protos):
+    """Phase 19: the kernels and the entry points at 784-(300x19)-10."""
+    t0 = time.perf_counter()
+    err, times = deep_kernels(np, torch, dev, Xtr, Ttr)
+    t1 = time.perf_counter()
+    entry = deep_entry_points(np, torch, dev, Xtr, Ttr, Xte, Tte, protos)
+    smi = nvidia_smi_line()
+    log(f"[deep] {smi}: kernels against plain {t1 - t0:.1f} s, entry points "
+        f"{time.perf_counter() - t1:.1f} s")
+    return dict(layers=deep_layers(), shape=deep_shape(),
+                err=err, times=times, entry=entry, card=smi,
+                seconds=time.perf_counter() - t0)
+
+
 def load_conf_quiet(path):
     from hpnn_tpu_torch import config
 
@@ -4707,6 +5137,12 @@ def main() -> int:
     # 18. the serving fleet: online_nn worker processes behind a router
     enter(18)
     fleet_stats_18 = fleet_phase(np, torch, dev)
+
+    # 19. nets deeper than 16 layers: every kernel, then the entry points,
+    # at 784-(300x19)-10
+    enter(19)
+    deep = deep_phase(np, torch, dev, Xtr, Ttr, Xte, Tte, protos)
+    log(f"[deep] phase 19 in {deep['seconds']:.1f} s")
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -4825,6 +5261,11 @@ def main() -> int:
         "cluster": tb["cluster"],
         "main": fleet_stats["bf16"],
     })
+    # the deepest net each kernel was held at against its plain version
+    for k in kernels:
+        k["deepest_layers"] = deep["layers"]
+        k["deep"] = dict(err=deep["err"][k["name"]], times=deep["times"].get(k["name"]))
+    kernels[0]["deep_entry_points"] = deep["entry"]
     log(f"[card] {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -122,6 +122,19 @@
 // rather than wgmma: wgmma takes 64 rows at least, which would part the
 // bf16 build's tile walk, its folded output rows and its staged output
 // tile from the float/double builds that share the body.)
+//
+// The layers.  A net of any depth: the wrapper packs one 32-byte record a
+// layer (`Layer`: W's and dw's addresses, the rows below the layer, the
+// widths) into a table it keeps in device memory and on the host, once
+// for a set of weights (ops/batch_step.py::_layer_table).  A net of at
+// most HPNN_PARAM_LAYERS layers takes its per-layer values, filled from
+// the host copy, by value in the kernel parameters (`ParamLayers`), read
+// through the constant cache as they were before the table existed; a deeper one reads them from
+// the table in device memory through the read-only path
+// (`TableLayers`), a fleet member's offset applied where W is read.  A
+// body reading every net from the table was 10% slower an epoch at
+// 784-300-10 on an H100 (PERF.md), hence the two; which one a launch takes
+// is a template argument of the kernels, and every sum is the same.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -132,7 +145,7 @@
 
 namespace cg = cooperative_groups;
 
-#define HPNN_MAX_LAYERS 16
+#define HPNN_PARAM_LAYERS 16  // layers whose values ride in the kernel parameters
 #define HPNN_THREADS 256
 #define HPNN_TILE 32  // output tile edge, k-tile depth
 #define HPNN_WORKER 128  // threads of one tile worker
@@ -179,14 +192,63 @@ __device__ __forceinline__ float ld(const float* p) { return *p; }
 __device__ __forceinline__ double ld(const double* p) { return *p; }
 __device__ __forceinline__ float ld(const bf16* p) { return __bfloat162float(*p); }
 
+// One layer of the launch's table (ops/batch_step.py::LAYER).
+struct Layer {
+  unsigned long long w, dw;  // W_l and its dw (member 0's of a fleet), or 0
+  long long cum;             // rows of the layers below l: acts offset / B
+  int m, n;                  // columns and rows of W_l
+};
+static_assert(sizeof(Layer) == 32, "ops/batch_step.py::LAYER packs 32 bytes");
+
+// The per-layer values of a net of at most HPNN_PARAM_LAYERS layers, by
+// value in the kernel parameters.
 template <typename T>
+struct ParamLayers {
+  int dims[HPNN_PARAM_LAYERS + 1];  // dims[0] = n_in, dims[l+1] = rows of W_l
+  size_t off_[HPNN_PARAM_LAYERS];   // offset of layer l's (B, dims[l+1]) block
+  T* w_[HPNN_PARAM_LAYERS];
+  T* dw_[HPNN_PARAM_LAYERS];
+
+  __device__ int m(int l) const { return dims[l]; }
+  __device__ int n(int l) const { return dims[l + 1]; }
+  __device__ size_t off(int l, int) const { return off_[l]; }
+  __device__ T* w(int l) const { return w_[l]; }
+  __device__ T* dw(int l) const { return dw_[l]; }
+  // fleet member i's slices: the stacked (N, out, in) layers
+  __device__ void to_member(size_t i, int n_layers, int momentum) {
+    for (int l = 0; l < n_layers; ++l) {
+      const size_t n_w = (size_t)dims[l] * dims[l + 1];
+      w_[l] += i * n_w;
+      if (momentum) dw_[l] += i * n_w;
+    }
+  }
+};
+
+// The per-layer values of a net of any depth: the table in device
+// memory, read through the read-only path; member i's W_l starts
+// i*m*n values past member 0's.
+template <typename T>
+struct TableLayers {
+  const Layer* lay;  // n_layers records
+  size_t member;     // the fleet member this team trains
+
+  __device__ int m(int l) const { return __ldg(&lay[l].m); }
+  __device__ int n(int l) const { return __ldg(&lay[l].n); }
+  __device__ size_t off(int l, int B) const { return (size_t)B * __ldg(&lay[l].cum); }
+  __device__ T* w(int l) const {
+    return reinterpret_cast<T*>(__ldg(&lay[l].w)) + member * ((size_t)m(l) * n(l));
+  }
+  __device__ T* dw(int l) const {
+    return reinterpret_cast<T*>(__ldg(&lay[l].dw)) + member * ((size_t)m(l) * n(l));
+  }
+  __device__ void to_member(size_t i, int, int) { member = i; }
+};
+
+template <typename T, class Ly>
 struct Params {
   typedef acc_t<T> A;
   int n_layers;
-  int dims[HPNN_MAX_LAYERS + 1];  // dims[0] = n_in, dims[l+1] = rows of W_l
-  size_t off[HPNN_MAX_LAYERS];    // offset of layer l's (B, dims[l+1]) block
-  T* w[HPNN_MAX_LAYERS];
-  T* dw[HPNN_MAX_LAYERS];
+  Ly ly;           // the per-layer values
   const T* X;      // bank of (blocks*B, n_in)
   const T* Tg;     // bank of (blocks*B, n_out)
   const int* order;  // (S,) block ids in device memory, or null:
@@ -198,6 +260,12 @@ struct Params {
   A* rowloss;  // (B,)
   A* losses;   // (S,)
   int snn, momentum, prefetch;
+
+  __device__ int m(int l) const { return ly.m(l); }  // columns of W_l
+  __device__ int n(int l) const { return ly.n(l); }  // rows of W_l
+  __device__ size_t off(int l) const { return ly.off(l, B); }
+  __device__ T* w(int l) const { return ly.w(l); }
+  __device__ T* dw(int l) const { return ly.dw(l); }
 };
 
 // Shared memory of one block: per worker two stages of an A and a B
@@ -831,11 +899,11 @@ __device__ __forceinline__ void gemm_tile(int M, int N, int K, const T* A, size_
 // (loss == false) or the row's error into rowloss (loss == true).  `o`
 // is where the row's outputs go in acts.  The same operations in the
 // same order as output_rows.
-template <typename T>
-__device__ void finish_row(const Params<T>& p, const acc_t<T>* os, T* o, const T* t, int b,
+template <typename T, class Ly>
+__device__ void finish_row(const Params<T, Ly>& p, const acc_t<T>* os, T* o, const T* t, int b,
                            bool loss) {
   typedef acc_t<T> A;
-  const int n = p.dims[p.n_layers];
+  const int n = p.n(p.n_layers - 1);
   const A tiny = A(1e-14);
   A dv = A(1);
   if (p.snn) {
@@ -857,7 +925,7 @@ __device__ void finish_row(const Params<T>& p, const acc_t<T>* os, T* o, const T
     }
     p.rowloss[b] = acc;
   } else {
-    T* d = p.ds + p.off[p.n_layers - 1] + (size_t)b * n;
+    T* d = p.ds + p.off(p.n_layers - 1) + (size_t)b * n;
     for (int i = 0; i < n; ++i) {
       const A oi = p.snn ? os[i] / dv : os[i];
       o[i] = to_t<T>(oi);
@@ -872,13 +940,13 @@ __device__ void finish_row(const Params<T>& p, const acc_t<T>* os, T* o, const T
 enum Finish { F_NONE, F_DELTAS, F_LOSS };
 
 // acts_l <- forward of the (B, n_in) block x through every layer.
-template <typename T, typename Team>
-__device__ void forward(const Params<T>& p, const T* x, const T* tg, Team& team,
+template <typename T, class Ly, typename Team>
+__device__ void forward(const Params<T, Ly>& p, const T* x, const T* tg, Team& team,
                         const Worker<T>& wk, Finish finish) {
   for (int l = 0; l < p.n_layers; ++l) {
-    const int m = p.dims[l], n = p.dims[l + 1];
-    const T* vin = l == 0 ? x : p.acts + p.off[l - 1];
-    T* vout = p.acts + p.off[l];
+    const int m = p.m(l), n = p.n(l);
+    const T* vin = l == 0 ? x : p.acts + p.off(l - 1);
+    T* vout = p.acts + p.off(l);
     const bool soft = p.snn && l == p.n_layers - 1;
     const bool fold = finish != F_NONE && l == p.n_layers - 1;  // then n <= HPNN_TILE
     const int tn_count = cdiv(n, HPNN_TILE);
@@ -887,7 +955,7 @@ __device__ void forward(const Params<T>& p, const T* x, const T* tg, Team& team,
       typedef acc_t<T> A;
       const int tm = t / tn_count;
       A* os = wk.out();
-      gemm_tile<T>(p.B, n, m, vin, m, 1, p.w[l], 1, m, tm, t % tn_count, wk,
+      gemm_tile<T>(p.B, n, m, vin, m, 1, p.w(l), 1, m, tm, t % tn_count, wk,
                    [&](int r, int c, A z) {
                      const A v = soft ? out_exp(z - A(1)) : act(z);
                      if (fold)
@@ -911,15 +979,15 @@ __device__ void forward(const Params<T>& p, const T* x, const T* tg, Team& team,
 // One thread per output row: the SNN normalisation, then the output
 // delta (loss == false) or the row's error into rowloss (loss == true).
 // For n_out > HPNN_TILE, where a row spans tiles.
-template <typename T, typename Team>
-__device__ void output_rows(const Params<T>& p, const T* tg, const Team& team,
+template <typename T, class Ly, typename Team>
+__device__ void output_rows(const Params<T, Ly>& p, const T* tg, const Team& team,
                             bool loss) {
   typedef acc_t<T> A;
-  const int L = p.n_layers, n = p.dims[L];
+  const int L = p.n_layers, n = p.n(L - 1);
   const A tiny = A(1e-14);
   const int stride = team.size() * blockDim.x;
   for (int b = team.rank() * blockDim.x + threadIdx.x; b < p.B; b += stride) {
-    T* o = p.acts + p.off[L - 1] + (size_t)b * n;
+    T* o = p.acts + p.off(L - 1) + (size_t)b * n;
     const T* t = tg + (size_t)b * n;
     if (p.snn) {
       A s = A(0);
@@ -940,7 +1008,7 @@ __device__ void output_rows(const Params<T>& p, const T* tg, const Team& team,
       }
       p.rowloss[b] = acc;
     } else {
-      T* d = p.ds + p.off[L - 1] + (size_t)b * n;
+      T* d = p.ds + p.off(L - 1) + (size_t)b * n;
       for (int i = 0; i < n; ++i) {
         const A oi = ldcg(o + i);
         d[i] = to_t<T>(p.snn ? clamp0(ld(t + i)) - oi : (ld(t + i) - oi) * dact(oi));
@@ -950,17 +1018,17 @@ __device__ void output_rows(const Params<T>& p, const T* tg, const Team& team,
 }
 
 // Hidden deltas, last hidden layer first, from the current weights.
-template <typename T, typename Team>
-__device__ void hidden_deltas(const Params<T>& p, Team& team, const Worker<T>& wk) {
+template <typename T, class Ly, typename Team>
+__device__ void hidden_deltas(const Params<T, Ly>& p, Team& team, const Worker<T>& wk) {
   for (int l = p.n_layers - 2; l >= 0; --l) {
-    const int n = p.dims[l + 1], k = p.dims[l + 2];
-    const T* dn = p.ds + p.off[l + 1];
-    const T* a = p.acts + p.off[l];
-    T* d = p.ds + p.off[l];
+    const int n = p.n(l), k = p.n(l + 1);
+    const T* dn = p.ds + p.off(l + 1);
+    const T* a = p.acts + p.off(l);
+    T* d = p.ds + p.off(l);
     const int tn_count = cdiv(n, HPNN_TILE);
     const int tiles = cdiv(p.B, HPNN_TILE) * tn_count;
     for (int t = wk.first(team); t < tiles; t += wk.stride(team))
-      gemm_tile<T>(p.B, n, k, dn, k, 1, p.w[l + 1], n, 1, t / tn_count,
+      gemm_tile<T>(p.B, n, k, dn, k, 1, p.w(l + 1), n, 1, t / tn_count,
                    t % tn_count, wk, [&](int r, int c, acc_t<T> z) {
                      const size_t q = (size_t)r * n + c;
                      d[q] = to_t<T>(z * dact(ldcg(a + q)));
@@ -970,24 +1038,24 @@ __device__ void hidden_deltas(const Params<T>& p, Team& team, const Worker<T>& w
 }
 
 // The update of every layer, its tiles laid end to end over the team.
-template <typename T, typename Team>
-__device__ void update(const Params<T>& p, const T* x, Team& team, const Worker<T>& wk) {
+template <typename T, class Ly, typename Team>
+__device__ void update(const Params<T, Ly>& p, const T* x, Team& team, const Worker<T>& wk) {
   int total = 0;
   for (int l = 0; l < p.n_layers; ++l)
-    total += cdiv(p.dims[l + 1], HPNN_TILE) * cdiv(p.dims[l], HPNN_TILE);
+    total += cdiv(p.n(l), HPNN_TILE) * cdiv(p.m(l), HPNN_TILE);
   for (int t = wk.first(team); t < total; t += wk.stride(team)) {
     int l = 0, tt = t;
     while (true) {
-      const int c = cdiv(p.dims[l + 1], HPNN_TILE) * cdiv(p.dims[l], HPNN_TILE);
+      const int c = cdiv(p.n(l), HPNN_TILE) * cdiv(p.m(l), HPNN_TILE);
       if (tt < c) break;
       tt -= c;
       ++l;
     }
-    const int M = p.dims[l + 1], N = p.dims[l];
-    const T* d = p.ds + p.off[l];
-    const T* v = l == 0 ? x : p.acts + p.off[l - 1];
-    T* W = p.w[l];
-    T* DW = p.dw[l];
+    const int M = p.n(l), N = p.m(l);
+    const T* d = p.ds + p.off(l);
+    const T* v = l == 0 ? x : p.acts + p.off(l - 1);
+    T* W = p.w(l);
+    T* DW = p.dw(l);
     const int tn_count = cdiv(N, HPNN_TILE);
     gemm_tile<T>(M, N, p.B, d, 1, M, v, N, 1, tt / tn_count, tt % tn_count, wk,
                  [&](int i, int j, acc_t<T> outer) {
@@ -1005,30 +1073,30 @@ __device__ void update(const Params<T>& p, const T* x, Team& team, const Worker<
 }
 
 // Start the copy of block `blk` of both banks into L2, spread over the team.
-template <typename T, typename Team>
-__device__ void prefetch_block(const Params<T>& p, const Team& team, int blk) {
+template <typename T, class Ly, typename Team>
+__device__ void prefetch_block(const Params<T, Ly>& p, const Team& team, int blk) {
   const size_t tid = (size_t)team.rank() * blockDim.x + threadIdx.x;
   const size_t nthreads = (size_t)team.size() * blockDim.x;
   const size_t rows = (size_t)blk * p.B;
-  const char* xb = reinterpret_cast<const char*>(p.X + rows * p.dims[0]);
-  const char* tb = reinterpret_cast<const char*>(p.Tg + rows * p.dims[p.n_layers]);
-  const size_t nx = (size_t)p.B * p.dims[0] * sizeof(T);
-  const size_t nt = (size_t)p.B * p.dims[p.n_layers] * sizeof(T);
+  const char* xb = reinterpret_cast<const char*>(p.X + rows * p.m(0));
+  const char* tb = reinterpret_cast<const char*>(p.Tg + rows * p.n(p.n_layers - 1));
+  const size_t nx = (size_t)p.B * p.m(0) * sizeof(T);
+  const size_t nt = (size_t)p.B * p.n(p.n_layers - 1) * sizeof(T);
   for (size_t o = tid * 128; o < nx; o += nthreads * 128)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(xb + o));
   for (size_t o = tid * 128; o < nt; o += nthreads * 128)
     asm volatile("prefetch.global.L2 [%0];" ::"l"(tb + o));
 }
 
-template <typename T>
-__device__ __forceinline__ int block_of(const Params<T>& p, int s) {
+template <typename T, class Ly>
+__device__ __forceinline__ int block_of(const Params<T, Ly>& p, int s) {
   return p.order ? __ldg(p.order + s) : p.first + s;
 }
 
 // One epoch of S steps by `team`.
-template <typename T, typename Team, typename Clock>
-__device__ void epoch(const Params<T>& p, Team& team, const Worker<T>& wk, Clock& clk) {
-  const int n_in = p.dims[0], n_out = p.dims[p.n_layers];
+template <typename T, class Ly, typename Team, typename Clock>
+__device__ void epoch(const Params<T, Ly>& p, Team& team, const Worker<T>& wk, Clock& clk) {
+  const int n_in = p.m(0), n_out = p.n(p.n_layers - 1);
   const bool fold = n_out <= HPNN_TILE;
   for (int s = 0; s < p.S; ++s) {
     const size_t row0 = (size_t)block_of(p, s) * p.B;
@@ -1068,8 +1136,8 @@ __device__ void epoch(const Params<T>& p, Team& team, const Worker<T>& wk, Clock
 }
 
 // The epoch by `team`, its phases clocked in a -DHPNN_PHASE_CLOCKS build.
-template <typename T, typename Team>
-__device__ void run_epoch(const Params<T>& p, Team& team, const Worker<T>& wk) {
+template <typename T, class Ly, typename Team>
+__device__ void run_epoch(const Params<T, Ly>& p, Team& team, const Worker<T>& wk) {
 #ifdef HPNN_PHASE_CLOCKS
   PhaseClock clk;
   const bool on = team.rank() == 0 && threadIdx.x == 0;
@@ -1085,8 +1153,8 @@ __device__ void run_epoch(const Params<T>& p, Team& team, const Worker<T>& wk) {
 #endif
 }
 
-template <typename T>
-__global__ void __launch_bounds__(HPNN_THREADS, 1) batch_train(Params<T> p) {
+template <typename T, class Ly>
+__global__ void __launch_bounds__(HPNN_THREADS, 1) batch_train(Params<T, Ly> p) {
   extern __shared__ __align__(16) unsigned char smem[];
   GridTeam team{cg::this_grid()};
   run_epoch(p, team, Worker<T>(smem));
@@ -1095,23 +1163,19 @@ __global__ void __launch_bounds__(HPNN_THREADS, 1) batch_train(Params<T> p) {
 // Member strides of a fleet launch, in elements of T.
 struct Fleet {
   size_t x, t;     // one member's bank of X (bank_rows*n_in) and of T
-  size_t scratch;  // 2*B*sum(dims[1:]) + B*sizeof(acc_t<T>)/sizeof(T)
+  size_t scratch;  // 2*B*n_act + B*sizeof(acc_t<T>)/sizeof(T)
 };
 
 // Cluster i trains member i: `p` holds member 0's pointers, moved here
 // to member i's slices.  The stacked weights are (N, out, in), so member
 // i's layer l starts i*out*in elements in; orders and losses are (N, S).
 // One member (#2-#5 on a cluster team) is cluster 0 with p as given.
-template <typename T>
-__global__ void __launch_bounds__(HPNN_THREADS, 1) cluster_train(Params<T> p, Fleet f) {
+template <typename T, class Ly>
+__global__ void __launch_bounds__(HPNN_THREADS, 1) cluster_train(Params<T, Ly> p, Fleet f) {
   extern __shared__ __align__(16) unsigned char smem[];
   ClusterTeam team;
   const size_t i = blockIdx.x / team.size();
-  for (int l = 0; l < p.n_layers; ++l) {
-    const size_t n_w = (size_t)p.dims[l] * p.dims[l + 1];
-    p.w[l] += i * n_w;
-    if (p.momentum) p.dw[l] += i * n_w;
-  }
+  p.ly.to_member(i, p.n_layers, p.momentum);
   p.X += i * f.x;
   p.Tg += i * f.t;
   if (p.order) p.order += i * p.S;
@@ -1122,24 +1186,32 @@ __global__ void __launch_bounds__(HPNN_THREADS, 1) cluster_train(Params<T> p, Fl
   run_epoch(p, team, Worker<T>(smem));
 }
 
-// Both kernels' dynamic shared memory, and the cluster kernel's
+// Every kernel's dynamic shared memory, and the cluster kernels'
 // non-portable cluster size, opted in on the current device.  The two
 // queries below set them; the wrapper asks one of them once per type and
 // device before it launches there, so a launch sets no attribute.
-template <typename T>
-cudaError_t set_attributes() {
+template <typename T, class Ly>
+cudaError_t set_attributes_of() {
   const int smem = (int)smem_bytes<T>();
-  cudaError_t err = cudaFuncSetAttribute(batch_train<T>,
+  cudaError_t err = cudaFuncSetAttribute(batch_train<T, Ly>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cluster_train<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem);
+    err = cudaFuncSetAttribute(cluster_train<T, Ly>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cluster_train<T>,
+    err = cudaFuncSetAttribute(cluster_train<T, Ly>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
   return err;
 }
 
+template <typename T>
+cudaError_t set_attributes() {
+  cudaError_t err = set_attributes_of<T, ParamLayers<T>>();
+  return err == cudaSuccess ? set_attributes_of<T, TableLayers<T>>() : err;
+}
+
+// Both flavours run one block an SM at most (HPNN_BLOCKS_PER_SM), so the
+// parameter flavour's occupancy stands for both.
 template <typename T>
 int grid_blocks(int* blocks) {
   int dev = 0, coop = 0, sms = 0, per_sm = 0;
@@ -1149,35 +1221,33 @@ int grid_blocks(int* blocks) {
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = set_attributes<T>();
+  int per_sm_table = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, batch_train<T>,
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, batch_train<T, ParamLayers<T>>,
                                                         HPNN_THREADS, smem_bytes<T>());
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm_table, batch_train<T, TableLayers<T>>, HPNN_THREADS, smem_bytes<T>());
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
+  if (per_sm_table < per_sm) per_sm = per_sm_table;
   *blocks = sms * (per_sm < HPNN_BLOCKS_PER_SM ? per_sm : HPNN_BLOCKS_PER_SM);
   return (int)cudaSuccess;
 }
 
-// The launch's Params (member 0's, for a fleet), the scratch laid out
-// as acts | ds | rowloss, rowloss in acc_t<T>.  Returns the number of
-// values of T of one scratch (2*B*sum(dims[1:]) + B*sizeof(acc_t<T>) /
-// sizeof(T)), or 0 for a shape the kernel does not take.
-template <typename T>
-size_t make_params(Params<T>* p, int snn, int momentum, int n_layers,
-                   const int* dims, void* const* w, void* const* dw,
-                   const void* X, const void* Tg, int B, const int* order,
-                   int first, int S, double lr_eff, double alpha, double inv_b,
-                   void* scratch, void* losses, int prefetch) {
-  if (n_layers < 1 || n_layers > HPNN_MAX_LAYERS || B < 1 || S < 1) return 0;
+// The launch's Params (member 0's, for a fleet) from the host copy of
+// the layer table `rec`, the scratch laid out as acts | ds | rowloss,
+// rowloss in acc_t<T>.  Returns the number of values of T of one scratch
+// (2*B*n_act + B*sizeof(acc_t<T>) / sizeof(T)), or 0 for a shape the
+// kernel does not take.
+template <typename T, class Ly>
+size_t make_params(Params<T, Ly>* p, int snn, int momentum, int n_layers, const Layer* rec,
+                   const void* X, const void* Tg, int B, const int* order, int first, int S,
+                   double lr_eff, double alpha, double inv_b, void* scratch, void* losses,
+                   int prefetch) {
+  if (n_layers < 1 || B < 1 || S < 1) return 0;
   p->n_layers = n_layers;
-  size_t total = 0;
-  for (int l = 0; l <= n_layers; ++l) p->dims[l] = dims[l];
-  for (int l = 0; l < n_layers; ++l) {
-    p->off[l] = total;
-    total += (size_t)B * dims[l + 1];
-    p->w[l] = static_cast<T*>(w[l]);
-    p->dw[l] = momentum ? static_cast<T*>(dw[l]) : nullptr;
-  }
+  const size_t total = (size_t)B * (rec[n_layers - 1].cum + rec[n_layers - 1].n);
   p->X = static_cast<const T*>(X);
   p->Tg = static_cast<const T*>(Tg);
   p->order = order;
@@ -1198,8 +1268,28 @@ size_t make_params(Params<T>* p, int snn, int momentum, int n_layers,
   return 2 * total + (size_t)B * (sizeof(A) / sizeof(T));
 }
 
+// The per-layer values: by value for a net of at most HPNN_PARAM_LAYERS
+// layers, else the table's address.
+template <typename T>
+void set_layers(ParamLayers<T>* ly, const Layer* rec, const void*, int n_layers, int B,
+                int momentum) {
+  ly->dims[0] = rec[0].m;
+  for (int l = 0; l < n_layers; ++l) {
+    ly->dims[l + 1] = rec[l].n;
+    ly->off_[l] = (size_t)B * rec[l].cum;
+    ly->w_[l] = reinterpret_cast<T*>(rec[l].w);
+    ly->dw_[l] = momentum ? reinterpret_cast<T*>(rec[l].dw) : nullptr;
+  }
+}
+
+template <typename T>
+void set_layers(TableLayers<T>* ly, const Layer*, const void* table, int, int, int) {
+  ly->lay = static_cast<const Layer*>(table);
+  ly->member = 0;
+}
+
 // The launch of `members` clusters of `cluster` CTAs (1, 2, 4, 8 or 16)
-// of cluster_train<T>; `attr` holds the cluster size.
+// of cluster_train<T, Ly>; `attr` holds the cluster size.
 template <typename T>
 cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int members,
                            int cluster, cudaStream_t stream) {
@@ -1219,27 +1309,33 @@ cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, i
   return cudaSuccess;
 }
 
-// Clusters of `cluster` CTAs the card holds at once (0: none fits).
+// Clusters of `cluster` CTAs the card holds at once (0: none fits), the
+// fewer of the two flavours'.
 template <typename T>
 int max_clusters(int cluster, int* n) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
+  int n_table = 0;
   cudaError_t err = set_attributes<T>();
   if (err == cudaSuccess) err = cluster_config<T>(&cfg, &attr, 1, cluster, 0);
-  if (err == cudaSuccess) err = cudaOccupancyMaxActiveClusters(n, cluster_train<T>, &cfg);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(n, cluster_train<T, ParamLayers<T>>, &cfg);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveClusters(&n_table, cluster_train<T, TableLayers<T>>, &cfg);
+  if (err == cudaSuccess && n_table < *n) *n = n_table;
   return (int)err;
 }
 
 // `members` clusters of `cluster` CTAs, cluster i on member i.  The
 // wrapper has checked with max_clusters that the card places one.
-template <typename T>
-int launch_clusters(const Params<T>& p, const Fleet& f, int members, int cluster,
+template <typename T, class Ly>
+int launch_clusters(const Params<T, Ly>& p, const Fleet& f, int members, int cluster,
                     cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = cluster_config<T>(&cfg, &attr, members, cluster, stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, cluster_train<T>, p, f);
+  err = cudaLaunchKernelEx(&cfg, cluster_train<T, Ly>, p, f);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear the launch error
     return (int)err;
@@ -1247,20 +1343,20 @@ int launch_clusters(const Params<T>& p, const Fleet& f, int members, int cluster
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch(int blocks, int cluster, int snn, int momentum, int n_layers, const int* dims,
-           void* const* w, void* const* dw, const void* X, const void* Tg,
-           int B, const int* order, int first, int S, double lr_eff,
-           double alpha, double inv_b, void* scratch, void* losses,
-           int prefetch, cudaStream_t stream) {
-  Params<T> p;
-  if (!make_params(&p, snn, momentum, n_layers, dims, w, dw, X, Tg, B, order,
-                   first, S, lr_eff, alpha, inv_b, scratch, losses, prefetch))
+template <typename T, class Ly>
+int launch_as(int blocks, int cluster, int snn, int momentum, int n_layers, const void* table,
+              const Layer* rec, const void* X, const void* Tg, int B, const int* order,
+              int first, int S, double lr_eff, double alpha, double inv_b, void* scratch,
+              void* losses, int prefetch, cudaStream_t stream) {
+  Params<T, Ly> p;
+  if (!make_params(&p, snn, momentum, n_layers, rec, X, Tg, B, order, first, S, lr_eff,
+                   alpha, inv_b, scratch, losses, prefetch))
     return (int)cudaErrorInvalidValue;
+  set_layers(&p.ly, rec, table, n_layers, B, momentum);
   if (cluster) return launch_clusters(p, Fleet{0, 0, 0}, 1, cluster, stream);
   if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
   void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel((const void*)batch_train<T>, dim3(blocks),
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)batch_train<T, Ly>, dim3(blocks),
                                                 dim3(HPNN_THREADS), args, smem_bytes<T>(),
                                                 stream);
   if (err != cudaSuccess) {
@@ -1271,21 +1367,58 @@ int launch(int blocks, int cluster, int snn, int momentum, int n_layers, const i
 }
 
 template <typename T>
-int launch_fleet(int members, int cluster, int snn, int momentum, int n_layers,
-                 const int* dims, void* const* w, void* const* dw,
-                 const void* X, const void* Tg, long long bank_rows, int B,
-                 const int* orders, int S, double lr_eff, double alpha,
-                 double inv_b, void* scratch, void* losses, cudaStream_t stream) {
-  if (members < 1 || bank_rows < B || orders == nullptr)
+int launch(int blocks, int cluster, int snn, int momentum, int n_layers, const void* table,
+           const void* host_table, const void* X, const void* Tg, int B, const int* order,
+           int first, int S, double lr_eff, double alpha, double inv_b, void* scratch,
+           void* losses, int prefetch, cudaStream_t stream) {
+  if ((table == nullptr && n_layers > HPNN_PARAM_LAYERS) || host_table == nullptr)
     return (int)cudaErrorInvalidValue;
-  Params<T> p;
+  const Layer* rec = static_cast<const Layer*>(host_table);
+  return n_layers > HPNN_PARAM_LAYERS
+             ? launch_as<T, TableLayers<T>>(blocks, cluster, snn, momentum, n_layers, table,
+                                            rec, X, Tg, B, order, first, S, lr_eff, alpha,
+                                            inv_b, scratch, losses, prefetch, stream)
+             : launch_as<T, ParamLayers<T>>(blocks, cluster, snn, momentum, n_layers, table,
+                                            rec, X, Tg, B, order, first, S, lr_eff, alpha,
+                                            inv_b, scratch, losses, prefetch, stream);
+}
+
+template <typename T, class Ly>
+int launch_fleet_as(int members, int cluster, int snn, int momentum, int n_layers,
+                    const void* table, const Layer* rec, const void* X, const void* Tg,
+                    long long bank_rows, int B, const int* orders, int S, double lr_eff,
+                    double alpha, double inv_b, void* scratch, void* losses,
+                    cudaStream_t stream) {
+  Params<T, Ly> p;
   Fleet f;
-  f.scratch = make_params(&p, snn, momentum, n_layers, dims, w, dw, X, Tg, B,
-                          orders, 0, S, lr_eff, alpha, inv_b, scratch, losses, 1);
+  f.scratch = make_params(&p, snn, momentum, n_layers, rec, X, Tg, B, orders, 0, S, lr_eff,
+                          alpha, inv_b, scratch, losses, 1);
   if (!f.scratch) return (int)cudaErrorInvalidValue;
-  f.x = (size_t)bank_rows * dims[0];
-  f.t = (size_t)bank_rows * dims[n_layers];
+  set_layers(&p.ly, rec, table, n_layers, B, momentum);
+  f.x = (size_t)bank_rows * rec[0].m;
+  f.t = (size_t)bank_rows * rec[n_layers - 1].n;
   return launch_clusters(p, f, members, cluster, stream);
+}
+
+template <typename T>
+int launch_fleet(int members, int cluster, int snn, int momentum, int n_layers,
+                 const void* table, const void* host_table, const void* X, const void* Tg,
+                 long long bank_rows, int B, const int* orders, int S, double lr_eff,
+                 double alpha, double inv_b, void* scratch, void* losses,
+                 cudaStream_t stream) {
+  if (members < 1 || bank_rows < B || orders == nullptr || host_table == nullptr ||
+      (table == nullptr && n_layers > HPNN_PARAM_LAYERS) || n_layers < 1)
+    return (int)cudaErrorInvalidValue;
+  const Layer* rec = static_cast<const Layer*>(host_table);
+  return n_layers > HPNN_PARAM_LAYERS
+             ? launch_fleet_as<T, TableLayers<T>>(members, cluster, snn, momentum, n_layers,
+                                                  table, rec, X, Tg, bank_rows, B, orders, S,
+                                                  lr_eff, alpha, inv_b, scratch, losses,
+                                                  stream)
+             : launch_fleet_as<T, ParamLayers<T>>(members, cluster, snn, momentum, n_layers,
+                                                  table, rec, X, Tg, bank_rows, B, orders, S,
+                                                  lr_eff, alpha, inv_b, scratch, losses,
+                                                  stream);
 }
 
 }  // namespace
@@ -1293,68 +1426,68 @@ int launch_fleet(int members, int cluster, int snn, int momentum, int n_layers,
 // Plain C entry for ctypes.  `cluster` 0: one cooperative launch of
 // `blocks` blocks (from hpnn_batch_grid_blocks), the grid the team;
 // `cluster` C in {1, 2, 4, 8, 16}: one cluster of C CTAs the team,
-// `blocks` unused.  `dims`, `w` and `dw` are HOST arrays (of n_layers+1
-// ints and n_layers device pointers); every other pointer is a device
-// pointer.  `order` may be null: step s then reads block first + s.
-// `scratch` holds 2*B*sum(dims[1:]) + B values (of T; B floats, or 2*B
-// bf16 values, for bf16).  dtype: 0 = float, 1 = double, 2 = bf16
-// storage (then `losses` is float).  Ask hpnn_batch_grid_blocks or hpnn_fleet_max_clusters on
-// the device first: they opt the kernels in to their shared memory.
-// Returns the cudaError_t of the launch (0 = launched).
+// `blocks` unused.  `table` and `host_table` hold the same n_layers
+// `Layer` records (ops/batch_step.py::_layer_table), in device and in
+// host memory (`table` may be null for a net of at most
+// HPNN_PARAM_LAYERS layers, which reads only the host copy's values);
+// every other pointer is a device pointer.  `order` may be
+// null: step s then reads block first + s.  `scratch` holds 2*B*n_act +
+// B values (of T; B floats, or 2*B bf16 values, for bf16), n_act the
+// sum of every layer's rows.  dtype: 0 = float, 1 = double, 2 = bf16
+// storage (then `losses` is float).  Ask hpnn_batch_grid_blocks or
+// hpnn_fleet_max_clusters on the device first: they opt the kernels in
+// to their shared memory.  Returns the cudaError_t of the launch (0 =
+// launched).
 extern "C" int hpnn_batch_train(int dtype, int blocks, int cluster, int snn, int momentum,
-                                int n_layers, const int* dims, void* const* w,
-                                void* const* dw, const void* X, const void* Tg,
-                                int B, const void* order, int first, int S,
-                                double lr_eff, double alpha, double inv_b,
-                                void* scratch, void* losses, int prefetch,
-                                void* stream) {
+                                int n_layers, const void* table, const void* host_table,
+                                const void* X, const void* Tg, int B, const void* order,
+                                int first, int S, double lr_eff, double alpha, double inv_b,
+                                void* scratch, void* losses, int prefetch, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ord = static_cast<const int*>(order);
   if (dtype == 0)
-    return launch<float>(blocks, cluster, snn, momentum, n_layers, dims, w, dw, X, Tg,
-                         B, ord, first, S, lr_eff, alpha, inv_b, scratch, losses,
-                         prefetch, st);
+    return launch<float>(blocks, cluster, snn, momentum, n_layers, table, host_table, X, Tg,
+                         B, ord, first, S, lr_eff, alpha, inv_b, scratch, losses, prefetch,
+                         st);
   if (dtype == 1)
-    return launch<double>(blocks, cluster, snn, momentum, n_layers, dims, w, dw, X, Tg,
-                          B, ord, first, S, lr_eff, alpha, inv_b, scratch, losses,
-                          prefetch, st);
+    return launch<double>(blocks, cluster, snn, momentum, n_layers, table, host_table, X, Tg,
+                          B, ord, first, S, lr_eff, alpha, inv_b, scratch, losses, prefetch,
+                          st);
   if (dtype == 2)
-    return launch<bf16>(blocks, cluster, snn, momentum, n_layers, dims, w, dw, X, Tg,
-                        B, ord, first, S, lr_eff, alpha, inv_b, scratch, losses,
-                        prefetch, st);
+    return launch<bf16>(blocks, cluster, snn, momentum, n_layers, table, host_table, X, Tg,
+                        B, ord, first, S, lr_eff, alpha, inv_b, scratch, losses, prefetch,
+                        st);
   return (int)cudaErrorInvalidValue;
 }
 
 // Plain C entry of the fleet epoch (#6): `members` clusters of `cluster`
 // CTAs (1, 2, 4, 8 or 16), cluster i on member i, every step prefetching
-// its member's next block.  `dims`, `w` and `dw` are as for
-// hpnn_batch_train, with w[l] (and dw[l]) the stacked (members,
-// dims[l+1], dims[l]) layer l, member stride dims[l]*dims[l+1].  X and
-// Tg are the stacked banks, (members, bank_rows, dims[0]) and (members,
-// bank_rows, dims[n_layers]), member stride bank_rows rows.  `orders`
-// and `losses` are (members, S), member stride S; `scratch` holds
-// members * (2*B*sum(dims[1:]) + B) values, member stride one scratch.
-// Ask hpnn_fleet_max_clusters on the device first, as for
+// its member's next block.  `table` and `host_table` are as for
+// hpnn_batch_train, each record's w (and dw) the stacked (members, n, m)
+// layer l, member stride m*n.  X and Tg are the stacked banks, (members,
+// bank_rows, n_in) and (members, bank_rows, n_out), member stride
+// bank_rows rows.  `orders` and `losses` are (members, S), member stride
+// S; `scratch` holds members * (2*B*n_act + B) values, member stride one
+// scratch.  Ask hpnn_fleet_max_clusters on the device first, as for
 // hpnn_batch_train.  Returns the cudaError_t of the launch.
 extern "C" int hpnn_fleet_train(int dtype, int members, int cluster, int snn, int momentum,
-                                int n_layers, const int* dims, void* const* w,
-                                void* const* dw, const void* X, const void* Tg,
-                                long long bank_rows, int B, const void* orders,
-                                int S, double lr_eff, double alpha, double inv_b,
-                                void* scratch, void* losses, void* stream) {
+                                int n_layers, const void* table, const void* host_table,
+                                const void* X, const void* Tg, long long bank_rows, int B,
+                                const void* orders, int S, double lr_eff, double alpha,
+                                double inv_b, void* scratch, void* losses, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ord = static_cast<const int*>(orders);
   if (dtype == 0)
-    return launch_fleet<float>(members, cluster, snn, momentum, n_layers, dims, w, dw, X,
-                               Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b,
-                               scratch, losses, st);
+    return launch_fleet<float>(members, cluster, snn, momentum, n_layers, table, host_table,
+                               X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b, scratch,
+                               losses, st);
   if (dtype == 1)
-    return launch_fleet<double>(members, cluster, snn, momentum, n_layers, dims, w, dw,
-                                X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b,
-                                scratch, losses, st);
+    return launch_fleet<double>(members, cluster, snn, momentum, n_layers, table, host_table,
+                                X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b, scratch,
+                                losses, st);
   if (dtype == 2)
-    return launch_fleet<bf16>(members, cluster, snn, momentum, n_layers, dims, w, dw, X,
-                              Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b, scratch,
+    return launch_fleet<bf16>(members, cluster, snn, momentum, n_layers, table, host_table,
+                              X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b, scratch,
                               losses, st);
   return (int)cudaErrorInvalidValue;
 }

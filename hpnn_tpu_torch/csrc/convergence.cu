@@ -108,6 +108,20 @@
 // is a template argument of the kernel, so the compiler addresses them
 // as shared memory, not through generic pointers.
 //
+// The layers.  A net of any depth: the wrapper packs one 40-byte record
+// a layer (`Layer`: W's address, its dw's offset in the dw scratch, the
+// widths, the layer's offsets) into a table it keeps in device memory
+// and on the host, once for a set of weights and a cluster size
+// (ops/convergence.py::_layer_table).  A net of at most
+// HPNN_PARAM_LAYERS layers takes its per-layer values, filled from the
+// host copy, by value in the kernel parameters (`ParamLayers`), read
+// through the constant cache as they were before the table existed; a
+// deeper one reads them from the table in device memory through the
+// read-only path (`TableLayers`).  A kernel reading every net from the
+// table was 8-9% slower an iteration at 784-300-10 on an H100 (PERF.md),
+// hence the two; which one a launch takes is a template argument of the
+// kernel, and every sum is the same.
+//
 // Numerics: plain FP32 (or FP64) arithmetic with FMA, expf/logf in
 // float and exp/log in double, no fast math and no tensor cores — the
 // counterpart of the Pallas kernel's precision=HIGHEST pin.  Every sum
@@ -121,7 +135,7 @@
 
 namespace cg = cooperative_groups;
 
-#define HPNN_MAX_LAYERS 16
+#define HPNN_PARAM_LAYERS 16  // layers whose values ride in the kernel parameters
 // 20 warps: one per owned row at 784-300-10 over 16 CTAs; measured
 // faster than 16 or 32 warps at 8 and 16 CTAs (PERF.md)
 #define HPNN_THREADS 640
@@ -130,16 +144,58 @@ namespace cg = cooperative_groups;
 
 namespace {
 
+// One layer of the launch's table (ops/convergence.py::LAYER).
+struct Layer {
+  unsigned long long w;      // W_l, (n, m) row-major, in device memory
+  long long dwo;             // offset of layer l's dw in the dw scratch
+  unsigned long long inv_n;  // ceil(2^40 / n)
+  int m, n;                  // columns and rows of W_l
+  int off;                   // offset of layer l in the acts/deltas arrays
+  int wblk;                  // offset of layer l's owned rows in a weight block
+};
+static_assert(sizeof(Layer) == 40, "ops/convergence.py::LAYER packs 40 bytes");
+
+// The per-layer values of a net of at most HPNN_PARAM_LAYERS layers, by
+// value in the kernel parameters.
 template <typename T>
+struct ParamLayers {
+  int dims[HPNN_PARAM_LAYERS + 1];  // dims[0] = n_in, dims[l+1] = rows of layer l
+  int off_[HPNN_PARAM_LAYERS];      // offset of layer l in the acts/deltas arrays
+  int wblk_[HPNN_PARAM_LAYERS];     // offset of layer l's owned rows in a weight block
+  T* w_[HPNN_PARAM_LAYERS];
+  T* dw_[HPNN_PARAM_LAYERS];
+  unsigned long long inv_n_[HPNN_PARAM_LAYERS];  // ceil(2^40 / rows of layer l)
+
+  __device__ int m(int l) const { return dims[l]; }
+  __device__ int n(int l) const { return dims[l + 1]; }
+  __device__ int off(int l) const { return off_[l]; }
+  __device__ int wblk(int l) const { return wblk_[l]; }
+  __device__ T* w(int l) const { return w_[l]; }
+  __device__ T* dw(int l) const { return dw_[l]; }
+  __device__ unsigned long long inv_n(int l) const { return inv_n_[l]; }
+};
+
+// The per-layer values of a net of any depth: the table in device
+// memory, read through the read-only path.
+template <typename T>
+struct TableLayers {
+  const Layer* lay;  // n_layers records
+  T* dws;            // the dw scratch, or null
+
+  __device__ int m(int l) const { return __ldg(&lay[l].m); }
+  __device__ int n(int l) const { return __ldg(&lay[l].n); }
+  __device__ int off(int l) const { return __ldg(&lay[l].off); }
+  __device__ int wblk(int l) const { return __ldg(&lay[l].wblk); }
+  __device__ T* w(int l) const { return reinterpret_cast<T*>(__ldg(&lay[l].w)); }
+  __device__ T* dw(int l) const { return dws + __ldg(&lay[l].dwo); }
+  __device__ unsigned long long inv_n(int l) const { return __ldg(&lay[l].inv_n); }
+};
+
+template <typename T, class Ly>
 struct Net {
   int n_layers;
-  int dims[HPNN_MAX_LAYERS + 1];  // dims[0] = n_in, dims[l+1] = rows of layer l
-  int off[HPNN_MAX_LAYERS];       // offset of layer l in the acts/deltas arrays
-  int wblk[HPNN_MAX_LAYERS];      // offset of layer l's owned rows in a weight block
-  T* w[HPNN_MAX_LAYERS];
-  T* dw[HPNN_MAX_LAYERS];
-  unsigned long long inv_n[HPNN_MAX_LAYERS];  // ceil(2^40 / rows of layer l)
-  unsigned long long inv_c;                   // ceil(2^40 / C)
+  Ly ly;                          // the per-layer values
+  unsigned long long inv_c;       // ceil(2^40 / C)
   int n_act;                      // sum of the layer widths
   int stage;                      // values in the staging tile (0: none)
   int wtot;                       // values in one weight block
@@ -235,10 +291,10 @@ __device__ __forceinline__ T dact(T y) {
 // What one CTA sees: the net, its rank, the cluster and its buffers.
 // WRES / DWRES: the owned rows of W / dw live in shared memory, so the
 // compiler addresses them as shared (not through generic pointers).
-template <typename T_, bool WRES, bool DWRES>
+template <typename T_, bool WRES, bool DWRES, class Ly>
 struct Cta {
   using T = T_;
-  const Net<T>& net;
+  const Net<T, Ly>& net;
   cg::cluster_group cluster;
   int rank, C;
   T* xs;
@@ -254,20 +310,20 @@ struct Cta {
   int* s_ptrg;
   unsigned long long* clk;  // N_PHASES sums and the last mark (phase-clock build)
 
-  __device__ int r0(int l) const { return row_start(rank, net.dims[l + 1], net.inv_c); }
-  __device__ int r1(int l) const { return row_start(rank + 1, net.dims[l + 1], net.inv_c); }
+  __device__ int r0(int l) const { return row_start(rank, net.ly.n(l), net.inv_c); }
+  __device__ int r1(int l) const { return row_start(rank + 1, net.ly.n(l), net.inv_c); }
   __device__ T* wown(int l) const {
-    return WRES ? wsm + net.wblk[l] : net.w[l] + (size_t)r0(l) * net.dims[l];
+    return WRES ? wsm + net.ly.wblk(l) : net.ly.w(l) + (size_t)r0(l) * net.ly.m(l);
   }
   __device__ T* mown(int l) const {
-    return DWRES ? dwsm + net.wblk[l] : net.dw[l] + (size_t)r0(l) * net.dims[l];
+    return DWRES ? dwsm + net.ly.wblk(l) : net.ly.dw(l) + (size_t)r0(l) * net.ly.m(l);
   }
   __device__ T* buf(int parity) const { return acts + (net.dbuf ? parity : 0) * net.n_act; }
 
   // Output i of the activations `a`.  SNN: the layer holds exp(z - 1) as
   // the owners published it, divided here by the forward's denominator.
   __device__ T output(const T* a, int i, bool snn) const {
-    const T o = a[net.off[net.n_layers - 1] + i];
+    const T o = a[net.ly.off(net.n_layers - 1) + i];
     return snn ? o / *s_scalar : o;
   }
 
@@ -281,18 +337,18 @@ struct Cta {
 
   // W_l[i][j], whoever owns row i.
   __device__ T weight(int l, int i, int j) const {
-    const int n = net.dims[l + 1], m = net.dims[l];
-    if (!WRES) return __ldcg(net.w[l] + (size_t)i * m + j);
-    const int q = owner(i, C, net.inv_n[l]);
-    T* p = wsm + net.wblk[l] + (size_t)(i - row_start(q, n, net.inv_c)) * m + j;
+    const int n = net.ly.n(l), m = net.ly.m(l);
+    if (!WRES) return __ldcg(net.ly.w(l) + (size_t)i * m + j);
+    const int q = owner(i, C, net.ly.inv_n(l));
+    T* p = wsm + net.ly.wblk(l) + (size_t)(i - row_start(q, n, net.inv_c)) * m + j;
     return q == rank ? *p : *cluster.map_shared_rank(p, q);
   }
 
   // v[i] for every i outside the owned rows of layer l, from its owner.
   __device__ void gather(T* v, int l) const {
-    const int n = net.dims[l + 1], a = r0(l), b = r1(l);
+    const int n = net.ly.n(l), a = r0(l), b = r1(l);
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      if (i < a || i >= b) v[i] = *cluster.map_shared_rank(v + i, owner(i, C, net.inv_n[l]));
+      if (i < a || i >= b) v[i] = *cluster.map_shared_rank(v + i, owner(i, C, net.ly.inv_n(l)));
   }
 
   // Whether the deltas of the top hidden layer take their W_{L-1} tile
@@ -301,12 +357,12 @@ struct Cta {
     const int L = net.n_layers;
     if (L < 2 || net.stage == 0) return false;
     const int nc = r1(L - 2) - r0(L - 2);
-    return nc <= (int)blockDim.x && nc <= net.stage && nc * net.dims[L] <= net.stage;
+    return nc <= (int)blockDim.x && nc <= net.stage && nc * net.ly.n(L - 1) <= net.stage;
   }
 
   // stage[i * nc + t] = W_{L-1}[i][c0 + t], the tile of tile_prefetched.
   __device__ void prefetch_tile() const {
-    const int L = net.n_layers, n = net.dims[L];
+    const int L = net.n_layers, n = net.ly.n(L - 1);
     const int c0 = r0(L - 2), nc = r1(L - 2) - c0;
     for (int k = threadIdx.x; k < n * nc; k += blockDim.x)
       stage[k] = weight(L - 1, k / nc, c0 + k % nc);
@@ -320,10 +376,10 @@ template <class K, typename T = typename K::T>
 __device__ void update_layer(const K& c, int l, bool momentum, T lr, T alpha, const T* a) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  const int m = c.net.dims[l];
+  const int m = c.net.ly.m(l);
   const int r0 = c.r0(l), r1 = c.r1(l);
-  const T* __restrict__ vin = (l == 0) ? c.xs : a + c.net.off[l - 1];
-  const T* d = c.ds + c.net.off[l];
+  const T* __restrict__ vin = (l == 0) ? c.xs : a + c.net.ly.off(l - 1);
+  const T* d = c.ds + c.net.ly.off(l);
   T* W = c.wown(l);
   T* M = momentum ? c.mown(l) : nullptr;
   for (int row = r0 + warp; row < r1; row += nwarps) {
@@ -356,11 +412,11 @@ __device__ void forward(const K& c, bool snn, T* an, const T* ao, bool momentum,
   const T tiny = T(1e-14);
   const int L = c.net.n_layers;
   for (int l = 0; l < L; ++l) {
-    const int n = c.net.dims[l + 1], m = c.net.dims[l];
-    const T* __restrict__ vin = (l == 0) ? c.xs : an + c.net.off[l - 1];
-    const T* __restrict__ vold = (l == 0 || ao == nullptr) ? vin : ao + c.net.off[l - 1];
-    const T* d = c.ds + c.net.off[l];
-    T* vout = an + c.net.off[l];
+    const int n = c.net.ly.n(l), m = c.net.ly.m(l);
+    const T* __restrict__ vin = (l == 0) ? c.xs : an + c.net.ly.off(l - 1);
+    const T* __restrict__ vold = (l == 0 || ao == nullptr) ? vin : ao + c.net.ly.off(l - 1);
+    const T* d = c.ds + c.net.ly.off(l);
+    T* vout = an + c.net.ly.off(l);
     const bool soft = snn && l == L - 1;
     const int r0 = c.r0(l), r1 = c.r1(l);
     T* W = c.wown(l);
@@ -424,7 +480,7 @@ __device__ void forward(const K& c, bool snn, T* an, const T* ao, bool momentum,
 template <class K, typename T = typename K::T>
 __device__ T loss_and_output_deltas(const K& c, bool snn, const T* a, int p_trg, int* ok) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int L = c.net.n_layers, n = c.net.dims[L];
+  const int L = c.net.n_layers, n = c.net.ly.n(L - 1);
   const T tiny = T(1e-14);
   if (warp == 0) {
     T acc = T(0);
@@ -473,7 +529,7 @@ __device__ T loss_and_output_deltas(const K& c, bool snn, const T* a, int p_trg,
       *c.s_ok = (bi == p_trg) ? 1 : 0;
     }
   } else {
-    T* d = c.ds + c.net.off[L - 1];
+    T* d = c.ds + c.net.ly.off(L - 1);
     for (int i = threadIdx.x - 32; i < n; i += blockDim.x - 32) {
       const T o = c.output(a, i, snn);
       d[i] = snn ? c.ts[i] - o : (c.ts[i] - o) * dact(o);
@@ -490,10 +546,10 @@ template <class K, typename T = typename K::T>
 __device__ void hidden_deltas(const K& c, const T* a) {
   const int L = c.net.n_layers;
   for (int l = L - 2; l >= 0; --l) {
-    const int n = c.net.dims[l + 2], m = c.net.dims[l + 1];
-    const T* dn = c.ds + c.net.off[l + 1];
-    const T* al = a + c.net.off[l];
-    T* d = c.ds + c.net.off[l];
+    const int n = c.net.ly.n(l + 1), m = c.net.ly.n(l);
+    const T* dn = c.ds + c.net.ly.off(l + 1);
+    const T* al = a + c.net.ly.off(l);
+    T* d = c.ds + c.net.ly.off(l);
     const int c0 = c.r0(l), nc = c.r1(l) - c0;
     if (l == L - 2 && c.tile_prefetched()) {
       if ((int)threadIdx.x < nc) {
@@ -539,16 +595,16 @@ __device__ void hidden_deltas(const K& c, const T* a) {
   HPNN_PHASE(c, P_DHID);
 }
 
-template <typename T, bool WRES, bool DWRES>
+template <typename T, bool WRES, bool DWRES, class Ly>
 __global__ void __launch_bounds__(HPNN_THREADS, 1)
-convergence_cluster(Net<T> net, bool snn, bool momentum, const T* X, const T* Tg,
+convergence_cluster(Net<T, Ly> net, bool snn, bool momentum, const T* X, const T* Tg,
                     int S, T alpha, T delta, int min_iter, int max_iter, T lr,
                     T* ep0_out, int* niter_out, T* dep_out, int* first_out,
                     int* final_out, T* out_out) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   cg::cluster_group cluster = cg::this_cluster();
   const int L = net.n_layers;
-  const int n_in = net.dims[0], n_out = net.dims[L];
+  const int n_in = net.ly.m(0), n_out = net.ly.n(L - 1);
   T* scal = reinterpret_cast<T*>(smem_raw);
   int* ints = reinterpret_cast<int*>(scal + 2);
   T* xs = reinterpret_cast<T*>(ints + 2);
@@ -567,15 +623,15 @@ convergence_cluster(Net<T> net, bool snn, bool momentum, const T* X, const T* Tg
 #else
   unsigned long long* s_clk = nullptr;
 #endif
-  const Cta<T, WRES, DWRES> c{net, cluster, (int)cluster.block_rank(),
-                              (int)cluster.num_blocks(), xs, ts, acts, ds, stage, wsm,
-                              dwsm, scal, scal + 1, ints, ints + 1, s_clk};
+  const Cta<T, WRES, DWRES, Ly> c{net, cluster, (int)cluster.block_rank(),
+                                  (int)cluster.num_blocks(), xs, ts, acts, ds, stage, wsm,
+                                  dwsm, scal, scal + 1, ints, ints + 1, s_clk};
 
   if (WRES) {
     for (int l = 0; l < L; ++l) {
-      const size_t nm = (size_t)(c.r1(l) - c.r0(l)) * net.dims[l];
-      const T* src = net.w[l] + (size_t)c.r0(l) * net.dims[l];
-      for (size_t k = threadIdx.x; k < nm; k += blockDim.x) wsm[net.wblk[l] + k] = src[k];
+      const size_t nm = (size_t)(c.r1(l) - c.r0(l)) * net.ly.m(l);
+      const T* src = net.ly.w(l) + (size_t)c.r0(l) * net.ly.m(l);
+      for (size_t k = threadIdx.x; k < nm; k += blockDim.x) wsm[net.ly.wblk(l) + k] = src[k];
     }
   }
   int parity = 0;
@@ -587,7 +643,7 @@ convergence_cluster(Net<T> net, bool snn, bool momentum, const T* X, const T* Tg
     if (momentum) {
       for (int l = 0; l < L; ++l) {
         T* M = c.mown(l);
-        const size_t nm = (size_t)(c.r1(l) - c.r0(l)) * net.dims[l];
+        const size_t nm = (size_t)(c.r1(l) - c.r0(l)) * net.ly.m(l);
         for (size_t k = threadIdx.x; k < nm; k += blockDim.x) M[k] = T(0);
       }
     }
@@ -654,9 +710,9 @@ convergence_cluster(Net<T> net, bool snn, bool momentum, const T* X, const T* Tg
   }
   if (WRES) {
     for (int l = 0; l < L; ++l) {
-      const size_t nm = (size_t)(c.r1(l) - c.r0(l)) * net.dims[l];
-      T* dst = net.w[l] + (size_t)c.r0(l) * net.dims[l];
-      for (size_t k = threadIdx.x; k < nm; k += blockDim.x) dst[k] = wsm[net.wblk[l] + k];
+      const size_t nm = (size_t)(c.r1(l) - c.r0(l)) * net.ly.m(l);
+      T* dst = net.ly.w(l) + (size_t)c.r0(l) * net.ly.m(l);
+      for (size_t k = threadIdx.x; k < nm; k += blockDim.x) dst[k] = wsm[net.ly.wblk(l) + k];
     }
   }
   cluster_barrier();  // no CTA leaves while another may read its vectors
@@ -666,48 +722,39 @@ convergence_cluster(Net<T> net, bool snn, bool momentum, const T* X, const T* Tg
 #endif
 }
 
+// The arguments of one launch beside the net.
 template <typename T>
-int launch(int snn, int momentum, int n_layers, const int* dims,
-           void* const* w, void* const* dw, const void* X, const void* Tg,
-           int S, double alpha, double delta, int min_iter, int max_iter,
-           double lr, void* ep0, void* n_iter, void* dep, void* first_ok,
-           void* final_ok, void* out, int cluster, int dbuf, int stage,
-           int w_res, int dw_res, cudaStream_t stream) {
-  if (n_layers < 1 || n_layers > HPNN_MAX_LAYERS || cluster < 1 ||
-      cluster > HPNN_MAX_CLUSTER || stage < 0)
-    return (int)cudaErrorInvalidValue;
-  Net<T> net;
-  net.n_layers = n_layers;
-  int total = 0, wtot = 0;
-  for (int l = 0; l <= n_layers; ++l) net.dims[l] = dims[l];
-  for (int l = 0; l < n_layers; ++l) {
-    const int n = dims[l + 1];
-    net.off[l] = total;
-    total += n;
-    net.wblk[l] = wtot;
-    net.inv_n[l] = inv40(n);
-    wtot += ((n + cluster - 1) / cluster) * dims[l];
-    net.w[l] = static_cast<T*>(w[l]);
-    net.dw[l] = momentum ? static_cast<T*>(dw[l]) : nullptr;
-  }
-  net.inv_c = inv40(cluster);
-  net.n_act = total;
-  net.stage = stage;
-  net.wtot = wtot;
-  net.dbuf = dbuf != 0;
-  net.w_res = w_res != 0;
-  net.dw_res = momentum != 0 && dw_res != 0;
+struct Args {
+  bool snn, momentum;
+  const T* X;
+  const T* Tg;
+  int S;
+  T alpha, delta;
+  int min_iter, max_iter;
+  T lr;
+  T* ep0;
+  int* n_iter;
+  T* dep;
+  int* first_ok;
+  int* final_ok;
+  T* out;
+};
+
+// One cluster launch of the kernel on `net`: the owned rows' home
+// (shared or device memory) and the layers' flavour pick the kernel.
+template <typename T, class Ly>
+int start(const Net<T, Ly>& net, const Args<T>& a, int n_in, int n_out, int cluster,
+          cudaStream_t stream) {
   // the layout of convergence_cluster; ops/convergence.py::plan mirrors it
   const size_t smem =
       2 * sizeof(T) + 2 * sizeof(int) +
-      sizeof(T) * ((size_t)dims[0] + dims[n_layers] + (net.dbuf ? 3 : 2) * (size_t)total +
-                   stage + (net.w_res ? wtot : 0) + (net.dw_res ? wtot : 0));
+      sizeof(T) * ((size_t)n_in + n_out + (net.dbuf ? 3 : 2) * (size_t)net.n_act +
+                   net.stage + (net.w_res ? net.wtot : 0) + (net.dw_res ? net.wtot : 0));
   if (smem > HPNN_MAX_SMEM) return (int)cudaErrorInvalidValue;
-  // the owned rows' home decides the kernel: shared memory or device memory
-  auto kern = net.w_res ? (net.dw_res ? convergence_cluster<T, true, true>
-                                      : convergence_cluster<T, true, false>)
-                        : (net.dw_res ? convergence_cluster<T, false, true>
-                                      : convergence_cluster<T, false, false>);
+  auto kern = net.w_res ? (net.dw_res ? convergence_cluster<T, true, true, Ly>
+                                      : convergence_cluster<T, true, false, Ly>)
+                        : (net.dw_res ? convergence_cluster<T, false, true, Ly>
+                                      : convergence_cluster<T, false, false, Ly>);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -731,43 +778,102 @@ int launch(int snn, int momentum, int n_layers, const int* dims,
   err = cudaOccupancyMaxActiveClusters(&n_clusters, kern, &cfg);
   if (err != cudaSuccess) return (int)err;
   if (n_clusters < 1) return (int)cudaErrorLaunchOutOfResources;
-  const bool snn_b = snn != 0, mom_b = momentum != 0;
-  err = cudaLaunchKernelEx(
-      &cfg, kern, net, snn_b, mom_b, static_cast<const T*>(X), static_cast<const T*>(Tg),
-      S, (T)alpha, (T)delta, min_iter, max_iter, (T)lr, static_cast<T*>(ep0),
-      static_cast<int*>(n_iter), static_cast<T*>(dep), static_cast<int*>(first_ok),
-      static_cast<int*>(final_ok), static_cast<T*>(out));
+  err = cudaLaunchKernelEx(&cfg, kern, net, a.snn, a.momentum, a.X, a.Tg, a.S, a.alpha,
+                           a.delta, a.min_iter, a.max_iter, a.lr, a.ep0, a.n_iter, a.dep,
+                           a.first_ok, a.final_ok, a.out);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
+// The net's scalars, from the host copy of the layer table `rec`.
+template <typename T, class Ly>
+void fill(Net<T, Ly>* net, const Layer* rec, int n_layers, int momentum, int cluster,
+          int dbuf, int stage, int w_res, int dw_res) {
+  int wtot = 0;
+  for (int l = 0; l < n_layers; ++l) wtot += ((rec[l].n + cluster - 1) / cluster) * rec[l].m;
+  net->n_layers = n_layers;
+  net->inv_c = inv40(cluster);
+  net->n_act = rec[n_layers - 1].off + rec[n_layers - 1].n;
+  net->stage = stage;
+  net->wtot = wtot;
+  net->dbuf = dbuf != 0;
+  net->w_res = w_res != 0;
+  net->dw_res = momentum != 0 && dw_res != 0;
+}
+
+template <typename T>
+int launch(int momentum, int n_layers, const void* table, const void* host_table, void* dw,
+           const Args<T>& a, int cluster, int dbuf, int stage, int w_res, int dw_res,
+           cudaStream_t stream) {
+  if (n_layers < 1 || (table == nullptr && n_layers > HPNN_PARAM_LAYERS) ||
+      host_table == nullptr || cluster < 1 ||
+      cluster > HPNN_MAX_CLUSTER || stage < 0 || (momentum && !dw_res && dw == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Layer* rec = static_cast<const Layer*>(host_table);
+  const int n_in = rec[0].m, n_out = rec[n_layers - 1].n;
+  T* dws = momentum && !dw_res ? static_cast<T*>(dw) : nullptr;
+  if (n_layers > HPNN_PARAM_LAYERS) {
+    Net<T, TableLayers<T>> net;
+    fill(&net, rec, n_layers, momentum, cluster, dbuf, stage, w_res, dw_res);
+    net.ly.lay = static_cast<const Layer*>(table);
+    net.ly.dws = dws;
+    return start(net, a, n_in, n_out, cluster, stream);
+  }
+  Net<T, ParamLayers<T>> net;
+  fill(&net, rec, n_layers, momentum, cluster, dbuf, stage, w_res, dw_res);
+  net.ly.dims[0] = n_in;
+  for (int l = 0; l < n_layers; ++l) {
+    net.ly.dims[l + 1] = rec[l].n;
+    net.ly.off_[l] = rec[l].off;
+    net.ly.wblk_[l] = rec[l].wblk;
+    net.ly.inv_n_[l] = rec[l].inv_n;
+    net.ly.w_[l] = reinterpret_cast<T*>(rec[l].w);
+    net.ly.dw_[l] = dws ? dws + rec[l].dwo : nullptr;
+  }
+  return start(net, a, n_in, n_out, cluster, stream);
+}
+
 }  // namespace
 
-// Plain C entry for ctypes.  `dims`, `w` and `dw` are HOST arrays (of
-// n_layers+1 ints and n_layers device pointers); every other pointer is
-// a device pointer.  dtype: 0 = float, 1 = double.  The plan: the
-// cluster size (1-16), whether the activations are double-buffered, the
-// staging tile's values, whether the owned rows of W and of dw live in
-// shared memory.  Returns the cudaError_t of the launch (0 = launched);
-// a cluster the card cannot place is cudaErrorLaunchOutOfResources.
+// Plain C entry for ctypes.  `table` and `host_table` hold the same
+// n_layers `Layer` records (ops/convergence.py::_layer_table), in device
+// and in host memory (`table` may be null for a net of at most
+// HPNN_PARAM_LAYERS layers, which reads only the host copy's values, by
+// value in the kernel parameters); `dw` is the dw scratch (every layer's, at the
+// records' offsets), null unless momentum keeps dw in device memory.
+// Every other pointer is a device pointer.  dtype: 0 = float, 1 =
+// double.  The plan: the cluster size (1-16), whether the activations
+// are double-buffered, the staging tile's values, whether the owned
+// rows of W and of dw live in shared memory.  Returns the cudaError_t
+// of the launch (0 = launched); a cluster the card cannot place is
+// cudaErrorLaunchOutOfResources.
 extern "C" int hpnn_convergence_train_epoch(
-    int dtype, int snn, int momentum, int n_layers, const int* dims,
-    void* const* w, void* const* dw, const void* X, const void* Tg, int S,
+    int dtype, int snn, int momentum, int n_layers, const void* table,
+    const void* host_table, void* dw, const void* X, const void* Tg, int S,
     double alpha, double delta, int min_iter, int max_iter, double lr,
     void* ep0, void* n_iter, void* dep, void* first_ok, void* final_ok,
     void* out, int cluster, int dbuf, int stage, int w_res, int dw_res,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch<float>(snn, momentum, n_layers, dims, w, dw, X, Tg, S, alpha,
-                         delta, min_iter, max_iter, lr, ep0, n_iter, dep,
-                         first_ok, final_ok, out, cluster, dbuf, stage, w_res,
-                         dw_res, st);
-  if (dtype == 1)
-    return launch<double>(snn, momentum, n_layers, dims, w, dw, X, Tg, S, alpha,
-                          delta, min_iter, max_iter, lr, ep0, n_iter, dep,
-                          first_ok, final_ok, out, cluster, dbuf, stage, w_res,
-                          dw_res, st);
+  if (dtype == 0) {
+    const Args<float> a{snn != 0, momentum != 0, static_cast<const float*>(X),
+                        static_cast<const float*>(Tg), S, (float)alpha, (float)delta,
+                        min_iter, max_iter, (float)lr, static_cast<float*>(ep0),
+                        static_cast<int*>(n_iter), static_cast<float*>(dep),
+                        static_cast<int*>(first_ok), static_cast<int*>(final_ok),
+                        static_cast<float*>(out)};
+    return launch<float>(momentum, n_layers, table, host_table, dw, a, cluster, dbuf, stage,
+                         w_res, dw_res, st);
+  }
+  if (dtype == 1) {
+    const Args<double> a{snn != 0, momentum != 0, static_cast<const double*>(X),
+                         static_cast<const double*>(Tg), S, alpha, delta, min_iter,
+                         max_iter, lr, static_cast<double*>(ep0), static_cast<int*>(n_iter),
+                         static_cast<double*>(dep), static_cast<int*>(first_ok),
+                         static_cast<int*>(final_ok), static_cast<double*>(out)};
+    return launch<double>(momentum, n_layers, table, host_table, dw, a, cluster, dbuf, stage,
+                          w_res, dw_res, st);
+  }
   return (int)cudaErrorInvalidValue;
 }
 

@@ -34,16 +34,24 @@ run their body on one cluster of C CTAs instead, for the tests and
 ``chip_smoke.py`` (the grid is the faster: PERF.md).  Every team gives
 the same bits.  A launch the card cannot place raises; nothing falls
 back to a smaller team.
+
+A net of any depth: the layers reach the kernel as one table of
+records (:func:`_layer_table`, kept by ``ops/_table.py``: its values by
+value in the kernel parameters up to 16 layers, its copy in device
+memory past them), and the scratch of the activations and deltas is
+device memory, so the only limit is the card's memory (an allocation
+that does not fit raises with the bytes it asked for).
 """
 
 from __future__ import annotations
 
 import contextlib
 import ctypes
+import struct
 
 import torch
 
-from hpnn_tpu_torch.ops import _build
+from hpnn_tpu_torch.ops import _build, _table
 from hpnn_tpu_torch.parallel import dp
 
 # the batch path's entry points, with the same (weights, dw, X, T, ...)
@@ -56,8 +64,8 @@ BATCH_ENTRY_POINTS = (
 )
 ENTRY_POINTS = BATCH_ENTRY_POINTS + ("train_fleet_epoch_dbuf_banked",)
 launches = dict.fromkeys(ENTRY_POINTS, 0)
+tables = _table.Tables()  # the launches' layer tables (csrc/batch_step.cu's Layer)
 
-MAX_LAYERS = 16  # HPNN_MAX_LAYERS in csrc/batch_step.cu
 TILE = 32        # HPNN_TILE: output tile edge and k-tile depth
 WORKERS = 2      # HPNN_WORKERS: 128-thread tile workers a block
 MAX_SHARED_BYTES = 232448  # dynamic shared memory one H100 block can use
@@ -79,17 +87,21 @@ _plans: dict[tuple, int] = {}      # and members, shapes, B, forced size -> #6's
 # source's ``extern "C"`` declaration.
 _INT, _PTR, _DBL = ctypes.c_int, ctypes.c_void_p, ctypes.c_double
 ARGTYPES = {
-    # dtype blocks cluster snn momentum n_layers | dims w dw X Tg | B |
-    # order | first S | lr_eff alpha inv_b | scratch losses | prefetch stream
+    # dtype blocks cluster snn momentum n_layers | table host_table X Tg |
+    # B | order | first S | lr_eff alpha inv_b | scratch losses | prefetch
+    # stream
     "hpnn_batch_train": (
-        (_INT,) * 6 + (_PTR,) * 5 + (_INT,) + (_PTR,) + (_INT,) * 2
+        (_INT,) * 6 + (_PTR,) * 4 + (_INT,) + (_PTR,) + (_INT,) * 2
         + (_DBL,) * 3 + (_PTR,) * 2 + (_INT, _PTR)),
-    # dtype members cluster snn momentum n_layers | dims w dw X Tg |
+    # dtype members cluster snn momentum n_layers | table host_table X Tg |
     # bank_rows | B | orders | S | lr_eff alpha inv_b | scratch losses stream
     "hpnn_fleet_train": (
-        (_INT,) * 6 + (_PTR,) * 5 + (ctypes.c_longlong, _INT, _PTR, _INT)
+        (_INT,) * 6 + (_PTR,) * 4 + (ctypes.c_longlong, _INT, _PTR, _INT)
         + (_DBL,) * 3 + (_PTR,) * 3),
 }
+# one record of the table: csrc/batch_step.cu's `struct Layer` (w, dw or
+# 0, the rows of the layers below, m, n)
+LAYER = struct.Struct("<QQqii")
 
 
 def _library(define: str | None = None):
@@ -298,8 +310,8 @@ def _check(weights, dw, X, T, batch, model, momentum):
                          f"{tuple(X.shape)} and {tuple(T.shape)}")
     if batch < 1 or X.shape[0] % batch or X.shape[0] == 0:
         raise ValueError(f"{X.shape[0]} rows are not whole blocks of {batch}")
-    if not 1 <= len(weights) <= MAX_LAYERS:
-        raise ValueError(f"{len(weights)} layers: the kernel takes 1..{MAX_LAYERS}")
+    if not weights:
+        raise ValueError("want at least one layer")
     if weights[0].shape[1] != X.shape[1] or weights[-1].shape[0] != T.shape[1]:
         raise ValueError("sample widths do not match the kernel's input/output")
     for a, b in zip(weights[:-1], weights[1:]):
@@ -328,22 +340,33 @@ def _order(order, n_blocks: int) -> torch.Tensor:
     return o.to(torch.int32)
 
 
-def _layers(weights, dw, momentum, batch):
-    """One kernel's C arrays (the layer widths and the weight and dw
-    pointers) and the values of its scratch, in the weights' dtype: the
-    activations and deltas of every layer for the B rows and the B row
-    losses in :func:`loss_dtype` (the counterpart of the Pallas kernel's
-    VMEM scratch)."""
-    n_layers = len(weights)
-    dims = (ctypes.c_int * (n_layers + 1))(
-        weights[0].shape[1], *(int(w.shape[0]) for w in weights))
-    w_ptrs = (ctypes.c_void_p * n_layers)(*(w.data_ptr() for w in weights))
-    dw_ptrs = (ctypes.c_void_p * n_layers)(
-        *((m.data_ptr() for m in dw) if momentum else [None] * n_layers))
-    dt = weights[0].dtype
-    per_loss = (torch.empty((), dtype=loss_dtype(dt)).element_size()
-                // torch.empty((), dtype=dt).element_size())
-    return dims, w_ptrs, dw_ptrs, (2 * sum(dims[1:]) + per_loss) * batch
+def _layer_table(weights, dw, momentum, stream: int, device):
+    """(the launch's layer table on ``device`` for a net deeper than
+    ``_table.PARAM_LAYERS``, else None; its host copy, a ctypes buffer;
+    the values of scratch a row): one ``LAYER`` record a layer, made once
+    for these weights (``weights[l]`` of shape (n, m), or member 0's of a
+    stacked (N, n, m) layer) and dw on this stream.  The scratch holds
+    the activations and deltas of every layer for the B rows and the B
+    row losses in :func:`loss_dtype` (the counterpart of the Pallas
+    kernel's VMEM scratch), in the weights' dtype."""
+    key = (stream, weights[0].dtype,
+           tuple((w.data_ptr(), w.shape[-2], w.shape[-1]) for w in weights),
+           tuple(m.data_ptr() for m in dw) if momentum else ())
+
+    def pack():
+        recs, cum = [], 0
+        for l, w in enumerate(weights):
+            n, m = int(w.shape[-2]), int(w.shape[-1])
+            recs.append(LAYER.pack(w.data_ptr(), dw[l].data_ptr() if momentum else 0,
+                                   cum, m, n))
+            cum += n
+        dt = weights[0].dtype
+        per_loss = (torch.empty((), dtype=loss_dtype(dt)).element_size()
+                    // torch.empty((), dtype=dt).element_size())
+        blob = b"".join(recs)
+        return blob, ctypes.create_string_buffer(blob, len(blob)), 2 * cum + per_loss
+
+    return tables.get(key, pack, _table.device_copy(len(weights), device))
 
 
 def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
@@ -366,16 +389,16 @@ def _launch(name, weights, dw, X, T, order, batch, *, model, momentum, lr,
     # one step reads its block by index; an epoch's order goes to the card
     ord_dev = order.to(dev) if S > 1 else None
     first = 0 if S > 1 else int(order[0])
-    dims, w_ptrs, dw_ptrs, n_scratch = _layers(weights, dw, momentum, batch)
-    scratch = torch.empty(n_scratch, dtype=X.dtype, device=dev)
     losses = torch.empty(S, dtype=loss_dtype(X.dtype), device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        table, host, per_row = _layer_table(weights, dw, momentum, stream, dev)
+        scratch = torch.empty(per_row * batch, dtype=X.dtype, device=dev)
         # lr·(1/B) in double on the host, as the JAX Python-scalar product is
         rc = lib.hpnn_batch_train(
             _DTYPE_CODE[X.dtype], blocks, cluster, int(model == "snn"), int(bool(momentum)),
-            len(weights), ctypes.addressof(dims), ctypes.addressof(w_ptrs),
-            ctypes.addressof(dw_ptrs), X.data_ptr(), T.data_ptr(), int(batch),
+            len(weights), None if table is None else table.data_ptr(),
+            ctypes.addressof(host), X.data_ptr(), T.data_ptr(), int(batch),
             None if ord_dev is None else ord_dev.data_ptr(), first, S,
             float(lr) * (1.0 / batch), float(alpha), 1.0 / batch, scratch.data_ptr(),
             losses.data_ptr(), int(bool(prefetch)), stream,
@@ -464,18 +487,17 @@ def _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, *, model,
         C = _plans[key] = _placed(fleet_cluster(N, shapes, batch, cap, cluster=cluster),
                                   X_banks.dtype, dev)
     ord_dev = orders.to(dev)
-    # member 0's layers; the kernel steps to member i by the strides
-    dims, w_ptrs, dw_ptrs, n_scratch = _layers(
-        [w[0] for w in weights], [m[0] for m in dw] if momentum else (), momentum, batch)
-    scratch = torch.empty(N * n_scratch, dtype=X_banks.dtype, device=dev)
     losses = torch.empty((N, S), dtype=loss_dtype(X_banks.dtype), device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        # member 0's layers; the kernel steps to member i by the strides
+        table, host, per_row = _layer_table(weights, dw, momentum, stream, dev)
+        scratch = torch.empty(N * per_row * batch, dtype=X_banks.dtype, device=dev)
         # lr·(1/B) in double on the host, as the JAX Python-scalar product is
         rc = lib.hpnn_fleet_train(
             _DTYPE_CODE[X_banks.dtype], N, C, int(model == "snn"), int(bool(momentum)),
-            len(weights), ctypes.addressof(dims), ctypes.addressof(w_ptrs),
-            ctypes.addressof(dw_ptrs), X_banks.data_ptr(), T_banks.data_ptr(),
+            len(weights), None if table is None else table.data_ptr(),
+            ctypes.addressof(host), X_banks.data_ptr(), T_banks.data_ptr(),
             int(X_banks.shape[1]), int(batch), ord_dev.data_ptr(), S,
             float(lr) * (1.0 / batch), float(alpha), 1.0 / batch,
             scratch.data_ptr(), losses.data_ptr(), stream,

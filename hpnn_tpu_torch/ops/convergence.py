@@ -12,22 +12,29 @@ final_ok), plus each sample's final output vector.
 out by :func:`plan`, for CUDA tensors and calls
 :func:`train_epoch_plain` for CPU tensors; there is no other route.
 ``launches`` counts the kernel launches of this process.
+
+A net of any depth: the layers reach the kernel as one table of
+records (:func:`_layer_table`, kept by ``ops/_table.py``: its values by
+value in the kernel parameters up to 16 layers, its copy in device
+memory past them), so the only limit is the shared memory of
+:func:`plan`, which raises with the bytes it needs.
 """
 
 from __future__ import annotations
 
 import ctypes
+import struct
 from typing import NamedTuple
 
 import torch
 
 from hpnn_tpu_torch.models import ann, snn
-from hpnn_tpu_torch.ops import _build
+from hpnn_tpu_torch.ops import _build, _table
 from hpnn_tpu_torch.train import loop
 
 launches = 0
+tables = _table.Tables()  # the launches' layer tables (csrc/convergence.cu's Layer)
 
-MAX_LAYERS = 16          # HPNN_MAX_LAYERS in csrc/convergence.cu
 MAX_SHARED_BYTES = 232448  # dynamic shared memory one H100 block can use
 CLUSTER = 16             # CTAs a cluster: the non-portable size, faster than 8 (PERF.md)
 STAGE = 2048             # values in the staging tile of the hidden deltas
@@ -37,11 +44,18 @@ _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 # pointer and the stream as c_void_p (ctypes would cut a pointer to 32
 # bits as c_int)
 ARGTYPES = {
+    # dtype snn momentum n_layers | table host_table dw X Tg | S |
+    # alpha delta | min_iter max_iter | lr | outputs | plan | stream
     "hpnn_convergence_train_epoch": (
         [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
         + [ctypes.c_double] * 2 + [ctypes.c_int] * 2 + [ctypes.c_double]
         + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
+# one record of the table: csrc/convergence.cu's `struct Layer` (w, the
+# offset of layer l's dw in the dw scratch, ceil(2^40 / n), m, n, the
+# layer's offset in the activations, its owned rows' offset in a
+# weight block)
+LAYER = struct.Struct("<QqQiiii")
 
 
 class EpochStats(NamedTuple):
@@ -150,8 +164,8 @@ def _check(weights, X, T, model):
     if X.dim() != 2 or T.dim() != 2 or X.shape[0] != T.shape[0]:
         raise ValueError(f"want X (S, n_in) and T (S, n_out), got "
                          f"{tuple(X.shape)} and {tuple(T.shape)}")
-    if not 1 <= len(weights) <= MAX_LAYERS:
-        raise ValueError(f"{len(weights)} layers: the kernel takes 1..{MAX_LAYERS}")
+    if not weights:
+        raise ValueError("want at least one layer")
     if weights[0].shape[1] != X.shape[1] or weights[-1].shape[0] != T.shape[1]:
         raise ValueError("sample widths do not match the kernel's input/output")
     for a, b in zip(weights[:-1], weights[1:]):
@@ -203,33 +217,56 @@ def train_epoch(
     return stats
 
 
+def _inv40(d: int) -> int:
+    """ceil(2^40 / d): csrc/convergence.cu's inv40."""
+    return ((1 << 40) + d - 1) // d
+
+
+def _layer_table(weights, cluster: int, stream: int, device):
+    """The launch's layer table (its copy on ``device`` for a net deeper
+    than ``_table.PARAM_LAYERS``, else None) and its host copy (a ctypes
+    buffer): one ``LAYER`` record a layer, made once for these weights,
+    this cluster size and this stream."""
+    key = (stream, weights[0].dtype, cluster,
+           tuple((w.data_ptr(), w.shape[0], w.shape[1]) for w in weights))
+
+    def pack():
+        recs, off, wblk, dwo = [], 0, 0, 0
+        for w in weights:
+            n, m = int(w.shape[0]), int(w.shape[1])
+            recs.append(LAYER.pack(w.data_ptr(), dwo, _inv40(n), m, n, off, wblk))
+            off += n
+            wblk += -(-n // cluster) * m
+            dwo += n * m
+        blob = b"".join(recs)
+        return blob, ctypes.create_string_buffer(blob, len(blob))
+
+    return tables.get(key, pack, _table.device_copy(len(weights), device))
+
+
 def _launch(lib, p, weights, X, T, alpha, delta, model, momentum, min_iter, max_iter):
     """One launch of ``lib``'s kernel under plan ``p``; raises if the
     launch is refused."""
     S, n_out = T.shape
-    n_layers = len(weights)
     dev = X.device
-    # dw is scratch the kernel zeroes; device memory only where the plan
-    # keeps it out of shared memory
-    dw = (tuple(torch.empty_like(w) for w in weights)
-          if momentum and not p.dw_resident else ())
+    # dw is scratch the kernel zeroes, one buffer of every layer's dw;
+    # device memory only where the plan keeps it out of shared memory
+    dw = (torch.empty(sum(w.numel() for w in weights), dtype=X.dtype, device=dev)
+          if momentum and not p.dw_resident else None)
     ep0 = torch.empty(S, dtype=X.dtype, device=dev)
     dep = torch.empty(S, dtype=X.dtype, device=dev)
     n_iter = torch.empty(S, dtype=torch.int32, device=dev)
     first_ok = torch.empty(S, dtype=torch.int32, device=dev)
     final_ok = torch.empty(S, dtype=torch.int32, device=dev)
     out = torch.empty((S, n_out), dtype=X.dtype, device=dev)
-    dims = (ctypes.c_int * (n_layers + 1))(
-        weights[0].shape[1], *(int(w.shape[0]) for w in weights))
-    w_ptrs = (ctypes.c_void_p * n_layers)(*(w.data_ptr() for w in weights))
-    dw_ptrs = (ctypes.c_void_p * n_layers)(*(m.data_ptr() for m in dw) if dw else ())
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        table, host = _layer_table(weights, p.cluster, stream, dev)
         rc = lib.hpnn_convergence_train_epoch(
             _DTYPE_CODE[X.dtype], int(model == "snn"), int(bool(momentum)),
-            n_layers, ctypes.addressof(dims), ctypes.addressof(w_ptrs),
-            ctypes.addressof(dw_ptrs), X.data_ptr(), T.data_ptr(), S,
-            float(alpha), float(delta), int(min_iter), int(max_iter),
+            len(weights), None if table is None else table.data_ptr(),
+            ctypes.addressof(host), None if dw is None else dw.data_ptr(), X.data_ptr(),
+            T.data_ptr(), S, float(alpha), float(delta), int(min_iter), int(max_iter),
             learn_rate(model, momentum),
             ep0.data_ptr(), n_iter.data_ptr(), dep.data_ptr(),
             first_ok.data_ptr(), final_ok.data_ptr(), out.data_ptr(),

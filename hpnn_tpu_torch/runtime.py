@@ -98,7 +98,18 @@ def get_capabilities() -> NNCap:
     return _runtime.capability
 
 
+def unset_capability(cap: NNCap) -> None:
+    _runtime.capability &= ~cap
+
+
 # ------------------------------------------------------------------- inits
+def init_runtime() -> None:
+    """A fresh runtime, verbosity 0."""
+    global _runtime
+    _runtime = NNRuntime()
+    log.set_verbose(0)
+
+
 def init_threads() -> bool:
     """Intra-host threading init (replaces ``_NN(init,OMP)``)."""
     n = int(os.environ.get("OMP_NUM_THREADS", 0) or 0)
@@ -185,15 +196,40 @@ def set_omp_threads(n: int) -> bool:
     return True
 
 
+def get_omp_threads() -> int:
+    return _runtime.nn_num_threads
+
+
 def set_omp_blas(n: int) -> bool:
     _runtime.nn_num_blas = max(1, int(n))
     return True
+
+
+def get_omp_blas() -> int:
+    return _runtime.nn_num_blas
 
 
 def set_cuda_streams(n: int) -> bool:
     # advisory: launches go to PyTorch's current stream
     _runtime.nn_num_streams = max(1, int(n))
     return True
+
+
+def get_cuda_streams() -> int:
+    return _runtime.nn_num_streams
+
+
+def set_mpi_tasks(n: int) -> bool:
+    # the task count is the torch.distributed world's, fixed at launch
+    return False
+
+
+def get_mpi_tasks() -> int:
+    return _runtime.nn_num_tasks
+
+
+def n_devices() -> int:
+    return _runtime.n_devices
 
 
 # ------------------------------------------------------------ device rules

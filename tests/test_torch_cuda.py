@@ -1048,3 +1048,162 @@ def test_online_capture_elsewhere_raises_while_pinned(cuda):
     o2.add_kernel("k", km.generate(12, 784, [32], 10)[0])
     assert o2.serve.install_kernel("k", km.generate(13, 784, [32], 10)[0]).version == 1
     o2.close()
+
+
+# ------------------------------------------------------------- deep nets
+# 20 layers, weights of gain ~1 through the tanh-sigmoid (uniform in
+# +-2*sqrt(3/m)): the kernels take their layers from a table in device
+# memory, so no depth is too deep for them
+DEEP = (12, (16,) * 19, 8)
+
+
+def _deep_weights(dev, dtype, lead=(), shape=DEEP, seed=8):
+    n_in, hiddens, n_out = shape
+    dims = [n_in, *hiddens, n_out]
+    rng = np.random.default_rng(seed)
+    return [torch.tensor(rng.uniform(-2 * np.sqrt(3 / m), 2 * np.sqrt(3 / m), lead + (n, m)),
+                         dtype=dtype, device=dev) for m, n in zip(dims[:-1], dims[1:])]
+
+
+def _deep_rows(dev, dtype, rows, lead=(), seed=9, snn=False):
+    n_in, _, n_out = DEEP
+    rng = np.random.default_rng(seed)
+    X = rng.uniform(-1, 1, lead + (rows, n_in))
+    T = np.full(lead + (rows, n_out), 0.0 if snn else -1.0)
+    idx = rng.integers(0, n_out, lead + (rows,))
+    np.put_along_axis(T, idx[..., None], 1.0, axis=-1)
+    return torch.tensor(X, dtype=dtype, device=dev), torch.tensor(T, dtype=dtype, device=dev)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, TOL64), (torch.float32, 1e-4)])
+@pytest.mark.parametrize("model,momentum", [("ann", True), ("snn", False)])
+def test_cluster_kernel_20_layers(cuda, model, momentum, dtype, tol):
+    """#1 on a 20-layer net: every plan bitwise alike, and within the
+    bars of the shallow nets of its plain version."""
+    w0 = _deep_weights(cuda, dtype)
+    X, T = _deep_rows(cuda, dtype, 2, snn=model == "snn")
+    kw = dict(model=model, momentum=momentum, min_iter=5, max_iter=20)
+    runs = []
+    for plan in _plans(w0, dtype, momentum):
+        w = _clone(w0)
+        st = convergence.train_epoch(w, X, T, 0.2, -1e30, **kw, **plan)
+        torch.cuda.synchronize()
+        assert st.n_iter.tolist() == [21, 21]
+        runs.append((plan, w, st))
+    _assert_bitwise(runs)
+    wp = _clone(w0)
+    sp = convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
+    _, w, st = runs[0]
+    assert st.first_ok.tolist() == sp.first_ok.tolist()
+    assert _max_diff(w + [st.out], wp + [sp.out]) <= tol
+    assert all(not torch.equal(a, b) for a, b in zip(w, w0))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, TOL64), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("model,momentum", [("ann", False), ("snn", True)])
+@pytest.mark.parametrize("entry", batch_step.BATCH_ENTRY_POINTS)
+def test_batch_kernel_20_layers(cuda, entry, model, momentum, dtype, tol):
+    """#2-#5 on a 20-layer net against their plain versions (4 steps)."""
+    B, S = 16, 4
+    w = _deep_weights(cuda, dtype)
+    dw = ([torch.full_like(t, 1e-4) for t in w] if momentum else [])
+    X, T = _deep_rows(cuda, dtype, B * S, snn=model == "snn")
+    wp, dwp = _clone(w), _clone(dw)
+    kw = dict(model=model, momentum=momentum, lr=0.05, alpha=0.2)
+    order = [2, 0, 3, 1]
+    fn, plain = getattr(batch_step, entry), getattr(batch_step, entry + "_plain")
+    before = batch_step.launches[entry]
+    if entry == "train_step_fused_batch":
+        lk = [fn(w, dw, X[k * B:(k + 1) * B], T[k * B:(k + 1) * B], **kw)[2] for k in order]
+        lp = [plain(wp, dwp, X[k * B:(k + 1) * B], T[k * B:(k + 1) * B], **kw)[2]
+              for k in order]
+    elif entry == "train_step_fused_banked":
+        lk = [fn(w, dw, X, T, k, batch=B, **kw)[2] for k in order]
+        lp = [plain(wp, dwp, X, T, k, batch=B, **kw)[2] for k in order]
+    else:
+        lk = list(fn(w, dw, X, T, order, batch=B, **kw)[2])
+        lp = list(plain(wp, dwp, X, T, order, batch=B, **kw)[2])
+    torch.cuda.synchronize()
+    assert batch_step.launches[entry] == before + (S if "step" in entry else 1)
+    assert _max_diff(w + dw, wp + dwp) <= tol
+    lk, lp = torch.stack(lk), torch.stack(lp)
+    assert float((lk - lp).abs().max()) <= tol * max(1.0, float(lp.abs().max()))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float64, TOL64), (torch.float32, 1e-5)])
+@pytest.mark.parametrize("model,momentum", [("ann", True), ("snn", False)])
+def test_fleet_kernel_20_layers(cuda, model, momentum, dtype, tol):
+    """#6 on 3 members of a 20-layer net: against its plain version, and
+    member i bitwise #4 on bank i at every cluster size."""
+    N, B, S = 3, 16, 4
+    w = _deep_weights(cuda, dtype, lead=(N,))
+    dw = ([torch.full_like(t, 1e-4) for t in w] if momentum else [])
+    X, T = _deep_rows(cuda, dtype, B * S, lead=(N,), snn=model == "snn")
+    orders = np.stack([np.random.default_rng(i).permutation(S) for i in range(N)])
+    kw = dict(batch=B, model=model, momentum=momentum, lr=0.05, alpha=0.2)
+    w0, dw0, wp, dwp = _clone(w), _clone(dw), _clone(w), _clone(dw)
+    _, _, lk = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders, **kw)
+    _, _, lp = batch_step.train_fleet_epoch_dbuf_banked_plain(wp, dwp, X, T, orders, **kw)
+    torch.cuda.synchronize()
+    assert _max_diff(w + dw, wp + dwp) <= tol
+    assert float((lk - lp).abs().max()) <= tol * max(1.0, float(lp.abs().max()))
+    for i in range(N):
+        wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
+        _, _, li = batch_step.train_epoch_grid_banked(wi, dwi, X[i], T[i], orders[i], **kw)
+        assert torch.equal(li, lk[i])
+        assert all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, w + dw))
+    for C in batch_step.CLUSTER_SIZES:
+        wc, dwc = _clone(w0), _clone(dw0)
+        _, _, lc = batch_step.train_fleet_epoch_dbuf_banked(wc, dwc, X, T, orders, cluster=C,
+                                                            **kw)
+        assert torch.equal(lc, lk), C
+
+
+def test_layer_tables_are_cached_by_pointer(cuda):
+    """Two launches on the same tensors read one table, uploaded once; a
+    launch on new tensors of the same shapes gets a table of its own,
+    with its pointers: it trains them, not the first ones.  A net of at
+    most 16 layers copies no table to the card (its values ride in the
+    kernel parameters)."""
+    kw = dict(model="ann", momentum=True, lr=0.05, alpha=0.2, batch=16)
+    uploads = batch_step.tables.uploads
+    w, dw, X, T = _bank(cuda, torch.float64, "ann", True, shape=(12, (16,) * 15, 6))
+    batch_step.train_epoch_grid_banked(w, dw, X, T, [0, 1], **kw)
+    assert batch_step.tables.uploads == uploads
+    w, dw, X, T = _bank(cuda, torch.float64, "ann", True, shape=(12, (16,) * 18, 6))
+    batch_step.train_epoch_grid_banked(w, dw, X, T, [0, 1], **kw)
+    uploads, kept = batch_step.tables.uploads, len(batch_step.tables)
+    batch_step.train_epoch_grid_banked(w, dw, X, T, [2, 3], **kw)
+    batch_step.train_step_fused_banked(w, dw, X, T, 1, **kw)
+    assert (batch_step.tables.uploads, len(batch_step.tables)) == (uploads, kept)
+    w_was, dw_was = _clone(w), _clone(dw)
+    w2, dw2, wp, dwp = _clone(w), _clone(dw), _clone(w), _clone(dw)
+    batch_step.train_epoch_grid_banked(w2, dw2, X, T, [3, 0], **kw)
+    assert batch_step.tables.uploads == uploads + 1
+    batch_step.train_epoch_grid_banked_plain(wp, dwp, X, T, [3, 0], **kw)
+    torch.cuda.synchronize()
+    assert _max_diff(w2 + dw2, wp + dwp) <= 1e-12
+    assert all(torch.equal(a, b) for a, b in zip(w + dw, w_was + dw_was))
+    # #1: the same, keyed by the weights, the cluster size and the stream
+    wk, Xk, Tk = _inputs(cuda, torch.float64, hiddens=(16,) * 18)
+    kw1 = dict(model="ann", momentum=True, min_iter=3, max_iter=6)
+    convergence.train_epoch(wk, Xk, Tk, 0.2, -1e30, **kw1)
+    uploads = convergence.tables.uploads
+    convergence.train_epoch(wk, Xk, Tk, 0.2, -1e30, **kw1)
+    assert convergence.tables.uploads == uploads
+    convergence.train_epoch(wk, Xk, Tk, 0.2, -1e30, cluster=8, **kw1)
+    assert convergence.tables.uploads == uploads + 1
+    wk_was, w2, wp = _clone(wk), _clone(wk), _clone(wk)
+    convergence.train_epoch(w2, Xk, Tk, 0.2, -1e30, **kw1)
+    assert convergence.tables.uploads == uploads + 2
+    convergence.train_epoch_plain(wp, Xk, Tk, 0.2, -1e30, **kw1)
+    torch.cuda.synchronize()
+    assert _max_diff(w2, wp) <= TOL64
+    assert all(torch.equal(a, b) for a, b in zip(wk, wk_was))
+    # a stream of its own gets a table of its own, made on it
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        convergence.train_epoch(w2, Xk, Tk, 0.2, -1e30, **kw1)
+    torch.cuda.current_stream().wait_stream(side)
+    assert convergence.tables.uploads == uploads + 3
