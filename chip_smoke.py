@@ -206,6 +206,27 @@ Phases (any failure exits non-zero and prints no result line):
    flow through ``hpnn_tpu_torch.train_kernel``/``run_kernel`` with no
    device argument, on the card.  Every kernel's entry on the kernels
    line gains ``deepest_layers`` and its errors and times at this depth.
+20. wide — #1 on per-sample nets whose input, target, activations and
+   deltas overflow one CTA's shared memory (the device build: one copy
+   a CTA in a device-memory scratch, W streamed from HBM), at
+   784-[30000]-10 float32 and 784-[15000]-10 float64: (a) against its
+   plain version (ANN-BP, ANN-BPM, SNN-BP; 4 samples x ``WIDE_PINNED_K``
+   + 1 iterations), float32 within 1e-4 and float64 within 1e-10; (b) the
+   device build forced at 784-300-10 bitwise the shared build (16 and 8
+   CTAs), ANN/SNN x BP/BPM x float32/float64; (c) ``train_nn`` at
+   784-[15000]-10 float64 ([init] generate, 4 samples at most
+   ``WIDE_MAX_ITER`` iterations) on the card and on the CPU: tokens and
+   ``kernel.tmp`` identical, ``kernel.opt`` within 1e-12, #1 launched on
+   the card; (d) µs an iteration of each width against its bound (W read
+   and written once an iteration at 3.35 TB/s, or the operations at 67
+   TFLOP/s).  The kernels line gains the entry ``convergence (vectors in
+   device memory)``: its launches are (c)'s.
+21. drills — the port's chaos drills (``hpnn_tpu_torch/tools/
+   chaos_drill.py``, at the repo tool's ``--rate`` 40) on the card:
+   kill9 (an ``online_nn`` child on ``cuda`` SIGKILLed after a
+   WAL-committed promotion, restarted, its weights bitwise the WAL's),
+   torn, quota, hog and drift (in-process sessions on ``cuda``), each row
+   printed; a drill that fails or could not run fails the phase.
 
 The last two lines are the kernel table and the device line.  A failed
 phase prints ``chip_smoke: FAILED in phase N (<name>): <reason>`` (and
@@ -217,6 +238,11 @@ phase 1 and phase 17 alone (a generated ANN in place of phase 4's) and
 prints no result line.  ``--fleet-only`` runs phase 1 and phase 18
 alone (``batch_step.cu`` built first, as the workers' trainers launch
 #4) and prints no result line.
+
+``--wide-only`` runs phase 1 and phase 20 alone (``convergence.cu`` built
+first) and ``--drills-only`` phase 1 and phase 21 alone (``batch_step.cu``
+built first, as the drift drill's trainer launches #4); neither prints
+a result line.
 
 ``--capture-thread`` runs phase 1 and the capture-thread probe alone
 (no result line): five cases of a thread that captures CUDA graphs
@@ -252,6 +278,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import faulthandler
+import hashlib
 import io
 import json
 import math
@@ -350,7 +377,7 @@ PHASE_NAMES = {
     7: "batch pinned", 8: "batch main", 9: "batch timing", 10: "fleet pinned",
     11: "fleet main", 12: "fleet timing", 13: "resume-obs-native", 14: "serve",
     15: "planes", 16: "mesh", 17: "online", 18: "fleet", 19: "deep",
-    0: "capture-thread probe",
+    20: "wide", 21: "drills", 0: "capture-thread probe",
 }
 # the phase running now, named in a failure's message
 PHASE = {"n": None, "name": "start-up"}
@@ -4732,6 +4759,249 @@ def deep_phase(np, torch, dev, Xtr, Ttr, Xte, Tte, protos):
                 seconds=time.perf_counter() - t0)
 
 
+# ------------------------------------------------------------ wide nets
+# Phase 20: #1 on per-sample nets whose input, target, activations and
+# deltas overflow one CTA's shared memory, so they live in a device-memory
+# scratch of one copy a CTA (the device build); W (95 MB) streams from
+# HBM.  float64 takes half the width for the same bytes.
+WIDE = {"float32": (N_IN, 30000, N_OUT), "float64": (N_IN, 15000, N_OUT)}
+WIDE_PINNED_K = 10     # #1 against plain: max_iter, so K+1 iterations a sample
+WIDE_SAMPLES = 4       # #1 against plain, and train_nn's samples
+WIDE_MAX_ITER = 30     # train_nn's per-sample cap, card and CPU
+WIDE_TIMED_K = 20      # the timed launches: K+1 iterations a sample
+
+
+def wide_shape(dname):
+    n_in, hid, n_out = WIDE[dname]
+    return f"{n_in}-[{hid}]-{n_out}"
+
+
+def wide_weights(np, rng, dname):
+    """Seeded uniform weights within 1/sqrt(fan-in) (the generator's
+    range) for ``WIDE[dname]``."""
+    n_in, hid, n_out = WIDE[dname]
+    return [rng.uniform(-1, 1, (hid, n_in)) / math.sqrt(n_in),
+            rng.uniform(-1, 1, (n_out, hid)) / math.sqrt(hid)]
+
+
+def wide_work(weights, S, iters, momentum, dtype_bytes):
+    """(bytes, flops) of a launch of #1 whose W does not fit on the chip:
+    ``obs.cost.work_of``'s operations, and W read and written once an
+    iteration (the least traffic for weights that stream from HBM every
+    iteration), beside the samples' bytes."""
+    from hpnn_tpu_torch.obs.cost import work_of
+
+    nbytes, flops = work_of(weights, S, iters, momentum, dtype_bytes)
+    n_w = sum(int(w.numel()) for w in weights)
+    return nbytes - 2 * n_w * dtype_bytes + iters * 2 * n_w * dtype_bytes, flops
+
+
+def wide_kernels(np, torch, dev, Xtr, Ttr):
+    """Phase 20 (a), (b), (d): the device build against its plain
+    version at ``WIDE``, the forced device build bitwise the shared
+    build at 784-300-10, and the device build's time and bound."""
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.obs.cost import bound_ms
+    from hpnn_tpu_torch.ops import convergence
+
+    rng = np.random.default_rng(SEED + 20)
+    err, times = {}, {}
+    for dtype in (torch.float32, torch.float64):
+        dname = str(dtype).split(".")[1]
+        W = wide_weights(np, rng, dname)
+        X = torch.tensor(Xtr[:WIDE_SAMPLES], dtype=dtype, device=dev)
+        w0 = [torch.tensor(w, dtype=dtype, device=dev) for w in W]
+        for model, momentum in (("ann", False), ("ann", True), ("snn", False)):
+            tag = f"{model}-{'BPM' if momentum else 'BP'} {dname}"
+            T = Ttr[:WIDE_SAMPLES].copy()
+            if model == "snn":
+                T = np.where(T > 0, 1.0, 0.0)
+            T = torch.tensor(T, dtype=dtype, device=dev)
+            p = convergence.plan(w0, dtype, momentum)
+            check(not p.vectors_resident and not p.weights_resident,
+                  f"#1 {tag} {wide_shape(dname)}: plan {p}")
+            kw = dict(model=model, momentum=momentum, min_iter=5, max_iter=WIDE_PINNED_K)
+            wk, wp = [t.clone() for t in w0], [t.clone() for t in w0]
+            sk = convergence.train_epoch(wk, X, T, 0.2, -1e30, **kw)
+            sp = convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
+            torch.cuda.synchronize()
+            check(sk.n_iter.tolist() == sp.n_iter.tolist() == [WIDE_PINNED_K + 1] * WIDE_SAMPLES,
+                  f"#1 {tag}: n_iter {sk.n_iter.tolist()} / {sp.n_iter.tolist()}")
+            check(sk.first_ok.tolist() == sp.first_ok.tolist(), f"#1 {tag}: first_ok differs")
+            e = max(state_err(wk, wp), state_err([sk.out], [sp.out]))
+            check(math.isfinite(e) and e <= TOL[dname],
+                  f"#1 {tag} {wide_shape(dname)}: |kernel - plain| {e:.3e} > {TOL[dname]:.0e}")
+            check(any(not torch.equal(a, b) for a, b in zip(wk, w0)),
+                  f"#1 {tag}: the kernel left every layer unchanged")
+            err[dname] = max(err.get(dname, 0.0), e)
+            log(f"[wide] #1 {tag} {wide_shape(dname)}, {WIDE_SAMPLES} samples x "
+                f"{WIDE_PINNED_K + 1} iterations: max|kernel - plain| {e:.3e} (tol "
+                f"{TOL[dname]:.0e}); {p.cluster} CTAs, vectors in device memory "
+                f"({p.scratch_bytes} B scratch), W streamed, {p.smem_bytes} B shared a CTA")
+        # (d) the time of an iteration and its bound, ANN-BP
+        T = torch.tensor(Ttr[:WIDE_SAMPLES], dtype=dtype, device=dev)
+        kw = dict(model="ann", min_iter=5, max_iter=WIDE_TIMED_K)
+        k_ms = cuda_ms(torch, lambda: convergence.train_epoch(w0, X, T, 0.2, -1e30, **kw))
+        iters = WIDE_SAMPLES * (WIDE_TIMED_K + 1)
+        nbytes, flops = wide_work(w0, WIDE_SAMPLES, iters, False, dtype.itemsize)
+        b_ms, b_by = bound_ms(nbytes, flops, dname)
+        wp = [t.clone() for t in w0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
+        torch.cuda.synchronize()
+        p_ms = (time.perf_counter() - t0) * 1e3
+        times[dname] = dict(shape=wide_shape(dname), ms=k_ms, iters=iters,
+                            us_per_iter=k_ms / iters * 1e3, plain_ms=p_ms, bound_ms=b_ms,
+                            bound_by=b_by, bytes=nbytes, flops=flops)
+        log(f"[wide] #1 ANN-BP {dname} {wide_shape(dname)}, {WIDE_SAMPLES} samples x "
+            f"{WIDE_TIMED_K + 1} iterations: {k_ms:.3f} ms ({k_ms / iters * 1e3:.2f} "
+            f"us/iteration); plain {p_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}: {nbytes} B = "
+            f"W read and written once an iteration, {flops} flop)")
+
+    # (b) the forced device build at 784-300-10: the shared build's bits
+    k0, _ = km.generate(SEED, N_IN, [N_HID], N_OUT)
+    same = 0
+    for model in ("ann", "snn"):
+        for momentum in (False, True):
+            for dtype in (torch.float32, torch.float64):
+                tag = f"{model}-{'BPM' if momentum else 'BP'} {str(dtype).split('.')[1]}"
+                w0, _ = km.to_torch(k0.weights, device=dev, dtype=dtype)
+                X = torch.tensor(Xtr[:4], dtype=dtype, device=dev)
+                T = Ttr[:4].copy()
+                if model == "snn":
+                    T = np.where(T > 0, 1.0, 0.0)
+                T = torch.tensor(T, dtype=dtype, device=dev)
+                kw = dict(model=model, momentum=momentum, min_iter=5, max_iter=PINNED_K)
+                runs = []
+                for plan in ({}, dict(vectors_resident=False),
+                             dict(vectors_resident=False, cluster=8)):
+                    w = tuple(t.clone() for t in w0)
+                    runs.append((w, convergence.train_epoch(w, X, T, 0.2, -1e30, **kw, **plan)))
+                torch.cuda.synchronize()
+                check(convergence.plan(w0, dtype, momentum).vectors_resident,
+                      f"{tag}: 784-300-10 left shared memory")
+                check(all(same_run(r, runs[0]) for r in runs[1:]),
+                      f"{tag} 784-300-10: the device build differs bitwise from the shared build")
+                same += 1
+    log(f"[wide] 784-300-10, 4 samples x {PINNED_K + 1} iterations: the device build "
+        f"(16 and 8 CTAs) bitwise the shared build in {same} of 8 modes and types")
+    return err, times, same
+
+
+def wide_entry_point(np, torch, dev, Xtr, Ttr):
+    """Phase 20 (c): ``train_nn`` at 784-[15000]-10 in float64 ([init]
+    generate, ``WIDE_SAMPLES`` samples, at most ``WIDE_MAX_ITER``
+    iterations each) on the card and on the CPU, #1's launch count set
+    to 0 just before the card run and read just after: the tokens and
+    ``kernel.tmp`` identical, ``kernel.opt`` within 1e-12."""
+    from hpnn_tpu_torch import obs
+    from hpnn_tpu_torch.cli import train_nn
+    from hpnn_tpu_torch.fileio import kernel_format
+    from hpnn_tpu_torch.ops import convergence
+    from hpnn_tpu_torch.train import loop
+
+    n_in, hid, n_out = WIDE["float64"]
+    wdir = os.path.join(WORK, "wide")
+    write_samples(os.path.join(wdir, "train"), Xtr[:WIDE_SAMPLES], Ttr[:WIDE_SAMPLES])
+    cwd = os.getcwd()
+    runs = {}
+    caps = (loop.MAX_BP_ITER, loop.MAX_BPM_ITER)
+    loop.MAX_BP_ITER = loop.MAX_BPM_ITER = WIDE_MAX_ITER
+    try:
+        for where, extra in (("cuda", []), ("cpu", ["--device", "cpu"])):
+            run_dir = os.path.join(wdir, where)
+            os.makedirs(run_dir, exist_ok=True)
+            os.chdir(run_dir)
+            with open("nn.conf", "w") as fp:
+                fp.write(f"[name] smoke_wide\n[type] ANN\n[init] generate\n[seed] {SEED}\n"
+                         f"[input] {n_in}\n[hidden] {hid}\n[output] {n_out}\n[train] BP\n"
+                         f"[sample_dir] ../train\n[test_dir] ../train\n")
+            convergence.launches = 0
+            t0 = time.perf_counter()
+            with knobs(obs, {"HPNN_DTYPE": "float64"}):
+                rc, out, _ = run_cli(train_nn.main, extra + ["-v", "-v", "nn.conf"])
+            secs = time.perf_counter() - t0
+            launched = convergence.launches
+            check(rc == 0, f"wide train_nn ({where}): exit {rc}")
+            runs[where] = (out, secs, run_dir, launched)
+    finally:
+        loop.MAX_BP_ITER, loop.MAX_BPM_ITER = caps
+        os.chdir(cwd)
+    check(runs["cuda"][3] > 0, "wide: the card's train_nn launched no #1")
+    check(runs["cpu"][3] == 0, "wide: the CPU's train_nn launched #1")
+    lines = {w: training_lines(r[0]) for w, r in runs.items()}
+    check(len(lines["cuda"]) == WIDE_SAMPLES, f"wide: {len(lines['cuda'])} token lines")
+    check(lines["cuda"] == lines["cpu"], "wide f64: the card's tokens differ from the CPU's:\n"
+          + "\n".join(lines["cuda"] + lines["cpu"]))
+    tmp = {}
+    for w, r in runs.items():
+        with open(os.path.join(r[2], "kernel.tmp"), "rb") as fp:
+            tmp[w] = hashlib.sha256(fp.read()).hexdigest()
+    check(tmp["cuda"] == tmp["cpu"], "wide f64: kernel.tmp differs between card and CPU")
+    wa = kernel_format.load_kernel(os.path.join(runs["cuda"][2], "kernel.opt"))[1]
+    wb = kernel_format.load_kernel(os.path.join(runs["cpu"][2], "kernel.opt"))[1]
+    check([w.shape for w in wa] == [w.shape for w in wb] == [(hid, n_in), (n_out, hid)],
+          "wide: kernel.opt shapes")
+    e = max(float(np.abs(x - y).max()) for x, y in zip(wa, wb))
+    check(e <= MAT_TOL, f"wide f64: kernel.opt card vs CPU {e:.3e}")
+    iters = sum(int(m) for m in N_ITER_RE.findall(runs["cpu"][0]))
+    for w in runs:
+        shutil.rmtree(runs[w][2], ignore_errors=True)   # 2 x 226 MB of kernel text a run
+    log(f"[wide] train_nn {wide_shape('float64')} ANN-BP float64, {WIDE_SAMPLES} samples at "
+        f"most {WIDE_MAX_ITER} iterations ({iters} in all): card {runs['cuda'][3]} launches "
+        f"of #1 in {runs['cuda'][1]:.2f} s, CPU {runs['cpu'][1]:.2f} s; tokens and kernel.tmp "
+        f"identical, kernel.opt within {e:.3e}")
+    return dict(samples=WIDE_SAMPLES, iterations=iters, launches=runs["cuda"][3],
+                kernel_opt_max_abs_diff=e, cuda_seconds=runs["cuda"][1],
+                cpu_seconds=runs["cpu"][1])
+
+
+def wide_phase(np, torch, dev, Xtr, Ttr):
+    """Phase 20: #1's device build at ``WIDE``, then ``train_nn`` there."""
+    t0 = time.perf_counter()
+    err, times, same = wide_kernels(np, torch, dev, Xtr, Ttr)
+    entry = wide_entry_point(np, torch, dev, Xtr, Ttr)
+    smi = nvidia_smi_line()
+    log(f"[wide] {smi}: phase 20 in {time.perf_counter() - t0:.1f} s")
+    return dict(err=err, times=times, bitwise_784_300_10=same, entry=entry, card=smi,
+                seconds=time.perf_counter() - t0)
+
+
+# --------------------------------------------------------------- drills
+# Phase 21: the port's chaos drills (hpnn_tpu_torch/tools/chaos_drill.py)
+# on the card, at the repo tool's --rate.
+DRILL_NAMES = ("kill9", "torn", "quota", "hog", "drift")
+DRILL_RATE = 40.0
+
+
+def drills_phase():
+    """Phase 21: kill9, torn, quota, hog and drift on the card, each
+    row printed; a drill that fails, could not run or says it skipped
+    fails the phase."""
+    from hpnn_tpu_torch.tools import chaos_drill
+
+    t0 = time.perf_counter()
+    wd = os.path.join(WORK, "drills")
+    shutil.rmtree(wd, ignore_errors=True)
+    rows = chaos_drill.run_drills(DRILL_NAMES, workdir=wd, rate=DRILL_RATE, device="cuda")
+    for row in rows:
+        log(f"[drills] {json.dumps(row, default=str)}")
+    bad = [r["ev"] for r in rows if not r.get("ok") or "skipped" in r]
+    check(not bad, f"drills failed: {bad}")
+    k9 = next(r for r in rows if r["ev"] == "drill.kill9")
+    check(k9.get("restored_bitwise") is True and k9.get("wal_version", 0) >= 1,
+          f"kill9: restored_bitwise {k9.get('restored_bitwise')}, "
+          f"wal_version {k9.get('wal_version')}")
+    torn = next(r for r in rows if r["ev"] == "drill.torn")
+    log(f"[drills] {len(rows)} of {len(rows)} ok on the card in "
+        f"{time.perf_counter() - t0:.1f} s: kill9 restored bitwise at WAL version "
+        f"{k9['wal_version']} (restart ready {k9.get('restart_ready_s')} s, recovery "
+        f"{k9.get('recovery_s')} s, {k9.get('lost')} lost); torn dip "
+        f"{torn.get('goodput_dip_pct')}% with {torn.get('clean_lost')} clean lost")
+    return dict(rows=rows, seconds=time.perf_counter() - t0)
+
+
 def load_conf_quiet(path):
     from hpnn_tpu_torch import config
 
@@ -4763,6 +5033,12 @@ def main() -> int:
     ap.add_argument("--tp-repeat", action="store_true",
                     help="run only the repeat probe of phase 16's float64 TP SNN "
                          "world, on the card and the CPU; no result line")
+    ap.add_argument("--wide-only", action="store_true",
+                    help="run only phase 20 (#1 on nets wider than one CTA); "
+                         "no result line")
+    ap.add_argument("--drills-only", action="store_true",
+                    help="run only phase 21 (the chaos drills on the card); "
+                         "no result line")
     ap.add_argument("--capture-case", choices=sorted(CAPTURE_CASES),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4825,6 +5101,28 @@ def main() -> int:
         log(f"[build] batch_step.cu built in {time.perf_counter() - t0:.1f} s")
         fleet_phase(np, torch, dev)
         log("[fleet] --fleet-only: no result line")
+        return 0
+    if args.wide_only:
+        enter(20)
+        os.makedirs(WORK, exist_ok=True)
+        t0 = time.perf_counter()
+        _build.build("convergence", force=True)
+        log(f"[build] convergence.cu built in {time.perf_counter() - t0:.1f} s")
+        rng = np.random.default_rng(SEED)
+        protos = (rng.random((N_OUT, N_IN)) < 0.15).astype(np.float64)
+        Xtr, Ttr = make_dataset(np, rng, WIDE_SAMPLES, protos)
+        shutil.rmtree(os.path.join(WORK, "wide"), ignore_errors=True)
+        wide_phase(np, torch, dev, Xtr, Ttr)
+        log("[wide] --wide-only: no result line")
+        return 0
+    if args.drills_only:
+        enter(21)
+        os.makedirs(WORK, exist_ok=True)
+        t0 = time.perf_counter()
+        _build.build("batch_step", force=True)
+        log(f"[build] batch_step.cu built in {time.perf_counter() - t0:.1f} s")
+        drills_phase()
+        log("[drills] --drills-only: no result line")
         return 0
     if args.online_only:
         enter(17)
@@ -5143,6 +5441,15 @@ def main() -> int:
     enter(19)
     deep = deep_phase(np, torch, dev, Xtr, Ttr, Xte, Tte, protos)
     log(f"[deep] phase 19 in {deep['seconds']:.1f} s")
+
+    # 20. nets wider than one CTA's shared memory: #1's device build,
+    # then train_nn at 784-[15000]-10 in float64, card against CPU
+    enter(20)
+    wide = wide_phase(np, torch, dev, Xtr, Ttr)
+
+    # 21. the chaos drills on the card
+    enter(21)
+    drills = drills_phase()
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
@@ -5266,6 +5573,33 @@ def main() -> int:
         k["deepest_layers"] = deep["layers"]
         k["deep"] = dict(err=deep["err"][k["name"]], times=deep["times"].get(k["name"]))
     kernels[0]["deep_entry_points"] = deep["entry"]
+    kernels[0]["drills"] = drills
+    # #1 with its vectors in device memory (phase 20): its launches are
+    # train_nn's at 784-[15000]-10 float64, its time the float32 build
+    tw = wide["times"]["float32"]
+    kernels.insert(1, {
+        "name": "convergence (vectors in device memory)",
+        "route": "cuda",
+        "source": "hpnn_tpu_torch/csrc/convergence.cu",
+        "replaces": "hpnn_tpu/ops/pallas_train.py:260",
+        "replaces_fn": "train_sample_fused",
+        "launches": wide["entry"]["launches"],
+        "max_abs_err": wide["err"]["float32"],
+        "max_abs_err_f32": wide["err"]["float32"],
+        "max_abs_err_f64": wide["err"]["float64"],
+        "ms": tw["ms"],
+        "plain_ms": tw["plain_ms"],
+        "bound_ms": tw["bound_ms"],
+        "bound_by": tw["bound_by"],
+        "library_ms": None,
+        "timed": (f"ANN-BP {tw['shape']} float32, {WIDE_SAMPLES} samples x "
+                  f"{WIDE_TIMED_K + 1} iterations; bound: W read and written once an "
+                  f"iteration"),
+        "us_per_iter": tw["us_per_iter"],
+        "by_dtype": wide["times"],
+        "bitwise_784_300_10": wide["bitwise_784_300_10"],
+        "main": wide["entry"],
+    })
     log(f"[card] {nvidia_smi_line()}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

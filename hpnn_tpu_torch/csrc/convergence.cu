@@ -108,6 +108,22 @@
 // is a template argument of the kernel, so the compiler addresses them
 // as shared memory, not through generic pointers.
 //
+// The vectors.  A net too wide for one CTA's copy of the input, the
+// target, the activations and the deltas (n_in + n_out + 2 x the layer
+// widths past 232448 bytes) keeps them in device memory: a scratch of
+// the wrapper's of C private copies laid out by rank, each the same
+// layout as the shared one with both activation buffers.  Nothing else
+// changes: every CTA still holds a full copy and computes the loss, the
+// argmax and the exit test on it in the same order, and a gather reads
+// the owner's rows from the owner's copy (through the L2, `ld.global.cg`)
+// after the same cluster barrier, whose release and acquire order device
+// memory at cluster scope as they order shared memory, so the rule of
+// the next paragraph holds as it is.  Shared memory then holds the
+// scalars, the staging tile and, where they fit, the owned rows of W and
+// dw.  Where the vectors live is a third template argument of the kernel
+// (VRES); every sum is the same, so a net that fits gives the same bits
+// either way.
+//
 // The layers.  A net of any depth: the wrapper packs one 40-byte record
 // a layer (`Layer`: W's address, its dw's offset in the dw scratch, the
 // widths, the layer's offsets) into a table it keeps in device memory
@@ -200,6 +216,8 @@ struct Net {
   int stage;                      // values in the staging tile (0: none)
   int wtot;                       // values in one weight block
   bool dbuf, w_res, dw_res;
+  T* vecs;                        // the vectors' C copies in device memory, or null
+  long long vcopy;                // values in one copy
 };
 
 // x / d for 0 <= x with x * d < 2^40, given inv = ceil(2^40 / d): the
@@ -214,13 +232,15 @@ __device__ __forceinline__ int div40(int x, unsigned long long inv) {
   return (int)(((unsigned long long)x * inv) >> 40);
 }
 
-// r * n / C (r <= C <= 16 and n < 2^16 keep r*n*C below 2^40)
+// r * n / C (r <= C <= 16 keeps r*n*C below 2^40 for any n < 2^31)
 __device__ __forceinline__ int row_start(int r, int n, unsigned long long inv_c) {
   return div40(r * n, inv_c);
 }
 
 // the q with row_start(q) <= i < row_start(q + 1): ceil((i+1)*C/n) - 1,
-// which is ((i+1)*C - 1) / n
+// which is ((i+1)*C - 1) / n; exact while (i+1)*C*n <= n*n*C <= 2^40, so
+// for layers of at most 2^18 rows (ops/convergence.py::MAX_ROWS; the plan
+// refuses wider ones)
 __device__ __forceinline__ int owner(int i, int C, unsigned long long inv_n) {
   return div40((i + 1) * C - 1, inv_n);
 }
@@ -291,7 +311,10 @@ __device__ __forceinline__ T dact(T y) {
 // What one CTA sees: the net, its rank, the cluster and its buffers.
 // WRES / DWRES: the owned rows of W / dw live in shared memory, so the
 // compiler addresses them as shared (not through generic pointers).
-template <typename T_, bool WRES, bool DWRES, class Ly>
+// VRES: the input, the target, the activations and the deltas (xs, ts,
+// acts, ds) live in shared memory, else in this CTA's copy in device
+// memory.
+template <typename T_, bool WRES, bool DWRES, bool VRES, class Ly>
 struct Cta {
   using T = T_;
   const Net<T, Ly>& net;
@@ -344,11 +367,19 @@ struct Cta {
     return q == rank ? *p : *cluster.map_shared_rank(p, q);
   }
 
+  // v[i] of CTA q's copy of the vectors: through distributed shared
+  // memory, or from q's copy in device memory through the L2 (the L1 of
+  // this SM may hold a line of it from before the last barrier)
+  __device__ T peer(T* v, int q) const {
+    if (VRES) return *cluster.map_shared_rank(v, q);
+    return __ldcg(v + (long long)(q - rank) * net.vcopy);
+  }
+
   // v[i] for every i outside the owned rows of layer l, from its owner.
   __device__ void gather(T* v, int l) const {
     const int n = net.ly.n(l), a = r0(l), b = r1(l);
     for (int i = threadIdx.x; i < n; i += blockDim.x)
-      if (i < a || i >= b) v[i] = *cluster.map_shared_rank(v + i, owner(i, C, net.ly.inv_n(l)));
+      if (i < a || i >= b) v[i] = peer(v + i, owner(i, C, net.ly.inv_n(l)));
   }
 
   // Whether the deltas of the top hidden layer take their W_{L-1} tile
@@ -595,7 +626,7 @@ __device__ void hidden_deltas(const K& c, const T* a) {
   HPNN_PHASE(c, P_DHID);
 }
 
-template <typename T, bool WRES, bool DWRES, class Ly>
+template <typename T, bool WRES, bool DWRES, bool VRES, class Ly>
 __global__ void __launch_bounds__(HPNN_THREADS, 1)
 convergence_cluster(Net<T, Ly> net, bool snn, bool momentum, const T* X, const T* Tg,
                     int S, T alpha, T delta, int min_iter, int max_iter, T lr,
@@ -607,11 +638,12 @@ convergence_cluster(Net<T, Ly> net, bool snn, bool momentum, const T* X, const T
   const int n_in = net.ly.m(0), n_out = net.ly.n(L - 1);
   T* scal = reinterpret_cast<T*>(smem_raw);
   int* ints = reinterpret_cast<int*>(scal + 2);
-  T* xs = reinterpret_cast<T*>(ints + 2);
+  T* xs = VRES ? reinterpret_cast<T*>(ints + 2)
+               : net.vecs + (long long)cluster.block_rank() * net.vcopy;
   T* ts = xs + n_in;
   T* acts = ts + n_out;
   T* ds = acts + (net.dbuf ? 2 : 1) * net.n_act;
-  T* stage = ds + net.n_act;
+  T* stage = VRES ? ds + net.n_act : reinterpret_cast<T*>(ints + 2);
   T* wsm = stage + net.stage;
   T* dwsm = wsm + (WRES ? net.wtot : 0);
 #ifdef HPNN_PHASE_CLOCKS
@@ -623,7 +655,7 @@ convergence_cluster(Net<T, Ly> net, bool snn, bool momentum, const T* X, const T
 #else
   unsigned long long* s_clk = nullptr;
 #endif
-  const Cta<T, WRES, DWRES, Ly> c{net, cluster, (int)cluster.block_rank(),
+  const Cta<T, WRES, DWRES, VRES, Ly> c{net, cluster, (int)cluster.block_rank(),
                                   (int)cluster.num_blocks(), xs, ts, acts, ds, stage, wsm,
                                   dwsm, scal, scal + 1, ints, ints + 1, s_clk};
 
@@ -740,21 +772,31 @@ struct Args {
   T* out;
 };
 
+// The kernel for the homes of the owned rows (W, dw) and of the vectors.
+template <typename T, bool VRES, class Ly>
+auto kernel_for(const Net<T, Ly>& net) {
+  return net.w_res ? (net.dw_res ? convergence_cluster<T, true, true, VRES, Ly>
+                                 : convergence_cluster<T, true, false, VRES, Ly>)
+                   : (net.dw_res ? convergence_cluster<T, false, true, VRES, Ly>
+                                 : convergence_cluster<T, false, false, VRES, Ly>);
+}
+
 // One cluster launch of the kernel on `net`: the owned rows' home
-// (shared or device memory) and the layers' flavour pick the kernel.
+// (shared or device memory), the vectors' and the layers' flavour pick
+// the kernel.
 template <typename T, class Ly>
 int start(const Net<T, Ly>& net, const Args<T>& a, int n_in, int n_out, int cluster,
           cudaStream_t stream) {
   // the layout of convergence_cluster; ops/convergence.py::plan mirrors it
+  const bool vres = net.vecs == nullptr;
+  const size_t vec =
+      vres ? (size_t)n_in + n_out + (net.dbuf ? 3 : 2) * (size_t)net.n_act : 0;
   const size_t smem =
       2 * sizeof(T) + 2 * sizeof(int) +
-      sizeof(T) * ((size_t)n_in + n_out + (net.dbuf ? 3 : 2) * (size_t)net.n_act +
-                   net.stage + (net.w_res ? net.wtot : 0) + (net.dw_res ? net.wtot : 0));
+      sizeof(T) * (vec + net.stage + (net.w_res ? net.wtot : 0) +
+                   (net.dw_res ? net.wtot : 0));
   if (smem > HPNN_MAX_SMEM) return (int)cudaErrorInvalidValue;
-  auto kern = net.w_res ? (net.dw_res ? convergence_cluster<T, true, true, Ly>
-                                      : convergence_cluster<T, true, false, Ly>)
-                        : (net.dw_res ? convergence_cluster<T, false, true, Ly>
-                                      : convergence_cluster<T, false, false, Ly>);
+  auto kern = vres ? kernel_for<T, true>(net) : kernel_for<T, false>(net);
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -788,7 +830,7 @@ int start(const Net<T, Ly>& net, const Args<T>& a, int n_in, int n_out, int clus
 // The net's scalars, from the host copy of the layer table `rec`.
 template <typename T, class Ly>
 void fill(Net<T, Ly>* net, const Layer* rec, int n_layers, int momentum, int cluster,
-          int dbuf, int stage, int w_res, int dw_res) {
+          int dbuf, int stage, int w_res, int dw_res, void* vectors) {
   int wtot = 0;
   for (int l = 0; l < n_layers; ++l) wtot += ((rec[l].n + cluster - 1) / cluster) * rec[l].m;
   net->n_layers = n_layers;
@@ -799,28 +841,31 @@ void fill(Net<T, Ly>* net, const Layer* rec, int n_layers, int momentum, int clu
   net->dbuf = dbuf != 0;
   net->w_res = w_res != 0;
   net->dw_res = momentum != 0 && dw_res != 0;
+  net->vecs = static_cast<T*>(vectors);
+  net->vcopy = (long long)rec[0].m + rec[n_layers - 1].n + 3LL * net->n_act;
 }
 
 template <typename T>
 int launch(int momentum, int n_layers, const void* table, const void* host_table, void* dw,
-           const Args<T>& a, int cluster, int dbuf, int stage, int w_res, int dw_res,
-           cudaStream_t stream) {
+           void* vectors, const Args<T>& a, int cluster, int dbuf, int stage, int w_res,
+           int dw_res, cudaStream_t stream) {
   if (n_layers < 1 || (table == nullptr && n_layers > HPNN_PARAM_LAYERS) ||
       host_table == nullptr || cluster < 1 ||
-      cluster > HPNN_MAX_CLUSTER || stage < 0 || (momentum && !dw_res && dw == nullptr))
+      cluster > HPNN_MAX_CLUSTER || stage < 0 || (momentum && !dw_res && dw == nullptr) ||
+      (vectors != nullptr && !dbuf))
     return (int)cudaErrorInvalidValue;
   const Layer* rec = static_cast<const Layer*>(host_table);
   const int n_in = rec[0].m, n_out = rec[n_layers - 1].n;
   T* dws = momentum && !dw_res ? static_cast<T*>(dw) : nullptr;
   if (n_layers > HPNN_PARAM_LAYERS) {
     Net<T, TableLayers<T>> net;
-    fill(&net, rec, n_layers, momentum, cluster, dbuf, stage, w_res, dw_res);
+    fill(&net, rec, n_layers, momentum, cluster, dbuf, stage, w_res, dw_res, vectors);
     net.ly.lay = static_cast<const Layer*>(table);
     net.ly.dws = dws;
     return start(net, a, n_in, n_out, cluster, stream);
   }
   Net<T, ParamLayers<T>> net;
-  fill(&net, rec, n_layers, momentum, cluster, dbuf, stage, w_res, dw_res);
+  fill(&net, rec, n_layers, momentum, cluster, dbuf, stage, w_res, dw_res, vectors);
   net.ly.dims[0] = n_in;
   for (int l = 0; l < n_layers; ++l) {
     net.ly.dims[l + 1] = rec[l].n;
@@ -840,8 +885,10 @@ int launch(int momentum, int n_layers, const void* table, const void* host_table
 // and in host memory (`table` may be null for a net of at most
 // HPNN_PARAM_LAYERS layers, which reads only the host copy's values, by
 // value in the kernel parameters); `dw` is the dw scratch (every layer's, at the
-// records' offsets), null unless momentum keeps dw in device memory.
-// Every other pointer is a device pointer.  dtype: 0 = float, 1 =
+// records' offsets), null unless momentum keeps dw in device memory;
+// `vectors` is the vectors' scratch (C copies of n_in + n_out + 3 x the
+// layer widths values, by rank; the activations double-buffered), null
+// to keep them in shared memory.  Every other pointer is a device pointer.  dtype: 0 = float, 1 =
 // double.  The plan: the cluster size (1-16), whether the activations
 // are double-buffered, the staging tile's values, whether the owned
 // rows of W and of dw live in shared memory.  Returns the cudaError_t
@@ -849,7 +896,7 @@ int launch(int momentum, int n_layers, const void* table, const void* host_table
 // cudaErrorLaunchOutOfResources.
 extern "C" int hpnn_convergence_train_epoch(
     int dtype, int snn, int momentum, int n_layers, const void* table,
-    const void* host_table, void* dw, const void* X, const void* Tg, int S,
+    const void* host_table, void* dw, void* vectors, const void* X, const void* Tg, int S,
     double alpha, double delta, int min_iter, int max_iter, double lr,
     void* ep0, void* n_iter, void* dep, void* first_ok, void* final_ok,
     void* out, int cluster, int dbuf, int stage, int w_res, int dw_res,
@@ -862,8 +909,8 @@ extern "C" int hpnn_convergence_train_epoch(
                         static_cast<int*>(n_iter), static_cast<float*>(dep),
                         static_cast<int*>(first_ok), static_cast<int*>(final_ok),
                         static_cast<float*>(out)};
-    return launch<float>(momentum, n_layers, table, host_table, dw, a, cluster, dbuf, stage,
-                         w_res, dw_res, st);
+    return launch<float>(momentum, n_layers, table, host_table, dw, vectors, a, cluster, dbuf,
+                         stage, w_res, dw_res, st);
   }
   if (dtype == 1) {
     const Args<double> a{snn != 0, momentum != 0, static_cast<const double*>(X),
@@ -871,8 +918,8 @@ extern "C" int hpnn_convergence_train_epoch(
                          max_iter, lr, static_cast<double*>(ep0), static_cast<int*>(n_iter),
                          static_cast<double*>(dep), static_cast<int*>(first_ok),
                          static_cast<int*>(final_ok), static_cast<double*>(out)};
-    return launch<double>(momentum, n_layers, table, host_table, dw, a, cluster, dbuf, stage,
-                          w_res, dw_res, st);
+    return launch<double>(momentum, n_layers, table, host_table, dw, vectors, a, cluster, dbuf,
+                          stage, w_res, dw_res, st);
   }
   return (int)cudaErrorInvalidValue;
 }

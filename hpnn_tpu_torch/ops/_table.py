@@ -1,4 +1,5 @@
-"""The per-layer tables of the kernels' launches.
+"""The per-layer tables of the kernels' launches, and the scratch
+buffers kept beside them.
 
 A net of any depth hands its kernel one table of L fixed-size records
 (the layer widths, the weight pointers, offsets), packed by the
@@ -18,6 +19,11 @@ A device copy is freed only when its table leaves the cache, and every
 launch that used it ran on the stream it was allocated on, so the
 caching allocator hands its memory out again only behind those
 launches.
+
+:class:`Scratch` keeps a kernel's device-memory scratch by the same
+rules: one buffer a key (the stream, the type, the launch's layout),
+allocated once on the stream that first needs it and never inside a
+capture, so a round of launches on that stream allocates nothing.
 """
 
 from __future__ import annotations
@@ -74,3 +80,36 @@ def device_copy(n_layers: int, device):
     """Where a table of ``n_layers`` records needs a device copy: the
     launch's device for a net deeper than ``PARAM_LAYERS``, else None."""
     return device if n_layers > PARAM_LAYERS else None
+
+
+class Scratch:
+    """Device scratch buffers by key: ``get(key, nbytes, device)``
+    returns the cached uint8 tensor of ``nbytes`` bytes or allocates
+    one on ``device``'s current stream.  ``allocs`` counts the
+    allocations; an allocation that fails raises (no other route)."""
+
+    def __init__(self):
+        self.allocs = 0
+        self._cache: collections.OrderedDict = collections.OrderedDict()
+        self._lock = threading.Lock()
+
+    def __len__(self) -> int:
+        return len(self._cache)
+
+    def get(self, key, nbytes: int, device):
+        with self._lock:
+            hit = self._cache.get(key)
+            if hit is not None:
+                self._cache.move_to_end(key)
+                return hit
+        if torch.device(device).type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "a kernel's scratch is allocated outside a CUDA-graph capture: "
+                "launch once on these tensors before capturing")
+        buf = torch.empty(int(nbytes), dtype=torch.uint8, device=device)
+        with self._lock:
+            self.allocs += 1
+            self._cache[key] = buf
+            if len(self._cache) > MAX_TABLES:
+                self._cache.popitem(last=False)
+        return buf

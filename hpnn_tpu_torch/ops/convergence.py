@@ -16,8 +16,13 @@ out by :func:`plan`, for CUDA tensors and calls
 A net of any depth: the layers reach the kernel as one table of
 records (:func:`_layer_table`, kept by ``ops/_table.py``: its values by
 value in the kernel parameters up to 16 layers, its copy in device
-memory past them), so the only limit is the shared memory of
-:func:`plan`, which raises with the bytes it needs.
+memory past them).  A net of any width: where one CTA's copy of the
+input, the target, the activations and the deltas does not fit its
+shared memory, :func:`plan` puts the C copies in a scratch of device
+memory (kept by ``ops/_table.py`` too), the same bits as the shared
+build wherever both fit.  The limits left are the card's memory and
+the kernel's row arithmetic (``MAX_ROWS`` rows a layer), each raising
+with what it needs.
 """
 
 from __future__ import annotations
@@ -34,20 +39,22 @@ from hpnn_tpu_torch.train import loop
 
 launches = 0
 tables = _table.Tables()  # the launches' layer tables (csrc/convergence.cu's Layer)
+scratch = _table.Scratch()  # the launches' vectors in device memory, when not in shared
 
 MAX_SHARED_BYTES = 232448  # dynamic shared memory one H100 block can use
 CLUSTER = 16             # CTAs a cluster: the non-portable size, faster than 8 (PERF.md)
 STAGE = 2048             # values in the staging tile of the hidden deltas
+MAX_ROWS = 1 << 18       # rows a layer: csrc/convergence.cu's owner() is exact up to it
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1}
 
 # C parameter types of hpnn_convergence_train_epoch, in order: every
 # pointer and the stream as c_void_p (ctypes would cut a pointer to 32
 # bits as c_int)
 ARGTYPES = {
-    # dtype snn momentum n_layers | table host_table dw X Tg | S |
+    # dtype snn momentum n_layers | table host_table dw vectors X Tg | S |
     # alpha delta | min_iter max_iter | lr | outputs | plan | stream
     "hpnn_convergence_train_epoch": (
-        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 5 + [ctypes.c_int]
+        [ctypes.c_int] * 4 + [ctypes.c_void_p] * 6 + [ctypes.c_int]
         + [ctypes.c_double] * 2 + [ctypes.c_int] * 2 + [ctypes.c_double]
         + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]),
 }
@@ -77,6 +84,8 @@ class Plan(NamedTuple):
     weights_resident: bool  # owned rows of W in shared memory (else device memory)
     dw_resident: bool       # owned rows of dw in shared memory (momentum only)
     smem_bytes: int         # dynamic shared memory of one CTA
+    vectors_resident: bool  # input, target, activations, deltas in shared memory
+    scratch_bytes: int      # else their C copies in device memory (see vector_values)
 
 
 def learn_rate(model: str, momentum: bool) -> float:
@@ -99,29 +108,47 @@ def shared_bytes(weights, dtype) -> int:
     return 2 * b + 8 + b * (shapes[0][1] + shapes[-1][0] + 2 * total)
 
 
+def vector_values(weights) -> int:
+    """Values in one CTA's copy of the vectors in device memory: the
+    input, the target, both activation buffers and the deltas."""
+    shapes = _shapes(weights)
+    return shapes[0][1] + shapes[-1][0] + 3 * sum(n for n, _ in shapes)
+
+
 def plan(weights, dtype, momentum: bool, *, cluster: int | None = None,
-         weights_resident: bool | None = None) -> Plan:
+         weights_resident: bool | None = None,
+         vectors_resident: bool | None = None) -> Plan:
     """The launch's plan for a cluster of ``CLUSTER`` CTAs (or
-    ``cluster``, 1..16, the same result bitwise).  Into the shared
-    memory left beside one copy of the activations and deltas go, in
-    this order: the second activation buffer, the staging tile, the
-    owned rows of W, those of dw; W's rows are streamed from device
-    memory where they do not fit.  ``weights_resident`` forces W in
-    (raising if it does not fit) or out.  Raises if one copy of the
-    activations and deltas does not fit."""
+    ``cluster``, 1..16, the same result bitwise).  The vectors (input,
+    target, activations, deltas) live in shared memory where one copy
+    fits a CTA, else in a device-memory scratch of C copies
+    (``scratch_bytes``).  Into the shared memory left go, in this
+    order: the second activation buffer (always there with the vectors
+    in device memory), the staging tile, the owned rows of W, those of
+    dw; W's rows are streamed from device memory where they do not fit.
+    ``weights_resident`` and ``vectors_resident`` force W or the
+    vectors in (raising with the bytes if they do not fit) or out."""
     C = CLUSTER if cluster is None else cluster
     if not 1 <= C <= CLUSTER:
         raise ValueError(f"cluster size {C}: the kernel takes 1..{CLUSTER}")
     shapes = _shapes(weights)
+    if max(n for n, _ in shapes) > MAX_ROWS:
+        raise ValueError(f"a layer of {max(n for n, _ in shapes)} rows: the kernel's "
+                         f"row arithmetic takes at most {MAX_ROWS}")
     b = torch.empty((), dtype=dtype).element_size()
-    used = shared_bytes(weights, dtype)
-    if used > MAX_SHARED_BYTES:
+    need = shared_bytes(weights, dtype)
+    v_res = need <= MAX_SHARED_BYTES if vectors_resident is None else bool(vectors_resident)
+    if v_res and need > MAX_SHARED_BYTES:
         raise ValueError(
-            f"activations and deltas need {used} bytes of shared memory; "
+            f"activations and deltas need {need} bytes of shared memory; "
             f"one block has {MAX_SHARED_BYTES}")
     total = sum(n for n, _ in shapes)
-    dbuf = used + b * total <= MAX_SHARED_BYTES
-    used += b * total if dbuf else 0
+    if v_res:
+        used = need
+        dbuf = used + b * total <= MAX_SHARED_BYTES
+        used += b * total if dbuf else 0
+    else:
+        used, dbuf = 2 * b + 8, True   # the scalars; both buffers in the scratch
     stage = max(0, min(STAGE, (MAX_SHARED_BYTES - used) // b))
     used += b * stage
     wtot = b * sum(-(-n // C) * m for n, m in shapes)
@@ -133,7 +160,8 @@ def plan(weights, dtype, momentum: bool, *, cluster: int | None = None,
     dw_res = bool(momentum) and w_res and used + wtot <= MAX_SHARED_BYTES
     used += wtot if dw_res else 0
     starts = tuple(tuple(r * n // C for r in range(C + 1)) for n, _ in shapes)
-    return Plan(C, starts, dbuf, stage, w_res, dw_res, used)
+    return Plan(C, starts, dbuf, stage, w_res, dw_res, used, v_res,
+                0 if v_res else C * b * vector_values(weights))
 
 
 # the phases of csrc/convergence.cu's `enum Phase`, in order
@@ -191,14 +219,16 @@ def train_epoch(
     max_iter: int,
     cluster: int | None = None,
     weights_resident: bool | None = None,
+    vectors_resident: bool | None = None,
 ) -> EpochStats:
     """Train the rows of ``(X, T)`` to convergence, one after the other.
 
     ``weights``: tuple of ``(n_l, m_l)`` tensors, updated in place.
     CUDA tensors: one cluster launch on the current stream (float32 or
     float64; anything else raises), laid out by :func:`plan`, whose
-    ``cluster`` and ``weights_resident`` can be forced here (the result
-    is the same bitwise).  CPU tensors: the plain version."""
+    ``cluster``, ``weights_resident`` and ``vectors_resident`` can be
+    forced here (the result is the same bitwise).  CPU tensors: the
+    plain version."""
     global launches
     _check(weights, X, T, model)
     if X.device.type == "cpu":
@@ -210,7 +240,7 @@ def train_epoch(
     if X.dtype not in _DTYPE_CODE:
         raise TypeError(f"the kernel is built for float32 and float64, not {X.dtype}")
     p = plan(weights, X.dtype, momentum, cluster=cluster,
-             weights_resident=weights_resident)
+             weights_resident=weights_resident, vectors_resident=vectors_resident)
     stats = _launch(_library(), p, weights, X, T, alpha, delta, model, momentum,
                     min_iter, max_iter)
     launches += 1
@@ -262,10 +292,16 @@ def _launch(lib, p, weights, X, T, alpha, delta, model, momentum, min_iter, max_
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         table, host = _layer_table(weights, p.cluster, stream, dev)
+        # the vectors' C copies, when they live in device memory: kept
+        # for this stream, type, cluster and net, so a round of chunks
+        # allocates once
+        vec = None if p.vectors_resident else scratch.get(
+            (stream, X.dtype, p.cluster, tuple(_shapes(weights))), p.scratch_bytes, dev)
         rc = lib.hpnn_convergence_train_epoch(
             _DTYPE_CODE[X.dtype], int(model == "snn"), int(bool(momentum)),
             len(weights), None if table is None else table.data_ptr(),
-            ctypes.addressof(host), None if dw is None else dw.data_ptr(), X.data_ptr(),
+            ctypes.addressof(host), None if dw is None else dw.data_ptr(),
+            None if vec is None else vec.data_ptr(), X.data_ptr(),
             T.data_ptr(), S, float(alpha), float(delta), int(min_iter), int(max_iter),
             learn_rate(model, momentum),
             ep0.data_ptr(), n_iter.data_ptr(), dep.data_ptr(),
@@ -276,13 +312,15 @@ def _launch(lib, p, weights, X, T, alpha, delta, model, momentum, min_iter, max_
     if rc != 0:
         raise RuntimeError(
             f"convergence kernel launch failed ({p.cluster}-CTA cluster, "
-            f"{p.smem_bytes} bytes of shared memory a CTA): {rc} "
+            f"{p.smem_bytes} bytes of shared memory a CTA, "
+            f"{p.scratch_bytes} of vectors in device memory): {rc} "
             f"({lib.hpnn_cuda_error_string(rc).decode()})")
     return EpochStats(ep0, n_iter, dep, first_ok, final_ok, out)
 
 
 def phase_clocks(weights, X, T, alpha, delta, *, model="ann", momentum=False,
-                 min_iter, max_iter, cluster=None, weights_resident=None):
+                 min_iter, max_iter, cluster=None, weights_resident=None,
+                 vectors_resident=None):
     """``train_epoch`` on CUDA tensors through the kernel's phase-clock
     build (``-DHPNN_PHASE_CLOCKS``): returns its stats and the SM cycles
     that rank 0's thread 0 spent in each of ``PHASES``, barrier waits
@@ -291,7 +329,7 @@ def phase_clocks(weights, X, T, alpha, delta, *, model="ann", momentum=False,
     if X.device.type != "cuda" or X.dtype not in _DTYPE_CODE:
         raise ValueError("phase clocks need float32 or float64 CUDA tensors")
     p = plan(weights, X.dtype, momentum, cluster=cluster,
-             weights_resident=weights_resident)
+             weights_resident=weights_resident, vectors_resident=vectors_resident)
     lib = _library("HPNN_PHASE_CLOCKS")
     clocks = (ctypes.c_ulonglong * len(PHASES))()
 

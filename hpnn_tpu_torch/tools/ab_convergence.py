@@ -13,8 +13,9 @@ times.  Both sides are built (at once) before the first turn.
 What a turn runs, on inputs made from one seed (``chip_smoke.py``'s
 phases 3 and 6): 784-300-10, 4 samples pinned to K + 1 = 21 iterations
 (delta = -1e30), ANN/SNN x BP/BPM, float and double, under every plan
-(8 and 16 CTAs, the weight rows resident and streamed), each result
-kept by the SHA-256 of its bytes; then each mode and type at its
+(8 and 16 CTAs, the weight rows resident and streamed, the vectors in
+device memory where the checkout's plan takes ``vectors_resident``),
+each result kept by the SHA-256 of its bytes; then each mode and type at its
 default plan, 4 samples x 200 iterations, timed with CUDA events after
 one untimed run.  Prints one line per timed item and one JSON object as
 its last line (also written to ``--out``); exits 1 when a result differs
@@ -25,6 +26,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import inspect
 import json
 import os
 import statistics
@@ -79,6 +81,9 @@ def turn(checkout: str) -> dict:
     if not os.path.abspath(hpnn_tpu_torch.__file__).startswith(checkout + os.sep):
         raise RuntimeError(f"imported {hpnn_tpu_torch.__file__}, not {checkout}'s package")
     dev = torch.device("cuda")
+    # a checkout whose plan can put the vectors in device memory runs
+    # that build too, held bitwise to its default plan
+    device_build = "vectors_resident" in inspect.signature(convergence.plan).parameters
     k0, _ = km.generate(SEED, N_IN, [N_HID], N_OUT)
     rng = np.random.default_rng(SEED)
     X0 = rng.random((S, N_IN))
@@ -99,6 +104,8 @@ def turn(checkout: str) -> dict:
                     plans.append(dict(cluster=C))
                     if convergence.plan(w0, dtype, momentum, cluster=C).weights_resident:
                         plans.append(dict(cluster=C, weights_resident=False))
+                    if device_build:
+                        plans.append(dict(cluster=C, vectors_resident=False))
                 got = []
                 for plan in plans:
                     w = tuple(t.clone() for t in w0)

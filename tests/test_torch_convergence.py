@@ -211,16 +211,20 @@ def test_cluster_plan(dims, dtype, momentum, dw_resident):
             convergence.plan(weights, dtype, momentum, cluster=C)
     s = convergence.plan(weights, dtype, momentum, weights_resident=False)
     assert not s.weights_resident and not s.dw_resident
+    # a net whose vectors overflow one CTA keeps them in device memory;
+    # forced into shared memory, the plan says the bytes
     big = [torch.empty(30000, dims[0], dtype=dtype), torch.empty(2, 30000, dtype=dtype)]
+    assert not convergence.plan(big, dtype, momentum).vectors_resident
     with pytest.raises(ValueError, match="shared memory"):
-        convergence.plan(big, dtype, momentum)
+        convergence.plan(big, dtype, momentum, vectors_resident=True)
 
 
 def test_cluster_plan_keeps_every_shape_the_single_block_kernel_took():
     """The single-block kernel took any net whose input, target, two
     copies of the activations and its 16 or 24 bytes of scalars fit one
     block; the plan takes the same, giving up the second activation
-    buffer, the staging tile and resident weights first."""
+    buffer, the staging tile and resident weights first; a wider net
+    keeps its vectors in device memory."""
     for dtype in (torch.float32, torch.float64):
         b = torch.empty((), dtype=dtype).element_size()
         room = (convergence.MAX_SHARED_BYTES - 2 * b - 8) // b   # values
@@ -231,7 +235,8 @@ def test_cluster_plan_keeps_every_shape_the_single_block_kernel_took():
         assert p.smem_bytes == convergence.shared_bytes(weights, dtype) + b * p.stage
         assert p.smem_bytes <= convergence.MAX_SHARED_BYTES
         wider = [torch.empty(hid + 1, 4, dtype=dtype), torch.empty(2, hid + 1, dtype=dtype)]
+        assert not convergence.plan(wider, dtype, True).vectors_resident
         with pytest.raises(ValueError, match="shared memory"):
-            convergence.plan(wider, dtype, True)
+            convergence.plan(wider, dtype, True, vectors_resident=True)
         with pytest.raises(ValueError, match="owned weight rows"):
             convergence.plan(weights, dtype, False, weights_resident=True)

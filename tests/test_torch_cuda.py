@@ -66,15 +66,23 @@ def test_kernel_refuses_what_it_cannot_take(cuda):
     w, X, T = _inputs(cuda, torch.float16)
     with pytest.raises(TypeError):
         convergence.train_epoch(w, X, T, 0.2, 1e-6, min_iter=3, max_iter=5)
+    # a net whose vectors overflow one CTA trains with them in device
+    # memory; forced into shared memory, the wrapper says the bytes
     w = (torch.zeros(60000, 4, device=cuda), torch.zeros(2, 60000, device=cuda))
     X = torch.zeros(1, 4, device=cuda)
     T = torch.zeros(1, 2, device=cuda)
     with pytest.raises(ValueError, match="shared memory"):
+        convergence.train_epoch(w, X, T, 0.2, 1e-6, min_iter=3, max_iter=5,
+                                vectors_resident=True)
+    w = (torch.zeros(convergence.MAX_ROWS + 1, 4, device=cuda),
+         torch.zeros(2, convergence.MAX_ROWS + 1, device=cuda))
+    with pytest.raises(ValueError, match="row arithmetic"):
         convergence.train_epoch(w, X, T, 0.2, 1e-6, min_iter=3, max_iter=5)
 
 
 # the plans a net can be launched with: both cluster sizes, the owned
-# weight rows in shared memory where they fit and streamed
+# weight rows in shared memory where they fit and streamed, the vectors
+# in device memory
 def _plans(weights, dtype, momentum):
     out = [{}]
     for C in (8, 16):
@@ -82,6 +90,8 @@ def _plans(weights, dtype, momentum):
         out.append(dict(cluster=C))
         if p.weights_resident:
             out.append(dict(cluster=C, weights_resident=False))
+        if p.vectors_resident:
+            out.append(dict(cluster=C, vectors_resident=False))
     return out
 
 
@@ -223,6 +233,12 @@ def test_cluster_kernel_widest_single_block_shape(cuda, dtype):
     tol = TOL64 if dtype == torch.float64 else 1e-5
     assert _max_diff(wk + [sk.out, sk.ep0], wp + [sp.out, sp.ep0]) <= tol
     assert not torch.equal(wk[0], w0[0]) and not torch.equal(wk[1], w0[1])
+    # the vectors in device memory (both activation buffers, the staging
+    # tile): the same bits as the one-buffer shared build
+    wv = [t.clone() for t in w0]
+    sv = convergence.train_epoch(wv, X, T, 0.2, -1e30, vectors_resident=False, **kw)
+    torch.cuda.synchronize()
+    _assert_bitwise([({}, wk, sk), ({"vectors_resident": False}, wv, sv)])
 
 
 # ------------------------------------------------------------ batch step

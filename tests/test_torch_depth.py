@@ -248,7 +248,8 @@ def test_batch_step_layer_table_at_depth(monkeypatch):
 def test_convergence_plan_at_depth_says_the_bytes():
     """784-(300x19)-10: the activations and deltas fit one CTA, the
     weights (1.86 M values) do not, so they stream from device memory;
-    a net whose activations cannot fit raises with the bytes."""
+    a net whose activations cannot fit keeps them in device memory, and
+    forced into shared memory raises with the bytes."""
     deep = _net([784] + [300] * 19 + [10])
     for dtype in (torch.float32, torch.float64):
         p = convergence.plan(deep, dtype, True)
@@ -256,8 +257,9 @@ def test_convergence_plan_at_depth_says_the_bytes():
         assert p.smem_bytes <= convergence.MAX_SHARED_BYTES
     too_deep = _net([8] + [40] * 400 + [2])
     need = convergence.shared_bytes(too_deep, torch.float64)
+    assert not convergence.plan(too_deep, torch.float64, False).vectors_resident
     with pytest.raises(ValueError, match=f"need {need} bytes of shared memory"):
-        convergence.plan(too_deep, torch.float64, False)
+        convergence.plan(too_deep, torch.float64, False, vectors_resident=True)
 
 
 def test_deep_epoch_on_cpu_is_the_plain_version():

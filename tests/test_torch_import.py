@@ -136,6 +136,12 @@ FLEET_MODULES = (
     "hpnn_tpu_torch.tools.bench_autoscale",
 )
 
+# the load generator and the chaos drills over the port
+DRILL_MODULES = (
+    "hpnn_tpu_torch.tools.loadgen",
+    "hpnn_tpu_torch.tools.chaos_drill",
+)
+
 
 @pytest.fixture(scope="module")
 def _plane_imports():
@@ -145,7 +151,7 @@ def _plane_imports():
     code = (
         "import importlib, json, sys\n"
         "out = {}\n"
-        f"for m in {PLANE_MODULES + ONLINE_MODULES + FLEET_MODULES!r}:\n"
+        f"for m in {PLANE_MODULES + ONLINE_MODULES + FLEET_MODULES + DRILL_MODULES!r}:\n"
         "    importlib.import_module(m)\n"
         "    out[m] = [n for n in sys.modules "
         "if n.split('.')[0] in ('jax', 'jaxlib', 'hpnn_tpu')]\n"
@@ -179,6 +185,15 @@ def test_fleet_module_imports_no_jax(_plane_imports, module):
     if not os.path.exists(path):
         path = os.path.join(ROOT, *module.split("."), "__init__.py")
     with open(path) as fp:
+        assert not _FORBIDDEN.search(fp.read())
+
+
+@pytest.mark.parametrize("module", DRILL_MODULES)
+def test_drill_module_imports_no_jax(_plane_imports, module):
+    """The load generator and the chaos drills import neither jax nor
+    the JAX package, and their sources hold no such import."""
+    assert _plane_imports[module] == []
+    with open(os.path.join(ROOT, *module.split(".")) + ".py") as fp:
         assert not _FORBIDDEN.search(fp.read())
 
 
