@@ -192,7 +192,8 @@ Phases (any failure exits non-zero and prints no result line):
 19. deep — nets deeper than 16 layers, at 784-(300x19)-10 (20 layers,
    1.86 M weights of gain ~1, seeded): (a) #1 (ANN-BP, ANN-BPM, SNN-BP;
    its weights and dw streamed from device memory, ``DEEP_PINNED_K`` + 1
-   iterations a sample) bitwise at 8 and 16 CTAs, #2-#5 (ANN-BP,
+   iterations a sample) bitwise at 8 and 16 CTAs and across the grid and
+   the one-cluster builds, #2-#5 (ANN-BP,
    SNN-BPM; B = 256, S = 8) and #6 (4 members) against their plain
    versions, float64 within 1e-10 and float32 within the shallow bars
    (``TOL``, ``BATCH_TOL``); bf16 #6 against its bf16 plain version,
@@ -206,21 +207,30 @@ Phases (any failure exits non-zero and prints no result line):
    flow through ``hpnn_tpu_torch.train_kernel``/``run_kernel`` with no
    device argument, on the card.  Every kernel's entry on the kernels
    line gains ``deepest_layers`` and its errors and times at this depth.
-20. wide — #1 on per-sample nets whose input, target, activations and
-   deltas overflow one CTA's shared memory (the device build: one copy
-   a CTA in a device-memory scratch, W streamed from HBM), at
-   784-[30000]-10 float32 and 784-[15000]-10 float64: (a) against its
-   plain version (ANN-BP, ANN-BPM, SNN-BP; 4 samples x ``WIDE_PINNED_K``
-   + 1 iterations), float32 within 1e-4 and float64 within 1e-10; (b) the
-   device build forced at 784-300-10 bitwise the shared build (16 and 8
-   CTAs), ANN/SNN x BP/BPM x float32/float64; (c) ``train_nn`` at
-   784-[15000]-10 float64 ([init] generate, 4 samples at most
-   ``WIDE_MAX_ITER`` iterations) on the card and on the CPU: tokens and
-   ``kernel.tmp`` identical, ``kernel.opt`` within 1e-12, #1 launched on
-   the card; (d) µs an iteration of each width against its bound (W read
-   and written once an iteration at 3.35 TB/s, or the operations at 67
-   TFLOP/s).  The kernels line gains the entry ``convergence (vectors in
-   device memory)``: its launches are (c)'s.
+20. wide — #1 on per-sample nets whose owned rows of W overflow a
+   cluster's shared memory, at 784-[30000]-10 float32 and 784-[15000]-10
+   float64 (the vectors overflow one CTA too): the plan's grid build (one
+   cooperative CTA an SM, W streamed through rings in shared memory, the
+   vectors published once in device memory) and the one-cluster device
+   build (one copy of the vectors a CTA in a device-memory scratch, W
+   streamed from HBM; ``grid=False``): (a) the grid against its plain
+   version (ANN-BP, ANN-BPM, SNN-BP; 4 samples x ``WIDE_PINNED_K`` + 1
+   iterations), float32 within 1e-4 and float64 within 1e-10, and bitwise
+   the one-cluster build; (b) at 784-300-10 the device build forced (16
+   and 8 CTAs) and the grid forced (all, 16 and 8 CTAs) bitwise the
+   shared build, ANN/SNN x BP/BPM x float32/float64, and at
+   ``WIDE_MID`` (784-[4000]-10 float32, ANN-BPM) the grid bitwise one
+   cluster; (c) ``train_nn`` at 784-[15000]-10 float64 ([init] generate,
+   4 samples at most ``WIDE_MAX_ITER`` iterations) on the card and on the
+   CPU: tokens and ``kernel.tmp`` identical, ``kernel.opt`` within 1e-12,
+   #1 launched on the card; (d) µs an iteration of both builds in turns
+   (grid, one cluster, one cluster, grid) at each width and at
+   ``WIDE_MID``, each as a share of its bound (W read and written once an
+   iteration at 3.35 TB/s, or the operations at 67 TFLOP/s), and the plain
+   version after one untimed run.  The kernels line gains the entry
+   ``convergence (vectors in device memory)``: its launches are (c)'s,
+   its time the grid's, beside the grid's CTAs and the one-cluster
+   build's µs an iteration.
 21. drills — the port's chaos drills (``hpnn_tpu_torch/tools/
    chaos_drill.py``, at the repo tool's ``--rate`` 40) on the card:
    kill9 (an ``online_nn`` child on ``cuda`` SIGKILLed after a
@@ -267,7 +277,8 @@ threshold.
 ``--phase-split`` also builds the phase-clock variants
 (``-DHPNN_PHASE_CLOCKS``) of the convergence and batch-step kernels,
 holds each bitwise against its kernel and prints where an iteration's
-time goes in phase 6 and a #4 step's (on each team) in phase 9; and,
+time goes in phase 6, in phase 20 (both builds at each width and at
+``WIDE_MID``) and a #4 step's (on each team) in phase 9; and,
 in phase 9, a #4 step's phases and its tiles' k-tiles by part (loads,
 stage stores, fragment loads, products, barrier) in float32 and in
 bf16, with every build's registers and spills from ptxas.
@@ -459,7 +470,8 @@ def run_cli(main, argv):
 # name and arguments in the mangled name
 PTXAS_ENTRY_RE = re.compile(r"Compiling entry function '(\S+)'")
 PTXAS_KERNEL_RE = re.compile(
-    r"(batch_train|cluster_train|convergence_cluster)I(13__nv_bfloat16|[fd])((?:Lb[01]E)*)")
+    r"(batch_train|cluster_train|convergence_cluster|convergence_grid)"
+    r"I(13__nv_bfloat16|[fd])((?:Lb[01]E)*)")
 
 
 def kernel_name(mangled: str) -> str:
@@ -537,6 +549,9 @@ def plans_of(convergence, weights, dtype, momentum):
 
 
 def plan_str(p):
+    if p.grid:
+        return (f"the grid build, {p.cluster} CTAs, W and dw through rings, "
+                f"{p.smem_bytes} B a CTA")
     return (f"{p.cluster} CTAs, W {'shared' if p.weights_resident else 'device'}, dw "
             f"{'shared' if p.dw_resident else 'device'}, {p.smem_bytes} B a CTA")
 
@@ -4435,15 +4450,17 @@ def deep_kernels(np, torch, dev, Xtr, Ttr):
             check(any(not torch.equal(a, b) for a, b in zip(wk, w0)),
                   f"#1 {tag}: the kernel left every layer unchanged")
             note("convergence", dname, e)
-            for C in CLUSTERS:   # the same bits at either cluster size
+            # the same bits at either CTA count, and from the other build
+            for plan in [dict(cluster=C) for C in CLUSTERS] + [dict(grid=not p.grid)]:
                 wc = [t.clone() for t in w0]
-                sc = convergence.train_epoch(wc, X, T, 0.2, -1e30, cluster=C, **kw)
+                sc = convergence.train_epoch(wc, X, T, 0.2, -1e30, **plan, **kw)
                 check(same_run((wc, sc), (wk, sk)),
-                      f"#1 {tag}: {C} CTAs differ bitwise from the plan's {p.cluster}")
+                      f"#1 {tag}: {plan} differs bitwise from the plan's {plan_str(p)}")
             log(f"[deep] #1 {tag} {deep_shape()}, {DEEP_SAMPLES} samples x "
                 f"{DEEP_PINNED_K + 1} iterations: "
                 f"max|kernel - plain| {e:.3e} (tol {TOL[dname]:.0e}); plan {plan_str(p)}; "
-                f"C = {', '.join(map(str, CLUSTERS))} bitwise alike")
+                f"C = {', '.join(map(str, CLUSTERS))} and the "
+                f"{'one-cluster' if p.grid else 'grid'} build bitwise alike")
     wt = [torch.tensor(w, dtype=torch.float32, device=dev) for w in W]
     X = torch.tensor(Xtr[:DEEP_SAMPLES], dtype=torch.float32, device=dev)
     T = torch.tensor(Ttr[:DEEP_SAMPLES], dtype=torch.float32, device=dev)
@@ -4769,6 +4786,9 @@ WIDE_PINNED_K = 10     # #1 against plain: max_iter, so K+1 iterations a sample
 WIDE_SAMPLES = 4       # #1 against plain, and train_nn's samples
 WIDE_MAX_ITER = 30     # train_nn's per-sample cap, card and CPU
 WIDE_TIMED_K = 20      # the timed launches: K+1 iterations a sample
+WIDE_MID = (N_IN, 4000, N_OUT)   # float32: W (12.5 MB) past 16 CTAs, inside the 50 MB L2
+# the builds timed side by side: the plan's (the grid) and one cluster
+WIDE_BUILDS = {"grid": dict(grid=True), "one cluster": dict(grid=False)}
 
 
 def wide_shape(dname):
@@ -4796,16 +4816,96 @@ def wide_work(weights, S, iters, momentum, dtype_bytes):
     return nbytes - 2 * n_w * dtype_bytes + iters * 2 * n_w * dtype_bytes, flops
 
 
-def wide_kernels(np, torch, dev, Xtr, Ttr):
-    """Phase 20 (a), (b), (d): the device build against its plain
-    version at ``WIDE``, the forced device build bitwise the shared
-    build at 784-300-10, and the device build's time and bound."""
-    from hpnn_tpu_torch.models import kernel as km
+def plain_ms(torch, convergence, w0, X, T, kw):
+    """Wall ms of one run of #1's plain version on clones of ``w0``,
+    after one untimed run on other clones (the kernel's time, from
+    ``cuda_ms``, is taken after a warm-up too)."""
+    for timed in (False, True):
+        wp = [t.clone() for t in w0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def wide_split(torch, convergence, w0, X, T, kw, ms, iters, tag, cta=0, **plan):
+    """Where an iteration of #1 goes under ``plan``: the phase-clock
+    build on clones of the inputs, held bitwise against the kernel, rank
+    0's (the grid's CTA ``cta``'s) cycles in each phase shared out over
+    the kernel's measured ``ms`` for ``iters`` iterations (us an
+    iteration by phase)."""
+    wc, wq = [t.clone() for t in w0], [t.clone() for t in w0]
+    sc, clocks = convergence.phase_clocks(wc, X, T, 0.2, -1e30, cta=cta, **kw, **plan)
+    sq = convergence.train_epoch(wq, X, T, 0.2, -1e30, **kw, **plan)
+    torch.cuda.synchronize()
+    check(same_run((wc, sc), (wq, sq)),
+          f"{tag} {plan}: the phase-clock build differs bitwise from the kernel")
+    cyc = sum(clocks.values())
+    split = {k: v / cyc * ms / iters * 1e3 for k, v in clocks.items() if v}
+    log(f"[wide] {tag} {plan or 'default plan'}: us/iteration by phase (CTA {cta}, barrier "
+        f"waits included): " + ", ".join(f"{k} {v:.2f}" for k, v in split.items()))
+    return split
+
+
+def wide_timing(torch, convergence, w0, X, T, shape, phase_split):
+    """Phase 20 (d) at one shape: ANN-BP, ``WIDE_SAMPLES`` samples x
+    ``WIDE_TIMED_K`` + 1 iterations, through each of ``WIDE_BUILDS`` in
+    turns (grid, one cluster, one cluster, grid), the plain version
+    after one untimed run, the bound; with ``phase_split``, each build's
+    iteration by phase."""
     from hpnn_tpu_torch.obs.cost import bound_ms
+
+    dname = str(X.dtype).split(".")[1]
+    kw = dict(model="ann", min_iter=5, max_iter=WIDE_TIMED_K)
+    iters = WIDE_SAMPLES * (WIDE_TIMED_K + 1)
+    nbytes, flops = wide_work(w0, WIDE_SAMPLES, iters, False, X.element_size())
+    b_ms, b_by = bound_ms(nbytes, flops, dname)
+    runs = {k: [] for k in WIDE_BUILDS}
+    for k in list(WIDE_BUILDS) + list(WIDE_BUILDS)[::-1]:
+        runs[k].append(cuda_ms(torch, lambda k=k: convergence.train_epoch(
+            w0, X, T, 0.2, -1e30, **kw, **WIDE_BUILDS[k])))
+    ms = {k: statistics.median(v) for k, v in runs.items()}
+    p_ms = plain_ms(torch, convergence, w0, X, T, kw)
+    ctas = convergence.plan(w0, X.dtype, False, grid=True,
+                            capacity=convergence.grid_capacity(X.dtype, X.device)).cluster
+    out = dict(shape=shape, dtype=dname, ms=ms["grid"], iters=iters,
+               us_per_iter=ms["grid"] / iters * 1e3, ctas=ctas,
+               cluster_ms=ms["one cluster"], cluster_us_per_iter=ms["one cluster"] / iters * 1e3,
+               runs_ms=runs, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
+               flops=flops, bound_share={k: b_ms / v for k, v in ms.items()})
+    log(f"[wide] #1 ANN-BP {dname} {shape}, {WIDE_SAMPLES} samples x {WIDE_TIMED_K + 1} "
+        f"iterations: " + "; ".join(
+            f"{k} {ms[k]:.3f} ms ({ms[k] / iters * 1e3:.2f} us/iteration, "
+            f"{b_ms / ms[k]:.1%} of the bound; runs {', '.join(f'{t:.3f}' for t in runs[k])})"
+            for k in WIDE_BUILDS)
+        + f"; the grid {ctas} CTAs, one cluster {convergence.CLUSTER}; plain {p_ms:.1f} ms "
+        f"(after one untimed run); bound {b_ms:.4f} ms ({b_by}: {nbytes} B = W read and "
+        f"written once an iteration, {flops} flop)")
+    if phase_split:
+        out["split_us_per_iter"] = {k: wide_split(
+            torch, convergence, w0, X, T, kw, ms[k], iters, f"#1 ANN-BP {dname} {shape}",
+            **WIDE_BUILDS[k]) for k in WIDE_BUILDS}
+        # the grid seen from the CTA that owns the output layer's first row
+        starts = convergence.plan(w0, X.dtype, False, grid=True, capacity=ctas).row_starts[-1]
+        owner = next(r for r in range(ctas) if starts[r + 1] > 0)
+        out["split_us_per_iter"][f"grid, CTA {owner}"] = wide_split(
+            torch, convergence, w0, X, T, kw, ms["grid"], iters,
+            f"#1 ANN-BP {dname} {shape}", grid=True, cta=owner)
+    return out
+
+
+def wide_kernels(np, torch, dev, Xtr, Ttr, phase_split=False):
+    """Phase 20 (a), (b), (d): the grid build against its plain version
+    and bitwise the one-cluster device build at ``WIDE``, the grid and
+    the forced device build bitwise the shared build at 784-300-10, and
+    both builds' times against the bound at ``WIDE`` and ``WIDE_MID``
+    (with ``phase_split``, where their iterations go)."""
+    from hpnn_tpu_torch.models import kernel as km
     from hpnn_tpu_torch.ops import convergence
 
     rng = np.random.default_rng(SEED + 20)
-    err, times = {}, {}
+    err, times, cross = {}, {}, 0
     for dtype in (torch.float32, torch.float64):
         dname = str(dtype).split(".")[1]
         W = wide_weights(np, rng, dname)
@@ -4817,13 +4917,15 @@ def wide_kernels(np, torch, dev, Xtr, Ttr):
             if model == "snn":
                 T = np.where(T > 0, 1.0, 0.0)
             T = torch.tensor(T, dtype=dtype, device=dev)
-            p = convergence.plan(w0, dtype, momentum)
-            check(not p.vectors_resident and not p.weights_resident,
+            p = convergence.plan(w0, dtype, momentum,
+                                 capacity=convergence.grid_capacity(dtype, dev))
+            check(p.grid and not p.vectors_resident and not p.weights_resident,
                   f"#1 {tag} {wide_shape(dname)}: plan {p}")
             kw = dict(model=model, momentum=momentum, min_iter=5, max_iter=WIDE_PINNED_K)
-            wk, wp = [t.clone() for t in w0], [t.clone() for t in w0]
+            wk, wp, wc = ([t.clone() for t in w0] for _ in range(3))
             sk = convergence.train_epoch(wk, X, T, 0.2, -1e30, **kw)
             sp = convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
+            sc = convergence.train_epoch(wc, X, T, 0.2, -1e30, grid=False, **kw)
             torch.cuda.synchronize()
             check(sk.n_iter.tolist() == sp.n_iter.tolist() == [WIDE_PINNED_K + 1] * WIDE_SAMPLES,
                   f"#1 {tag}: n_iter {sk.n_iter.tolist()} / {sp.n_iter.tolist()}")
@@ -4833,33 +4935,38 @@ def wide_kernels(np, torch, dev, Xtr, Ttr):
                   f"#1 {tag} {wide_shape(dname)}: |kernel - plain| {e:.3e} > {TOL[dname]:.0e}")
             check(any(not torch.equal(a, b) for a, b in zip(wk, w0)),
                   f"#1 {tag}: the kernel left every layer unchanged")
+            check(same_run((wk, sk), (wc, sc)),
+                  f"#1 {tag} {wide_shape(dname)}: the grid build differs bitwise from the "
+                  f"one-cluster device build")
+            cross += 1
             err[dname] = max(err.get(dname, 0.0), e)
             log(f"[wide] #1 {tag} {wide_shape(dname)}, {WIDE_SAMPLES} samples x "
                 f"{WIDE_PINNED_K + 1} iterations: max|kernel - plain| {e:.3e} (tol "
-                f"{TOL[dname]:.0e}); {p.cluster} CTAs, vectors in device memory "
-                f"({p.scratch_bytes} B scratch), W streamed, {p.smem_bytes} B shared a CTA")
-        # (d) the time of an iteration and its bound, ANN-BP
+                f"{TOL[dname]:.0e}); the grid build ({p.cluster} CTAs, {p.scratch_bytes} B "
+                f"of published vectors, W through rings) bitwise the one-cluster device build")
         T = torch.tensor(Ttr[:WIDE_SAMPLES], dtype=dtype, device=dev)
-        kw = dict(model="ann", min_iter=5, max_iter=WIDE_TIMED_K)
-        k_ms = cuda_ms(torch, lambda: convergence.train_epoch(w0, X, T, 0.2, -1e30, **kw))
-        iters = WIDE_SAMPLES * (WIDE_TIMED_K + 1)
-        nbytes, flops = wide_work(w0, WIDE_SAMPLES, iters, False, dtype.itemsize)
-        b_ms, b_by = bound_ms(nbytes, flops, dname)
-        wp = [t.clone() for t in w0]
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        convergence.train_epoch_plain(wp, X, T, 0.2, -1e30, **kw)
-        torch.cuda.synchronize()
-        p_ms = (time.perf_counter() - t0) * 1e3
-        times[dname] = dict(shape=wide_shape(dname), ms=k_ms, iters=iters,
-                            us_per_iter=k_ms / iters * 1e3, plain_ms=p_ms, bound_ms=b_ms,
-                            bound_by=b_by, bytes=nbytes, flops=flops)
-        log(f"[wide] #1 ANN-BP {dname} {wide_shape(dname)}, {WIDE_SAMPLES} samples x "
-            f"{WIDE_TIMED_K + 1} iterations: {k_ms:.3f} ms ({k_ms / iters * 1e3:.2f} "
-            f"us/iteration); plain {p_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}: {nbytes} B = "
-            f"W read and written once an iteration, {flops} flop)")
+        times[dname] = wide_timing(torch, convergence, w0, X, T, wide_shape(dname),
+                                   phase_split)
 
-    # (b) the forced device build at 784-300-10: the shared build's bits
+    # (d) the mid width: W past 16 CTAs' shared memory, inside the L2
+    n_in, hid, n_out = WIDE_MID
+    Wm = [rng.uniform(-1, 1, (hid, n_in)) / math.sqrt(n_in),
+          rng.uniform(-1, 1, (n_out, hid)) / math.sqrt(hid)]
+    X = torch.tensor(Xtr[:WIDE_SAMPLES], dtype=torch.float32, device=dev)
+    T = torch.tensor(Ttr[:WIDE_SAMPLES], dtype=torch.float32, device=dev)
+    w0 = [torch.tensor(w, dtype=torch.float32, device=dev) for w in Wm]
+    kw = dict(model="ann", momentum=True, min_iter=5, max_iter=WIDE_PINNED_K)
+    runs = []
+    for build in WIDE_BUILDS.values():
+        w = [t.clone() for t in w0]
+        runs.append((w, convergence.train_epoch(w, X, T, 0.2, -1e30, **kw, **build)))
+    torch.cuda.synchronize()
+    check(same_run(*runs), f"#1 {n_in}-[{hid}]-{n_out}: the grid differs from one cluster")
+    times["mid"] = wide_timing(torch, convergence, w0, X, T, f"{n_in}-[{hid}]-{n_out}",
+                               phase_split)
+
+    # (b) at 784-300-10: the forced device build and the forced grid give
+    # the shared build's bits
     k0, _ = km.generate(SEED, N_IN, [N_HID], N_OUT)
     same = 0
     for model in ("ann", "snn"):
@@ -4875,17 +4982,20 @@ def wide_kernels(np, torch, dev, Xtr, Ttr):
                 kw = dict(model=model, momentum=momentum, min_iter=5, max_iter=PINNED_K)
                 runs = []
                 for plan in ({}, dict(vectors_resident=False),
-                             dict(vectors_resident=False, cluster=8)):
+                             dict(vectors_resident=False, cluster=8), dict(grid=True),
+                             dict(grid=True, cluster=16), dict(grid=True, cluster=8)):
                     w = tuple(t.clone() for t in w0)
                     runs.append((w, convergence.train_epoch(w, X, T, 0.2, -1e30, **kw, **plan)))
                 torch.cuda.synchronize()
                 check(convergence.plan(w0, dtype, momentum).vectors_resident,
                       f"{tag}: 784-300-10 left shared memory")
                 check(all(same_run(r, runs[0]) for r in runs[1:]),
-                      f"{tag} 784-300-10: the device build differs bitwise from the shared build")
+                      f"{tag} 784-300-10: the device build or the grid differs bitwise from "
+                      f"the shared build")
                 same += 1
-    log(f"[wide] 784-300-10, 4 samples x {PINNED_K + 1} iterations: the device build "
-        f"(16 and 8 CTAs) bitwise the shared build in {same} of 8 modes and types")
+    log(f"[wide] 784-300-10, 4 samples x {PINNED_K + 1} iterations: the device build (16 and "
+        f"8 CTAs) and the grid build (all, 16 and 8 CTAs) bitwise the shared build in {same} "
+        f"of 8 modes and types; at the wide shapes the grid bitwise one cluster in {cross} of 6")
     return err, times, same
 
 
@@ -4957,10 +5067,10 @@ def wide_entry_point(np, torch, dev, Xtr, Ttr):
                 cpu_seconds=runs["cpu"][1])
 
 
-def wide_phase(np, torch, dev, Xtr, Ttr):
+def wide_phase(np, torch, dev, Xtr, Ttr, phase_split=False):
     """Phase 20: #1's device build at ``WIDE``, then ``train_nn`` there."""
     t0 = time.perf_counter()
-    err, times, same = wide_kernels(np, torch, dev, Xtr, Ttr)
+    err, times, same = wide_kernels(np, torch, dev, Xtr, Ttr, phase_split)
     entry = wide_entry_point(np, torch, dev, Xtr, Ttr)
     smi = nvidia_smi_line()
     log(f"[wide] {smi}: phase 20 in {time.perf_counter() - t0:.1f} s")
@@ -5105,14 +5215,13 @@ def main() -> int:
     if args.wide_only:
         enter(20)
         os.makedirs(WORK, exist_ok=True)
-        t0 = time.perf_counter()
-        _build.build("convergence", force=True)
-        log(f"[build] convergence.cu built in {time.perf_counter() - t0:.1f} s")
+        build_all(_build, (("convergence", None),) + (
+            (("convergence", "HPNN_PHASE_CLOCKS"),) if args.phase_split else ()))
         rng = np.random.default_rng(SEED)
         protos = (rng.random((N_OUT, N_IN)) < 0.15).astype(np.float64)
         Xtr, Ttr = make_dataset(np, rng, WIDE_SAMPLES, protos)
         shutil.rmtree(os.path.join(WORK, "wide"), ignore_errors=True)
-        wide_phase(np, torch, dev, Xtr, Ttr)
+        wide_phase(np, torch, dev, Xtr, Ttr, args.phase_split)
         log("[wide] --wide-only: no result line")
         return 0
     if args.drills_only:
@@ -5445,7 +5554,7 @@ def main() -> int:
     # 20. nets wider than one CTA's shared memory: #1's device build,
     # then train_nn at 784-[15000]-10 in float64, card against CPU
     enter(20)
-    wide = wide_phase(np, torch, dev, Xtr, Ttr)
+    wide = wide_phase(np, torch, dev, Xtr, Ttr, args.phase_split)
 
     # 21. the chaos drills on the card
     enter(21)
@@ -5593,9 +5702,12 @@ def main() -> int:
         "bound_by": tw["bound_by"],
         "library_ms": None,
         "timed": (f"ANN-BP {tw['shape']} float32, {WIDE_SAMPLES} samples x "
-                  f"{WIDE_TIMED_K + 1} iterations; bound: W read and written once an "
-                  f"iteration"),
+                  f"{WIDE_TIMED_K + 1} iterations through the grid build; bound: W read "
+                  f"and written once an iteration"),
+        "ctas": tw["ctas"],
         "us_per_iter": tw["us_per_iter"],
+        # the one-cluster device build (the wide nets' build before the grid), timed in turns
+        "parent_us_per_iter": tw["cluster_us_per_iter"],
         "by_dtype": wide["times"],
         "bitwise_784_300_10": wide["bitwise_784_300_10"],
         "main": wide["entry"],

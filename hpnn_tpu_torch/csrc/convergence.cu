@@ -149,6 +149,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace cg = cooperative_groups;
 
 #define HPNN_PARAM_LAYERS 16  // layers whose values ride in the kernel parameters
@@ -257,10 +259,15 @@ enum Phase {
   P_SOFT,    // the softmax denominator
   P_ERR,     // loss, argmax and exit test, beside the output deltas
   P_REST,    // sample start and end
+  P_FWD_OUT,     // P_FWD of the output layer
+  P_CSYNC_OUT,   // P_CSYNC of the output layer
+  P_GATHER_OUT,  // P_GATHER of the output layer
+  P_RING_WAIT,   // the grid build: waiting on a ring slot's fill
   N_PHASES
 };
 #ifdef HPNN_PHASE_CLOCKS
 __device__ unsigned long long g_phase_clocks[N_PHASES];
+__device__ int g_clock_cta;  // the grid build's CTA whose thread 0 marks
 #define HPNN_PHASE(c, k) (c).mark(k)
 #else
 #define HPNN_PHASE(c, k) ((void)0)
@@ -342,6 +349,7 @@ struct Cta {
     return DWRES ? dwsm + net.ly.wblk(l) : net.ly.dw(l) + (size_t)r0(l) * net.ly.m(l);
   }
   __device__ T* buf(int parity) const { return acts + (net.dbuf ? parity : 0) * net.n_act; }
+  __device__ T* out_deltas() const { return ds + net.ly.off(net.n_layers - 1); }
 
   // Output i of the activations `a`.  SNN: the layer holds exp(z - 1) as
   // the owners published it, divided here by the forward's denominator.
@@ -481,15 +489,15 @@ __device__ void forward(const K& c, bool snn, T* an, const T* ao, bool momentum,
       acc = warp_sum(acc);
       if (lane == 0) vout[row] = soft ? out_exp(acc - T(1)) : act(acc);
     }
-    HPNN_PHASE(c, P_FWD);
+    HPNN_PHASE(c, l == L - 1 ? P_FWD_OUT : P_FWD);
     cluster_barrier();
-    HPNN_PHASE(c, P_CSYNC);
+    HPNN_PHASE(c, l == L - 1 ? P_CSYNC_OUT : P_CSYNC);
     c.gather(vout, l);
     // every W is final until the next update: stage the next deltas' tile
     // in the same pass as the last gather
     if (l == L - 1 && c.tile_prefetched()) c.prefetch_tile();
     __syncthreads();
-    HPNN_PHASE(c, P_GATHER);
+    HPNN_PHASE(c, l == L - 1 ? P_GATHER_OUT : P_GATHER);
     if (soft) {
       // the denominator only: the owned exponentials stay as published,
       // since another CTA may still be gathering them (Cta::output divides)
@@ -515,13 +523,16 @@ __device__ T loss_and_output_deltas(const K& c, bool snn, const T* a, int p_trg,
   const T tiny = T(1e-14);
   if (warp == 0) {
     T acc = T(0);
+    // each step one fused multiply-add, spelled out: the compiler
+    // contracted `acc += x * y` so in the cluster build, and would not
+    // in every instantiation
     for (int i = lane; i < n; i += 32) {
       const T o = c.output(a, i, snn);
       if (snn) {
-        acc += c.ts[i] * dev_log(o + tiny);
+        acc = fma(c.ts[i], dev_log(o + tiny), acc);
       } else {
         const T d = c.ts[i] - o;
-        acc += d * d;
+        acc = fma(d, d, acc);
       }
     }
     acc = warp_sum(acc);
@@ -560,7 +571,7 @@ __device__ T loss_and_output_deltas(const K& c, bool snn, const T* a, int p_trg,
       *c.s_ok = (bi == p_trg) ? 1 : 0;
     }
   } else {
-    T* d = c.ds + c.net.ly.off(L - 1);
+    T* d = c.out_deltas();
     for (int i = threadIdx.x - 32; i < n; i += blockDim.x - 32) {
       const T o = c.output(a, i, snn);
       d[i] = snn ? c.ts[i] - o : (c.ts[i] - o) * dact(o);
@@ -754,6 +765,791 @@ convergence_cluster(Net<T, Ly> net, bool snn, bool momentum, const T* X, const T
 #endif
 }
 
+// ------------------------------------------------------------- the grid build
+//
+// One CTA an SM of a cooperative grid of G CTAs (every CTA the card holds
+// at once) for a net whose owned rows of W overflow a cluster's shared
+// memory.  CTA r owns the rows [r*n/G, (r+1)*n/G) of every layer, as in
+// the cluster build; the vectors live in device memory as ONE published
+// copy (each value written by its owner only), read by whoever needs
+// them after the grid barrier that follows their writing; W and dw stay
+// in their homes in device memory.
+//
+// Bound: bytes.  W streams from device memory every iteration, read and
+// written once: 190 MB an iteration at 784-[30000]-10 float32 (and at
+// 784-[15000]-10 float64), 56.9 us at 3.35 TB/s.  One cluster pulled it
+// through 16 SMs at ~0.47 TB/s; the grid pulls it through every SM.
+//
+// W through a ring.  Each warp with rows has a ring of HPNN_GRID_DEPTH
+// slots in shared memory and keeps its next rows in flight: its lane 0
+// copies a row (or a segment of a long row: a multiple of 32 columns, so
+// lane k still takes the columns k, k+32, ... in order) with a 1-D bulk
+// copy (cp.async.bulk, completing on the slot's mbarrier), widened to the
+// 16-byte boundaries the copy needs, while the warp runs the update and
+// the forward of the rows before it from shared memory, and writes the
+// updated row back with coalesced stores.  BPM copies the dw segment
+// beside W; the input vector of the layer (and its old copy) is staged in
+// shared memory once a layer where it fits, else copied beside W, segment
+// by segment.  A CTA's only row of a layer (a wide output layer's few
+// rows over 132 CTAs) goes another way, lone_row: the warps that share
+// no scheduler with warp 0 fill it into a ring (cp.async, updated in
+// place and written back) while warp 0 sums it.
+//
+// The rules of the cluster build hold as they are: the activations are
+// double-buffered by parity, a row another CTA may read (of the
+// activations, the hidden deltas, W) is rewritten only after every CTA
+// has passed a grid barrier after reading it, and every CTA takes the
+// loss, the argmax and the exit test from the same published values in
+// the same order.  The output deltas, which every CTA computes, stay
+// private to each CTA.  No CTA asks who owns a row: a reader reads the
+// published vector itself, so owner()'s 40-bit division (exact for C <=
+// 16) is never used; row_start's is exact for G <= 1024 at 2^18 rows.
+//
+// Every sum keeps the cluster build's order and expression form, so the
+// grid gives the same bits for any G, and the cluster build's.
+
+#define HPNN_GRID_THREADS 512        // 16 warps
+#define HPNN_GRID_WARPS (HPNN_GRID_THREADS / 32)
+#define HPNN_GRID_DEPTH 3            // slots of a warp's ring
+#define HPNN_GRID_SMEM 229376        // dynamic shared memory of a grid CTA (224 KB)
+#define HPNN_GRID_OUT_SMEM 16384     // output deltas up to this many bytes stay in shared memory
+#define HPNN_GRID_LONG 6             // slots of a lone row's ring (lone_row)
+#define HPNN_GRID_HEAD (32 + 8 * HPNN_GRID_WARPS * HPNN_GRID_DEPTH)  // scalars and mbarriers
+
+// Values from one parity's published activations to the other's: the
+// widths' sum rounded up to 4, so both buffers start 16-byte aligned (a
+// lone row's fill reads them 16 bytes at a time where they are).
+__host__ __device__ __forceinline__ long long grid_abuf(long long n_act) {
+  return (n_act + 3) / 4 * 4;
+}
+
+// The grid barrier: thread 0 of each CTA adds to a word in device memory
+// with release semantics at gpu scope and spins with acquire loads until
+// bit 31 flips (CTA 0 adds 2^31 - (G - 1), the others 1, so a barrier
+// adds 2^31 and the word's low bits start each barrier at 0: start_grid
+// zeroes it before each launch); __syncthreads on both sides.
+__device__ __forceinline__ void grid_barrier(unsigned* bar) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned add = blockIdx.x == 0 ? 0x80000000u - (gridDim.x - 1) : 1u;
+    unsigned old, now;
+    asm volatile("atom.release.gpu.global.add.u32 %0, [%1], %2;"
+                 : "=r"(old) : "l"(bar), "r"(add) : "memory");
+    do {
+      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];" : "=r"(now) : "l"(bar) : "memory");
+    } while (((old ^ now) & 0x80000000u) == 0);
+  }
+  __syncthreads();
+}
+
+// Orders this thread's generic accesses (of device and shared memory)
+// before later async-proxy copies (cp.async.bulk) that touch the same
+// bytes: every writer of what a copy will read or overwrite runs it
+// before the barrier that precedes the copy, and the copying lane again.
+__device__ __forceinline__ void proxy_fence() { asm volatile("fence.proxy.async;" ::: "memory"); }
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+__device__ __forceinline__ void mbar_init(unsigned long long* b) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(b)), "r"(1u) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect(unsigned long long* b, unsigned bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_addr(b)),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(unsigned long long* b, unsigned parity) {
+  unsigned done;
+  do {
+    asm volatile(
+        "{\n\t.reg .pred p;\n\t"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+        "selp.u32 %0, 1, 0, p;\n\t}"
+        : "=r"(done)
+        : "r"(smem_addr(b)), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// bytes from device memory at `src` into shared memory at `dst` (both
+// 16-byte aligned, bytes a multiple of 16), completing on mbarrier `b`
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src, unsigned bytes,
+                                          unsigned long long* b) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];"
+      ::"r"(smem_addr(dst)), "l"(src), "r"(bytes), "r"(smem_addr(b))
+      : "memory");
+}
+
+// The 16-byte-aligned window around v[0, len): its first byte, its bytes
+// and where v[0] sits in it, in values.  A tensor's allocation is
+// 16-byte aligned at both ends (the caching allocator's blocks are), so
+// the window never leaves it.
+struct Window {
+  const unsigned char* at;
+  unsigned bytes;
+  int lead;
+};
+
+template <typename T>
+__device__ __forceinline__ Window window(const T* v, int len) {
+  const unsigned long long p = reinterpret_cast<unsigned long long>(v);
+  const unsigned long long a = p & ~15ull;
+  const unsigned long long b = (p + (unsigned long long)len * sizeof(T) + 15) & ~15ull;
+  return {reinterpret_cast<const unsigned char*>(a), (unsigned)(b - a),
+          (int)((p - a) / sizeof(T))};
+}
+
+// One segment of a row in shared memory, its lanes striding the columns
+// as the cluster build's rows do: the forward's sum (seg_forward), with
+// the BP (seg_bp) or BPM (seg_bpm) update first, the updated values
+// stored to W's (and dw's) home.
+template <typename T>
+__device__ __forceinline__ void seg_forward(const T* __restrict__ w, const T* __restrict__ vi,
+                                            int len, T& acc) {
+  // a lane loads its next 32 / sizeof(T) columns of both before it sums
+  // them, so one round of shared-memory latency covers them all (a lone
+  // row's warp waited a round a column)
+  constexpr int B = 32 / sizeof(T);
+  int j = threadIdx.x & 31;
+  for (; j + 32 * (B - 1) < len; j += 32 * B) {
+    T a[B], b[B];
+#pragma unroll
+    for (int u = 0; u < B; ++u) {
+      a[u] = w[j + 32 * u];
+      b[u] = vi[j + 32 * u];
+    }
+#pragma unroll
+    for (int u = 0; u < B; ++u) acc = fma(a[u], b[u], acc);
+  }
+  for (; j < len; j += 32) acc = fma(w[j], vi[j], acc);
+}
+
+template <typename T>
+__device__ __forceinline__ void seg_bp(const T* __restrict__ w, const T* __restrict__ vo,
+                                       const T* __restrict__ vi, T* __restrict__ wg, int len,
+                                       T di, T lr, T& acc) {
+#pragma unroll 4
+  for (int j = threadIdx.x & 31; j < len; j += 32) {
+    const T wv = w[j] + lr * (di * vo[j]);
+    wg[j] = wv;
+    acc = fma(wv, vi[j], acc);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void seg_bpm(const T* __restrict__ w, const T* __restrict__ mw,
+                                        const T* __restrict__ vo, const T* __restrict__ vi,
+                                        T* __restrict__ wg, T* __restrict__ mg, int len, T di,
+                                        T lr, T alpha, T& acc) {
+#pragma unroll 4
+  for (int j = threadIdx.x & 31; j < len; j += 32) {
+    const T mm = mw[j] + lr * (di * vo[j]);
+    const T wv = w[j] + mm;
+    wg[j] = wv;
+    mg[j] = alpha * mm;
+    acc = fma(wv, vi[j], acc);
+  }
+}
+
+__device__ __forceinline__ void named_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+// A warp's place in its ring: the slot of its next copy and that slot's
+// phase parity; advanced once per copy, carried across layers and samples.
+struct Ring {
+  int slot;
+  unsigned parity;
+  __device__ void next() {
+    if (++slot == HPNN_GRID_DEPTH) {
+      slot = 0;
+      parity ^= 1u;
+    }
+  }
+};
+
+// What one CTA of the grid sees.  The loss (loss_and_output_deltas) reads
+// it through the same members and accessors as a cluster CTA.
+template <typename T_, class Ly>
+struct GridCta {
+  using T = T_;
+  const Net<T, Ly>& net;
+  int rank, C;
+  const T* xs;              // the sample's input, in device memory
+  const T* ts;              // the sample's target, in device memory
+  T* acts;                  // the published activations: parity 0, then parity 1
+  long long abuf;           // values from one parity's activations to the other's
+  T* ds;                    // the published deltas of the hidden layers
+  T* dout;                  // this CTA's output deltas (shared or device memory)
+  unsigned* bar;            // the grid barrier's word
+  unsigned char* work;      // the staged vectors and the rings, or the deltas' tile
+  int work_bytes;
+  unsigned long long* mbar; // HPNN_GRID_DEPTH mbarriers a warp
+  T* s_err;
+  T* s_scalar;
+  int* s_ok;
+  int* s_ptrg;
+  unsigned long long* clk;
+
+  __device__ int r0(int l) const { return row_start(rank, net.ly.n(l), net.inv_c); }
+  __device__ int r1(int l) const { return row_start(rank + 1, net.ly.n(l), net.inv_c); }
+  __device__ T* buf(int parity) const { return acts + parity * abuf; }
+  __device__ T* out_deltas() const { return dout; }
+
+  // output i of the published activations `a` (SNN: divided by the
+  // forward's denominator), from the L2
+  __device__ T output(const T* a, int i, bool snn) const {
+    const T o = __ldcg(a + net.ly.off(net.n_layers - 1) + i);
+    return snn ? o / *s_scalar : o;
+  }
+
+  __device__ void mark(int k) const {
+#ifdef HPNN_PHASE_CLOCKS
+    if (threadIdx.x == 0 && rank == g_clock_cta) {
+      const unsigned long long t = clock64();
+      clk[k] += t - clk[N_PHASES];
+      clk[N_PHASES] = t;
+    }
+#endif
+  }
+};
+
+// The layer's rows one warp runs from its ring: the copies (issue) and the
+// update and forward of a segment (run).  Every value is a pure function
+// of the layer and the CTA, so the lanes of a warp agree.
+template <class K, typename T = typename K::T>
+struct RowStream {
+  const K& c;
+  int l, m, r0, rows, warp, A, nseg, seg, slot, part;
+  bool upd, momentum, staged;
+  const T* vin;   // the layer's input vector, in device memory
+  const T* vold;  // its previous parity (the update's), in device memory
+  const T* svin;  // the staged copies in shared memory (staged)
+  const T* svold;
+  unsigned char* ring;
+  unsigned long long* bars;  // the mbarriers of this stream's slots
+
+  __device__ int items() const { return warp < A ? (rows - warp + A - 1) / A * nseg : 0; }
+  __device__ int row_of(int i) const { return r0 + warp + (i / nseg) * A; }
+  __device__ unsigned char* slot_at(int k) const {
+    return ring + (size_t)(warp * HPNN_GRID_DEPTH + k) * slot;
+  }
+
+  // where part p of item i starts in device memory: W's row segment,
+  // dw's (momentum), then the vectors' segments where they are not staged
+  __device__ const T* part_src(int i, int p) const {
+    const int row = row_of(i), j0 = (i % nseg) * seg;
+    if (p == 0) return c.net.ly.w(l) + (size_t)row * m + j0;
+    if (upd && momentum && --p == 0) return c.net.ly.dw(l) + (size_t)row * m + j0;
+    if (upd && vold != vin && --p == 0) return vold + j0;
+    return vin + j0;
+  }
+  __device__ int parts() const {
+    return 1 + (upd && momentum) + (staged ? 0 : 1 + (upd && vold != vin));
+  }
+
+  // lane 0: copy item i (a row's segment) into slot k
+  __device__ void issue(int i, int k) const {
+    const int len = min(seg, m - (i % nseg) * seg);
+    unsigned long long* b = &bars[k];
+    unsigned char* dst = slot_at(k);
+    unsigned bytes = 0;
+    for (int p = 0; p < parts(); ++p) bytes += window(part_src(i, p), len).bytes;
+    mbar_expect(b, bytes);
+    for (int p = 0; p < parts(); ++p) {
+      const Window win = window(part_src(i, p), len);
+      bulk_copy(dst + p * part, win.at, win.bytes, b);
+    }
+  }
+
+  // part p of item i in slot k
+  __device__ const T* in_slot(int i, int k, int p) const {
+    const int len = min(seg, m - (i % nseg) * seg);
+    return reinterpret_cast<const T*>(slot_at(k) + p * part) + window(part_src(i, p), len).lead;
+  }
+
+  // the warp: update and forward of item i from slot k; `acc` carries a
+  // row's lane sums across its segments
+  __device__ void run(int i, int k, T lr, T alpha, T& acc) const {
+    const int row = row_of(i), j0 = (i % nseg) * seg, len = min(seg, m - j0);
+    const T* w = in_slot(i, k, 0);
+    const int pv = 1 + (upd && momentum);  // the first vector's part
+    const bool two = upd && vold != vin;
+    const T* vi = staged ? svin + j0 : in_slot(i, k, pv + two);
+    const T* vo = staged ? svold + j0 : two ? in_slot(i, k, pv) : vi;
+    if (!upd) {
+      seg_forward(w, vi, len, acc);
+      return;
+    }
+    const int L = c.net.n_layers;
+    const T di = l == L - 1 ? c.dout[row] : __ldcg(c.ds + c.net.ly.off(l) + row);
+    T* wg = c.net.ly.w(l) + (size_t)row * m + j0;
+    if (momentum)
+      seg_bpm(w, in_slot(i, k, 1), vo, vi, wg, c.net.ly.dw(l) + (size_t)row * m + j0, len, di,
+              lr, alpha, acc);
+    else
+      seg_bp(w, vo, vi, wg, len, di, lr, acc);
+  }
+};
+
+// V values of T, stored to device memory as one 16-byte store when V *
+// sizeof(T) is 16 (p then aligned to it).
+template <int V, typename T>
+struct Pack {
+  T v[V];
+};
+
+template <int V, typename T>
+__device__ __forceinline__ void stv(T* p, const Pack<V, T>& r) {
+  if constexpr (V * sizeof(T) == 16) {
+    using U = typename std::conditional<sizeof(T) == 4, float4, double2>::type;
+    *reinterpret_cast<U*>(p) = *reinterpret_cast<const U*>(&r);
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) p[e] = r.v[e];
+  }
+}
+
+__device__ __forceinline__ void cp16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_commit() { asm volatile("cp.async.commit_group;" ::: "memory"); }
+// wait until at most n (0..3) of this thread's latest copy groups are pending
+__device__ __forceinline__ void cp_wait(int n) {
+  switch (n) {
+    case 0: asm volatile("cp.async.wait_group 0;" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;" ::: "memory"); break;
+  }
+}
+
+// The fill of one segment of a lone row by lone_row's fillers: W's
+// segment, updated by BP (MODE 1) or BPM (MODE 2) and written back, or
+// as it is (MODE 0), into the slot's `sw`; the input vector's into `sx`
+// where it is not staged.  The 16-byte groups are first copied into the
+// slot with cp.async (copy: many groups in flight, no registers), then
+// updated there in place (update); the values past the last whole group,
+// or all of them where the arrays are not 16-byte aligned, go through
+// registers (scalar).  One instantiation a mode, each with the cluster
+// build's expressions (a product that two branches shared was not
+// contracted into the add as there, and the sums parted).
+template <typename T>
+struct Fill {
+  static constexpr int V = 16 / sizeof(T);
+  T* W;            // the segment of W's row, of dw's (BPM), in device memory
+  T* M;
+  const T* vold;   // of the old and the new input vector, in device memory
+  const T* vin;
+  const T* svold;  // the old input vector staged in shared memory, or null
+  T* sw;           // the slot's parts: W, dw (BPM), the old vector and the
+  T* sm;           // input vector (each null where not copied)
+  T* so;
+  T* sx;
+  T di, lr, alpha;
+  int t, nt;       // this thread among the nt that fill
+
+  __device__ int first() const { return t * V; }
+  __device__ int step() const { return nt * V; }
+
+  __device__ void copy(int body) const {
+    for (int j = first(); j < body; j += step()) {
+      cp16(sw + j, W + j);
+      if (sm) cp16(sm + j, M + j);
+      if (so) cp16(so + j, vold + j);
+      if (sx) cp16(sx + j, vin + j);
+    }
+    cp_commit();
+  }
+
+  template <int MODE>
+  __device__ void update(int body) const {
+    if constexpr (MODE > 0) {
+      for (int j = first(); j < body; j += step()) {
+        Pack<V, T> w = *reinterpret_cast<const Pack<V, T>*>(sw + j);
+        const T* op = svold ? svold + j : so ? so + j : sx + j;
+        Pack<V, T> o = *reinterpret_cast<const Pack<V, T>*>(op);
+        if constexpr (MODE == 2) {
+          Pack<V, T> mm = *reinterpret_cast<const Pack<V, T>*>(sm + j);
+#pragma unroll
+          for (int e = 0; e < V; ++e) {
+            const T m1 = mm.v[e] + lr * (di * o.v[e]);
+            w.v[e] = w.v[e] + m1;
+            mm.v[e] = alpha * m1;
+          }
+          stv<V>(M + j, mm);
+        } else {
+#pragma unroll
+          for (int e = 0; e < V; ++e) w.v[e] = w.v[e] + lr * (di * o.v[e]);
+        }
+        stv<V>(W + j, w);
+        *reinterpret_cast<Pack<V, T>*>(sw + j) = w;
+      }
+    }
+  }
+
+  template <int MODE>
+  __device__ void scalar(int from, int len) const {
+    for (int j = from + t; j < len; j += nt) {
+      if (sx) sx[j] = __ldcg(vin + j);
+      T w = __ldcg(W + j);
+      if constexpr (MODE > 0) {
+        const T o = svold ? svold[j] : __ldcg(vold + j);
+        if constexpr (MODE == 2) {
+          const T m1 = __ldcg(M + j) + lr * (di * o);
+          w = w + m1;
+          M[j] = alpha * m1;
+        } else {
+          w = w + lr * (di * o);
+        }
+        W[j] = w;
+      }
+      sw[j] = w;
+    }
+  }
+};
+
+// A lone row (the CTA's only row of the layer, as in a wide net's output
+// layer): the warps that share no scheduler with warp 0 (warp % 4 != 0)
+// fill its segments into a ring of HPNN_GRID_LONG slots in shared memory
+// (Fill, the copies of up to 3 segments ahead in flight), named barriers
+// 1.. marking a slot full and the next HPNN_GRID_LONG empty again, while
+// warp 0 sums the filled ones in the cluster build's order, its
+// scheduler to itself.  One warp alone was bound by its own stores, and
+// a warp 0 that shared its scheduler with fillers by its issue slots
+// (PERF.md).
+template <int MODE, class K, typename T = typename K::T>
+__device__ void lone_row(const K& c, int l, int row, const T* vin, const T* vold,
+                         const T* svin, const T* svold, bool staged, T lr, T alpha,
+                         unsigned char* ring, int ring_bytes, T& out) {
+  constexpr int V = 16 / sizeof(T), AHEAD = 3;
+  const int warp = threadIdx.x >> 5, L = c.net.n_layers, m = c.net.ly.m(l);
+  const int nwarps = blockDim.x >> 5;
+  const bool filler = (warp & 3) != 0;
+  const int nt = 32 * (nwarps - (nwarps + 3) / 4);   // the fillers' threads
+  const int t = 32 * (warp - 1 - warp / 4) + (threadIdx.x & 31);
+  const int nb = nt + 32;                             // a named barrier's threads
+  T* W = c.net.ly.w(l) + (size_t)row * m;
+  T* M = MODE == 2 ? c.net.ly.dw(l) + (size_t)row * m : nullptr;
+  const bool old = MODE > 0 && !staged && vold != vin;  // the old vector copied apart
+  const int parts = 1 + (MODE == 2) + old + !staged;
+  const int seg = ring_bytes / (HPNN_GRID_LONG * parts) / (int)sizeof(T) / 32 * 32;
+  const int nseg = (m + seg - 1) / seg;
+  const T di = MODE == 0 ? T(0) : l == L - 1 ? c.dout[row] : __ldcg(c.ds + c.net.ly.off(l) + row);
+  // the copies where every array they read is 16-byte aligned (a
+  // segment starts a multiple of 32 values on)
+  const bool vec = ((reinterpret_cast<unsigned long long>(W) |
+                     reinterpret_cast<unsigned long long>(M) |
+                     (staged ? 0ull : reinterpret_cast<unsigned long long>(vold) |
+                                      reinterpret_cast<unsigned long long>(vin))) &
+                    15) == 0;
+  auto fill = [&](int s) {
+    T* sw = reinterpret_cast<T*>(ring) + (size_t)(s % HPNN_GRID_LONG) * parts * seg;
+    T* p = sw + seg;
+    T* sm = MODE == 2 ? p : nullptr;
+    p += MODE == 2 ? seg : 0;
+    T* so = old ? p : nullptr;
+    p += old ? seg : 0;
+    const int j0 = s * seg;
+    return Fill<T>{W + j0, M ? M + j0 : nullptr, vold + j0, vin + j0,
+                   staged ? svold + j0 : nullptr, sw, sm, so, staged ? nullptr : p, di, lr,
+                   alpha, t, nt};
+  };
+  auto len_of = [&](int s) { return min(seg, m - s * seg); };
+  auto body_of = [&](int s) { return vec ? len_of(s) / V * V : 0; };
+  T acc = T(0);
+  if (filler)
+    for (int s = 0; s < min(AHEAD, nseg); ++s) fill(s).copy(body_of(s));
+  for (int s = 0; s < nseg; ++s) {
+    const int k = s % HPNN_GRID_LONG;
+    if (filler) {
+      const int u = s + AHEAD;
+      if (u < nseg) {
+        if (u >= HPNN_GRID_LONG) named_sync(1 + HPNN_GRID_LONG + u % HPNN_GRID_LONG, nb);
+        fill(u).copy(body_of(u));
+      }
+      cp_wait(min(AHEAD, nseg - 1 - s));
+      const Fill<T> f = fill(s);
+      f.template update<MODE>(body_of(s));
+      f.template scalar<MODE>(body_of(s), len_of(s));
+      named_arrive(1 + k, nb);
+    } else if (warp == 0) {
+      HPNN_PHASE(c, l == L - 1 ? P_FWD_OUT : P_FWD);
+      named_sync(1 + k, nb);
+      HPNN_PHASE(c, P_RING_WAIT);
+      const Fill<T> f = fill(s);
+      seg_forward(f.sw, staged ? svin + s * seg : f.sx, len_of(s), acc);
+      if (s + HPNN_GRID_LONG < nseg) named_arrive(1 + HPNN_GRID_LONG + k, nb);
+    }
+  }
+  if (warp == 0) out = warp_sum(acc);
+}
+
+// Activations of every layer into the published `an`; `ao` (the previous
+// parity) non-null: each owned row of W_l is first updated from `ao` in
+// the same pass (for l >= 1 after the first grid barrier, as in the
+// cluster build).  `ring` is this warp's place in its ring.
+template <class K, typename T = typename K::T>
+__device__ void grid_forward(const K& c, bool snn, T* an, const T* ao, bool momentum, T lr,
+                             T alpha, Ring& ring) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nwarps = blockDim.x >> 5;
+  const T tiny = T(1e-14);
+  const int L = c.net.n_layers;
+  const bool upd = ao != nullptr;
+  for (int l = 0; l < L; ++l) {
+    const int n = c.net.ly.n(l), m = c.net.ly.m(l);
+    const int r0 = c.r0(l), rows = c.r1(l) - r0;
+    const T* vin = l == 0 ? c.xs : an + c.net.ly.off(l - 1);
+    const T* vold = (l == 0 || !upd) ? vin : ao + c.net.ly.off(l - 1);
+    T* vout = an + c.net.ly.off(l);
+    const bool soft = snn && l == L - 1;
+    const int fwd = l == L - 1 ? P_FWD_OUT : P_FWD;
+    if (rows > 0) {
+      // the input vector (and its old copy) staged once where it fits
+      // half the work area, else copied beside W segment by segment
+      const int nvec = (upd && vold != vin) ? 2 : 1;
+      const bool staged = (long long)nvec * m * (long long)sizeof(T) <= c.work_bytes / 2;
+      T* sv = reinterpret_cast<T*>(c.work);
+      T* svold = sv + (nvec == 2 ? m : 0);
+      if (staged) {
+        for (int k = threadIdx.x; k < m; k += blockDim.x) {
+          sv[k] = __ldcg(vin + k);
+          if (nvec == 2) svold[k] = __ldcg(vold + k);
+        }
+      }
+      proxy_fence();
+      __syncthreads();
+      HPNN_PHASE(c, l == L - 1 ? P_GATHER_OUT : P_GATHER);
+      const int used = staged ? (nvec * m * (int)sizeof(T) + 15) / 16 * 16 : 0;
+      if (rows == 1 && nwarps > 1) {
+        T acc = T(0);
+        unsigned char* ring0 = c.work + used;
+        const int nbytes = c.work_bytes - used;
+        if (!upd)
+          lone_row<0>(c, l, r0, vin, vold, sv, svold, staged, lr, alpha, ring0, nbytes, acc);
+        else if (!momentum)
+          lone_row<1>(c, l, r0, vin, vold, sv, svold, staged, lr, alpha, ring0, nbytes, acc);
+        else
+          lone_row<2>(c, l, r0, vin, vold, sv, svold, staged, lr, alpha, ring0, nbytes, acc);
+        if (threadIdx.x == 0) vout[r0] = soft ? out_exp(acc - T(1)) : act(acc);
+      } else {
+        const int A = min(nwarps, rows);
+        const int parts = 1 + (upd && momentum) + (staged ? 0 : nvec);
+        const int slot = (c.work_bytes - used) / (A * HPNN_GRID_DEPTH) / 16 * 16;
+        const int part = slot / parts / 16 * 16;
+        const int segmax = (part - 32) / (int)sizeof(T) / 32 * 32;
+        const int nseg = (m + segmax - 1) / segmax;
+        const int seg = nseg == 1 ? m : ((m + nseg - 1) / nseg + 31) / 32 * 32;
+        const RowStream<K> rs{c, l, m, r0, rows, warp, A, nseg, seg, slot, part, upd,
+                              momentum, staged, vin, vold, sv, svold, c.work + used,
+                              c.mbar + warp * HPNN_GRID_DEPTH};
+        const int total = rs.items();
+        if (total > 0 && lane == 0) {
+          // the last writers of the rows and vectors (and of this work
+          // area) fenced and passed a barrier since
+          proxy_fence();
+          Ring r = ring;
+          for (int i = 0; i < min(total, HPNN_GRID_DEPTH); ++i, r.next()) rs.issue(i, r.slot);
+        }
+        T acc = T(0);
+        for (int i = 0; i < total; ++i) {
+          const int k = ring.slot;
+          HPNN_PHASE(c, fwd);
+          mbar_wait(&rs.bars[k], ring.parity);
+          HPNN_PHASE(c, P_RING_WAIT);
+          rs.run(i, k, lr, alpha, acc);
+          if ((i + 1) % nseg == 0) {
+            acc = warp_sum(acc);
+            if (lane == 0) vout[rs.row_of(i)] = soft ? out_exp(acc - T(1)) : act(acc);
+            acc = T(0);
+          }
+          __syncwarp();
+          if (lane == 0 && i + HPNN_GRID_DEPTH < total) {
+            // the warp's reads of the slot before the copy that refills it
+            asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+            rs.issue(i + HPNN_GRID_DEPTH, k);
+          }
+          ring.next();
+        }
+      }
+      proxy_fence();  // the rows written back, the activations: read by copies later
+    }
+    HPNN_PHASE(c, fwd);
+    grid_barrier(c.bar);
+    HPNN_PHASE(c, l == L - 1 ? P_CSYNC_OUT : P_CSYNC);
+    if (soft) {
+      // the denominator from the published exponentials, which stay as
+      // they are (GridCta::output divides)
+      if (warp == 0) {
+        T e = T(0);
+        for (int i = lane; i < n; i += 32) e += __ldcg(vout + i);
+        e = warp_sum(e);
+        if (lane == 0) *c.s_scalar = tiny + e;
+      }
+      __syncthreads();
+      HPNN_PHASE(c, P_SOFT);
+    }
+  }
+}
+
+// The hidden deltas of the owned units of each hidden layer, from the
+// current weights, the published activations `a` and the output deltas:
+// column j of W_{l+1} summed over i = 0..n-1 in order by one thread, the
+// deltas below (and W's columns, in groups of up to a block) staged tile
+// by tile in the work area.  A grid barrier after each layer but the
+// lowest: the layer below reads every delta of this one.
+template <class K, typename T = typename K::T>
+__device__ void grid_hidden_deltas(const K& c, const T* a) {
+  const int L = c.net.n_layers;
+  T* tile = reinterpret_cast<T*>(c.work);
+  const int cap = c.work_bytes / (int)sizeof(T);
+  for (int l = L - 2; l >= 0; --l) {
+    const int n = c.net.ly.n(l + 1), m = c.net.ly.n(l);
+    const T* W = c.net.ly.w(l + 1);
+    const bool top = l == L - 2;
+    const T* dn = top ? c.dout : c.ds + c.net.ly.off(l + 1);
+    const T* al = a + c.net.ly.off(l);
+    T* d = c.ds + c.net.ly.off(l);
+    const int c0 = c.r0(l), nc = c.r1(l) - c0;
+    for (int g0 = 0; g0 < nc; g0 += blockDim.x) {
+      const int ng = min((int)blockDim.x, nc - g0);
+      const int ti = min(n, cap / (ng + 1));  // rows a tile: ti deltas, ti x ng weights
+      T acc = T(0);
+      for (int i0 = 0; i0 < n; i0 += ti) {
+        const int ni = min(ti, n - i0);
+        for (int k = threadIdx.x; k < ni; k += blockDim.x)
+          tile[k] = top ? dn[i0 + k] : __ldcg(dn + i0 + k);
+        for (int k = threadIdx.x; k < ni * ng; k += blockDim.x)
+          tile[ti + k] = __ldcg(W + (size_t)(i0 + k / ng) * m + c0 + g0 + k % ng);
+        __syncthreads();
+        if ((int)threadIdx.x < ng)
+          for (int ii = 0; ii < ni; ++ii)
+            acc = fma(tile[ii], tile[ti + ii * ng + threadIdx.x], acc);
+        __syncthreads();
+      }
+      if ((int)threadIdx.x < ng) {
+        const int j = c0 + g0 + threadIdx.x;
+        d[j] = acc * dact(__ldcg(al + j));
+      }
+    }
+    if (l > 0) grid_barrier(c.bar);
+  }
+  proxy_fence();  // the tile's area: the forward's copies write it next
+  __syncthreads();
+  HPNN_PHASE(c, P_DHID);
+}
+
+template <typename T, class Ly>
+__global__ void __launch_bounds__(HPNN_GRID_THREADS, 1)
+convergence_grid(Net<T, Ly> net, unsigned* bar, T* ds, T* dout_dev, bool snn, bool momentum,
+                 const T* X, const T* Tg, int S, T alpha, T delta, int min_iter, int max_iter,
+                 T lr, T* ep0_out, int* niter_out, T* dep_out, int* first_out, int* final_out,
+                 T* out_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int L = net.n_layers;
+  const int n_in = net.ly.m(0), n_out = net.ly.n(L - 1);
+  T* scal = reinterpret_cast<T*>(smem_raw);
+  int* ints = reinterpret_cast<int*>(smem_raw + 16);
+  unsigned long long* mbar = reinterpret_cast<unsigned long long*>(smem_raw + 32);
+  unsigned char* p = smem_raw + HPNN_GRID_HEAD;
+  const bool out_sm = (long long)n_out * sizeof(T) <= HPNN_GRID_OUT_SMEM;
+  T* dout = out_sm ? reinterpret_cast<T*>(p) : dout_dev + (size_t)blockIdx.x * n_out;
+  if (out_sm) p += ((long long)n_out * sizeof(T) + 15) / 16 * 16;
+  const int work_bytes = HPNN_GRID_SMEM - (int)(p - smem_raw);
+#ifdef HPNN_PHASE_CLOCKS
+  __shared__ unsigned long long s_clk[N_PHASES + 1];
+  if (threadIdx.x == 0) {
+    for (int k = 0; k < N_PHASES; ++k) s_clk[k] = 0;
+    s_clk[N_PHASES] = clock64();
+  }
+#else
+  unsigned long long* s_clk = nullptr;
+#endif
+  if (threadIdx.x < HPNN_GRID_WARPS * HPNN_GRID_DEPTH) mbar_init(&mbar[threadIdx.x]);
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  __syncthreads();
+
+  int parity = 0;
+  Ring ring{0, 0u};
+  for (int s = 0; s < S; ++s) {
+    const GridCta<T, Ly> c{net, (int)blockIdx.x, (int)gridDim.x, X + (size_t)s * n_in,
+                           Tg + (size_t)s * n_out, net.vecs, grid_abuf(net.n_act), ds, dout, bar,
+                           p, work_bytes, mbar, scal, scal + 1, ints, ints + 1, s_clk};
+    if (momentum) {
+      for (int l = 0; l < L; ++l) {
+        T* M = net.ly.dw(l) + (size_t)c.r0(l) * net.ly.m(l);
+        const size_t nm = (size_t)(c.r1(l) - c.r0(l)) * net.ly.m(l);
+        for (size_t k = threadIdx.x; k < nm; k += blockDim.x) M[k] = T(0);
+      }
+      proxy_fence();
+    }
+    // every CTA has started (s = 0) and no CTA still reads the last
+    // sample's vectors
+    grid_barrier(bar);
+    HPNN_PHASE(c, P_REST);
+    if (threadIdx.x == 0) {
+      int pt = 0;
+      for (int i = 0; i < n_out; ++i)
+        if (c.ts[i] == T(1)) pt = i;
+      *c.s_ptrg = pt;
+    }
+    grid_forward(c, snn, c.buf(parity), (const T*)nullptr, momentum, lr, alpha, ring);
+    const int p_trg = *c.s_ptrg;
+
+    // the do-while, its test moved to the top, as in convergence_cluster
+    int it = 0, ok = 0, first_ok = 0;
+    T ep0 = T(0), ep = T(0), dep = T(0);
+    while (true) {
+      const T* a = c.buf(parity);
+      int ok_now;
+      const T e = loss_and_output_deltas(c, snn, a, p_trg, &ok_now);
+      HPNN_PHASE(c, P_ERR);
+      if (it == 0) {
+        ep0 = e;
+        ep = e;
+      } else {
+        dep = ep - e;
+        ep = e;
+        ok = ok_now;
+        if (it == 1) first_ok = ok;
+        const bool ok_eff = ok && it > min_iter;
+        if (!(it <= max_iter && (dep > delta || !ok_eff))) break;
+      }
+      ++it;
+      grid_hidden_deltas(c, a);
+      parity ^= 1;
+      grid_forward(c, snn, c.buf(parity), a, momentum, lr, alpha, ring);
+    }
+    if (c.rank == 0) {
+      if (threadIdx.x == 0) {
+        ep0_out[s] = ep0;
+        niter_out[s] = it;
+        dep_out[s] = dep;
+        first_out[s] = first_ok;
+        final_out[s] = (ok && it > min_iter) ? 1 : 0;
+      }
+      for (int i = threadIdx.x; i < n_out; i += blockDim.x)
+        out_out[(size_t)s * n_out + i] = c.output(c.buf(parity), i, snn);
+    }
+    __syncthreads();
+    HPNN_PHASE(c, P_REST);
+  }
+#ifdef HPNN_PHASE_CLOCKS
+  if (threadIdx.x == 0 && (int)blockIdx.x == g_clock_cta)
+    for (int k = 0; k < N_PHASES; ++k) g_phase_clocks[k] += s_clk[k];
+#endif
+}
+
 // The arguments of one launch beside the net.
 template <typename T>
 struct Args {
@@ -845,6 +1641,21 @@ void fill(Net<T, Ly>* net, const Layer* rec, int n_layers, int momentum, int clu
   net->vcopy = (long long)rec[0].m + rec[n_layers - 1].n + 3LL * net->n_act;
 }
 
+// The per-layer values of a net of at most HPNN_PARAM_LAYERS layers, from
+// the host copy of the layer table `rec`; `dws` the dw scratch or null.
+template <typename T>
+void set_params(ParamLayers<T>* ly, const Layer* rec, int n_layers, T* dws) {
+  ly->dims[0] = rec[0].m;
+  for (int l = 0; l < n_layers; ++l) {
+    ly->dims[l + 1] = rec[l].n;
+    ly->off_[l] = rec[l].off;
+    ly->wblk_[l] = rec[l].wblk;
+    ly->inv_n_[l] = rec[l].inv_n;
+    ly->w_[l] = reinterpret_cast<T*>(rec[l].w);
+    ly->dw_[l] = dws ? dws + rec[l].dwo : nullptr;
+  }
+}
+
 template <typename T>
 int launch(int momentum, int n_layers, const void* table, const void* host_table, void* dw,
            void* vectors, const Args<T>& a, int cluster, int dbuf, int stage, int w_res,
@@ -866,16 +1677,101 @@ int launch(int momentum, int n_layers, const void* table, const void* host_table
   }
   Net<T, ParamLayers<T>> net;
   fill(&net, rec, n_layers, momentum, cluster, dbuf, stage, w_res, dw_res, vectors);
-  net.ly.dims[0] = n_in;
-  for (int l = 0; l < n_layers; ++l) {
-    net.ly.dims[l + 1] = rec[l].n;
-    net.ly.off_[l] = rec[l].off;
-    net.ly.wblk_[l] = rec[l].wblk;
-    net.ly.inv_n_[l] = rec[l].inv_n;
-    net.ly.w_[l] = reinterpret_cast<T*>(rec[l].w);
-    net.ly.dw_[l] = dws ? dws + rec[l].dwo : nullptr;
-  }
+  set_params(&net.ly, rec, n_layers, dws);
   return start(net, a, n_in, n_out, cluster, stream);
+}
+
+
+// One cooperative launch of the grid build on `net` (its vectors the
+// published activations), G = `ctas` CTAs; the barrier word zeroed first
+// on the stream.  A grid the card cannot hold at once is refused by the
+// launch (cudaErrorCooperativeLaunchTooLarge), never run in part.
+template <typename T, class Ly>
+int start_grid(const Net<T, Ly>& net, unsigned* bar, T* ds, T* dout, const Args<T>& a,
+               int ctas, cudaStream_t stream) {
+  auto kern = convergence_grid<T, Ly>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, HPNN_GRID_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaMemsetAsync(bar, 0, sizeof(unsigned), stream);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ctas, 1, 1);
+  cfg.blockDim = dim3(HPNN_GRID_THREADS, 1, 1);
+  cfg.dynamicSmemBytes = HPNN_GRID_SMEM;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeCooperative;
+  attr[0].val.cooperative = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  err = cudaLaunchKernelEx(&cfg, kern, net, bar, ds, dout, a.snn, a.momentum, a.X, a.Tg, a.S,
+                           a.alpha, a.delta, a.min_iter, a.max_iter, a.lr, a.ep0, a.n_iter,
+                           a.dep, a.first_ok, a.final_ok, a.out);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear the launch error
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The grid build's launch: `scratch` is laid out as the barrier word (16
+// bytes), the published activations (2 x grid_abuf(n_act)), the hidden
+// deltas (n_act), then, where the output deltas overflow HPNN_GRID_OUT_SMEM
+// bytes, each CTA's output deltas (ctas x n_out); `dw` every layer's dw
+// (momentum).
+template <typename T>
+int launch_grid(int momentum, int n_layers, const void* table, const void* host_table,
+                void* dw, void* scratch, const Args<T>& a, int ctas, cudaStream_t stream) {
+  if (n_layers < 1 || (table == nullptr && n_layers > HPNN_PARAM_LAYERS) ||
+      host_table == nullptr || scratch == nullptr || ctas < 1 || (momentum && dw == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const Layer* rec = static_cast<const Layer*>(host_table);
+  T* dws = momentum ? static_cast<T*>(dw) : nullptr;
+  unsigned* bar = static_cast<unsigned*>(scratch);
+  T* acts = reinterpret_cast<T*>(static_cast<unsigned char*>(scratch) + 16);
+  const long long n_act = (long long)rec[n_layers - 1].off + rec[n_layers - 1].n;
+  T* ds = acts + 2 * grid_abuf(n_act);
+  T* dout = ds + n_act;
+  if (n_layers > HPNN_PARAM_LAYERS) {
+    Net<T, TableLayers<T>> net;
+    fill(&net, rec, n_layers, momentum, ctas, 1, 0, 0, 0, acts);
+    net.ly.lay = static_cast<const Layer*>(table);
+    net.ly.dws = dws;
+    return start_grid(net, bar, ds, dout, a, ctas, stream);
+  }
+  Net<T, ParamLayers<T>> net;
+  fill(&net, rec, n_layers, momentum, ctas, 1, 0, 0, 0, acts);
+  set_params(&net.ly, rec, n_layers, dws);
+  return start_grid(net, bar, ds, dout, a, ctas, stream);
+}
+
+// CTAs of the grid build the current device holds at once: its SMs times
+// the blocks an SM holds of either layers' flavour (one, by the launch
+// bounds and the shared memory).  Sets the kernels' shared-memory size.
+template <typename T>
+int grid_ctas(int* ctas) {
+  int dev = 0, coop = 0, sms = 0, per_sm = 0, per_sm_table = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(convergence_grid<T, ParamLayers<T>>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, HPNN_GRID_SMEM);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(convergence_grid<T, TableLayers<T>>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, HPNN_GRID_SMEM);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, convergence_grid<T, ParamLayers<T>>, HPNN_GRID_THREADS, HPNN_GRID_SMEM);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm_table, convergence_grid<T, TableLayers<T>>, HPNN_GRID_THREADS, HPNN_GRID_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  if (!coop) return (int)cudaErrorNotSupported;
+  *ctas = sms * (per_sm_table < per_sm ? per_sm_table : per_sm);
+  return (int)cudaSuccess;
 }
 
 }  // namespace
@@ -924,6 +1820,48 @@ extern "C" int hpnn_convergence_train_epoch(
   return (int)cudaErrorInvalidValue;
 }
 
+// The grid build (convergence_grid): one cooperative launch of `ctas` CTAs
+// (at most hpnn_convergence_grid_ctas's); `scratch` as launch_grid lays it
+// out, `dw` every layer's dw at the records' offsets (momentum, else
+// null); the other arguments as hpnn_convergence_train_epoch's.  Returns
+// the cudaError_t of the launch; a grid the card cannot hold at once is
+// cudaErrorCooperativeLaunchTooLarge.
+extern "C" int hpnn_convergence_train_epoch_grid(
+    int dtype, int snn, int momentum, int n_layers, const void* table,
+    const void* host_table, void* dw, void* scratch, const void* X, const void* Tg, int S,
+    double alpha, double delta, int min_iter, int max_iter, double lr,
+    void* ep0, void* n_iter, void* dep, void* first_ok, void* final_ok,
+    void* out, int ctas, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) {
+    const Args<float> a{snn != 0, momentum != 0, static_cast<const float*>(X),
+                        static_cast<const float*>(Tg), S, (float)alpha, (float)delta,
+                        min_iter, max_iter, (float)lr, static_cast<float*>(ep0),
+                        static_cast<int*>(n_iter), static_cast<float*>(dep),
+                        static_cast<int*>(first_ok), static_cast<int*>(final_ok),
+                        static_cast<float*>(out)};
+    return launch_grid<float>(momentum, n_layers, table, host_table, dw, scratch, a, ctas, st);
+  }
+  if (dtype == 1) {
+    const Args<double> a{snn != 0, momentum != 0, static_cast<const double*>(X),
+                         static_cast<const double*>(Tg), S, alpha, delta, min_iter,
+                         max_iter, lr, static_cast<double*>(ep0), static_cast<int*>(n_iter),
+                         static_cast<double*>(dep), static_cast<int*>(first_ok),
+                         static_cast<int*>(final_ok), static_cast<double*>(out)};
+    return launch_grid<double>(momentum, n_layers, table, host_table, dw, scratch, a, ctas, st);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// CTAs of the grid build the current device holds at once, into *ctas
+// (dtype 0 = float, 1 = double).  Returns the cudaError_t of the query.
+extern "C" int hpnn_convergence_grid_ctas(int dtype, int* ctas) {
+  *ctas = 0;
+  if (dtype == 0) return grid_ctas<float>(ctas);
+  if (dtype == 1) return grid_ctas<double>(ctas);
+  return (int)cudaErrorInvalidValue;
+}
+
 #ifdef HPNN_PHASE_CLOCKS
 // The SM cycles rank 0's thread 0 spent in each phase (enum Phase), summed
 // over the launches since the last reset; then zero them if `reset`.
@@ -932,6 +1870,11 @@ extern "C" int hpnn_convergence_phase_clocks(unsigned long long* out, int reset)
   if (err != cudaSuccess || !reset) return (int)err;
   static const unsigned long long zero[N_PHASES] = {};
   return (int)cudaMemcpyToSymbol(g_phase_clocks, zero, sizeof(zero));
+}
+
+// The CTA of the grid build whose thread 0 marks the phases (0 at load).
+extern "C" int hpnn_convergence_clock_cta(int cta) {
+  return (int)cudaMemcpyToSymbol(g_clock_cta, &cta, sizeof(cta));
 }
 #endif
 

@@ -14,12 +14,27 @@ What a turn runs, on inputs made from one seed (``chip_smoke.py``'s
 phases 3 and 6): 784-300-10, 4 samples pinned to K + 1 = 21 iterations
 (delta = -1e30), ANN/SNN x BP/BPM, float and double, under every plan
 (8 and 16 CTAs, the weight rows resident and streamed, the vectors in
-device memory where the checkout's plan takes ``vectors_resident``),
-each result kept by the SHA-256 of its bytes; then each mode and type at its
-default plan, 4 samples x 200 iterations, timed with CUDA events after
-one untimed run.  Prints one line per timed item and one JSON object as
-its last line (also written to ``--out``); exits 1 when a result differs
-between the sides, between two turns, or between two plans of a turn.
+device memory where the checkout's plan takes ``vectors_resident``, the
+grid build forced where it takes ``grid``), each result kept by the
+SHA-256 of its bytes; then each mode and type at its default plan, 4
+samples x 200 iterations, timed with CUDA events after one untimed run.
+Then the wide nets (``WIDE``: 784-[30000]-10 float32, 784-[15000]-10
+float64, 784-[4000]-10 float32, and 784-[300]-1000 in both types, whose
+loss sums more than one term a lane), ANN-BP, ANN-BPM and SNN-BP, 4 samples
+pinned to 11 iterations at the default plan (and one cluster forced
+where the checkout's plan takes ``grid``), hashed; and ANN-BP at each,
+4 samples x 21 iterations, timed.  Prints one line per timed item and
+one JSON object as its last line (also written to ``--out``); exits 1
+when a result differs between the sides, between two turns, or between
+two plans of a turn.
+
+    python3 -m hpnn_tpu_torch.tools.ab_convergence --crossover
+
+times this checkout's grid build against its one-cluster build (``grid``
+forced each way) in turns (grid, cluster, cluster, grid) at
+784-[H]-10 for each H of ``CROSSOVER`` and at 784-(300x19)-10, float
+and double, ANN-BP, 4 samples x 21 iterations: where the plan's rule
+(``ops/convergence.py``'s ``GRID_MIN_BYTES``) comes from.
 """
 
 from __future__ import annotations
@@ -44,6 +59,14 @@ N_IN, N_HID, N_OUT = 784, 300, 10
 S, PINNED_K, TIMED_ITERS = 4, 20, 200
 CLUSTERS = (16, 8)
 TURNS = ("parent", "change", "change", "parent")
+# the wide nets, and two whose output layer is wider than a warp (the
+# loss's lanes then sum more than one term each)
+WIDE = (("float32", (N_IN, 30000, N_OUT)), ("float64", (N_IN, 15000, N_OUT)),
+        ("float32", (N_IN, 4000, N_OUT)), ("float32", (N_IN, N_HID, 1000)),
+        ("float64", (N_IN, N_HID, 1000)))
+WIDE_PINNED_K, WIDE_TIMED_K = 10, 20
+CROSSOVER = {"float32": (1100, 1500, 2000, 3000, 4000, 8000, 16000),
+             "float64": (500, 750, 1000, 2000, 4000, 8000)}
 
 
 def digest(tensors) -> list:
@@ -117,14 +140,80 @@ def turn(checkout: str) -> dict:
                 kw["max_iter"] = TIMED_ITERS - 1
                 times[f"{tag}, {S} samples x {TIMED_ITERS} iterations"] = [events_ms(
                     lambda: convergence.train_epoch(w, X, Td, 0.2, -1e30, **kw))]
+    grid_build = "grid" in inspect.signature(convergence.plan).parameters
+    for dname, dims in WIDE:
+        dtype = getattr(torch, dname)
+        w0, X, Tw = wide_inputs(dev, dtype, dims)
+        shape = f"{dims[0]}-[{dims[1]}]-{dims[2]}"
+        for model, momentum in (("ann", False), ("ann", True), ("snn", False)):
+            tag = f"{model}-{'BPM' if momentum else 'BP'} {dname} {shape}"
+            T = (Tw > 0).to(dtype) if model == "snn" else Tw
+            kw = dict(model=model, momentum=momentum, min_iter=5, max_iter=WIDE_PINNED_K)
+            got = []
+            for plan in [{}] + ([dict(grid=False)] if grid_build else []):
+                w = tuple(t.clone() for t in w0)
+                st = convergence.train_epoch(w, X, T, 0.2, -1e30, **kw, **plan)
+                got.append(digest(list(w) + list(st)))
+            hashes[f"{tag} pinned"] = got[0]
+            plans_differ += [f"{tag} grid=False" for h in got[1:] if h != got[0]]
+        kw = dict(model="ann", min_iter=5, max_iter=WIDE_TIMED_K)
+        times[f"ann-BP {dname} {shape}, {S} samples x {WIDE_TIMED_K + 1} "
+              f"iterations"] = [events_ms(
+                  lambda: convergence.train_epoch(w0, X, Tw, 0.2, -1e30, **kw))]
     print(f"[ab] {checkout}: " + "; ".join(
         f"{k} {', '.join(f'{t:.3f}' for t in v)} ms" for k, v in times.items()), flush=True)
     return dict(hash=hashes, ms=times, plans_differ=plans_differ)
 
 
+def wide_inputs(dev, dtype, dims):
+    """Seeded weights within 1/sqrt(fan-in) of the net of widths
+    ``dims``, 4 samples and their ANN targets."""
+    rng = np.random.default_rng(SEED + sum(dims))
+    w = [torch.tensor(rng.uniform(-1, 1, (n, m)) / m ** 0.5, dtype=dtype, device=dev)
+         for m, n in zip(dims[:-1], dims[1:])]
+    X = torch.tensor(rng.random((S, dims[0])), dtype=dtype, device=dev)
+    T = -np.ones((S, dims[-1]))
+    T[np.arange(S), rng.integers(0, dims[-1], S)] = 1.0
+    return w, X, torch.tensor(T, dtype=dtype, device=dev)
+
+
+def crossover() -> dict:
+    """The grid build against one cluster in this checkout (see the
+    module docstring): {shape: {"grid": [ms, ms], "one cluster": [ms,
+    ms], "iters": n}}."""
+    from hpnn_tpu_torch.ops import convergence
+
+    dev = torch.device("cuda")
+    builds = {"grid": dict(grid=True), "one cluster": dict(grid=False)}
+    nets = [(d, [h]) for d, hs in CROSSOVER.items() for h in hs]
+    nets += [(d, [300] * 19) for d in CROSSOVER]
+    out = {}
+    for dname, hidden in nets:
+        dtype = getattr(torch, dname)
+        w0, X, T = wide_inputs(dev, dtype, (N_IN, *hidden, N_OUT))
+        shape = f"{dname} {N_IN}-" + (f"[{hidden[0]}]" if len(hidden) == 1
+                                      else f"({hidden[0]}x{len(hidden)})") + f"-{N_OUT}"
+        kw = dict(model="ann", min_iter=5, max_iter=WIDE_TIMED_K)
+        runs = {k: [] for k in builds}
+        for k in list(builds) + list(builds)[::-1]:
+            runs[k].append(events_ms(lambda k=k: convergence.train_epoch(
+                w0, X, T, 0.2, -1e30, **kw, **builds[k])))
+        iters = S * (WIDE_TIMED_K + 1)
+        out[shape] = dict(runs, iters=iters, default_grid=convergence.plan(
+            w0, dtype, False).grid)
+        ratio = statistics.median(runs["one cluster"]) / statistics.median(runs["grid"])
+        print(f"[crossover] {shape}: " + "; ".join(
+            f"{k} {statistics.median(v) / iters * 1e3:.2f} us/iteration "
+            f"({', '.join(f'{t:.3f}' for t in v)} ms)" for k, v in runs.items())
+            + f"; one cluster / grid {ratio:.3f}", flush=True)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="root of the parent's checkout")
+    ap.add_argument("--crossover", action="store_true",
+                    help="time this checkout's grid build against one cluster instead")
     ap.add_argument("--out", help="also write the result's JSON to this file")
     ap.add_argument("--build", help=argparse.SUPPRESS)  # one side's build process
     ap.add_argument("--turn", help=argparse.SUPPRESS)   # one turn's process ...
@@ -137,8 +226,8 @@ def main(argv=None) -> int:
         with open(args.json, "w") as fp:
             json.dump(turn(os.path.abspath(args.turn)), fp)
         return 0
-    if not args.parent:
-        ap.error("--parent is required")
+    if not args.parent and not args.crossover:
+        ap.error("--parent or --crossover is required")
     if not torch.cuda.is_available():
         print("ab_convergence: CUDA is not available", file=sys.stderr)
         return 2
@@ -146,6 +235,15 @@ def main(argv=None) -> int:
                           "--format=csv,noheader"], capture_output=True, text=True)
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
     print(f"[ab] card: {card}", flush=True)
+    if args.crossover:
+        sys.path.insert(0, ROOT)
+        result = dict(card=card, crossover=crossover())
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as fp:
+                json.dump(result, fp, indent=1)
+        print(json.dumps(result), flush=True)
+        return 0
     sides = {"parent": os.path.abspath(args.parent), "change": ROOT}
     me = os.path.abspath(__file__)
     t0 = time.perf_counter()

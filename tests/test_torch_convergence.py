@@ -230,7 +230,7 @@ def test_cluster_plan_keeps_every_shape_the_single_block_kernel_took():
         room = (convergence.MAX_SHARED_BYTES - 2 * b - 8) // b   # values
         hid = (room - 4 - 2) // 2 - 2                            # 4-hid-2, the widest
         weights = [torch.empty(hid, 4, dtype=dtype), torch.empty(2, hid, dtype=dtype)]
-        p = convergence.plan(weights, dtype, True)
+        p = convergence.plan(weights, dtype, True, grid=False)
         assert not p.dbuf and p.stage <= 1 and not p.weights_resident
         assert p.smem_bytes == convergence.shared_bytes(weights, dtype) + b * p.stage
         assert p.smem_bytes <= convergence.MAX_SHARED_BYTES

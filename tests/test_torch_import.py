@@ -275,3 +275,15 @@ def test_convergence_argtypes_match_the_c_signature():
     assert len(declared) == len(params)
     want = [ctypes.c_void_p if p == "void*" else _C_TYPES[p] for p in params]
     assert list(declared) == want
+
+
+@pytest.mark.parametrize("fn", ["hpnn_convergence_train_epoch_grid",
+                                "hpnn_convergence_grid_ctas"])
+def test_convergence_grid_argtypes_match_the_c_signature(fn):
+    """The grid build's entries, held to the source text the same way."""
+    from hpnn_tpu_torch.ops import convergence
+
+    with open(os.path.join(PKG, "csrc", "convergence.cu")) as fp:
+        params = _c_params(fp.read(), fn)
+    want = [ctypes.c_void_p if p == "void*" else _C_TYPES[p] for p in params]
+    assert list(convergence.ARGTYPES[fn]) == want

@@ -68,18 +68,22 @@ def _net(dims, dtype=torch.float32, device="cpu"):
 @pytest.mark.parametrize("dims", [(8, WIDE, 2), (784, WIDE, 10), (784, 1500, 1500, 10)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_plan_puts_the_vectors_of_a_wide_net_in_device_memory(dims, dtype):
-    """Past one CTA the plan keeps C copies of the vectors in device
-    memory: the scalars and the staging tile in shared memory, both
-    activation buffers in the scratch, W streamed where it does not
-    fit; forcing the vectors into shared memory says the bytes."""
+    """Past one CTA the one-cluster plan keeps C copies of the vectors in
+    device memory: the scalars and the staging tile in shared memory,
+    both activation buffers in the scratch, W streamed where it does not
+    fit (where the plan takes the grid build instead once W passes the
+    crossover); forcing the vectors into shared memory says the bytes."""
     weights = _net(dims, dtype)
     need = convergence.shared_bytes(weights, dtype)
     if need <= convergence.MAX_SHARED_BYTES:   # 784-1500-1500-10 in float32 fits
-        assert convergence.plan(weights, dtype, True).vectors_resident
+        assert convergence.plan(weights, dtype, True, grid=False).vectors_resident
         return
     b = torch.empty((), dtype=dtype).element_size()
     for momentum in (False, True):
-        p = convergence.plan(weights, dtype, momentum)
+        p = convergence.plan(weights, dtype, momentum, grid=False)
+        wbytes = b * sum(w.numel() for w in weights)
+        assert convergence.plan(weights, dtype, momentum).grid == (
+            not p.weights_resident and wbytes >= convergence.GRID_MIN_BYTES)
         assert not p.vectors_resident and p.dbuf and p.stage == convergence.STAGE
         assert p.cluster == convergence.CLUSTER
         wtot = sum(-(-n // p.cluster) * m for m, n in zip(dims[:-1], dims[1:]))
@@ -92,7 +96,7 @@ def test_plan_puts_the_vectors_of_a_wide_net_in_device_memory(dims, dtype):
         assert convergence.vector_values(weights) == copy
         assert p.scratch_bytes == p.cluster * b * copy
         for C in (1, 8):
-            q = convergence.plan(weights, dtype, momentum, cluster=C)
+            q = convergence.plan(weights, dtype, momentum, cluster=C, grid=False)
             assert q.scratch_bytes == C * b * copy and not q.vectors_resident
     with pytest.raises(ValueError, match=f"need {need} bytes of shared memory"):
         convergence.plan(weights, dtype, False, vectors_resident=True)
