@@ -231,12 +231,28 @@ Phases (any failure exits non-zero and prints no result line):
    ``convergence (vectors in device memory)``: its launches are (c)'s,
    its time the grid's, beside the grid's CTAs and the one-cluster
    build's µs an iteration.
-21. drills — the port's chaos drills (``hpnn_tpu_torch/tools/
-   chaos_drill.py``, at the repo tool's ``--rate`` 40) on the card:
-   kill9 (an ``online_nn`` child on ``cuda`` SIGKILLed after a
-   WAL-committed promotion, restarted, its weights bitwise the WAL's),
-   torn, quota, hog and drift (in-process sessions on ``cuda``), each row
-   printed; a drill that fails or could not run fails the phase.
+21. drills — all twelve of the port's chaos drills
+   (``hpnn_tpu_torch/tools/chaos_drill.py``, at the repo tool's
+   ``--rate`` 40) on the card, in the repo tool's order: kill9 (an
+   ``online_nn`` child on ``cuda`` SIGKILLed after a WAL-committed
+   promotion, restarted, its weights bitwise the WAL's), reload and
+   sentinel (children on ``cuda``: a chaos-failed then good hot reload,
+   NaN candidates the gate rejects), replica and alert (a ``Router``
+   whose replicas share the card: a kill routed around, a rule fired and
+   resolved across ``spawn_replica``'s captures), worker (two
+   ``online_nn`` worker processes on ``cuda``, one SIGKILLed and
+   replaced), capsule (a delayed dispatch seam, a capsule and the tail
+   report's blame), drift, quota, hog, tune (the tuner live on a
+   captured session, bf16 captures included) and torn; each row and the
+   phase's seconds printed; a drill that fails, could not run or says it
+   skipped fails the phase.
+22. tokens — the port's byte-stability lint
+   (``hpnn_tpu_torch/tools/check_tokens.py``) with ``device="cuda"``: the
+   6-sample 8-5-2 round's stdout byte-identical plain, under every obs
+   plane, after serve/Router/cluster/online round trips and with the
+   ledger alone, and the ledger rows equal row for row (#1's reruns
+   bitwise); it prints the count of token lines compared and of sink
+   events, and any failure fails the phase.
 
 The last two lines are the kernel table and the device line.  A failed
 phase prints ``chip_smoke: FAILED in phase N (<name>): <reason>`` (and
@@ -250,9 +266,9 @@ alone (``batch_step.cu`` built first, as the workers' trainers launch
 #4) and prints no result line.
 
 ``--wide-only`` runs phase 1 and phase 20 alone (``convergence.cu`` built
-first) and ``--drills-only`` phase 1 and phase 21 alone (``batch_step.cu``
-built first, as the drift drill's trainer launches #4); neither prints
-a result line.
+first) and ``--drills-only`` phase 1 and phases 21 and 22 alone (both
+sources built first: the drills' trainers launch #4 and the token lint's
+rounds #1, its fleet round #6); neither prints a result line.
 
 ``--capture-thread`` runs phase 1 and the capture-thread probe alone
 (no result line): five cases of a thread that captures CUDA graphs
@@ -388,7 +404,7 @@ PHASE_NAMES = {
     7: "batch pinned", 8: "batch main", 9: "batch timing", 10: "fleet pinned",
     11: "fleet main", 12: "fleet timing", 13: "resume-obs-native", 14: "serve",
     15: "planes", 16: "mesh", 17: "online", 18: "fleet", 19: "deep",
-    20: "wide", 21: "drills", 0: "capture-thread probe",
+    20: "wide", 21: "drills", 22: "tokens", 0: "capture-thread probe",
 }
 # the phase running now, named in a failure's message
 PHASE = {"n": None, "name": "start-up"}
@@ -5080,36 +5096,71 @@ def wide_phase(np, torch, dev, Xtr, Ttr, phase_split=False):
 
 # --------------------------------------------------------------- drills
 # Phase 21: the port's chaos drills (hpnn_tpu_torch/tools/chaos_drill.py)
-# on the card, at the repo tool's --rate.
-DRILL_NAMES = ("kill9", "torn", "quota", "hog", "drift")
+# on the card, at the repo tool's --rate; phase 22: the port's token lint.
 DRILL_RATE = 40.0
 
 
 def drills_phase():
-    """Phase 21: kill9, torn, quota, hog and drift on the card, each
-    row printed; a drill that fails, could not run or says it skipped
-    fails the phase."""
+    """Phase 21: all twelve drills on the card, each row printed; a
+    drill that fails, could not run or says it skipped fails the
+    phase."""
     from hpnn_tpu_torch.tools import chaos_drill
 
     t0 = time.perf_counter()
     wd = os.path.join(WORK, "drills")
     shutil.rmtree(wd, ignore_errors=True)
-    rows = chaos_drill.run_drills(DRILL_NAMES, workdir=wd, rate=DRILL_RATE, device="cuda")
+    rows = chaos_drill.run_drills(tuple(chaos_drill.DRILLS), workdir=wd, rate=DRILL_RATE,
+                                  device="cuda")
     for row in rows:
         log(f"[drills] {json.dumps(row, default=str)}")
+    check(len(rows) == 12, f"{len(rows)} drill rows, not 12")
     bad = [r["ev"] for r in rows if not r.get("ok") or "skipped" in r]
     check(not bad, f"drills failed: {bad}")
-    k9 = next(r for r in rows if r["ev"] == "drill.kill9")
+    by = {r["ev"].split(".", 1)[1]: r for r in rows}
+    k9 = by["kill9"]
     check(k9.get("restored_bitwise") is True and k9.get("wal_version", 0) >= 1,
           f"kill9: restored_bitwise {k9.get('restored_bitwise')}, "
           f"wal_version {k9.get('wal_version')}")
-    torn = next(r for r in rows if r["ev"] == "drill.torn")
-    log(f"[drills] {len(rows)} of {len(rows)} ok on the card in "
+    for name, row in by.items():
+        log(f"[drills] {name}: ok in {row['seconds']:.1f} s")
+    smi = nvidia_smi_line()
+    log(f"[drills] {smi}: {len(rows)} of {len(rows)} ok on the card in "
         f"{time.perf_counter() - t0:.1f} s: kill9 restored bitwise at WAL version "
         f"{k9['wal_version']} (restart ready {k9.get('restart_ready_s')} s, recovery "
         f"{k9.get('recovery_s')} s, {k9.get('lost')} lost); torn dip "
-        f"{torn.get('goodput_dip_pct')}% with {torn.get('clean_lost')} clean lost")
-    return dict(rows=rows, seconds=time.perf_counter() - t0)
+        f"{by['torn'].get('goodput_dip_pct')}% with {by['torn'].get('clean_lost')} clean "
+        f"lost; reload codes {by['reload'].get('reload_codes')} lost "
+        f"{by['reload'].get('lost')}; sentinel rejected {by['sentinel'].get('rejected')} "
+        f"lost {by['sentinel'].get('lost')}; alert fire {by['alert'].get('fire_s')} s "
+        f"resolve {by['alert'].get('resolve_s')} s (spawn {by['alert'].get('spawn_s')} s); "
+        f"worker replaced {by['worker'].get('replaced_s')} s (replacement boot "
+        f"{by['worker'].get('replacement_boot_s')} s); capsule capture "
+        f"{by['capsule'].get('capture_s')} s, dispatch blame "
+        f"{by['capsule'].get('dispatch_blame_pct')}%; tune applies "
+        f"{by['tune'].get('applies')} rollback_bitwise {by['tune'].get('rollback_bitwise')}")
+    return dict(rows=rows, card=smi, seconds=time.perf_counter() - t0)
+
+
+def tokens_phase():
+    """Phase 22: the port's byte-stability lint on the card; any
+    failure fails the phase."""
+    from hpnn_tpu_torch.tools import check_tokens
+
+    t0 = time.perf_counter()
+    wd = os.path.join(WORK, "tokens")
+    shutil.rmtree(wd, ignore_errors=True)
+    os.makedirs(wd)
+    stats = {}
+    failures = check_tokens.check(wd, device="cuda", stats=stats)
+    for f in failures:
+        log(f"[tokens] FAIL: {f}")
+    check(not failures, f"check_tokens on cuda: {len(failures)} failure(s): "
+          f"{failures[:3]}")
+    log(f"[tokens] {nvidia_smi_line()}: stdout byte-stable on cuda in "
+        f"{time.perf_counter() - t0:.1f} s: {stats['token_lines']} token lines compared "
+        f"in each of 4 rounds, {stats['ledger_rows']} ledger rows equal row for row, "
+        f"{stats['sink_events']} sink events")
+    return dict(stats, seconds=time.perf_counter() - t0)
 
 
 def load_conf_quiet(path):
@@ -5147,8 +5198,8 @@ def main() -> int:
                     help="run only phase 20 (#1 on nets wider than one CTA); "
                          "no result line")
     ap.add_argument("--drills-only", action="store_true",
-                    help="run only phase 21 (the chaos drills on the card); "
-                         "no result line")
+                    help="run only phases 21 and 22 (the chaos drills and the "
+                         "token lint on the card); no result line")
     ap.add_argument("--capture-case", choices=sorted(CAPTURE_CASES),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5228,9 +5279,12 @@ def main() -> int:
         enter(21)
         os.makedirs(WORK, exist_ok=True)
         t0 = time.perf_counter()
-        _build.build("batch_step", force=True)
-        log(f"[build] batch_step.cu built in {time.perf_counter() - t0:.1f} s")
+        build_all(_build, (("convergence", None), ("batch_step", None)))
+        log(f"[build] convergence.cu and batch_step.cu built in "
+            f"{time.perf_counter() - t0:.1f} s")
         drills_phase()
+        enter(22)
+        tokens_phase()
         log("[drills] --drills-only: no result line")
         return 0
     if args.online_only:
@@ -5559,6 +5613,10 @@ def main() -> int:
     # 21. the chaos drills on the card
     enter(21)
     drills = drills_phase()
+
+    # 22. the token lint on the card
+    enter(22)
+    tokens_phase()
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "hpnn_tpu")]
     check(not bad, f"the port pulled in {bad[:5]}")
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

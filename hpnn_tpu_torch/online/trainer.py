@@ -398,7 +398,7 @@ class OnlineTrainer:
             try:
                 with self._on_stream():
                     job["result"] = job["fn"]()
-            except BaseException as exc:   # re-raised in the caller
+            except BaseException as exc:  # hpnnlint: ignore[swallow] -- call() re-raises it
                 job["error"] = exc
             job["done"].set()
 

@@ -1,9 +1,10 @@
 """Chaos drills against the port: scripted disasters against a live
 train-while-serve process, with the blast radius measured, not guessed.
 
-The twin of the repo's ``tools/chaos_drill.py`` harness over
-``hpnn_tpu_torch``, with five of its drills (docs/resilience.md); every
-assertion and threshold is the original's:
+The twin of the repo's ``tools/chaos_drill.py`` over ``hpnn_tpu_torch``,
+with all twelve of its drills (docs/resilience.md, docs/selftuning.md)
+in the original's order; every assertion, rate, seed, window and
+threshold is the original's:
 
 * **kill9** — a real ``python -m hpnn_tpu_torch.cli.online_nn`` child
   under open-loop traffic (this package's ``tools/loadgen.py`` twin) is
@@ -13,6 +14,36 @@ assertion and threshold is the original's:
   (``/healthz`` ``weights_sha`` against the supervisor's own read of the
   WAL checkpoint) behind the readiness gate, with the goodput dip,
   recovery seconds and lost requests measured from the record stream.
+* **reload** — a child with ``raise@registry.reload:times=1`` armed and
+  its trainer parked, its kernel seeded from the WAL: the checkpoint is
+  rewritten under load and ``POST /v1/reload`` sent twice.  The first
+  answers 500 (resident version kept), the second 200 with the new
+  weights' ``weights_sha`` bitwise, and nothing is lost.
+* **sentinel** — ``nan@train.round`` in the child corrupts every trained
+  candidate: the gate rejects at least two, promotes none, and the
+  version and ``weights_sha`` stay as they were with nothing lost.
+* **replica** — an in-process 3-replica ``Router`` behind the real HTTP
+  front end, then ``kill_replica(0)`` under load: goodput recovers,
+  nothing arriving after the kill settles is lost, and the survivors
+  answer bitwise as the fleet did before.
+* **alert** — a ``router.ready_replicas`` threshold rule with a flight
+  ring over a 2-replica ``Router``: the kill fires it (the flight dump
+  attached) and ``spawn_replica()`` resolves it, each within 5 s.
+* **worker** — a ``WorkerSupervisor`` over two ``online_nn`` worker
+  processes sharing one WAL, a ``ClusterRouter`` as the HTTP edge, one
+  worker SIGKILLed under load: nothing lost on the survivors, bitwise
+  survivor answers, and the corpse replaced ready within 30 s.
+* **capsule** — a ``Session`` with ``HPNN_SAMPLE`` 0.5, a 40 ms
+  ``delay@serve.dispatch`` seam, an ``slo.p99_ms`` rule and a capsule
+  dir: a manifest with spans and a profile lands within 10 s of the
+  fire, and the tail report (:mod:`hpnn_tpu_torch.tools.tail_report`)
+  over the sink blames ``dispatch`` for more than half of the tail.
+* **tune** — in process on a scripted clock: a live compiled
+  ``Session``, an ``Autoscaler`` over an in-memory fleet and a
+  ``QuotaEnforcer`` under a ``Tuner`` fed synthetic blame windows.  Each
+  blame class applies its matching rule, both bad moves roll back
+  bitwise, and the sink passes :func:`lint_tune` (a copy of the repo's
+  ``--tune`` lint).
 * **torn** — a conn-guarded in-process serve ``Session`` (``HPNN_CONN_*``)
   under clean traffic, attacked by slowloris, torn-body and fuzz
   clients at once: clean goodput dips at most 10% with zero clean
@@ -38,13 +69,12 @@ assertion and threshold is the original's:
   ``drift.score`` over a threshold rule, the alert lands a capsule with
   ``drift.json``, and serving loses nothing.
 
-The child and the in-process sessions run on ``cuda`` unless
-``--device cpu`` (``device="cpu"``) is given; the child gets
+The children, workers and in-process sessions run on ``cuda`` unless
+``--device cpu`` (``device="cpu"``) is given; a child gets
 ``PYTHONPATH`` = the checkout.  A drill that cannot run (the child never
 becomes ready, no promotion commits in time) reports ``ok: false`` with
-the reason under ``error``: there is no skip.  Drills the repo's tool
-has and this twin lacks: reload, sentinel, replica, alert, worker,
-capsule, tune (ROADMAP.md B6).
+the reason under ``error``: there is no skip.  The repo tool's
+``run_bench_*`` fold-ins for ``bench.py`` are not here.
 
     python -m hpnn_tpu_torch.tools.chaos_drill --drill kill9 --device cpu
     python -m hpnn_tpu_torch.tools.chaos_drill --drill all --out drills.jsonl
@@ -514,6 +544,161 @@ def lint_conn(path: str) -> list[str]:
     return failures
 
 
+# closed enums the self-tuning plane (tune/engine.py) may emit
+TUNE_ACTIONS = ("scale_up", "precision_down", "grow_buckets",
+                "quota_squeeze")
+TUNE_VERDICTS = ("apply", "veto", "dry_run", "no_actuator",
+                 "watch_active", "cooldown", "burn_ok", "no_dominant",
+                 "thin_window", "no_sensor")
+TUNE_PHASES = ("queue", "dispatch", "spill", "shed_retry")
+BLAME_PCT_GAUGES = ("blame.queue_pct", "blame.dispatch_pct",
+                    "blame.spill_pct", "blame.shed_pct",
+                    "blame.other_pct", "blame.gap_pct")
+
+
+def lint_tune(path: str) -> list[str]:
+    """The self-tuning audit-trail lint of ``tools/check_obs_catalog.py
+    --tune`` over one metrics sink (a copy: the port imports no repo
+    tool).  ``tune.apply`` has a non-empty ``id``, its ``action`` and
+    ``phase`` on their enums, ``pct`` a finite share in [0, 100],
+    ``prior`` and ``applied`` present, ``cooldown_s``/``watch_s`` finite
+    and non-negative; ``tune.rollback`` pairs an earlier apply's ``id``
+    with its action on the enum, a non-empty ``reason`` and ``restored``
+    present; ``tune.decision`` has its verdict on the enum, ``roots`` a
+    non-negative int and ``burn`` None or finite; ``tune.error`` names
+    its error; the ``blame.*_pct`` gauges are finite shares and
+    ``blame.window_roots`` finite and non-negative; and at least one
+    ``tune.*`` record.  Returns failure strings (empty = pass)."""
+    import math
+
+    failures: list[str] = []
+    try:
+        with open(path) as fp:
+            lines = [ln for ln in fp if ln.strip()]
+    except OSError as exc:
+        return [f"cannot read sink {path!r}: {exc}"]
+    n_tune = 0
+    apply_ids: set[str] = set()
+    for i, ln in enumerate(lines):
+        try:
+            rec = json.loads(ln)
+        except ValueError:
+            continue  # torn tail line
+        if not isinstance(rec, dict):
+            continue
+        ev = rec.get("ev")
+        at = f"record {i + 1}"
+        if ev == "tune.apply":
+            n_tune += 1
+            aid = rec.get("id")
+            if not isinstance(aid, str) or not aid:
+                failures.append(
+                    f"{at}: tune.apply id {aid!r} is not a non-empty "
+                    "string — an unnamed apply cannot be paired with "
+                    "its rollback")
+            else:
+                apply_ids.add(aid)
+            if rec.get("action") not in TUNE_ACTIONS:
+                failures.append(
+                    f"{at}: tune.apply action {rec.get('action')!r} "
+                    f"not in {'/'.join(TUNE_ACTIONS)}")
+            if rec.get("phase") not in TUNE_PHASES:
+                failures.append(
+                    f"{at}: tune.apply phase {rec.get('phase')!r} is "
+                    "not an actionable blame class "
+                    f"({'/'.join(TUNE_PHASES)})")
+            pct = rec.get("pct")
+            if (not _num(pct) or not math.isfinite(pct)
+                    or not 0.0 <= pct <= 100.0):
+                failures.append(
+                    f"{at}: tune.apply pct {pct!r} is not a finite "
+                    "share in [0, 100]")
+            for key in ("prior", "applied"):
+                if key not in rec:
+                    failures.append(
+                        f"{at}: tune.apply has no {key} field — "
+                        "without the prior snapshot the move is not "
+                        "reversible, without applied it is not "
+                        "auditable")
+            for key in ("cooldown_s", "watch_s"):
+                v = rec.get(key)
+                if not _num(v) or not math.isfinite(v) or v < 0:
+                    failures.append(
+                        f"{at}: tune.apply {key} {v!r} is not a "
+                        "finite non-negative number")
+        elif ev == "tune.rollback":
+            n_tune += 1
+            rid = rec.get("id")
+            if not isinstance(rid, str) or not rid:
+                failures.append(
+                    f"{at}: tune.rollback id {rid!r} is not a "
+                    "non-empty string")
+            elif rid not in apply_ids:
+                failures.append(
+                    f"{at}: tune.rollback id {rid!r} pairs no "
+                    "preceding tune.apply — an orphan rollback "
+                    "restored nothing anyone applied")
+            if rec.get("action") not in TUNE_ACTIONS:
+                failures.append(
+                    f"{at}: tune.rollback action "
+                    f"{rec.get('action')!r} not in "
+                    f"{'/'.join(TUNE_ACTIONS)}")
+            reason = rec.get("reason")
+            if not isinstance(reason, str) or not reason:
+                failures.append(
+                    f"{at}: tune.rollback reason {reason!r} is not a "
+                    "non-empty string — an unexplained undo is not "
+                    "an audit trail")
+            if "restored" not in rec:
+                failures.append(
+                    f"{at}: tune.rollback has no restored field — "
+                    "cannot verify the prior config came back")
+        elif ev == "tune.decision":
+            n_tune += 1
+            if rec.get("verdict") not in TUNE_VERDICTS:
+                failures.append(
+                    f"{at}: tune.decision verdict "
+                    f"{rec.get('verdict')!r} not in the closed enum "
+                    f"({'/'.join(TUNE_VERDICTS)})")
+            roots = rec.get("roots")
+            if (not isinstance(roots, int) or isinstance(roots, bool)
+                    or roots < 0):
+                failures.append(
+                    f"{at}: tune.decision roots {roots!r} is not a "
+                    "non-negative int")
+            burn = rec.get("burn")
+            if burn is not None and (not _num(burn)
+                                     or not math.isfinite(burn)):
+                failures.append(
+                    f"{at}: tune.decision burn {burn!r} is neither "
+                    "None nor a finite number")
+        elif ev == "tune.error":
+            n_tune += 1
+            err = rec.get("error")
+            if not isinstance(err, str) or not err:
+                failures.append(
+                    f"{at}: tune.error error {err!r} is not a "
+                    "non-empty string")
+        elif ev in BLAME_PCT_GAUGES and rec.get("kind") == "gauge":
+            v = rec.get("value")
+            if (not _num(v) or not math.isfinite(v)
+                    or not 0.0 <= v <= 100.0):
+                failures.append(
+                    f"{at}: {ev} value {v!r} is not a finite share "
+                    "in [0, 100]")
+        elif ev == "blame.window_roots" and rec.get("kind") == "gauge":
+            v = rec.get("value")
+            if not _num(v) or not math.isfinite(v) or v < 0:
+                failures.append(
+                    f"{at}: blame.window_roots value {v!r} is not a "
+                    "finite non-negative number")
+    if not n_tune:
+        failures.append(
+            f"sink {path!r} has no tune.* records — was HPNN_TUNE "
+            "armed during this run?")
+    return failures
+
+
 def blame_table(paths: list[str]) -> dict:
     """The per-tenant device-seconds blame of ``tools/tenant_report.py``
     over the port's meter: each worker's latest cumulative
@@ -639,6 +824,493 @@ def drill_kill9(workdir: str, *, rate: float = 40.0,
         return out
     finally:
         child.terminate()
+
+
+def drill_reload(workdir: str, *, rate: float = 40.0,
+                 ready_timeout_s: float = 90.0,
+                 seed: int = 1, device=None) -> dict:
+    """Hot-reload under load, first attempt chaos-failed: rewrite the
+    served checkpoint, POST /v1/reload twice (raise@registry.reload
+    armed for one firing), prove the new weights landed with zero
+    lost requests."""
+    from hpnn_tpu_torch.fileio import checkpoint as ckpt_mod
+    from hpnn_tpu_torch.models import kernel as kernel_mod
+    from hpnn_tpu_torch.online import wal as wal_mod
+
+    _shield_sigpipe()
+    out: dict = {"ev": "drill.reload", "ok": False,
+                 "device": _device_arg(device)}
+    wal_dir = os.path.join(workdir, "wal")
+    # seed the WAL so the child's kernel is checkpoint-backed (the
+    # hot-reload path needs a file to watch)
+    k1, _ = kernel_mod.generate(11, 8, [5], 2)
+    wal = wal_mod.PromotionWAL(wal_dir)
+    rec = wal.commit(KERNEL, k1.weights, version=1, reason="seed")
+    ckpt_path = os.path.join(wal_dir, rec["ckpt"])
+    port = free_port()
+    child = Child(workdir, port, wal_dir=wal_dir,
+                  chaos="raise@registry.reload:times=1",
+                  interval_s=60.0,  # trainer parked: reload is the act
+                  log_name="reload.log", device=device)
+    try:
+        ready = child.wait_ready(ready_timeout_s)
+        out["boot_ready_s"] = ready["waited_s"]
+        if not ready["ready"]:
+            out["error"] = "child never became ready"
+            out["log_tail"] = child.log_tail()
+            return out
+        load = _Load(port, rate=rate, ingest_frac=0.0, seed=seed)
+        time.sleep(1.5)           # baseline bins
+        k2, _ = kernel_mod.generate(13, 8, [5], 2)
+        ckpt_mod.dump_checkpoint(ckpt_path, KERNEL, k2.weights,
+                                 version=2, meta={"reason": "drill"})
+        t_act = load.now()
+        code1, _ = http_post(port, "/v1/reload", {"kernel": KERNEL})
+        code2, _ = http_post(port, "/v1/reload", {"kernel": KERNEL})
+        records = load.finish(settle_s=1.5)
+        doc = child.health() or {}
+        kdoc = doc.get("online", {}).get("kernels", {}).get(KERNEL, {})
+        out.update(blast_radius(records, t_act))
+        out["reload_codes"] = [code1, code2]
+        out["chaos_failed_first"] = bool(code1 == 500)
+        out["weights_sha"] = {"expect": weights_sha(k2.weights),
+                              "got": kdoc.get("weights_sha")}
+        out["reloaded_bitwise"] = (out["weights_sha"]["got"]
+                                   == out["weights_sha"]["expect"])
+        out["ok"] = bool(out["chaos_failed_first"]
+                         and code2 == 200
+                         and out["reloaded_bitwise"]
+                         and out["lost"] == 0)
+        return out
+    finally:
+        child.terminate()
+
+
+def drill_sentinel(workdir: str, *, rate: float = 40.0,
+                   ready_timeout_s: float = 90.0,
+                   reject_timeout_s: float = 60.0,
+                   seed: int = 2, device=None) -> dict:
+    """Sentinel abort under load: every candidate is NaN-corrupted
+    (``nan@train.round``); the gate must reject them all while the
+    resident version keeps serving untouched."""
+    _shield_sigpipe()
+    out: dict = {"ev": "drill.sentinel", "ok": False,
+                 "device": _device_arg(device)}
+    port = free_port()
+    child = Child(workdir, port, chaos="nan@train.round",
+                  log_name="sentinel.log", device=device)
+    try:
+        ready = child.wait_ready(ready_timeout_s)
+        out["boot_ready_s"] = ready["waited_s"]
+        if not ready["ready"]:
+            out["error"] = "child never became ready"
+            out["log_tail"] = child.log_tail()
+            return out
+        doc0 = child.health() or {}
+        k0 = doc0.get("online", {}).get("kernels", {}).get(KERNEL, {})
+        sha0, v0 = k0.get("weights_sha"), k0.get("version")
+        load = _Load(port, rate=rate, ingest_frac=0.5, seed=seed)
+
+        def rejected():
+            doc = child.health()
+            if doc is None:
+                return None
+            on = doc.get("online", {})
+            return (on.get("promoter", {}).get("rejected", 0) >= 2
+                    and on.get("trainer", {}).get("trained", 0) >= 2
+                    or None)
+
+        saw = _wait(rejected, reject_timeout_s, interval_s=0.2)
+        records = load.finish(settle_s=0.5)
+        doc = child.health() or {}
+        on = doc.get("online", {})
+        k1 = on.get("kernels", {}).get(KERNEL, {})
+        out["rejected"] = on.get("promoter", {}).get("rejected", 0)
+        out["promoted"] = on.get("promoter", {}).get("promoted", 0)
+        out["version"] = {"before": v0, "after": k1.get("version")}
+        out["weights_sha"] = {"before": sha0,
+                              "after": k1.get("weights_sha")}
+        out["lost"] = sum(1 for r in records
+                          if r["status"] == "lost")
+        out["requests"] = len(records)
+        if not saw:
+            out["error"] = "fewer than 2 rejected candidates in time"
+        out["ok"] = bool(saw
+                         and out["promoted"] == 0
+                         and k1.get("version") == v0
+                         and k1.get("weights_sha") == sha0
+                         and out["lost"] == 0)
+        return out
+    finally:
+        child.terminate()
+
+
+def drill_replica(workdir: str, *, rate: float = 80.0,
+                  n_replicas: int = 3, seed: int = 3,
+                  device=None) -> dict:
+    """Kill one of N router replicas under load: an in-process
+    Router behind ``make_server``, loadgen flowing, then
+    ``kill_replica(0)``.  The route-around contract: bounded goodput
+    dip, full recovery, zero lost requests among arrivals after the
+    kill settles, and bitwise-identical answers from survivors (on the
+    card every replica's captured graphs share ``cuda:0``, so the
+    survivors' answers are another engine's replays)."""
+    from hpnn_tpu_torch.models import kernel as kernel_mod
+    from hpnn_tpu_torch.serve import make_server
+    from hpnn_tpu_torch.serve.router import Router
+
+    _shield_sigpipe()
+    out: dict = {"ev": "drill.replica", "ok": False,
+                 "device": _device_arg(device),
+                 "replicas": n_replicas, "killed_rank": 0}
+    k, _ = kernel_mod.generate(7, 8, [5], 2)
+    probe = np.linspace(-1.0, 1.0, 8)
+    router = Router(n_replicas, max_batch=16, max_wait_ms=0.5,
+                    device=device)
+    server = None
+    try:
+        router.register_kernel(KERNEL, k)
+        before = np.asarray(router.infer(KERNEL, probe))
+        server = make_server(router)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever,
+                                  daemon=True)
+        thread.start()
+        load = _Load(port, rate=rate, ingest_frac=0.0, seed=seed)
+        time.sleep(1.5)           # baseline bins
+        t_kill = load.now()
+        router.kill_replica(0)
+        records = load.finish(settle_s=2.5)
+        after = np.asarray(router.infer(KERNEL, probe))
+        doc = router.health()
+        out.update(blast_radius(records, t_kill))
+        # the router is supposed to make the death invisible at the
+        # edge: once the kill has settled (in-flight victims re-routed
+        # or failed within a beat), NOTHING may be lost on survivors
+        out["survivors_lost"] = sum(
+            1 for r in records
+            if r["status"] == "lost" and r["t"] >= t_kill + 0.25)
+        out["live_replicas"] = doc["router"]["live_replicas"]
+        out["survivor_bitwise"] = bool(np.array_equal(before, after))
+        out["ok"] = bool(out["recovery_s"] is not None
+                         and out["survivors_lost"] == 0
+                         and out["live_replicas"] == n_replicas - 1
+                         and out["survivor_bitwise"])
+        return out
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        router.close()
+
+
+def drill_alert(workdir: str, *, rate: float = 60.0,
+                n_replicas: int = 2, seed: int = 4,
+                device=None) -> dict:
+    """Prove the alert plane live: a threshold rule on the router's
+    ``router.ready_replicas`` gauge (obs/alerts.py), loadgen flowing,
+    then ``kill_replica(0)``.  The gauge re-emits on the kill, the
+    rule breaches, ``alert.fire`` lands with the flight-recorder dump
+    attached; ``spawn_replica()`` (on the card: a whole bucket menu
+    captured while the survivors replay) re-emits a healthy value and
+    the rule resolves.  Asserts the fire/resolve pair is in the sink,
+    the dump file exists, and both transitions happened within 5 s."""
+    from hpnn_tpu_torch import obs
+    from hpnn_tpu_torch.models import kernel as kernel_mod
+    from hpnn_tpu_torch.serve import make_server
+    from hpnn_tpu_torch.serve.router import Router
+
+    _shield_sigpipe()
+    out: dict = {"ev": "drill.alert", "ok": False,
+                 "device": _device_arg(device),
+                 "replicas": n_replicas, "killed_rank": 0}
+    sink = os.path.join(workdir, "alert-drill.metrics.jsonl")
+    flight_path = os.path.join(workdir, "alert-flight.jsonl")
+    env = _Env(("HPNN_ALERTS", "HPNN_FLIGHT", "HPNN_METRICS"))
+    os.environ["HPNN_ALERTS"] = (
+        f"replicas_down@router.ready_replicas<{n_replicas - 0.5}:"
+        "for=0,cooldown=0,severity=crit")
+    os.environ["HPNN_FLIGHT"] = flight_path
+    k, _ = kernel_mod.generate(7, 8, [5], 2)
+    router = server = None
+    try:
+        obs.configure(sink)   # re-reads every knob, arms rule + ring
+        router = Router(n_replicas, max_batch=16, max_wait_ms=0.5,
+                        device=device)
+        router.register_kernel(KERNEL, k)
+        server = make_server(router)
+        port = server.server_address[1]
+        threading.Thread(target=server.serve_forever,
+                         daemon=True).start()
+        load = _Load(port, rate=rate, ingest_frac=0.0, seed=seed)
+        time.sleep(1.5)           # baseline bins under healthy fleet
+        t_kill = load.now()
+        router.kill_replica(0)    # gauge drops below the bound
+        fired = _wait(lambda: (obs.alerts.health_doc().get("active")
+                               or None), 5.0, interval_s=0.02)
+        t_fire = load.now()
+        t_spawn = time.perf_counter()
+        router.spawn_replica()    # gauge back to healthy
+        out["spawn_s"] = round(time.perf_counter() - t_spawn, 3)
+        resolved = _wait(
+            lambda: (obs.alerts.health_doc().get("active") == 0
+                     or None), 5.0, interval_s=0.02)
+        t_resolve = load.now()
+        records = load.finish(settle_s=0.5)
+        census = obs.alerts.health_doc()
+        # close the sink so the audit reads a complete stream
+        obs.configure(None)
+        events = _events(sink)
+        fires = [r for r in events if r.get("ev") == "alert.fire"
+                 and r.get("rule") == "replicas_down"]
+        resolves = [r for r in events if r.get("ev") == "alert.resolve"
+                    and r.get("rule") == "replicas_down"]
+        out.update(blast_radius(records, t_kill))
+        out["fire_s"] = round(t_fire - t_kill, 3) if fired else None
+        out["resolve_s"] = (round(t_resolve - t_kill, 3)
+                            if resolved else None)
+        out["resolved"] = bool(resolved and resolves)
+        out["fired_total"] = census.get("fired_total", 0)
+        out["flight_attached"] = bool(
+            fires and fires[-1].get("flight")
+            and os.path.exists(fires[-1]["flight"]))
+        out["ok"] = bool(fired and fires
+                         and out["resolved"]
+                         and out["flight_attached"])
+        return out
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if router is not None:
+            router.close()
+        obs.configure(None)
+        env.restore()
+
+
+def drill_worker(workdir: str, *, rate: float = 60.0,
+                 n_workers: int = 2, seed: int = 5,
+                 ready_timeout_s: float = 90.0, device=None) -> dict:
+    """Kill one of N worker PROCESSES behind a ClusterRouter under
+    load: a WorkerSupervisor over real ``python -m
+    hpnn_tpu_torch.cli.online_nn`` children sharing one WAL, the router
+    as the HTTP edge, then SIGKILL one worker mid-stream.  The
+    cross-host route-around contract: bounded goodput dip, zero
+    ``survivors_lost``, bitwise survivor answers, and the corpse
+    REPLACED by the supervisor restart policy within 30 s
+    (``replaced_s``; on the card the replacement's boot captures its
+    bucket menus)."""
+    from hpnn_tpu_torch.fleet import ClusterRouter, WorkerSupervisor
+    from hpnn_tpu_torch.fleet.router import CheckpointPublisher
+    from hpnn_tpu_torch.models import kernel as kernel_mod
+    from hpnn_tpu_torch.online import wal as wal_mod
+    from hpnn_tpu_torch.serve import make_server
+
+    _shield_sigpipe()
+    out: dict = {"ev": "drill.worker", "ok": False,
+                 "device": _device_arg(device), "workers": n_workers}
+    conf_path = os.path.join(workdir, "nn.conf")
+    with open(conf_path, "w") as fp:
+        fp.write(CONF)
+    wal_dir = os.path.join(workdir, "wal")
+    k, _ = kernel_mod.generate(7, 8, [5], 2)
+    # seed the shared WAL so every worker restores (and can reload)
+    # the same resident weights
+    wal_mod.PromotionWAL(wal_dir).commit(KERNEL, k.weights, version=1,
+                                         reason="seed")
+    probe = np.linspace(-1.0, 1.0, 8)
+    sup = WorkerSupervisor(
+        conf_path, workdir=workdir, kind="online", wal_dir=wal_dir,
+        args=("--interval-s", "600",   # trainer parked: the drill
+                                       # injures processes, not weights
+              "--device", _device_arg(device)),
+        ready_timeout_s=ready_timeout_s)
+    router = server = None
+    try:
+        t_boot = time.perf_counter()
+        try:
+            for _ in range(n_workers):
+                sup.spawn()
+        except (RuntimeError, OSError) as exc:
+            out["error"] = f"worker cannot start: {exc}"
+            return out
+        out["boot_s"] = round(time.perf_counter() - t_boot, 3)
+        router = ClusterRouter(
+            supervisor=sup,
+            publisher=CheckpointPublisher(wal_dir=wal_dir))
+        before = np.asarray(router.infer(KERNEL, probe, timeout_s=10.0))
+        server = make_server(router)
+        port = server.server_address[1]
+        threading.Thread(target=server.serve_forever,
+                         daemon=True).start()
+        load = _Load(port, rate=rate, ingest_frac=0.0, seed=seed)
+        time.sleep(1.5)           # baseline bins
+        victim = sup.ranks()[0]
+        out["killed_rank"] = victim
+        t_kill = load.now()
+        sup.kill9(victim)
+        # the supervisor restart policy, timed: reap the corpse and
+        # spawn its replacement (readiness-gated, so "replaced" means
+        # SERVING, not just forked)
+        def replace():
+            t0 = time.perf_counter()
+            got = sup.replace_dead()
+            if got:   # the replacement's own spawn -> ready
+                out["replacement_boot_s"] = round(time.perf_counter() - t0, 3)
+            return got or None
+
+        replaced = _wait(replace, 30.0, interval_s=0.05)
+        t_replaced = load.now()
+        records = load.finish(settle_s=2.5)
+        after = np.asarray(router.infer(KERNEL, probe, timeout_s=10.0))
+        out.update(blast_radius(records, t_kill))
+        # the router is supposed to make the worker death invisible at
+        # the edge: after the kill settles, nothing may be lost
+        out["survivors_lost"] = sum(
+            1 for r in records
+            if r["status"] == "lost" and r["t"] >= t_kill + 0.25)
+        out["replaced_s"] = (round(t_replaced - t_kill, 3)
+                             if replaced else None)
+        out["width_after"] = sup.width()
+        out["survivor_bitwise"] = bool(np.array_equal(before, after))
+        out["ok"] = bool(out["recovery_s"] is not None
+                         and out["survivors_lost"] == 0
+                         and out["replaced_s"] is not None
+                         and out["width_after"] == n_workers
+                         and out["survivor_bitwise"])
+        return out
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if router is not None:
+            router.close()
+        sup.close()
+
+
+def drill_capsule(workdir: str, *, rate: float = 12.0,
+                  seed: int = 6, delay_ms: float = 40.0,
+                  device=None) -> dict:
+    """The tail-latency forensics plane's live proof
+    (docs/observability.md "Forensics"): an in-process serve Session
+    with the tail sampler armed (``HPNN_SAMPLE=0.5``), a chaos delay
+    injected at the ``serve.dispatch`` seam, an ``slo.p99_ms``
+    threshold rule, and a capsule dir.  Loadgen traffic drives p99
+    over the bound → the alert fires → the capture trigger lands a
+    capsule (spans + gauges + a real ``torch.profiler`` window).
+    Asserts the capsule manifest landed within 10 s of the fire with a
+    non-empty span ring and profile, and that the tail report
+    (``hpnn_tpu_torch/tools/tail_report.py``) over the run's sink
+    blames the **dispatch** phase for most of the tail — the injected
+    seam, not a neighbor."""
+    from hpnn_tpu_torch import chaos as chaos_mod
+    from hpnn_tpu_torch import obs
+    from hpnn_tpu_torch.models import kernel as kernel_mod
+    from hpnn_tpu_torch.serve import Session, make_server
+    from hpnn_tpu_torch.tools import tail_report
+
+    _shield_sigpipe()
+    out: dict = {"ev": "drill.capsule", "ok": False,
+                 "device": _device_arg(device), "delay_ms": delay_ms}
+    # Keep the offered inter-arrival above the injected delay so
+    # batches stay singletons: a backlogged queue would launder the
+    # dispatch delay into queue time (and, for non-batch[0] members,
+    # into cross-request gap) and the blame assertion below would
+    # point at the wrong phase.
+    rate = min(rate, 500.0 / max(delay_ms, 1.0))
+    sink = os.path.join(workdir, "capsule-drill.metrics.jsonl")
+    capsule_dir = os.path.join(workdir, "capsules")
+    env = _Env(("HPNN_SAMPLE", "HPNN_CAPSULE_DIR",
+                "HPNN_CAPSULE_PROFILE_MS", "HPNN_CAPSULE_COOLDOWN_S",
+                "HPNN_ALERTS", "HPNN_SLO_MS", "HPNN_CHAOS",
+                "HPNN_CHAOS_SEED", "HPNN_METRICS"))
+    os.environ["HPNN_SAMPLE"] = "0.5"
+    os.environ["HPNN_CAPSULE_DIR"] = capsule_dir
+    os.environ["HPNN_CAPSULE_PROFILE_MS"] = "50"
+    os.environ["HPNN_CAPSULE_COOLDOWN_S"] = "0"
+    os.environ["HPNN_SLO_MS"] = str(delay_ms / 2.0)
+    # for=1.0 holds the fire until the breach has been true for a
+    # second of traffic, so the span ring has sampled roots by the
+    # time the capsule's spans.jsonl is written (a for=0 rule can
+    # fire off the very first completed request, before any sampled
+    # root has closed, and capture an empty ring).
+    os.environ["HPNN_ALERTS"] = (
+        f"tail_p99@slo.p99_ms>{delay_ms / 2.0}:"
+        "for=1.0,cooldown=0,severity=warn")
+    os.environ["HPNN_CHAOS"] = f"delay@serve.dispatch:ms={delay_ms}"
+    os.environ["HPNN_CHAOS_SEED"] = "1"
+    k, _ = kernel_mod.generate(7, 8, [5], 2)
+    session = server = None
+    try:
+        # warm compile BEFORE arming obs: the first request's captures
+        # would otherwise spike slo.p99_ms and fire the alert off the
+        # warmup, not the injected seam
+        session = Session(max_batch=16, n_buckets=2, max_wait_ms=0.5,
+                          device=device)
+        session.register_kernel(KERNEL, k)
+        warm = np.linspace(-1.0, 1.0, 8)
+        for _ in range(3):
+            session.infer(KERNEL, warm, timeout_s=10.0)
+        if session.engine.device.type == "cuda":
+            # the process's first torch.profiler session starts CUPTI,
+            # 20-35 s on an H100: paid here, not inside the 10 s
+            # window between the fire and the capsule's manifest
+            from hpnn_tpu_torch.obs import profiler
+            profiler.window(os.path.join(workdir, "profiler-warmup"), 10.0)
+        obs.configure(sink)   # re-reads every knob: sampler, rule,
+        chaos_mod._reset_for_tests()  # capsule hook, chaos plan
+        server = make_server(session)
+        port = server.server_address[1]
+        threading.Thread(target=server.serve_forever,
+                         daemon=True).start()
+        load = _Load(port, rate=rate, ingest_frac=0.0, seed=seed)
+        fired = _wait(lambda: (obs.alerts.health_doc().get("active")
+                               or None), 15.0, interval_s=0.02)
+        t_fire = load.now()
+        manifest_path = _wait(lambda: _manifest(capsule_dir), 10.0,
+                              interval_s=0.05)
+        t_capsule = load.now()
+        records = load.finish(settle_s=0.2)
+        census = obs.triggers.health_doc()
+        obs.configure(None)   # close the sink for the audit below
+        out["requests"] = len(records)
+        out["fired"] = bool(fired)
+        out["capture_s"] = (round(t_capsule - t_fire, 3)
+                            if fired and manifest_path else None)
+        man = {}
+        if manifest_path:
+            with open(manifest_path) as fp:
+                man = json.load(fp)
+        out["capsule"] = man.get("capsule")
+        out["capsule_spans"] = man.get("spans", 0)
+        profile = man.get("profile") or {}
+        out["profile_files"] = profile.get("files", 0)
+        out["captures_total"] = census.get("captures", 0)
+        # the forensic half: the report over the run's own sink must
+        # pin the tail on the injected seam
+        rep = tail_report.analyze(tail_report.load_spans([sink]),
+                                  top=5)
+        out["sampled_roots"] = rep["requests"]
+        out["blame_pct"] = rep["blame_pct"]
+        out["dispatch_blame_pct"] = rep["blame_pct"].get("dispatch",
+                                                         0.0)
+        out["ok"] = bool(fired and manifest_path
+                         and str(man.get("reason", "")
+                                 ).startswith("alert:tail_p99")
+                         and out["capsule_spans"] > 0
+                         and out["profile_files"] > 0
+                         and rep["requests"] > 0
+                         and out["dispatch_blame_pct"] > 50.0)
+        return out
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+        if session is not None:
+            session.close()
+        obs.configure(None)
+        env.restore()
+        chaos_mod._reset_for_tests()
 
 
 def drill_drift(workdir: str, *, rate: float = 20.0,
@@ -1120,6 +1792,232 @@ def drill_hog(workdir: str, *, rate: float = 12.0, seed: int = 11,
         env.restore()
 
 
+def drill_tune(workdir: str, *, rate: float = 0.0, seed: int = 13,
+               n_roots: int = 24, device=None) -> dict:
+    """The self-tuning plane's proof (docs/selftuning.md): drive the
+    REAL online blame engine with a synthetic span stream per blame
+    class, and a scripted-clock :class:`~hpnn_tpu_torch.tune.engine.Tuner`
+    over real actuator targets must move the MATCHING knob, watch the
+    tail recover, and roll a bad move back bitwise.
+
+    Deterministic and in-process — no child, no wall-clock races
+    (``rate`` is accepted for :func:`run_drills` signature parity and
+    unused).  Per class: inject ``n_roots`` request roots whose
+    subtree charges ~90% of the root time to that class, tick, assert
+    ``tune.apply`` names ``RULE_OF[class]``, script the p99 down, and
+    let the watch expire clean (``watch_pass``).  Then two bad moves:
+    a second ``precision_down`` whose scripted p99 regresses past the
+    rollback ratio inside the watch (restore must be the prior
+    precision tag, registry version chain strictly monotone; on the
+    card each move captures the kernel's graphs anew on the live
+    session), and a second ``quota_squeeze`` rolled back directly
+    (restored spec must be the exact pre-apply :class:`TenantSpec`
+    tuple).  Finally the sink must pass :func:`lint_tune` (a copy of
+    ``tools/check_obs_catalog.py --tune``)."""
+    import itertools
+
+    from hpnn_tpu_torch import obs, serve, tune
+    from hpnn_tpu_torch.fleet import autoscaler as autoscaler_mod
+    from hpnn_tpu_torch.models import kernel as kernel_mod
+    from hpnn_tpu_torch.obs import blame
+    from hpnn_tpu_torch.tenant.quota import QuotaEnforcer, TenantSpec
+    from hpnn_tpu_torch.tune.engine import RULE_OF
+
+    _shield_sigpipe()
+    out: dict = {"ev": "drill.tune", "ok": False,
+                 "device": _device_arg(device)}
+    sink = os.path.join(workdir, "tune-drill.metrics.jsonl")
+    env = _Env(("HPNN_METRICS", "HPNN_BLAME", "HPNN_BLAME_WINDOW",
+                "HPNN_TUNE"))
+
+    class _MemFleet:
+        """width()/ranks()/spawn()/drain_and_kill() in memory — the
+        request_up/request_down surface with no real processes."""
+
+        def __init__(self, width: int):
+            self._ranks = list(range(width))
+            self._next = width
+
+        def width(self):
+            return len(self._ranks)
+
+        def ranks(self):
+            return list(self._ranks)
+
+        def spawn(self):
+            self._ranks.append(self._next)
+            self._next += 1
+
+        def drain_and_kill(self, rank):
+            self._ranks.remove(rank)
+
+    ids = itertools.count(1)
+    child_name = {"queue": "serve.batch.queue",
+                  "dispatch": "serve.dispatch",
+                  "spill": "serve.spill_reload",
+                  "shed_retry": "serve.retry_wait"}
+
+    def inject(phase: str) -> None:
+        """``n_roots`` fresh request roots, ~90% of each charged to
+        ``phase`` — fed through the real ``note_record`` tap
+        (children close before their root, as in the span
+        lifecycle)."""
+        for _ in range(n_roots):
+            root = f"r{next(ids)}"
+            child = {"span": f"c{next(ids)}", "parent": root,
+                     "name": child_name[phase], "t0": 0.0, "dt": 0.9}
+            if phase == "shed_retry":
+                child["failed"] = "Shed"
+            blame.note_record(child)
+            blame.note_record({"span": root, "parent": None,
+                               "name": "serve.request", "t0": 0.0,
+                               "dt": 1.0, "kernel": KERNEL})
+
+    sess = None
+    try:
+        obs.configure(sink)
+        sess = serve.Session(max_batch=8, n_buckets=2,
+                             max_wait_ms=0.5, mode="compiled",
+                             device=device)
+        k, _ = kernel_mod.generate(seed, 8, [5], 2)
+        sess.register_kernel(KERNEL, k)
+        scaler = autoscaler_mod.Autoscaler(
+            _MemFleet(2), None,
+            policy=autoscaler_mod.Policy(min_width=1, max_width=4,
+                                         up_step=1))
+        quota = QuotaEnforcer(
+            {"bronze": TenantSpec("bronze", "bronze", rate_rps=40.0)})
+        policy = tune.Policy(cooldown_s=5.0, watch_s=2.0)
+        clock = {"t": 1000.0}
+        p99 = {"v": 100.0}
+
+        def fresh_tuner():
+            return tune.Tuner(
+                sess, autoscaler=scaler, quota=quota, policy=policy,
+                clock=lambda: clock["t"], p99_fn=lambda: p99["v"],
+                burn_fn=lambda: 3.0)
+
+        def one_round(phase: str, *, regress: bool) -> dict:
+            """inject → tick → scripted watch; returns the round's
+            verdict/action plus what check_watch did."""
+            blame.configure("1", window=16)  # fresh window per class
+            inject(phase)
+            p99["v"] = 100.0
+            tuner = fresh_tuner()
+            t_apply = clock["t"]
+            d = tuner.tick()
+            if regress:
+                clock["t"] = t_apply + policy.watch_s / 2
+                p99["v"] = 300.0  # past before * 1.25 inside watch
+            else:
+                clock["t"] = t_apply + policy.watch_s + 0.1
+                p99["v"] = 40.0   # recovered: watch expires clean
+            rolled = tuner.check_watch()
+            return {"verdict": d.get("verdict"),
+                    "action": d.get("action"), "id": d.get("id"),
+                    "rolled_back": rolled, "tuner": tuner}
+
+        rounds: dict = {}
+        for phase in ("queue", "dispatch", "spill", "shed_retry"):
+            rounds[phase] = one_round(phase, regress=False)
+        width_after = scaler.supervisor.width()
+        buckets_after = tuple(sess.engine.buckets)
+        squeezed_rate = quota.spec("bronze").rate_rps
+
+        # bad move 1: a second precision notch (f32 -> bf16) whose
+        # scripted p99 regresses inside the watch -> rollback must
+        # restore the prior tag as a NEW version (chain monotone)
+        v_before_bad = sess.registry.get(KERNEL).version
+        prec_before_bad = sess.registry.get(KERNEL).precision
+        bad_prec = one_round("dispatch", regress=True)
+        ent = sess.registry.get(KERNEL)
+        prec_restored = ent.precision == prec_before_bad
+        versions_monotone = ent.version > v_before_bad
+
+        # bad move 2: a second quota squeeze rolled back directly (the
+        # bad-action path drills exercise) — the restored spec must be
+        # the exact pre-apply tuple
+        spec_before_bad = quota.spec("bronze")
+        blame.configure("1", window=16)
+        inject("shed_retry")
+        p99["v"] = 100.0
+        bad_quota_tuner = fresh_tuner()
+        bad_quota = bad_quota_tuner.tick()
+        bad_quota_rolled = bad_quota_tuner.rollback("drill_bad_action")
+        quota_restored = quota.spec("bronze") == spec_before_bad
+
+        blame.flush()
+        obs.configure(None)  # close the sink for a complete audit
+
+        events = _events(sink)
+        applies = [r for r in events if r.get("ev") == "tune.apply"]
+        rollbacks = [r for r in events
+                     if r.get("ev") == "tune.rollback"]
+        scale_ups = [r for r in events
+                     if r.get("ev") == "fleet.scale_up"
+                     and r.get("reason") == "tune:queue"]
+        # warmup re-emits the resident version; the chain claim is
+        # over the retags themselves (source=set): every move — the
+        # two downshifts AND the rollback's restore — a fresh version
+        prec_versions = [r.get("version") for r in events
+                         if r.get("ev") == "serve.precision"
+                         and r.get("source") == "set"]
+
+        matched = sum(
+            1 for phase in rounds
+            if rounds[phase]["verdict"] == "apply"
+            and rounds[phase]["action"] == RULE_OF[phase])
+        out["applies"] = round(matched / 4.0, 3)
+        out["actions"] = {p: rounds[p]["action"] for p in rounds}
+        out["recovered"] = sum(
+            1 for p in rounds if rounds[p]["rolled_back"] is None)
+        out["width_after"] = width_after
+        out["buckets_after"] = list(buckets_after)
+        out["squeezed_rate_rps"] = squeezed_rate
+        out["bad_prec_rolled_back"] = bad_prec["rolled_back"]
+        out["precision_restored_bitwise"] = prec_restored
+        out["version_chain_monotone"] = bool(
+            versions_monotone
+            and prec_versions == sorted(prec_versions)
+            and len(set(prec_versions)) == len(prec_versions))
+        out["bad_quota_rolled_back"] = bad_quota_rolled
+        out["quota_restored_bitwise"] = quota_restored
+        out["rollback_bitwise"] = (
+            1.0 if (prec_restored and quota_restored) else 0.0)
+        out["applies_in_sink"] = len(applies)
+        out["rollbacks_in_sink"] = len(rollbacks)
+        rollback_pairs_ok = (
+            len(rollbacks) == 2
+            and {r.get("id") for r in rollbacks}
+            <= {a.get("id") for a in applies}
+            and {r.get("reason") for r in rollbacks}
+            == {"p99_regression", "drill_bad_action"})
+        out["rollback_pairs_ok"] = rollback_pairs_ok
+        lint = lint_tune(sink)
+        out["lint_failures"] = lint
+        out["ok"] = bool(
+            matched == 4
+            and out["recovered"] == 4
+            and width_after == 3            # scale_up: 2 -> 3
+            and len(buckets_after) == 3     # grow_buckets: 2 -> 3
+            and squeezed_rate == 20.0       # quota_squeeze: 40 -> 20
+            and bad_prec["rolled_back"] == "precision_down"
+            and bad_quota["verdict"] == "apply"
+            and bad_quota_rolled == "quota_squeeze"
+            and out["rollback_bitwise"] == 1.0
+            and out["version_chain_monotone"]
+            and scale_ups
+            and rollback_pairs_ok
+            and not lint)
+        return out
+    finally:
+        if sess is not None:
+            sess.close()
+        obs.configure(None)
+        blame.configure(None)
+        env.restore()
+
+
 def drill_torn(workdir: str, *, rate: float = 30.0, seed: int = 8,
                n_hostile: int = 3, device=None) -> dict:
     """The connection plane's live proof (docs/serving.md "Connection
@@ -1281,9 +2179,16 @@ def drill_torn(workdir: str, *, rate: float = 30.0, seed: int = 8,
 
 DRILLS = {
     "kill9": drill_kill9,
+    "reload": drill_reload,
+    "sentinel": drill_sentinel,
+    "replica": drill_replica,
+    "alert": drill_alert,
+    "worker": drill_worker,
+    "capsule": drill_capsule,
     "drift": drill_drift,
     "quota": drill_quota,
     "hog": drill_hog,
+    "tune": drill_tune,
     "torn": drill_torn,
 }
 
@@ -1317,8 +2222,9 @@ def run_drills(names, *, workdir: str | None = None,
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        description="chaos drills against the port (kill9 / drift / "
-                    "quota / hog / torn)")
+        description="chaos drills against the port (kill9 / reload / "
+                    "sentinel / replica / alert / worker / capsule / "
+                    "drift / quota / hog / tune / torn)")
     ap.add_argument("--drill", default="all",
                     choices=("all", *DRILLS))
     ap.add_argument("--rate", type=float, default=40.0,

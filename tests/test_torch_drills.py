@@ -10,13 +10,12 @@ real ``python -m hpnn_tpu_torch.cli.online_nn --device cpu`` child,
 torn, quota, hog and drift in process.  Each drill asserts its own
 outcome keys, runs under a 60 s limit of its own, and the report copies
 (``lint_conn``, ``blame_table``) are held against the repo's tools on
-the drill's own sink.
+the drill's own sink.  The other seven drills are in
+``tests/test_torch_drills_serve.py`` and ``test_torch_drills_fleet.py``.
 """
 
 import contextlib
-import importlib.util
 import json
-import os
 import signal
 import socket
 import threading
@@ -24,53 +23,13 @@ import time
 
 import numpy as np
 import pytest
+from torch_drill_env import DRILL_LIMIT_S, _clean_process_state  # noqa: F401
+from torch_drill_env import limit, load_tool
 
 from hpnn_tpu_torch import serve
 from hpnn_tpu_torch.models import kernel as km
 from hpnn_tpu_torch.serve.server import make_server
 from hpnn_tpu_torch.tools import chaos_drill, loadgen
-
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-DRILL_LIMIT_S = 60
-
-
-def _load_tool(name):
-    spec = importlib.util.spec_from_file_location(
-        f"_repo_tool_{name}", os.path.join(ROOT, "tools", f"{name}.py"))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod
-
-
-@pytest.fixture(autouse=True)
-def _clean_process_state():
-    """The environment restored whole and the port's obs memos reset
-    around each test (a drill arms knobs and a sink)."""
-    from hpnn_tpu_torch import obs
-
-    saved = dict(os.environ)
-    for knob in obs.ENV_KNOBS:
-        os.environ.pop(knob, None)
-    obs._reset_for_tests()
-    yield
-    obs.configure(None)
-    os.environ.clear()
-    os.environ.update(saved)
-    obs._reset_for_tests()
-
-
-@contextlib.contextmanager
-def _limit(seconds, what):
-    def expire(signum, frame):
-        raise TimeoutError(f"{what} took more than {seconds} s")
-
-    old = signal.signal(signal.SIGALRM, expire)
-    signal.setitimer(signal.ITIMER_REAL, seconds)
-    try:
-        yield
-    finally:
-        signal.setitimer(signal.ITIMER_REAL, 0)
-        signal.signal(signal.SIGALRM, old)
 
 
 def _free_port():
@@ -155,7 +114,7 @@ def test_loadgen_stop_event_ends_the_run_early():
 def test_loadgen_summaries_match_the_repo_tool():
     """The same arrivals, Zipf draws and summary as ``tools/loadgen.py``
     on the same seeds and records."""
-    ref = _load_tool("loadgen")
+    ref = load_tool("loadgen")
     for process in ("poisson", "burst"):
         a = loadgen.make_arrivals(process, 30.0, 5.0, np.random.RandomState(8))
         b = ref.make_arrivals(process, 30.0, 5.0, np.random.RandomState(8))
@@ -191,14 +150,14 @@ def test_drill_kill9_end_to_end(tmp_path):
     SIGKILLed after a WAL-committed promotion and restarted on the same
     port and WAL dir: the resident weights come back bitwise the last
     committed checkpoint's and goodput recovers."""
-    with _limit(DRILL_LIMIT_S, "kill9"):
+    with limit(DRILL_LIMIT_S, "kill9"):
         res = chaos_drill.drill_kill9(str(tmp_path), rate=30.0, device="cpu")
     assert res["ok"], res
     assert res["restored_bitwise"] is True
     assert res["wal_version"] >= 1
     assert res["recovery_s"] is not None and res["recovery_s"] >= 0.0
     assert res["lost"] >= 0 and res["requests"] > res["lost"]
-    lint = _load_tool("check_obs_catalog")
+    lint = load_tool("check_obs_catalog")
     row_path = tmp_path / "drill.jsonl"
     row_path.write_text(json.dumps(res) + "\n")
     assert lint.lint_chaos(str(row_path)) == []
@@ -208,14 +167,14 @@ def test_drill_kill9_that_cannot_start_fails(tmp_path, monkeypatch):
     """A child that never becomes ready is a failed drill with its
     reason, never a skip."""
     monkeypatch.setattr(chaos_drill, "CONF", "[name] drill\n[type] nonsense\n")
-    with _limit(DRILL_LIMIT_S, "kill9"):
+    with limit(DRILL_LIMIT_S, "kill9"):
         res = chaos_drill.drill_kill9(str(tmp_path), ready_timeout_s=20.0, device="cpu")
     assert res["ok"] is False and "skipped" not in res
     assert res["error"] == "child never became ready"
 
 
 def test_drill_torn(tmp_path):
-    with _limit(DRILL_LIMIT_S, "torn"):
+    with limit(DRILL_LIMIT_S, "torn"):
         res = chaos_drill.drill_torn(str(tmp_path), rate=40.0, device="cpu")
     assert res["ok"], res
     assert res["goodput_dip_pct"] <= 10.0 and res["clean_lost"] == 0
@@ -225,11 +184,11 @@ def test_drill_torn(tmp_path):
     assert res["fired"] and res["capsule_conn"] and res["lint_failures"] == []
     # the port's copy of the lint reads the sink as the repo's does
     sink = str(tmp_path / "torn-drill.metrics.jsonl")
-    assert _load_tool("check_obs_catalog").lint_conn(sink) == chaos_drill.lint_conn(sink) == []
+    assert load_tool("check_obs_catalog").lint_conn(sink) == chaos_drill.lint_conn(sink) == []
 
 
 def test_drill_quota(tmp_path):
-    with _limit(DRILL_LIMIT_S, "quota"):
+    with limit(DRILL_LIMIT_S, "quota"):
         res = chaos_drill.drill_quota(str(tmp_path), rate=40.0, device="cpu")
     assert res["ok"], res
     assert res["victim_goodput_ratio"] >= 0.75 and res["victim_shed"] == 0
@@ -238,7 +197,7 @@ def test_drill_quota(tmp_path):
 
 
 def test_drill_hog(tmp_path):
-    with _limit(DRILL_LIMIT_S, "hog"):
+    with limit(DRILL_LIMIT_S, "hog"):
         res = chaos_drill.drill_hog(str(tmp_path), rate=40.0, device="cpu")
     assert res["ok"], res
     assert res["detect_s"] <= 1.0 and res["ranked_top"] == "hog"
@@ -246,14 +205,14 @@ def test_drill_hog(tmp_path):
     assert res["alert_fired"] and res["capsule_meter_axes"]
     # the blame table over the port's meter is tools/tenant_report.py's
     sink = str(tmp_path / "hog-drill.metrics.jsonl")
-    rep = _load_tool("tenant_report")
+    rep = load_tool("tenant_report")
     ref = rep.analyze(rep.load_meter_docs([sink]), top=3)
     assert ref["tenants"][0]["tenant"] == "hog"
     assert abs(ref["tenants"][0]["share_pct"] - res["blame_pct"]) <= 0.01
 
 
 def test_drill_drift(tmp_path):
-    with _limit(DRILL_LIMIT_S, "drift"):
+    with limit(DRILL_LIMIT_S, "drift"):
         res = chaos_drill.drill_drift(str(tmp_path), rate=20.0, device="cpu")
     assert res["ok"], res
     assert res["rounds_to_detect"] is not None and res["lost"] == 0

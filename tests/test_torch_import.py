@@ -136,10 +136,13 @@ FLEET_MODULES = (
     "hpnn_tpu_torch.tools.bench_autoscale",
 )
 
-# the load generator and the chaos drills over the port
+# the load generator, the chaos drills, the tail report and the token
+# lint over the port
 DRILL_MODULES = (
     "hpnn_tpu_torch.tools.loadgen",
     "hpnn_tpu_torch.tools.chaos_drill",
+    "hpnn_tpu_torch.tools.tail_report",
+    "hpnn_tpu_torch.tools.check_tokens",
 )
 
 
@@ -190,11 +193,23 @@ def test_fleet_module_imports_no_jax(_plane_imports, module):
 
 @pytest.mark.parametrize("module", DRILL_MODULES)
 def test_drill_module_imports_no_jax(_plane_imports, module):
-    """The load generator and the chaos drills import neither jax nor
-    the JAX package, and their sources hold no such import."""
+    """The load generator, the chaos drills, the tail report and the
+    token lint import neither jax nor the JAX package, and their sources
+    hold no such import."""
     assert _plane_imports[module] == []
     with open(os.path.join(ROOT, *module.split(".")) + ".py") as fp:
         assert not _FORBIDDEN.search(fp.read())
+
+
+@pytest.mark.parametrize("module", DRILL_MODULES)
+def test_drill_module_loads_no_file_by_path(module):
+    """Nor do they load a module of the repo's tools or of the JAX
+    package by file path: each keeps its own copy of what it needs."""
+    with open(os.path.join(ROOT, *module.split(".")) + ".py") as fp:
+        src = fp.read()
+    assert "spec_from_file_location" not in src
+    assert "sys.path.insert" not in src
+    assert not re.search(r"[\"'/]hpnn_tpu/|[\"']tools/", src)
 
 
 @pytest.mark.parametrize("module", ONLINE_MODULES)
