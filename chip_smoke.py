@@ -1894,11 +1894,11 @@ def resume_obs_native(np, torch, dev, protos):
     check(out_p == out_a and opt_p == opt_a, "--profile: stdout or kernel.opt differs")
     events = json.load(open(os.path.join(pdir, "trace", "trace.json")))["traceEvents"]
     n_kern = sum(1 for e in events if "convergence_cluster" in str(e.get("name", "")))
-    n_rng = sum(1 for e in events if str(e.get("name", "")).startswith("hpnn.fused_chunk#"))
+    n_rng = sum(1 for e in events if e.get("name") == "train.chunk")
     check(n_kern >= math.ceil(N_TRAIN_ANN / CHUNK) and n_rng >= math.ceil(N_TRAIN_ANN / CHUNK),
           f"--profile: {n_kern} convergence kernels and {n_rng} chunk ranges in the trace")
     log(f"[obs] --profile: trace.json holds {n_kern} convergence_cluster kernel events and "
-        f"{n_rng} hpnn.fused_chunk ranges; stdout and kernel.opt byte-identical")
+        f"{n_rng} train.chunk ranges; stdout and kernel.opt byte-identical")
     stats["native"] = dict(parse_s=times, per_sample_round_s=dict(native=secs_a,
                                                                   python=secs_np),
                            batch_round_s=dict(native=secs_b, python=secs_nb))

@@ -16,6 +16,7 @@ The observability options (``cli/common.py``) never touch stdout.
 
 from __future__ import annotations
 
+import os
 import sys
 
 from hpnn_tpu_torch import config, obs, runtime
@@ -28,6 +29,11 @@ PROG = "train_nn"
 
 
 def main(argv: list[str] | None = None) -> int:
+    with obs.spans.span("train_nn.round"):
+        return _main(argv)
+
+
+def _main(argv: list[str] | None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     common.install_sigpipe_handler()
     runtime.init_all(1)
@@ -83,7 +89,10 @@ def _run(filename: str, opts: dict, mesh) -> int:
     if device is None:
         runtime.deinit_all()
         return -1
-    conf = config.load_conf(filename)
+    with obs.spans.span("io.conf_load") as sp:
+        conf = config.load_conf(filename)
+        if sp.id is not None:
+            obs.spans.finish(sp, bytes=_conf_bytes(filename, conf))
     if conf is None:
         sys.stderr.write("FAILED to read NN configuration file! (ABORTING)\n")
         runtime.deinit_all()
@@ -123,13 +132,26 @@ def _run(filename: str, opts: dict, mesh) -> int:
     return 0
 
 
-def _dump_kernel_file(conf, path: str) -> bool:
+def _conf_bytes(filename: str, conf) -> int:
+    """The bytes the conf load read: the conf and its ``[init]`` kernel
+    file."""
+    paths = [filename] + ([conf.f_kernel] if conf is not None and conf.f_kernel else [])
     try:
-        with open(path, "w") as fp:
-            config.dump_kernel(conf, fp)
-        return True
+        return sum(os.path.getsize(p) for p in paths)
     except OSError:
-        return False
+        return 0
+
+
+def _dump_kernel_file(conf, path: str) -> bool:
+    with obs.spans.span("io.kernel_dump", path=path) as sp:
+        try:
+            with open(path, "w") as fp:
+                config.dump_kernel(conf, fp)
+                n = fp.tell()
+        except OSError:
+            return False
+        obs.spans.finish(sp, bytes=n)
+        return True
 
 
 if __name__ == "__main__":

@@ -10,8 +10,8 @@ files unchanged:
 
 * a metrics registry (counters, gauges, timers, histograms) with a
   JSONL sink, ``HPNN_METRICS=<path>`` (obs/registry.py);
-* ``torch.profiler`` ranges for the protocol phases and the
-  ``--profile DIR`` trace (obs/profiler.py);
+* the ``--profile DIR`` trace (obs/profiler.py), in which, as under
+  any ``torch.profiler``, every context-manager span is a range;
 * device telemetry at round/chunk boundaries — card memory, native
   builds (obs/device.py);
 * live export: Prometheus text on ``GET /metrics`` and ``/healthz``
@@ -46,7 +46,6 @@ from hpnn_tpu_torch.obs import (alerts, blame, collector, cost, device,
                                 drift, export, flight, forensics, ledger,
                                 lockwatch, meter, probes, propagate, slo,
                                 spans, triggers)
-from hpnn_tpu_torch.obs.profiler import annotate, step_annotation
 from hpnn_tpu_torch.obs.registry import (
     ENV_KNOB,
     activate_memory,
@@ -92,7 +91,6 @@ __all__ = [
     "ENV_KNOBS",
     "activate_memory",
     "alerts",
-    "annotate",
     "blame",
     "collector",
     "configure",
@@ -118,7 +116,6 @@ __all__ = [
     "slo",
     "snapshot_state",
     "spans",
-    "step_annotation",
     "summary",
     "timer",
     "triggers",

@@ -1,15 +1,14 @@
-"""``torch.profiler`` annotations for the protocol phases, and the
-``--profile DIR`` trace (the port of ``hpnn_tpu/obs/profiler.py`` and of
-the JAX CLIs' ``profile_trace``).
+"""The ``--profile DIR`` trace and the process's one profiler slot (the
+port of ``hpnn_tpu/obs/profiler.py`` and of the JAX CLIs'
+``profile_trace``).
 
-:func:`annotate` and :func:`step_annotation` name a phase of the host
-timeline (``torch.profiler.record_function``): "fused chunk 3" instead
-of a bare kernel launch.  They cost nothing outside a :func:`trace`:
-the shared no-op context is returned unless this module's trace is
-collecting.  Scope names follow the JAX package's catalog
-(docs/observability.md): ``hpnn.fused_chunk`` (step = chunk index),
-``hpnn.sample_loop`` (a streaming sample), ``hpnn.batch_block`` (step =
-block index), ``hpnn.fleet_epoch``, ``hpnn.eval_forward``.
+The host timeline's names come from the spans (obs/spans.py): while any
+``torch.profiler`` collects in the process (:func:`collecting`: the
+``--profile`` trace, a capsule's :func:`window`, or a profiler that
+another module started, such as a benchmark's), every context-manager
+span also opens a ``record_function`` range of its own name, so
+``train.chunk`` or ``fleet.epoch`` lies on the trace's clock beside the
+kernels it launched.  Outside a profiler no range is opened.
 
 ``torch.profiler`` is one per process: a second profiler started while
 one runs does not nest.  So the process has one profiler slot, which
@@ -21,12 +20,10 @@ gets :class:`ProfilerBusy` and profiles nothing.
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 
-from hpnn_tpu_torch.obs.registry import _NULL_CTX
-
-_active = False
 # the process's one profiler: held by a trace or a window while it runs
 _slot = threading.Lock()
 
@@ -45,7 +42,6 @@ def _take_slot(who: str) -> None:
 def _profile(trace_dir: str):
     """A started ``torch.profiler`` over the host and, when there is a
     card, its kernels (the caller holds the slot)."""
-    global _active
     import torch
 
     acts = [torch.profiler.ProfilerActivity.CPU]
@@ -53,13 +49,10 @@ def _profile(trace_dir: str):
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
     prof.__enter__()
-    _active = True
     return prof
 
 
 def _finish(prof, trace_dir: str, exc=(None, None, None)) -> None:
-    global _active
-    _active = False
     try:
         prof.__exit__(*exc)
         os.makedirs(trace_dir, exist_ok=True)
@@ -68,25 +61,34 @@ def _finish(prof, trace_dir: str, exc=(None, None, None)) -> None:
         _slot.release()
 
 
-def annotate(name: str, **metadata):
-    """A ``record_function`` range named ``name`` while a trace is
-    collecting, else the shared no-op context."""
-    if not _active:
-        return _NULL_CTX
+_flag_module = None   # torch.autograd.profiler, once torch is imported
+
+
+def collecting() -> bool:
+    """True while any ``torch.profiler`` collects in this process: one
+    read of torch's own flag (False before torch is imported, when no
+    profiler can run)."""
+    global _flag_module
+    mod = _flag_module
+    if mod is None:
+        mod = _flag_module = sys.modules.get("torch.autograd.profiler")
+        if mod is None:
+            return False
+    return mod._is_profiler_enabled
+
+
+def open_range(name: str):
+    """A ``record_function`` range named ``name``, opened on this
+    thread; close it with :func:`close_range` on the same thread."""
     import torch
 
-    return torch.profiler.record_function(name)
+    rf = torch.profiler.record_function(name)
+    rf.__enter__()
+    return rf
 
 
-def step_annotation(name: str, step: int):
-    """Like :func:`annotate`, the range named ``<name>#<step>`` (the
-    chunk or block index), the counterpart of JAX's
-    ``StepTraceAnnotation``."""
-    if not _active:
-        return _NULL_CTX
-    import torch
-
-    return torch.profiler.record_function(f"{name}#{step}")
+def close_range(rf) -> None:
+    rf.__exit__(None, None, None)
 
 
 class trace:

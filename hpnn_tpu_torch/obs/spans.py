@@ -1,5 +1,5 @@
-"""Span model for latency attribution (the ``HPNN_SPANS`` knob): the
-port of ``hpnn_tpu/obs/spans.py``.
+"""Span model for latency attribution (the ``HPNN_SPANS`` knob, and any
+``torch.profiler``): the port of ``hpnn_tpu/obs/spans.py``.
 
 Timers (registry.py) answer "how long did this named block take, in
 aggregate"; they cannot answer "where inside THIS request did the time
@@ -41,9 +41,21 @@ Two usage shapes:
   ``start``/``finish`` never touch the ambient stack; the parent is
   whatever span object (or id) the caller threads through.
 
-Contract (same as every obs knob): ``HPNN_SPANS`` unset ⇒ one env read
-ever, then every call is a constant-time no-op returning a shared null
-span — no clock reads, no allocation, no stdout bytes.
+A span is real when ``HPNN_SPANS`` is set or while any
+``torch.profiler`` collects in the process (``profiler.collecting()``:
+the ``--profile`` trace, a capsule's window, a benchmark's profiler).
+While one collects, a context-manager span also opens a
+``record_function`` range of its own name on entry and closes it in
+:func:`finish`, so the span lies on the device trace's clock beside the
+kernels it launched; a :func:`start` span, which may be finished on
+another thread, opens no range.  Every real span adds its wall seconds
+to an in-process table, ``totals()`` ``{name: (count, seconds)}``,
+which only ``_reset_for_tests`` clears.
+
+Contract (same as every obs knob): ``HPNN_SPANS`` unset and no
+profiler ⇒ one env read ever, then every call is a constant-time no-op
+after one flag read, returning a shared null span — no clock reads, no
+allocation, no stdout bytes.
 Each ``span.end`` also feeds the cumulative ``span.<name>`` aggregate,
 so per-name span summaries show up on ``/metrics`` next to the plain
 timers.  stdlib-only; emission rides the registry, which the knob arms
@@ -57,13 +69,17 @@ import os
 import threading
 import time
 
-from hpnn_tpu_torch.obs import blame, registry
+from hpnn_tpu_torch.obs import blame, profiler, registry
+from hpnn_tpu_torch.obs.profiler import collecting as _collecting
 
 ENV_KNOB = "HPNN_SPANS"
 
 _enabled: bool | None = None
 _ids = itertools.count(1)
 _tls = threading.local()
+# name -> [count, seconds] of every real span finished in the process
+_totals: dict[str, list] = {}
+_totals_lock = threading.Lock()
 
 
 def enabled() -> bool:
@@ -87,7 +103,7 @@ class _NullSpan:
     def __enter__(self):
         return self
 
-    def __exit__(self, *exc):
+    def __exit__(self, exc_type, exc, tb):   # no *args: no tuple to pack
         return False
 
 
@@ -95,7 +111,7 @@ _NULL_SPAN = _NullSpan()
 
 
 class Span:
-    __slots__ = ("id", "parent", "name", "fields", "t0", "_done")
+    __slots__ = ("id", "parent", "name", "fields", "t0", "_done", "_range")
 
     def __init__(self, name: str, parent: int | None, fields: dict):
         self.id = next(_ids)
@@ -104,13 +120,17 @@ class Span:
         self.fields = fields
         self.t0 = time.perf_counter()
         self._done = False
+        self._range = None
 
-    # context-manager form: ambient nesting via the thread-local stack
+    # context-manager form: ambient nesting via the thread-local stack,
+    # and the profiler's range while one collects
     def __enter__(self):
         stack = getattr(_tls, "stack", None)
         if stack is None:
             stack = _tls.stack = []
         stack.append(self)
+        if _collecting():
+            self._range = profiler.open_range(self.name)
         return self
 
     def __exit__(self, exc_type, exc, tb):
@@ -144,7 +164,11 @@ def span(name: str, parent=None, **fields):
     With ``HPNN_SPANS`` unset, a real (forced/sampled) parent span
     still gets a real child — that is how a sampled request's tree
     grows under ``HPNN_SAMPLE`` (obs/forensics.py)."""
-    if not enabled() and not isinstance(parent, Span):
+    # real under the knob, a collecting profiler or a real parent; the
+    # memo and the flag are read first, inline: with all three off this
+    # test is the span's whole cost
+    if not (_enabled or _collecting() or (_enabled is None and enabled())
+            or (parent is not None and isinstance(parent, Span))):
         return _NULL_SPAN
     return Span(name, _parent_id(parent), dict(fields))
 
@@ -154,7 +178,9 @@ def start(name: str, parent=None, **fields):
     the ambient stack; close it with :func:`finish` from any thread.
     Like :func:`span`, a real parent forces a real child even while
     ``HPNN_SPANS`` is unset (tail sampling, obs/forensics.py)."""
-    if not enabled() and not isinstance(parent, Span):
+    # the gate of span(), inline for the same reason
+    if not (_enabled or _collecting() or (_enabled is None and enabled())
+            or (parent is not None and isinstance(parent, Span))):
         return _NULL_SPAN
     return Span(name, _parent_id(parent), dict(fields))
 
@@ -169,12 +195,23 @@ def force_start(name: str, parent=None, **fields):
 
 
 def finish(sp, **fields) -> None:
-    """Close a span: one ``span.end`` record + the ``span.<name>``
-    aggregate.  Idempotent; a None/null span is a no-op."""
+    """Close a span: its range, its line of :func:`totals`, one
+    ``span.end`` record + the ``span.<name>`` aggregate.  Idempotent; a
+    None/null span is a no-op."""
     if sp is None or not isinstance(sp, Span) or sp._done:
         return
     sp._done = True
     dt = time.perf_counter() - sp.t0
+    if sp._range is not None:
+        profiler.close_range(sp._range)
+        sp._range = None
+    with _totals_lock:
+        t = _totals.get(sp.name)
+        if t is None:
+            _totals[sp.name] = [1, dt]
+        else:
+            t[0] += 1
+            t[1] += dt
     st = registry._active()
     if st is None:
         return
@@ -195,8 +232,17 @@ def finish(sp, **fields) -> None:
     blame.note_record(rec)
 
 
+def totals() -> dict:
+    """``{name: (count, seconds)}``: every real span finished in this
+    process, by name (a copy)."""
+    with _totals_lock:
+        return {name: (c, s) for name, (c, s) in _totals.items()}
+
+
 def _reset_for_tests() -> None:
     global _enabled, _ids
     _enabled = None
     _ids = itertools.count(1)
     _tls.stack = []
+    with _totals_lock:
+        _totals.clear()

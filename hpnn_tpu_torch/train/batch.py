@@ -456,12 +456,10 @@ def train_kernel_batched(conf: NNConf, batch_size: int, epochs: int,
             for _ in range(e_block // r_eff):
                 perms.append(draw_perm())
                 orders.append([draw_order() for _ in range(r_eff)])
-        bspan = obs.spans.start("batch.block", parent=round_span, i=block_i,
-                                epoch=epoch, epochs=e_block)
-        with obs.step_annotation("hpnn.batch_block", block_i), \
+        with obs.spans.span("batch.block", parent=round_span, i=block_i, epoch=epoch,
+                            epochs=e_block), \
                 obs.timer("batch.block_dispatch", epoch=epoch, epochs=e_block, body=body):
             losses, counts = run_block(perms, orders)
-        obs.spans.finish(bspan)
         block_i += 1
         for loss, okc in zip(losses, counts):
             epoch += 1
@@ -513,7 +511,6 @@ def run_kernel_batched(conf: NNConf, *, device=None) -> None:
     debug.device_alloc_report(weights)
     ev = make_eval_fn(model=model)
     with obs.spans.span("eval.batch_forward", files=len(names)), \
-            obs.annotate("hpnn.eval_forward"), \
             obs.timer("eval.batch_forward", size=len(names)):
         out = ev(weights, torch.from_numpy(X).to(device=dev, dtype=dtype)).cpu().numpy()
     obs.event("eval.round", files=len(all_files), batched=len(names), odd=0,

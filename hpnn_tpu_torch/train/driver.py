@@ -155,69 +155,74 @@ def train_kernel(conf: NNConf, mesh=None, *, device=None) -> bool:
         # CG/SPLX parse but are unimplemented (ref: src/libhpnn.c:1253-1257)
         return True
     runtime.refuse_deferred("train_nn")
-    # the census collective runs on every rank before any
-    # filesystem-dependent return
-    census = _census(conf.samples, "sample")
-    if census is None:
-        return False
-    if not os.path.isdir(conf.samples):
-        log.nn_error(sys.stderr, "can't open sample directory: %s\n", conf.samples)
-        return False
-    dev = _mesh_device(mesh, device)
-    dtype = runtime.compute_dtype(dev)
-    momentum = conf.train == NNTrain.BPM
-    model = _model_of(conf)
-    if momentum:
-        min_iter, max_iter, delta = loop.MIN_BPM_ITER, loop.MAX_BPM_ITER, loop.DELTA_BPM
-    else:
-        min_iter, max_iter, delta = loop.MIN_BP_ITER, loop.MAX_BP_ITER, loop.DELTA_BP
-    alpha = 0.2  # ref: src/libhpnn.c:1248 — BPM always called with .2
-    kw = dict(model=model, momentum=momentum, min_iter=min_iter, max_iter=max_iter)
-    np_dtype = np.float32 if dtype == torch.float32 else np.float64
+    # the listing, the shuffle, the parse and the bank's copy to the
+    # device (the chunked path; the streaming path parses as it trains)
+    with obs.spans.span("train.samples") as samples_span:
+        # the census collective runs on every rank before any
+        # filesystem-dependent return
+        census = _census(conf.samples, "sample")
+        if census is None:
+            return False
+        if not os.path.isdir(conf.samples):
+            log.nn_error(sys.stderr, "can't open sample directory: %s\n", conf.samples)
+            return False
+        dev = _mesh_device(mesh, device)
+        dtype = runtime.compute_dtype(dev)
+        momentum = conf.train == NNTrain.BPM
+        model = _model_of(conf)
+        if momentum:
+            min_iter, max_iter, delta = loop.MIN_BPM_ITER, loop.MAX_BPM_ITER, loop.DELTA_BPM
+        else:
+            min_iter, max_iter, delta = loop.MIN_BP_ITER, loop.MAX_BP_ITER, loop.DELTA_BP
+        alpha = 0.2  # ref: src/libhpnn.c:1248 — BPM always called with .2
+        kw = dict(model=model, momentum=momentum, min_iter=min_iter, max_iter=max_iter)
+        np_dtype = np.float32 if dtype == torch.float32 else np.float64
 
-    weights_np = [np.asarray(w, dtype=np_dtype) for w in conf.kernel.weights]
-    tp_state = _tp_shard(mesh, weights_np, dtype)
-    if tp_state is not None:
-        weights = tp_state[0]
-        epoch_fn = _make_tp_epoch(mesh, weights_np, kw)
-    else:
-        weights, _ = kernel_mod.to_torch(weights_np, device=dev, dtype=dtype)
-        epoch_fn = loop.train_epoch
-    debug.device_alloc_report(weights)
-    body = "tp" if tp_state is not None else _body_of(dev)
+        weights_np = [np.asarray(w, dtype=np_dtype) for w in conf.kernel.weights]
+        tp_state = _tp_shard(mesh, weights_np, dtype)
+        if tp_state is not None:
+            weights = tp_state[0]
+            epoch_fn = _make_tp_epoch(mesh, weights_np, kw)
+        else:
+            weights, _ = kernel_mod.to_torch(weights_np, device=dev, dtype=dtype)
+            epoch_fn = loop.train_epoch
+        debug.device_alloc_report(weights)
+        body = "tp" if tp_state is not None else _body_of(dev)
 
-    # crash-resume: the key binds the round identity (census, network,
-    # starting weights, body); the stored seed lets a `[seed] 0` round
-    # replay the shuffle it started with, and an explicitly seeded conf
-    # never adopts a checkpoint of another seed.  One process only: in a
-    # world the ranks would race on one file (the JAX rule)
-    state_path = os.environ.get("HPNN_FUSE_STATE")
-    if runtime.process_count() > 1:
-        state_path = None
-    state_key = state = None
-    if state_path:
-        state_key = _fuse_state_key(
-            conf.samples, model, momentum,
-            tuple(tuple(int(d) for d in w.shape) for w in weights),
-            f"{body}/" + _init_identity(conf, weights_np), names=census)
-        state = _load_fuse_state(state_path, state_key)
-        if state is not None and conf.seed not in (0, int(state["seed"])):
-            state = None  # a different seeded round asked for: start over
-    conf.seed = (int(state["seed"]) if state is not None
-                 else dist.resolve_time_seed(conf.seed))
-    files = [census[i] for i in shuffled_order(conf.seed, len(census))]
-    # a file whose dims do not match the kernel is skipped with a
-    # warning (the reference reads it into out-of-bounds C memory)
-    exp_dims = (weights_np[0].shape[1], weights_np[-1].shape[0])
-    parsed = bank = None
-    if not _streaming():
-        parsed = [_checked_sample(conf.samples, f, exp_dims) for f in files]
-        bank = _stack_epoch_bank(parsed, np_dtype)
-    if bank is not None:
-        readable = [s is not None for s in parsed]
-        parsed = None  # the token loop only needs the readable mask
-        X, T = (torch.from_numpy(a).to(dev) for a in bank)
-        bank = None
+        # crash-resume: the key binds the round identity (census, network,
+        # starting weights, body); the stored seed lets a `[seed] 0` round
+        # replay the shuffle it started with, and an explicitly seeded conf
+        # never adopts a checkpoint of another seed.  One process only: in a
+        # world the ranks would race on one file (the JAX rule)
+        state_path = os.environ.get("HPNN_FUSE_STATE")
+        if runtime.process_count() > 1:
+            state_path = None
+        state_key = state = None
+        if state_path:
+            state_key = _fuse_state_key(
+                conf.samples, model, momentum,
+                tuple(tuple(int(d) for d in w.shape) for w in weights),
+                f"{body}/" + _init_identity(conf, weights_np), names=census)
+            state = _load_fuse_state(state_path, state_key)
+            if state is not None and conf.seed not in (0, int(state["seed"])):
+                state = None  # a different seeded round asked for: start over
+        conf.seed = (int(state["seed"]) if state is not None
+                     else dist.resolve_time_seed(conf.seed))
+        files = [census[i] for i in shuffled_order(conf.seed, len(census))]
+        # a file whose dims do not match the kernel is skipped with a
+        # warning (the reference reads it into out-of-bounds C memory)
+        exp_dims = (weights_np[0].shape[1], weights_np[-1].shape[0])
+        parsed = X = T = None
+        if not _streaming():
+            parsed = [_checked_sample(conf.samples, f, exp_dims) for f in files]
+            bank = _stack_epoch_bank(parsed, np_dtype)
+            if bank is not None:
+                readable = [s is not None for s in parsed]
+                parsed = None  # the token loop only needs the readable mask
+                X, T = (torch.from_numpy(a).to(dev) for a in bank)
+                bank = None
+        obs.spans.finish(samples_span, files=len(files))
+    if X is not None:
         weights = _fused_round(
             conf, weights, X, T, files, readable, alpha, delta, kw, body,
             state_path, state_key, state, epoch_fn, mesh)
@@ -322,94 +327,94 @@ def _fused_round(conf, weights, X, T, files, readable, alpha, delta, kw, body,
                          resume_done=done)
     obs.event("round.start", mode="fused", samples=int(X.shape[0]), chunk=chunk,
               body=body, resumed=state is not None)
-    round_span = obs.spans.start("train.round", mode="fused")
-    obs.device.sample("round_start")
-    fname_it = iter(zip(files, readable))
+    with obs.spans.span("train.round", mode="fused") as round_span:
+        obs.device.sample("round_start")
+        fname_it = iter(zip(files, readable))
 
-    def emit_header_only_until_readable(silent=False):
-        """Print header-only lines for unreadable files until the next
-        readable one; returns its fname or None.  ``silent`` consumes
-        without printing (the resume's skip)."""
-        for fname, was_read in fname_it:
-            if not silent:
-                log.nn_out(sys.stdout, "TRAINING FILE: %16.16s\t", fname)
-            if was_read:
-                return fname
-        return None
+        def emit_header_only_until_readable(silent=False):
+            """Print header-only lines for unreadable files until the next
+            readable one; returns its fname or None.  ``silent`` consumes
+            without printing (the resume's skip)."""
+            for fname, was_read in fname_it:
+                if not silent:
+                    log.nn_out(sys.stdout, "TRAINING FILE: %16.16s\t", fname)
+                if was_read:
+                    return fname
+            return None
 
-    for _ in range(done):  # resume: skip the part already printed
-        if emit_header_only_until_readable(silent=True) is None:
-            break
-    chunk_i = 0  # launch ordinal, the profiler's step number
-    while done < X.shape[0]:
-        Xc, Tc = X[done : done + chunk], T[done : done + chunk]
-        size = int(Xc.shape[0])
-        cspan = obs.spans.start("train.chunk", parent=round_span, i=chunk_i,
-                                size=size, body=body)
-        obs.cost.synchronize(dev)
-        t_disp = time.perf_counter()
-        try:
-            # the timer brackets the launch and the stats fetch (the
-            # host copy is the fence)
-            with obs.step_annotation("hpnn.fused_chunk", chunk_i), \
-                    obs.timer("driver.chunk_dispatch", done=done, size=size, body=body):
-                stats = epoch_fn(weights, Xc, Tc, alpha, delta, **kw)
-                stats = tuple(s.cpu().numpy() for s in stats[:5])
-        except Exception as exc:
-            obs.spans.finish(cspan, failed=type(exc).__name__)
-            if isinstance(exc, RuntimeError) and state_path:
-                # a launch error: the next attempt retries this chunk at
-                # half the size (never above the configured size, not
-                # below 32 or the configured size, whichever is smaller)
-                next_chunk = max(min(32, chunk), chunk // 2)
-                obs.count("fuse.chunk_halved", reason="dispatch_crash", done=done,
-                          old=chunk, new=next_chunk, exc=type(exc).__name__)
-                _save_fuse_state(state_path, state_key, conf.seed, done,
-                                 next_chunk, host_w)
-            obs.event("round.abort", mode="fused", done=done, exc=type(exc).__name__)
-            obs.spans.finish(round_span, failed=type(exc).__name__)
-            obs.flush()
-            obs.flight.dump("round.abort")
-            obs.export.set_health(last_round={
-                "mode": "fused", "ok": False, "done": done, "exc": type(exc).__name__})
-            raise
-        if obs.cost.enabled():
-            nbytes, flops = obs.cost.work_of(weights, size, int(stats[1].sum()),
-                                             momentum, X.element_size())
-            obs.cost.record_dispatch(
-                "driver.train_epoch", time.perf_counter() - t_disp, nbytes=nbytes,
-                flops=flops, dtype=dtype, device=dev, units=size, kernel=body)
-        obs.spans.finish(cspan)
-        done += size
-        chunk_i += 1
-        _check_lockstep(stats, done, mesh)
-        if obs.enabled():
-            # the stats are host arrays already (fetched for the tokens)
-            obs.observe("train.n_iter", stats[1], chunk_end=done)
-            obs.count("train.samples", n=size)
-            obs.count("train.first_ok", n=int(stats[3].sum()))
-            obs.count("train.final_ok", n=int(stats[4].sum()))
-            obs.gauge("fuse.chunk_size", chunk, done=done)
-            obs.device.sample("chunk", step=chunk_i)
-        if obs.probes.enabled():
-            # outside the launch's try: a sentinel abort propagates
-            # as itself, never as a launch error
-            obs.probes.check_weights(_full_weights(weights, mesh), step=done,
-                                     where="fused_chunk")
-        if trace_mod.enabled():
-            trace_mod.trace(f"w@{done}", _full_weights(weights, mesh))
-        if state_path:
-            host_w = _to_host(weights)
-            _save_fuse_state(state_path, state_key, conf.seed, done, chunk, host_w)
-        for i in range(size):
-            if emit_header_only_until_readable() is None:
+        for _ in range(done):  # resume: skip the part already printed
+            if emit_header_only_until_readable(silent=True) is None:
                 break
-            _print_train_tokens(stats[0][i], stats[3][i], stats[1][i], stats[2][i],
-                                stats[4][i], model, momentum)
-    # trailing unreadable files still get their header lines
-    emit_header_only_until_readable()
-    obs.event("round.end", mode="fused", samples=done, chunks=chunk_i, body=body)
-    obs.spans.finish(round_span, samples=done, chunks=chunk_i)
+        chunk_i = 0  # launch ordinal, the chunk span's i
+        while done < X.shape[0]:
+            Xc, Tc = X[done : done + chunk], T[done : done + chunk]
+            size = int(Xc.shape[0])
+            with obs.spans.span("train.chunk", parent=round_span, i=chunk_i, size=size,
+                                body=body) as cspan:
+                obs.cost.synchronize(dev)
+                t_disp = time.perf_counter()
+                try:
+                    # the timer brackets the launch and the stats fetch (the
+                    # host copy is the fence)
+                    with obs.timer("driver.chunk_dispatch", done=done, size=size, body=body):
+                        stats = epoch_fn(weights, Xc, Tc, alpha, delta, **kw)
+                        stats = tuple(s.cpu().numpy() for s in stats[:5])
+                except Exception as exc:
+                    obs.spans.finish(cspan, failed=type(exc).__name__)
+                    if isinstance(exc, RuntimeError) and state_path:
+                        # a launch error: the next attempt retries this chunk at
+                        # half the size (never above the configured size, not
+                        # below 32 or the configured size, whichever is smaller)
+                        next_chunk = max(min(32, chunk), chunk // 2)
+                        obs.count("fuse.chunk_halved", reason="dispatch_crash", done=done,
+                                  old=chunk, new=next_chunk, exc=type(exc).__name__)
+                        _save_fuse_state(state_path, state_key, conf.seed, done,
+                                         next_chunk, host_w)
+                    obs.event("round.abort", mode="fused", done=done, exc=type(exc).__name__)
+                    obs.spans.finish(round_span, failed=type(exc).__name__)
+                    obs.flush()
+                    obs.flight.dump("round.abort")
+                    obs.export.set_health(last_round={
+                        "mode": "fused", "ok": False, "done": done, "exc": type(exc).__name__})
+                    raise
+                if obs.cost.enabled():
+                    nbytes, flops = obs.cost.work_of(weights, size, int(stats[1].sum()),
+                                                     momentum, X.element_size())
+                    obs.cost.record_dispatch(
+                        "driver.train_epoch", time.perf_counter() - t_disp, nbytes=nbytes,
+                        flops=flops, dtype=dtype, device=dev, units=size, kernel=body)
+                obs.spans.finish(cspan)
+            done += size
+            chunk_i += 1
+            _check_lockstep(stats, done, mesh)
+            if obs.enabled():
+                # the stats are host arrays already (fetched for the tokens)
+                obs.observe("train.n_iter", stats[1], chunk_end=done)
+                obs.count("train.samples", n=size)
+                obs.count("train.first_ok", n=int(stats[3].sum()))
+                obs.count("train.final_ok", n=int(stats[4].sum()))
+                obs.gauge("fuse.chunk_size", chunk, done=done)
+                obs.device.sample("chunk", step=chunk_i)
+            if obs.probes.enabled():
+                # outside the launch's try: a sentinel abort propagates
+                # as itself, never as a launch error
+                obs.probes.check_weights(_full_weights(weights, mesh), step=done,
+                                         where="fused_chunk")
+            if trace_mod.enabled():
+                trace_mod.trace(f"w@{done}", _full_weights(weights, mesh))
+            if state_path:
+                host_w = _to_host(weights)
+                _save_fuse_state(state_path, state_key, conf.seed, done, chunk, host_w)
+            with obs.spans.span("train.tokens", n=size):
+                for i in range(size):
+                    if emit_header_only_until_readable() is None:
+                        break
+                    _print_train_tokens(stats[0][i], stats[3][i], stats[1][i], stats[2][i],
+                                        stats[4][i], model, momentum)
+        # trailing unreadable files still get their header lines
+        emit_header_only_until_readable()
+        obs.event("round.end", mode="fused", samples=done, chunks=chunk_i, body=body)
+        obs.spans.finish(round_span, samples=done, chunks=chunk_i)
     obs.device.sample("round_end")
     obs.export.set_health(last_round={
         "mode": "fused", "ok": True, "samples": done, "chunks": chunk_i})
@@ -436,7 +441,7 @@ def _streaming_round(weights, pairs, n_files, alpha, delta, kw, np_dtype, epoch_
                 for a in sample)
         obs.cost.synchronize(dev)
         t_disp = time.perf_counter()
-        with obs.annotate("hpnn.sample_loop"):
+        with obs.spans.span("train.sample", parent=round_span, i=i):
             stats = epoch_fn(weights, x, t, alpha, delta, **kw)
             stats = tuple(s.cpu().numpy() for s in stats[:5])
             ep0, n_iter, dep, first_ok, final_ok = (s[0] for s in stats)
@@ -643,7 +648,6 @@ def run_kernel(conf: NNConf, mesh=None, *, device=None) -> None:
             return
         xs = torch.from_numpy(np.stack(grp_x)).to(device=dev, dtype=dtype)
         with obs.spans.span("eval.batch_forward", files=len(grp_files)), \
-                obs.annotate("hpnn.eval_forward"), \
                 obs.timer("eval.batch_forward", size=len(grp_files)):
             oc = batched(xs).cpu().numpy()
         for j, f in enumerate(grp_files):

@@ -38,7 +38,10 @@ pairs a fleet ledger with a sequential one, a card run's with a CPU
 run's, and the port's with the JAX package's.  Observability as in the
 JAX package: ``fleet.size`` gauge, ``fleet.round`` / ``fleet.multi_round``
 / ``fleet.sequential`` events, ``train.fleet_round`` /
-``train.multi_round`` / ``train.member_round`` spans, and under
+``train.multi_round`` / ``train.member_round`` spans (a
+``train.fleet_round`` covers the whole call, its children
+``fleet.stage``, ``fleet.plan``, ``fleet.gather``, ``fleet.epoch``,
+``fleet.count``, ``fleet.sync`` and ``fleet.result`` each part), and under
 ``HPNN_COST`` the ``perf.*`` gauges of every launch of #6
 (``fleet.epoch``) and #4 (``fleet.member_epoch``).
 
@@ -267,23 +270,26 @@ def make_fleet_epoch_fn(n_steps: int, *, model: str = "ann",
         n = orders.shape[0]
         losses, counts = [], []
         for g in range(orders.shape[1]):
-            idx = torch.from_numpy(perms[:, g]).to(device=X.device, dtype=torch.long)
-            X_banks, T_banks = X[idx], T[idx]
+            with obs.spans.span("fleet.gather", members=n):
+                idx = torch.from_numpy(perms[:, g]).to(device=X.device, dtype=torch.long)
+                X_banks, T_banks = X[idx], T[idx]
             for r in range(orders.shape[2]):
-                losses.append(_timed(
-                    "fleet.epoch", lambda: batch_step.train_fleet_epoch_dbuf_banked(
-                        stacked_w, stacked_dw, X_banks, T_banks, orders[:, g, r],
-                        batch=B, **kw)[2],
-                    [w[0] for w in stacked_w], n_steps, B, n, momentum,
-                    "train_fleet_epoch_dbuf_banked"))
+                with obs.spans.span("fleet.epoch", members=n):
+                    losses.append(_timed(
+                        "fleet.epoch", lambda: batch_step.train_fleet_epoch_dbuf_banked(
+                            stacked_w, stacked_dw, X_banks, T_banks, orders[:, g, r],
+                            batch=B, **kw)[2],
+                        [w[0] for w in stacked_w], n_steps, B, n, momentum,
+                        "train_fleet_epoch_dbuf_banked"))
                 # each member counted on its own copy of its weights: the
                 # operands a standalone run's count sees, so the counts
                 # agree bitwise with train_sequential's too
-                counts.append(
-                    torch.zeros(n, dtype=torch.int32, device=X.device)
-                    if counter is None else torch.stack([
-                        counter(tuple(w[i].clone() for w in stacked_w), X, T)
-                        for i in range(n)]))
+                with obs.spans.span("fleet.count", members=n):
+                    counts.append(
+                        torch.zeros(n, dtype=torch.int32, device=X.device)
+                        if counter is None else torch.stack([
+                            counter(tuple(w[i].clone() for w in stacked_w), X, T)
+                            for i in range(n)]))
         return (stacked_w, stacked_dw, torch.stack(losses, dim=1),
                 torch.stack(counts, dim=1))
 
@@ -377,25 +383,31 @@ def train_fleet(kernels, X, T, *, epochs: int, batch: int, seeds=None,
     ``runtime.DeviceUnavailable`` without a card) in ``dtype`` ("bf16",
     "f32", "f64"; default ``runtime.compute_dtype``); the weights come
     back in the members' own dtype."""
-    seeds = _seeds(seeds, len(kernels))
-    dev, cdt, host_dtype, Xd, Td = _setup("train_fleet", kernels, X, T, dtype, device)
-    stacked = stack_kernels(kernels, device=dev, dtype=cdt)
-    dw = _zeros_dw(stacked, momentum)
-    perms, orders = fleet_plan(seeds, n_rows=Xd.shape[0], batch=batch,
-                               epochs=epochs, refresh=refresh)
-    n, n_steps = len(kernels), Xd.shape[0] // batch
-    fn = make_fleet_epoch_fn(n_steps, model=model, momentum=momentum,
-                             lr=lr, alpha=alpha, count=count)
-    obs.gauge("fleet.size", n, where="train")
+    n = len(kernels)
     with obs.spans.span("train.fleet_round", members=n, epochs=epochs, mode="fleet"):
+        seeds = _seeds(seeds, n)
+        with obs.spans.span("fleet.stage", members=n):
+            dev, cdt, host_dtype, Xd, Td = _setup("train_fleet", kernels, X, T, dtype,
+                                                  device)
+            stacked = stack_kernels(kernels, device=dev, dtype=cdt)
+            dw = _zeros_dw(stacked, momentum)
+        with obs.spans.span("fleet.plan", members=n):
+            perms, orders = fleet_plan(seeds, n_rows=Xd.shape[0], batch=batch,
+                                       epochs=epochs, refresh=refresh)
+        n_steps = Xd.shape[0] // batch
+        fn = make_fleet_epoch_fn(n_steps, model=model, momentum=momentum,
+                                 lr=lr, alpha=alpha, count=count)
+        obs.gauge("fleet.size", n, where="train")
         t0 = time.perf_counter()
         stacked, dw, losses, counts = fn(stacked, dw, Xd, Td, perms, orders)
-        _sync(dev)
+        with obs.spans.span("fleet.sync", members=n):
+            _sync(dev)
         dt = time.perf_counter() - t0
-    obs.event("fleet.round", members=n, epochs=epochs, batch=batch, steps=n_steps,
-              mode="fleet", dispatch_s=round(dt, 6), dtype=dtype or str(host_dtype))
-    out = _result(stacked, losses, counts, host_dtype, dtype)
-    _record_member_rows(out[0], step=epochs)
+        obs.event("fleet.round", members=n, epochs=epochs, batch=batch, steps=n_steps,
+                  mode="fleet", dispatch_s=round(dt, 6), dtype=dtype or str(host_dtype))
+        with obs.spans.span("fleet.result", members=n):
+            out = _result(stacked, losses, counts, host_dtype, dtype)
+            _record_member_rows(out[0], step=epochs)
     return out
 
 

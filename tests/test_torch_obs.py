@@ -280,17 +280,23 @@ def test_unset_knobs_cost_nothing(monkeypatch):
     assert not obs.enabled() and not obs.probes.enabled() and not obs.cost.enabled()
     assert not obs.spans.enabled() and not trace.enabled()
     assert obs.timer("x.y") is obs.registry._NULL_CTX
-    assert obs.annotate("hpnn.x") is obs.registry._NULL_CTX
     assert obs.probes.check_weights((torch.ones(2, 2),), step=0, where="t") is None
+    table = obs.spans.totals()
     calls = []
     with monkeypatch.context() as m:
         m.setattr(os.environ, "get", lambda *a: calls.append(a))
         obs.count("x.y")
         obs.gauge("x.y", 1.0)
-        obs.spans.finish(obs.spans.start("train.round"))
+        # no profiler collects: the shared null span, whichever form
+        with obs.spans.span("train.chunk") as sp:
+            assert sp is obs.spans._NULL_SPAN
+        sp = obs.spans.start("train.round")
+        assert sp is obs.spans._NULL_SPAN
+        obs.spans.finish(sp)
         trace.trace("w@1", [np.ones(2)])
         assert obs.probes.check_weights((torch.ones(1, 1),), step=1, where="t") is None
     assert calls == []  # each knob was read once and memoized
+    assert obs.spans.totals() == table
 
 
 # ------------------------------------------------------ probes + sentinel
