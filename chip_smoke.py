@@ -294,7 +294,9 @@ threshold.
 (``-DHPNN_PHASE_CLOCKS``) of the convergence and batch-step kernels,
 holds each bitwise against its kernel and prints where an iteration's
 time goes in phase 6, in phase 20 (both builds at each width and at
-``WIDE_MID``) and a #4 step's (on each team) in phase 9; and,
+``WIDE_MID``) and a #4 step's (on each team) in phase 9; in phase 12,
+#6's plan split (``fleet_plan_split``: the plan's k-tile and sync
+constants, and its estimate against each team's epoch); and,
 in phase 9, a #4 step's phases and its tiles' k-tiles by part (loads,
 stage stores, fragment loads, products, barrier) in float32 and in
 bf16, with every build's registers and spills from ptxas.
@@ -533,6 +535,11 @@ def build_all(_build, builds):
         log(f"[build] {name}.cu{' -D' + define if define else ''} built in {secs:.1f} s")
         for line in ptxas_report(out):
             log(f"[build]   {line}")
+
+
+def fleet_team_name(team) -> str:
+    """#6's team (ops.batch_step.fleet_cluster's plan) in words."""
+    return "the grid" if team == 0 else f"{team}-CTA clusters"
 
 
 def cuda_ms(torch, fn, reps=3):
@@ -1029,12 +1036,13 @@ def fleet_pinned(np, torch, dev):
                 l2 = bs.train_fleet_epoch_dbuf_banked(w2, dw2, Xd, Td, orders, **kw)[2]
                 check(all(torch.equal(a, b) for a, b in zip(wk + dwk + [lk], w2 + dw2 + [l2])),
                       f"fleet {tag}: #6 run again differs bitwise")
-                for C in bs.CLUSTER_SIZES:
+                for C in (bs.GRID,) + bs.CLUSTER_SIZES:
                     wc, dwc = fresh()
                     lc = bs.train_fleet_epoch_dbuf_banked(wc, dwc, Xd, Td, orders, cluster=C,
                                                           **kw)[2]
                     check(all(torch.equal(a, b) for a, b in zip(wk + dwk + [lk], wc + dwc + [lc])),
-                          f"fleet {tag}: #6 at {C} CTAs a member differs bitwise from the plan's")
+                          f"fleet {tag}: #6 on {fleet_team_name(C)} differs bitwise from the "
+                          f"plan's")
                 for i in range(FLEET_N):
                     for fn in (bs.train_epoch_dbuf_banked, bs.train_epoch_grid_banked):
                         wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
@@ -1046,8 +1054,9 @@ def fleet_pinned(np, torch, dev):
                                         bs.cluster_capacity(dtype, dev))
                 log(f"[fleet-pinned] {tag}, N={FLEET_N} B={BATCH} S={PINNED_S}: "
                     f"max|kernel - plain| {e:.2e} (tol {tol:.0e}); member i == #5 == #4 "
-                    f"on bank i, #6 == #6 again, #6 at C = "
-                    f"{', '.join(map(str, bs.CLUSTER_SIZES))} == #6 planned (C={plan}) (bitwise)")
+                    f"on bank i, #6 == #6 again, #6 on the grid and at C = "
+                    f"{', '.join(map(str, bs.CLUSTER_SIZES))} == #6 planned "
+                    f"({fleet_team_name(plan)}) (bitwise)")
     return err, fleet_pinned_bf16(np, torch, dev, rng)
 
 
@@ -1107,13 +1116,14 @@ def fleet_pinned_bf16(np, torch, dev, rng):
             out["w"], out["loss_rel"] = max(out["w"], we), max(out["loss_rel"], le)
             out["update_rel"] = max(out["update_rel"], ue)
             # bitwise: #6 again and at every cluster size
-            for C in (None,) + bs.CLUSTER_SIZES:
+            for C in (None, bs.GRID) + bs.CLUSTER_SIZES:
                 wc, dwc = fresh()
                 lc = bs.train_fleet_epoch_dbuf_banked(wc, dwc, Xd, Td, orders, cluster=C,
                                                       **kw)[2]
                 check(same(wk + dwk + [lk], wc + dwc + [lc]),
-                      f"fleet {tag}: #6 " + ("run again" if C is None else f"at {C} CTAs a "
-                                             f"member") + " differs bitwise from the plan's")
+                      f"fleet {tag}: #6 " + ("run again" if C is None else
+                                             f"on {fleet_team_name(C)}")
+                      + " differs bitwise from the plan's")
             # member i against #5 and #4 on its bank, and #6 on each
             # member's first block against #2 and #3 on it
             w1, dw1 = fresh()
@@ -1144,7 +1154,8 @@ def fleet_pinned_bf16(np, torch, dev, rng):
                 f"plain| weights {we:.3e} (band {BF16_BAND['w']:.0e}), each layer's change "
                 f"{ue:.3e} relative (band {BF16_BAND['update_rel']}), losses {le:.3e} "
                 f"relative (band {BF16_BAND['loss_rel']:.0e}); bitwise: #6 == #6 again, #6 at "
-                f"C = {', '.join(map(str, bs.CLUSTER_SIZES))} == #6 planned (C={plan}), "
+                f"the grid and C = {', '.join(map(str, bs.CLUSTER_SIZES))} == #6 planned "
+                f"({fleet_team_name(plan)}), "
                 f"member i == bf16 #5 == #4 on bank i, first block == #2 == #3")
     # the fleet's quant probe: the same plan in float32 and in bf16
     shape = (N_IN, N_HID, N_OUT)
@@ -1412,7 +1423,7 @@ def fleet_timing(np, torch, dev):
         W = [t[:N].clone() for t in W_all]
         members = [[t[i].clone() for t in W] for i in range(N)]
         plan = bs.fleet_cluster(N, shapes, BATCH, cap)
-        fns = {C: fleet_fn(W, N, C) for C in bs.CLUSTER_SIZES}
+        fns = {C: fleet_fn(W, N, C) for C in (bs.GRID,) + bs.CLUSTER_SIZES}
         runs, seq = {C: [] for C in fns}, []
         for turn in range(2):  # in turns, the second in the reverse order
             for C in (list(fns) if turn == 0 else list(fns)[::-1]):
@@ -1438,10 +1449,11 @@ def fleet_timing(np, torch, dev):
                       bank_bytes=(Xb_all[:N].numel() + Tb_all[:N].numel()) * 4)
         log(f"[fleet-timing] #6, {N} members x one epoch of {S} steps, B={BATCH}, "
             f"{TIMED_ROWS}-row banks ({out[N]['bank_bytes'] / 1e9:.2f} GB), ANN-BP 784-300-10 "
-            f"float32, by CTAs a member: "
-            + ", ".join(f"C={C} {v:.3f} ms (runs {', '.join(f'{t:.3f}' for t in runs[C])})"
-                        for C, v in by_c.items())
-            + f"; planned C={plan}: {ms:.3f} ms ({ms / S:.4f} ms/step); {N} sequential #5 "
+            f"float32, by team: "
+            + ", ".join(f"{fleet_team_name(C)} {v:.3f} ms (runs "
+                        f"{', '.join(f'{t:.3f}' for t in runs[C])})" for C, v in by_c.items())
+            + f"; planned {fleet_team_name(plan)}: {ms:.3f} ms ({ms / S:.4f} ms/step); "
+            f"{N} sequential #5 "
             f"epochs {seq_ms:.3f} ms (runs {', '.join(f'{t:.3f}' for t in seq)}); bound "
             f"{b_ms:.4f} ms ({b_by})"
             + (f"; plain {plain_ms:.1f} ms" if plain_ms is not None else ""))
@@ -1462,7 +1474,8 @@ def fleet_timing(np, torch, dev):
     overtakes = next((N for N in FLEET_CROSS_N
                       if all(M in faster for M in FLEET_CROSS_N if M >= N)), None)
     log(f"[fleet-timing] #6 planned against N x one #5 epoch ({t5:.3f} ms): "
-        + ", ".join(f"N={N} (C={c['cluster']}) {c['fleet_ms']:.3f} vs {c['sequential_ms']:.3f} ms"
+        + ", ".join(f"N={N} ({fleet_team_name(c['cluster'])}) {c['fleet_ms']:.3f} vs "
+                    f"{c['sequential_ms']:.3f} ms"
                     for N, c in cross.items())
         + f"; the fleet is the faster from N = {overtakes} on")
     del Xb_all, Tb_all, W_all
@@ -1506,7 +1519,8 @@ def fleet_timing_bf16(np, torch, dev, W_all, Xb_all, Tb_all, orders_all, shapes,
         runs[k].append(cuda_ms(torch, fns[k]))
     by = {k: statistics.median(v) for k, v in runs.items()}
     by_c = {C: cuda_ms(torch, lambda C=C: bs.train_fleet_epoch_dbuf_banked(
-        W16, [], X16, T16, orders_all[:N], cluster=C, **kw)) for C in bs.CLUSTER_SIZES}
+        W16, [], X16, T16, orders_all[:N], cluster=C, **kw))
+        for C in (bs.GRID,) + bs.CLUSTER_SIZES}
     Wp = [t[:N].to(torch.bfloat16) for t in W_all]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1523,14 +1537,96 @@ def fleet_timing_bf16(np, torch, dev, W_all, Xb_all, Tb_all, orders_all, shapes,
                f32_fma_bound_ms=fma_ms, ms_by_cluster=by_c, clusters_at_once=cap16,
                ms_per_step=by["bfloat16"] / S, bank_bytes=(X16.numel() + T16.numel()) * 2)
     log(f"[fleet-timing] bf16 #6, {N} members x one epoch of {S} steps, B={BATCH}, planned "
-        f"C={plan}: {by['bfloat16']:.3f} ms (runs {', '.join(f'{t:.3f}' for t in runs['bfloat16'])}) "
+        f"{fleet_team_name(plan)}: {by['bfloat16']:.3f} ms (runs "
+        f"{', '.join(f'{t:.3f}' for t in runs['bfloat16'])}) "
         f"against float32 #6 {by['float32']:.3f} ms (runs "
-        f"{', '.join(f'{t:.3f}' for t in runs['float32'])}), in turns; by CTAs a member "
-        + ", ".join(f"C={C} {v:.3f} ms" for C, v in by_c.items())
+        f"{', '.join(f'{t:.3f}' for t in runs['float32'])}), in turns; by team "
+        + ", ".join(f"{fleet_team_name(C)} {v:.3f} ms" for C, v in by_c.items())
         + f"; plain {plain_ms:.1f} ms; bound {b_ms:.4f} ms ({b_by}: {N * nbytes} B of bf16, "
         f"{N * flops} flop at bf16's tensor-core rate; {fma_ms:.4f} ms at float32's FMA rate)")
     del W32, W16, Wp, X16, T16
     return out
+
+
+# the plan split's shapes (--phase-split, phase 12): the two benchmark
+# fleets and the HPNN-sized tick, S steps of each
+PLAN_SHAPES = {"8 x 784-300-10, B = 256": (8, (784, 300, 10), 256, 24),
+               "8 x 851-230-230, B = 256": (8, (851, 230, 230), 256, 14),
+               "64 x 32-16-4, B = 1": (64, (32, 16, 4), 1, 64),
+               "2 x 784-300-10, B = 32": (2, (784, 300, 10), 32, 8)}
+
+
+def fleet_plan_split(np, torch, dev):
+    """Phase 12 with --phase-split: the constants of #6's team plan
+    (``ops.batch_step.KTILE_NS`` and ``SYNC_NS``) from the phase-clock
+    build, float32 ANN-BP, and the plan's estimate against each team's
+    measured epoch.  Thread 0 of block 0 clocks; its cycles become ns at
+    one SM clock, that of the first shape's grid run (its cycles over its
+    epoch's CUDA-event time: block 0 of the grid spans the epoch, the
+    first cluster of a launch in waves does not).  KTILE_NS: the tile
+    phases' cycles over their k-tiles, at 8 x 784-300-10 on the grid;
+    SYNC_NS[team]: the sync cycles over the step's syncs, on the
+    HPNN-sized fleet (one tile a member a phase, so every busy worker has
+    one and a sync is the barrier's own time)."""
+    from hpnn_tpu_torch.models import kernel as km
+    from hpnn_tpu_torch.ops import batch_step as bs
+
+    teams = (bs.GRID,) + bs.CLUSTER_SIZES
+    tiles = ("forward tiles", "hidden-delta tiles", "update tiles")
+    out, ghz = {}, None
+    for name, (N, (n_in, n_hid, n_out), B, S) in PLAN_SHAPES.items():
+        rng = np.random.default_rng(SEED + 23)
+        ks = [km.generate(SEED + i, n_in, [n_hid], n_out)[0] for i in range(N)]
+        W = [torch.tensor(np.stack([k.weights[l] for k in ks]), dtype=torch.float32, device=dev)
+             for l in range(2)]
+        X = torch.tensor(rng.random((N, S * B, n_in)), dtype=torch.float32, device=dev)
+        T = -np.ones((N, S * B, n_out))
+        T[:, np.arange(S * B), rng.integers(0, n_out, S * B)] = 1.0
+        T = torch.tensor(T, dtype=torch.float32, device=dev)
+        orders = np.stack([rng.permutation(S) for _ in range(N)])
+        shapes = [tuple(t.shape[1:]) for t in W]
+        kw = dict(batch=B, model="ann", momentum=False)
+        cap = bs.cluster_capacity(torch.float32, dev)
+        _, syncs = bs.step_phases(shapes, B)
+        row = {}
+        for team in teams:
+            w = [t.clone() for t in W]
+
+            def epoch(team=team, w=w):
+                e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                e0.record()
+                bs.train_fleet_epoch_dbuf_banked(w, [], X, T, orders, cluster=team, **kw)
+                e1.record()
+                return e0, e1
+
+            bs.phase_clocks(epoch)  # warm-up (the first also loads the build)
+            (e0, e1), clocks, parts = bs.phase_clocks(epoch)
+            if ghz is None:
+                ghz = sum(clocks.values()) / (e0.elapsed_time(e1) * 1e6)
+            row[team] = dict(
+                ms=cuda_ms(torch, lambda team=team: bs.train_fleet_epoch_dbuf_banked(
+                    [t.clone() for t in W], [], X, T, orders, cluster=team, **kw)),
+                estimate_ms=bs.step_ns(team, N, shapes, B, cap) * S / 1e6,
+                ktiles=parts[bs.KTILES],
+                ktile_ns=sum(clocks[k] for k in tiles) / max(1, parts[bs.KTILES]) / ghz,
+                sync_ns=clocks["team syncs"] / (syncs * S) / ghz,
+                us_per_step={k: v / ghz / S / 1e3 for k, v in clocks.items() if v})
+        plan = bs.fleet_cluster(N, shapes, B, cap)
+        fastest = min(row, key=lambda t: row[t]["ms"])
+        out[name] = dict(by_team=row, plan=plan, fastest=fastest)
+        log(f"[plan-split] #6 {name}, S={S}, float32 ANN-BP: planned {fleet_team_name(plan)}, "
+            f"fastest {fleet_team_name(fastest)}; by team: " + "; ".join(
+                f"{fleet_team_name(t)} {r['ms']:.3f} ms (estimate {r['estimate_ms']:.3f}), "
+                f"k-tile {r['ktile_ns']:.1f} ns over {r['ktiles']}, sync {r['sync_ns']:.1f} ns"
+                for t, r in row.items()))
+        log(f"[plan-split] #6 {name}: block 0's thread 0, us/step by phase on the grid: "
+            + ", ".join(f"{k} {v:.2f}" for k, v in row[bs.GRID]["us_per_step"].items()))
+    ktile = out["8 x 784-300-10, B = 256"]["by_team"][bs.GRID]["ktile_ns"]
+    sync = {t: out["64 x 32-16-4, B = 1"]["by_team"][t]["sync_ns"] for t in teams}
+    log(f"[plan-split] constants at the SM clock {ghz:.3f} GHz: KTILE_NS {ktile:.1f}; SYNC_NS "
+        + ", ".join(f"{fleet_team_name(t)} {v:.1f}" for t, v in sync.items())
+        + f"; the module's: KTILE_NS {bs.KTILE_NS}, SYNC_NS {bs.SYNC_NS}")
+    return dict(shapes=out, sm_ghz=ghz, ktile_ns=ktile, sync_ns=sync)
 
 
 # ------------------------------------------- crash-resume, streaming, obs
@@ -5561,6 +5657,7 @@ def main() -> int:
           "the fleet main path launched no train_fleet_epoch_dbuf_banked")
     enter(12)
     fleet_times, fleet_cross, fleet_bf16_times = fleet_timing(np, torch, dev)
+    plan_split = fleet_plan_split(np, torch, dev) if args.phase_split else None
 
     # 13. crash-resume, streaming, the float64 ledger card vs CPU, obs, native
     enter(13)
@@ -5703,6 +5800,7 @@ def main() -> int:
         "ms_by_cluster": t8["ms_by_cluster"],
         "by_members": fleet_times,
         "crossover": fleet_cross,
+        "plan_split": plan_split,
         "main": fleet_stats,
         "launches_by_entry": dict(fleet_launches, **{
             f"online.{k}": v for k, v in online_stats["launches"].items()}),

@@ -33,19 +33,34 @@
 // 3.35 TB/s.  So it is bound by operations.
 //
 // Design.  The epoch body is written once for a *team* of thread
-// blocks, which has a rank, a size and a sync: the team strides over a
-// phase's tiles and rows, and `sync()` separates the phases (a forward
-// layer, a hidden-delta layer, the update of all layers).
-//   batch_train (#2-#5): the team is the whole grid, one persistent
-//     cooperative launch of one block per SM, every block co-resident,
-//     `grid.sync()`;
-//   cluster_train (#6, and #2-#5 on request): the team is one
-//     thread-block cluster of C CTAs (C = 1, 2, 4, 8 or 16; the wrapper
-//     plans C), the barrier `barrier.cluster` with release/acquire
-//     semantics (`__syncthreads()` when C = 1); member i of a fleet is
-//     cluster i, blocks [i*C, (i+1)*C) of the grid.  Members never wait
-//     on each other, so N is not bounded by co-residency: clusters that
-//     do not fit at once run in waves.
+// blocks, which has a rank, a size, a sync and the nets it trains: the
+// team strides over a phase's tiles and rows, and `sync()` separates the
+// phases (a forward layer, a hidden-delta layer, the update of all
+// layers).
+//   batch_train (#2-#5): the team is the whole grid on one net, one
+//     persistent cooperative launch of one block per SM, every block
+//     co-resident, `grid.sync()`;
+//   cluster_train (#6), its team a template argument:
+//     FleetGridTeam: the same grid on every member of the fleet.  A
+//       phase's tiles are all members' laid end to end (member i's tile
+//       t is the (i*tiles + t)-th), so the workers stride over (member,
+//       tile) pairs and one worker takes tiles of several members; every
+//       member's step advances at each `grid.sync()`.  The rest of a step
+//       is split by member: the output rows apart (one thread a row of
+//       every member), member i's prefetch by the blocks of rank i mod N,
+//       its loss by the first warp of block i mod size.  For 8 members
+//       of 784-300-10 that is 264 workers on 640 forward and 2080 update
+//       tiles, where one 8-CTA cluster a member left 68 of 132 SMs idle;
+//     ClusterTeam (and #2-#5 on request): one thread-block cluster of C
+//       CTAs a member (C = 1, 2, 4, 8 or 16), the barrier
+//       `barrier.cluster` with release/acquire semantics
+//       (`__syncthreads()` when C = 1); member i is cluster i, blocks
+//       [i*C, (i+1)*C) of the grid.  Members never wait on each other, so
+//       N is not bounded by co-residency: clusters that do not fit at
+//       once run in waves.  Where a phase is one tile a member (the
+//       HPNN-sized fleet) its barriers cost less than the grid's.
+//   The wrapper plans the team of each launch (ops/batch_step.py::
+//   fleet_cluster) from an estimate of a step on each.
 // A block is 2 tile workers of 128 threads, each with its own named
 // barrier (`bar.sync 1+w, 128`): worker w of rank r takes tiles
 // r + size*w, then every 2*size-th.  A tile is a 32x32 output block; in
@@ -85,7 +100,8 @@
 // row's softmax sum and error by one thread in column order; the batch
 // loss by one warp in a fixed tree.  No atomics, no split K.  So the
 // same inputs give bitwise the same outputs whatever the team, the
-// cluster size or the tile assignment, and the five entry points agree
+// cluster size, the tile assignment or the members that share a launch's
+// workers, and the five entry points agree
 // bitwise on the same blocks: member i of #6 equals #5 (and #4) run on
 // bank i with orders[i].
 //
@@ -131,7 +147,8 @@
 // the host copy, by value in the kernel parameters (`ParamLayers`), read
 // through the constant cache as they were before the table existed; a deeper one reads them from
 // the table in device memory through the read-only path
-// (`TableLayers`), a fleet member's offset applied where W is read.  A
+// (`TableLayers`).  Both apply a fleet member's offset where W is read
+// (`Slices::member`).  A
 // body reading every net from the table was 10% slower an epoch at
 // 784-300-10 on an H100 (PERF.md), hence the two; which one a launch takes
 // is a template argument of the kernels, and every sum is the same.
@@ -201,27 +218,20 @@ struct Layer {
 static_assert(sizeof(Layer) == 32, "ops/batch_step.py::LAYER packs 32 bytes");
 
 // The per-layer values of a net of at most HPNN_PARAM_LAYERS layers, by
-// value in the kernel parameters.
+// value in the kernel parameters; member i's W_l starts i*m*n values past
+// member 0's.
 template <typename T>
 struct ParamLayers {
   int dims[HPNN_PARAM_LAYERS + 1];  // dims[0] = n_in, dims[l+1] = rows of W_l
   size_t off_[HPNN_PARAM_LAYERS];   // offset of layer l's (B, dims[l+1]) block
-  T* w_[HPNN_PARAM_LAYERS];
+  T* w_[HPNN_PARAM_LAYERS];         // member 0's
   T* dw_[HPNN_PARAM_LAYERS];
 
   __device__ int m(int l) const { return dims[l]; }
   __device__ int n(int l) const { return dims[l + 1]; }
   __device__ size_t off(int l, int) const { return off_[l]; }
-  __device__ T* w(int l) const { return w_[l]; }
-  __device__ T* dw(int l) const { return dw_[l]; }
-  // fleet member i's slices: the stacked (N, out, in) layers
-  __device__ void to_member(size_t i, int n_layers, int momentum) {
-    for (int l = 0; l < n_layers; ++l) {
-      const size_t n_w = (size_t)dims[l] * dims[l + 1];
-      w_[l] += i * n_w;
-      if (momentum) dw_[l] += i * n_w;
-    }
-  }
+  __device__ T* w(int l, size_t i) const { return w_[l] + i * ((size_t)dims[l] * dims[l + 1]); }
+  __device__ T* dw(int l, size_t i) const { return dw_[l] + i * ((size_t)dims[l] * dims[l + 1]); }
 };
 
 // The per-layer values of a net of any depth: the table in device
@@ -230,42 +240,78 @@ struct ParamLayers {
 template <typename T>
 struct TableLayers {
   const Layer* lay;  // n_layers records
-  size_t member;     // the fleet member this team trains
 
   __device__ int m(int l) const { return __ldg(&lay[l].m); }
   __device__ int n(int l) const { return __ldg(&lay[l].n); }
   __device__ size_t off(int l, int B) const { return (size_t)B * __ldg(&lay[l].cum); }
-  __device__ T* w(int l) const {
-    return reinterpret_cast<T*>(__ldg(&lay[l].w)) + member * ((size_t)m(l) * n(l));
+  __device__ T* w(int l, size_t i) const {
+    return reinterpret_cast<T*>(__ldg(&lay[l].w)) + i * ((size_t)m(l) * n(l));
   }
-  __device__ T* dw(int l) const {
-    return reinterpret_cast<T*>(__ldg(&lay[l].dw)) + member * ((size_t)m(l) * n(l));
+  __device__ T* dw(int l, size_t i) const {
+    return reinterpret_cast<T*>(__ldg(&lay[l].dw)) + i * ((size_t)m(l) * n(l));
   }
-  __device__ void to_member(size_t i, int, int) { member = i; }
+};
+
+// One net's share of a launch's device memory: member i's of a fleet.
+template <typename T>
+struct Slices {
+  const T* X;         // bank of (blocks*B, n_in)
+  const T* Tg;        // bank of (blocks*B, n_out)
+  const int* order;   // (S,) block ids in device memory, or null
+  T* acts;            // sum over layers of (B, dims[l+1])
+  T* ds;              // the same shape as acts
+  acc_t<T>* rowloss;  // (B,)
+  acc_t<T>* losses;   // (S,)
+  size_t member;      // its index in the stacked (N, out, in) weights
+};
+
+// Member strides of a fleet launch, in elements of T, and its members.
+struct Fleet {
+  size_t x, t;     // one member's bank of X (bank_rows*n_in) and of T
+  size_t scratch;  // 2*B*n_act + B*sizeof(acc_t<T>)/sizeof(T)
+  int n;           // members
 };
 
 template <typename T, class Ly>
 struct Params {
   typedef acc_t<T> A;
   int n_layers;
-  Ly ly;           // the per-layer values
-  const T* X;      // bank of (blocks*B, n_in)
-  const T* Tg;     // bank of (blocks*B, n_out)
-  const int* order;  // (S,) block ids in device memory, or null:
-  int first;         // then step s reads block first + s
+  Ly ly;        // the per-layer values
+  Slices<T> s;  // member 0's, or the one net's
+  Fleet f;      // {0, 0, 0, 1} for one net
+  int first;    // with a null order, step k reads block first + k
   int B, S;
   A lr, alpha, inv_b;
-  T* acts;     // sum over layers of (B, dims[l+1])
-  T* ds;       // the same shape as acts
-  A* rowloss;  // (B,)
-  A* losses;   // (S,)
   int snn, momentum, prefetch;
 
   __device__ int m(int l) const { return ly.m(l); }  // columns of W_l
   __device__ int n(int l) const { return ly.n(l); }  // rows of W_l
   __device__ size_t off(int l) const { return ly.off(l, B); }
-  __device__ T* w(int l) const { return ly.w(l); }
-  __device__ T* dw(int l) const { return ly.dw(l); }
+  __device__ T* w(int l, const Slices<T>& q) const { return ly.w(l, q.member); }
+  __device__ T* dw(int l, const Slices<T>& q) const { return ly.dw(l, q.member); }
+  // member i's slices: its orders and losses are row i of (N, S)
+  __device__ Slices<T> at(size_t i) const {
+    Slices<T> q = s;
+    q.X += i * f.x;
+    q.Tg += i * f.t;
+    if (q.order) q.order += i * S;
+    q.acts += i * f.scratch;
+    q.ds += i * f.scratch;
+    q.rowloss = reinterpret_cast<A*>(reinterpret_cast<T*>(q.rowloss) + i * f.scratch);
+    q.losses += i * S;
+    q.member = i;
+    return q;
+  }
+  // the block of the bank that q's step k reads, and its rows of X and T
+  __device__ int block(const Slices<T>& q, int k) const {
+    return q.order ? __ldg(q.order + k) : first + k;
+  }
+  __device__ const T* x(const Slices<T>& q, int k) const {
+    return q.X + (size_t)block(q, k) * B * m(0);
+  }
+  __device__ const T* tg(const Slices<T>& q, int k) const {
+    return q.Tg + (size_t)block(q, k) * B * n(n_layers - 1);
+  }
 };
 
 // Shared memory of one block: per worker two stages of an A and a B
@@ -454,10 +500,12 @@ struct PhaseClock {
 // A team whose syncs count as P_SYNC on `clk`.
 template <typename Team>
 struct TimedTeam {
+  static constexpr bool fleet = Team::fleet;
   Team& team;
   PhaseClock& clk;
   __device__ int rank() const { return team.rank(); }
   __device__ int size() const { return team.size(); }
+  __device__ int members() const { return team.members(); }
   __device__ void sync() {
     const int was = clk.cur;
     clk.to(P_SYNC);
@@ -467,17 +515,22 @@ struct TimedTeam {
 };
 #endif
 
-// The unit of work of an epoch: the whole cooperative grid (#2-#5) ...
+// The unit of work of an epoch: the whole cooperative grid on one net
+// (#2-#5) ...
 struct GridTeam {
+  static constexpr bool fleet = false;
   cg::grid_group grid;
   __device__ int rank() const { return blockIdx.x; }
   __device__ int size() const { return gridDim.x; }
+  __device__ int members() const { return 1; }
   __device__ void sync() { grid.sync(); }
 };
 
-// ... or one thread-block cluster, a fleet member (#6); C = 1 is one
-// thread block, whose own __syncthreads orders its device memory.
+// ... or one thread-block cluster on one net, a fleet member (#6); C = 1
+// is one thread block, whose own __syncthreads orders its device memory
+// ...
 struct ClusterTeam {
+  static constexpr bool fleet = false;
   int r, n;
   __device__ ClusterTeam() {
     asm("mov.u32 %0, %%cluster_ctarank;" : "=r"(r));
@@ -485,12 +538,27 @@ struct ClusterTeam {
   }
   __device__ int rank() const { return r; }
   __device__ int size() const { return n; }
+  __device__ int members() const { return 1; }
   __device__ void sync() {
     if (n > 1)
       cluster_barrier();
     else
       __syncthreads();
   }
+};
+
+// ... or the whole cooperative grid on every member of a fleet (#6): a
+// phase's tiles are the members' laid end to end, member i's tile t the
+// (i*tiles + t)-th, so one worker takes tiles of several members, and
+// every member's step advances at each grid.sync().
+struct FleetGridTeam {
+  static constexpr bool fleet = true;
+  cg::grid_group grid;
+  int n;  // members
+  __device__ int rank() const { return blockIdx.x; }
+  __device__ int size() const { return gridDim.x; }
+  __device__ int members() const { return n; }
+  __device__ void sync() { grid.sync(); }
 };
 
 // One HPNN_WORKER-thread tile worker of a block: its id, its thread's
@@ -894,14 +962,14 @@ __device__ __forceinline__ void gemm_tile(int M, int N, int K, const T* A, size_
     gemm_tile_simt(M, N, K, A, sar, sak, Bm, sbk, sbc, tm, tn, wk, epi);
 }
 
-// One output row b held whole in shared memory (`os`, its n values as
-// the forward wrote them): the SNN normalisation, then the output delta
-// (loss == false) or the row's error into rowloss (loss == true).  `o`
-// is where the row's outputs go in acts.  The same operations in the
-// same order as output_rows.
+// One output row b of member q held whole in shared memory (`os`, its n
+// values as the forward wrote them): the SNN normalisation, then the
+// output delta (loss == false) or the row's error into rowloss (loss ==
+// true).  `o` is where the row's outputs go in acts.  The same operations
+// in the same order as output_rows.
 template <typename T, class Ly>
-__device__ void finish_row(const Params<T, Ly>& p, const acc_t<T>* os, T* o, const T* t, int b,
-                           bool loss) {
+__device__ void finish_row(const Params<T, Ly>& p, const Slices<T>& q, const acc_t<T>* os, T* o,
+                           const T* t, int b, bool loss) {
   typedef acc_t<T> A;
   const int n = p.n(p.n_layers - 1);
   const A tiny = A(1e-14);
@@ -923,9 +991,9 @@ __device__ void finish_row(const Params<T, Ly>& p, const acc_t<T>* os, T* o, con
         acc += d * d;
       }
     }
-    p.rowloss[b] = acc;
+    q.rowloss[b] = acc;
   } else {
-    T* d = p.ds + p.off(p.n_layers - 1) + (size_t)b * n;
+    T* d = q.ds + p.off(p.n_layers - 1) + (size_t)b * n;
     for (int i = 0; i < n; ++i) {
       const A oi = p.snn ? os[i] / dv : os[i];
       o[i] = to_t<T>(oi);
@@ -939,23 +1007,67 @@ __device__ void finish_row(const Params<T, Ly>& p, const acc_t<T>* os, T* o, con
 // column holds an output row, its delta or its error.
 enum Finish { F_NONE, F_DELTAS, F_LOSS };
 
-// acts_l <- forward of the (B, n_in) block x through every layer.
+// Step k of an epoch: its block's rows of X and T for a one-net team,
+// found once a step (a fleet team finds each member's at each tile).
+template <typename T>
+struct Step {
+  int k;
+  const T* x;
+  const T* tg;
+};
+
+template <bool fleet, typename T, class Ly>
+__device__ __forceinline__ const T* x_of(const Params<T, Ly>& p, const Step<T>& st,
+                                         const Slices<T>& q) {
+  if constexpr (fleet)
+    return p.x(q, st.k);
+  else
+    return st.x;
+}
+
+template <bool fleet, typename T, class Ly>
+__device__ __forceinline__ const T* tg_of(const Params<T, Ly>& p, const Step<T>& st,
+                                          const Slices<T>& q) {
+  if constexpr (fleet)
+    return p.tg(q, st.k);
+  else
+    return st.tg;
+}
+
+// The worker's tiles of a phase of `tiles` tiles a member: fn(q, t) for
+// each, t a tile of the member whose slices are q (`one`, for a one-net
+// team).
+template <typename T, class Ly, typename Team, typename Fn>
+__device__ __forceinline__ void walk(const Params<T, Ly>& p, const Slices<T>& one,
+                                     const Team& team, const Worker<T>& wk, int tiles, Fn fn) {
+  const int total = team.members() * tiles;
+  for (int t = wk.first(team); t < total; t += wk.stride(team)) {
+    if constexpr (Team::fleet) {
+      const int i = t / tiles;
+      fn(p.at(i), t - i * tiles);
+    } else {
+      fn(one, t);
+    }
+  }
+}
+
+// acts_l <- forward of step st's (B, n_in) block through every layer.
 template <typename T, class Ly, typename Team>
-__device__ void forward(const Params<T, Ly>& p, const T* x, const T* tg, Team& team,
-                        const Worker<T>& wk, Finish finish) {
+__device__ void forward(const Params<T, Ly>& p, const Slices<T>& one, const Step<T>& st,
+                        Team& team, const Worker<T>& wk, Finish finish) {
   for (int l = 0; l < p.n_layers; ++l) {
     const int m = p.m(l), n = p.n(l);
-    const T* vin = l == 0 ? x : p.acts + p.off(l - 1);
-    T* vout = p.acts + p.off(l);
     const bool soft = p.snn && l == p.n_layers - 1;
     const bool fold = finish != F_NONE && l == p.n_layers - 1;  // then n <= HPNN_TILE
     const int tn_count = cdiv(n, HPNN_TILE);
     const int tiles = cdiv(p.B, HPNN_TILE) * tn_count;
-    for (int t = wk.first(team); t < tiles; t += wk.stride(team)) {
+    walk(p, one, team, wk, tiles, [&](const Slices<T>& q, int t) {
       typedef acc_t<T> A;
+      const T* vin = l == 0 ? x_of<Team::fleet>(p, st, q) : q.acts + p.off(l - 1);
+      T* vout = q.acts + p.off(l);
       const int tm = t / tn_count;
       A* os = wk.out();
-      gemm_tile<T>(p.B, n, m, vin, m, 1, p.w(l), 1, m, tm, t % tn_count, wk,
+      gemm_tile<T>(p.B, n, m, vin, m, 1, p.w(l, q), 1, m, tm, t % tn_count, wk,
                    [&](int r, int c, A z) {
                      const A v = soft ? out_exp(z - A(1)) : act(z);
                      if (fold)
@@ -967,28 +1079,36 @@ __device__ void forward(const Params<T, Ly>& p, const T* x, const T* tg, Team& t
         wk.sync();  // the tile's outputs are staged
         const int b = tm * HPNN_TILE + wk.w;
         if (wk.w < HPNN_TILE && b < p.B)
-          finish_row(p, os + wk.w * HPNN_OUT_LD, vout + (size_t)b * n,
-                     tg + (size_t)b * n, b, finish == F_LOSS);
+          finish_row(p, q, os + wk.w * HPNN_OUT_LD, vout + (size_t)b * n,
+                     tg_of<Team::fleet>(p, st, q) + (size_t)b * n, b, finish == F_LOSS);
         // the next write of `os` follows this tile's k-tile barriers
       }
-    }
+    });
     team.sync();
   }
 }
 
-// One thread per output row: the SNN normalisation, then the output
-// delta (loss == false) or the row's error into rowloss (loss == true).
-// For n_out > HPNN_TILE, where a row spans tiles.
+// One thread per output row of every member: the SNN normalisation, then
+// the output delta (loss == false) or the row's error into rowloss (loss
+// == true).  For n_out > HPNN_TILE, where a row spans tiles.
 template <typename T, class Ly, typename Team>
-__device__ void output_rows(const Params<T, Ly>& p, const T* tg, const Team& team,
-                            bool loss) {
+__device__ void output_rows(const Params<T, Ly>& p, const Slices<T>& one, const Step<T>& st,
+                            const Team& team, bool loss) {
   typedef acc_t<T> A;
   const int L = p.n_layers, n = p.n(L - 1);
   const A tiny = A(1e-14);
   const int stride = team.size() * blockDim.x;
-  for (int b = team.rank() * blockDim.x + threadIdx.x; b < p.B; b += stride) {
-    T* o = p.acts + p.off(L - 1) + (size_t)b * n;
-    const T* t = tg + (size_t)b * n;
+  const int total = team.members() * p.B;
+  for (int r = team.rank() * blockDim.x + threadIdx.x; r < total; r += stride) {
+    Slices<T> q = one;
+    int b = r;
+    if constexpr (Team::fleet) {
+      const int i = r / p.B;
+      q = p.at(i);
+      b = r - i * p.B;
+    }
+    T* o = q.acts + p.off(L - 1) + (size_t)b * n;
+    const T* t = tg_of<Team::fleet>(p, st, q) + (size_t)b * n;
     if (p.snn) {
       A s = A(0);
       for (int i = 0; i < n; ++i) s += ldcg(o + i);
@@ -1006,9 +1126,9 @@ __device__ void output_rows(const Params<T, Ly>& p, const T* tg, const Team& tea
           acc += d * d;
         }
       }
-      p.rowloss[b] = acc;
+      q.rowloss[b] = acc;
     } else {
-      T* d = p.ds + p.off(L - 1) + (size_t)b * n;
+      T* d = q.ds + p.off(L - 1) + (size_t)b * n;
       for (int i = 0; i < n; ++i) {
         const A oi = ldcg(o + i);
         d[i] = to_t<T>(p.snn ? clamp0(ld(t + i)) - oi : (ld(t + i) - oi) * dact(oi));
@@ -1019,31 +1139,34 @@ __device__ void output_rows(const Params<T, Ly>& p, const T* tg, const Team& tea
 
 // Hidden deltas, last hidden layer first, from the current weights.
 template <typename T, class Ly, typename Team>
-__device__ void hidden_deltas(const Params<T, Ly>& p, Team& team, const Worker<T>& wk) {
+__device__ void hidden_deltas(const Params<T, Ly>& p, const Slices<T>& one, Team& team,
+                              const Worker<T>& wk) {
   for (int l = p.n_layers - 2; l >= 0; --l) {
     const int n = p.n(l), k = p.n(l + 1);
-    const T* dn = p.ds + p.off(l + 1);
-    const T* a = p.acts + p.off(l);
-    T* d = p.ds + p.off(l);
     const int tn_count = cdiv(n, HPNN_TILE);
     const int tiles = cdiv(p.B, HPNN_TILE) * tn_count;
-    for (int t = wk.first(team); t < tiles; t += wk.stride(team))
-      gemm_tile<T>(p.B, n, k, dn, k, 1, p.w(l + 1), n, 1, t / tn_count,
-                   t % tn_count, wk, [&](int r, int c, acc_t<T> z) {
-                     const size_t q = (size_t)r * n + c;
-                     d[q] = to_t<T>(z * dact(ldcg(a + q)));
+    walk(p, one, team, wk, tiles, [&](const Slices<T>& q, int t) {
+      const T* dn = q.ds + p.off(l + 1);
+      const T* a = q.acts + p.off(l);
+      T* d = q.ds + p.off(l);
+      gemm_tile<T>(p.B, n, k, dn, k, 1, p.w(l + 1, q), n, 1, t / tn_count, t % tn_count, wk,
+                   [&](int r, int c, acc_t<T> z) {
+                     const size_t e = (size_t)r * n + c;
+                     d[e] = to_t<T>(z * dact(ldcg(a + e)));
                    });
+    });
     team.sync();
   }
 }
 
 // The update of every layer, its tiles laid end to end over the team.
 template <typename T, class Ly, typename Team>
-__device__ void update(const Params<T, Ly>& p, const T* x, Team& team, const Worker<T>& wk) {
+__device__ void update(const Params<T, Ly>& p, const Slices<T>& one, const Step<T>& st,
+                       Team& team, const Worker<T>& wk) {
   int total = 0;
   for (int l = 0; l < p.n_layers; ++l)
     total += cdiv(p.n(l), HPNN_TILE) * cdiv(p.m(l), HPNN_TILE);
-  for (int t = wk.first(team); t < total; t += wk.stride(team)) {
+  walk(p, one, team, wk, total, [&](const Slices<T>& q, int t) {
     int l = 0, tt = t;
     while (true) {
       const int c = cdiv(p.n(l), HPNN_TILE) * cdiv(p.m(l), HPNN_TILE);
@@ -1052,34 +1175,36 @@ __device__ void update(const Params<T, Ly>& p, const T* x, Team& team, const Wor
       ++l;
     }
     const int M = p.n(l), N = p.m(l);
-    const T* d = p.ds + p.off(l);
-    const T* v = l == 0 ? x : p.acts + p.off(l - 1);
-    T* W = p.w(l);
-    T* DW = p.dw(l);
+    const T* d = q.ds + p.off(l);
+    const T* v = l == 0 ? x_of<Team::fleet>(p, st, q) : q.acts + p.off(l - 1);
+    T* W = p.w(l, q);
+    T* DW = p.dw(l, q);
     const int tn_count = cdiv(N, HPNN_TILE);
     gemm_tile<T>(M, N, p.B, d, 1, M, v, N, 1, tt / tn_count, tt % tn_count, wk,
                  [&](int i, int j, acc_t<T> outer) {
-                   const size_t q = (size_t)i * N + j;
+                   const size_t e = (size_t)i * N + j;
                    if (p.momentum) {
-                     const acc_t<T> m = ldcg(DW + q) + p.lr * outer;
-                     W[q] = to_t<T>(ldcg(W + q) + m);
-                     DW[q] = to_t<T>(p.alpha * m);
+                     const acc_t<T> m = ldcg(DW + e) + p.lr * outer;
+                     W[e] = to_t<T>(ldcg(W + e) + m);
+                     DW[e] = to_t<T>(p.alpha * m);
                    } else {
-                     W[q] = to_t<T>(ldcg(W + q) + p.lr * outer);
+                     W[e] = to_t<T>(ldcg(W + e) + p.lr * outer);
                    }
                  });
-  }
+  });
   team.sync();
 }
 
-// Start the copy of block `blk` of both banks into L2, spread over the team.
-template <typename T, class Ly, typename Team>
-__device__ void prefetch_block(const Params<T, Ly>& p, const Team& team, int blk) {
-  const size_t tid = (size_t)team.rank() * blockDim.x + threadIdx.x;
-  const size_t nthreads = (size_t)team.size() * blockDim.x;
+// Start the copy of block `blk` of q's banks into L2, spread over the
+// `size` blocks ranked `rank` of those that share it.
+template <typename T, class Ly>
+__device__ void prefetch_block(const Params<T, Ly>& p, const Slices<T>& q, int rank, int size,
+                               int blk) {
+  const size_t tid = (size_t)rank * blockDim.x + threadIdx.x;
+  const size_t nthreads = (size_t)size * blockDim.x;
   const size_t rows = (size_t)blk * p.B;
-  const char* xb = reinterpret_cast<const char*>(p.X + rows * p.m(0));
-  const char* tb = reinterpret_cast<const char*>(p.Tg + rows * p.n(p.n_layers - 1));
+  const char* xb = reinterpret_cast<const char*>(q.X + rows * p.m(0));
+  const char* tb = reinterpret_cast<const char*>(q.Tg + rows * p.n(p.n_layers - 1));
   const size_t nx = (size_t)p.B * p.m(0) * sizeof(T);
   const size_t nt = (size_t)p.B * p.n(p.n_layers - 1) * sizeof(T);
   for (size_t o = tid * 128; o < nx; o += nthreads * 128)
@@ -1088,68 +1213,100 @@ __device__ void prefetch_block(const Params<T, Ly>& p, const Team& team, int blk
     asm volatile("prefetch.global.L2 [%0];" ::"l"(tb + o));
 }
 
-template <typename T, class Ly>
-__device__ __forceinline__ int block_of(const Params<T, Ly>& p, int s) {
-  return p.order ? __ldg(p.order + s) : p.first + s;
+// Start the copies of step k's blocks: the team's net's over the whole
+// team, or member i's over the grid's blocks of rank i mod N (each block
+// a share of the members, when they outnumber the blocks).
+template <typename T, class Ly, typename Team>
+__device__ void prefetch_step(const Params<T, Ly>& p, const Slices<T>& one, const Team& team,
+                              int k) {
+  if constexpr (Team::fleet) {
+    const int N = team.members(), G = team.size(), r = team.rank();
+    if (N <= G) {
+      const Slices<T> q = p.at(r % N);
+      prefetch_block(p, q, r / N, (G - 1 - r % N) / N + 1, p.block(q, k));
+    } else {
+      for (int i = r; i < N; i += G) {
+        const Slices<T> q = p.at(i);
+        prefetch_block(p, q, 0, 1, p.block(q, k));
+      }
+    }
+  } else {
+    prefetch_block(p, one, team.rank(), team.size(), p.block(one, k));
+  }
 }
 
-// One epoch of S steps by `team`.
+// q's loss of step k from its row losses, by one warp in a fixed tree.
+template <typename T, class Ly>
+__device__ void step_loss(const Params<T, Ly>& p, const Slices<T>& q, int k) {
+  typedef acc_t<T> A;
+  A acc = A(0);
+  for (int b = threadIdx.x; b < p.B; b += 32) acc += ldcg(q.rowloss + b);
+  for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
+  if (threadIdx.x == 0) {
+    const int n_out = p.n(p.n_layers - 1);
+    q.losses[k] = p.snn ? -acc * p.inv_b / A(n_out) : A(0.5) * acc * p.inv_b;
+  }
+}
+
+// One epoch of S steps by `team`, on the net whose slices are `one` (a
+// one-net team) or on every member (a fleet team).
 template <typename T, class Ly, typename Team, typename Clock>
-__device__ void epoch(const Params<T, Ly>& p, Team& team, const Worker<T>& wk, Clock& clk) {
-  const int n_in = p.m(0), n_out = p.n(p.n_layers - 1);
-  const bool fold = n_out <= HPNN_TILE;
+__device__ void epoch(const Params<T, Ly>& p, const Slices<T>& one, Team& team,
+                      const Worker<T>& wk, Clock& clk) {
+  const bool fold = p.n(p.n_layers - 1) <= HPNN_TILE;
   for (int s = 0; s < p.S; ++s) {
-    const size_t row0 = (size_t)block_of(p, s) * p.B;
-    const T* x = p.X + row0 * n_in;
-    const T* tg = p.Tg + row0 * n_out;
-    if (p.prefetch && s + 1 < p.S) prefetch_block(p, team, block_of(p, s + 1));
+    const Step<T> st{s, p.x(one, s), p.tg(one, s)};
+    if (p.prefetch && s + 1 < p.S) prefetch_step(p, one, team, s + 1);
     clk.to(P_FWD);
-    forward(p, x, tg, team, wk, fold ? F_DELTAS : F_NONE);
+    forward(p, one, st, team, wk, fold ? F_DELTAS : F_NONE);
     if (!fold) {
       clk.to(P_ROWS);
-      output_rows(p, tg, team, false);
+      output_rows(p, one, st, team, false);
       team.sync();
     }
     clk.to(P_HID);
-    hidden_deltas(p, team, wk);
+    hidden_deltas(p, one, team, wk);
     clk.to(P_UPD);
-    update(p, x, team, wk);
+    update(p, one, st, team, wk);
     clk.to(P_FWD);
-    forward(p, x, tg, team, wk, fold ? F_LOSS : F_NONE);
+    forward(p, one, st, team, wk, fold ? F_LOSS : F_NONE);
     if (!fold) {
       clk.to(P_ROWS);
-      output_rows(p, tg, team, true);
+      output_rows(p, one, st, team, true);
       team.sync();
     }
     clk.to(P_REST);
-    // rowloss is next written after this step's syncs, so the team's
-    // first warp sums it while the team starts the next step
-    if (team.rank() == 0 && threadIdx.x < 32) {
-      typedef acc_t<T> A;
-      A acc = A(0);
-      for (int b = threadIdx.x; b < p.B; b += 32) acc += ldcg(p.rowloss + b);
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-      if (threadIdx.x == 0)
-        p.losses[s] = p.snn ? -acc * p.inv_b / A(n_out) : A(0.5) * acc * p.inv_b;
+    // rowloss is next written after this step's syncs, so a warp sums
+    // each net's while the team starts the next step: the team's first
+    // (one net), or the first of block i mod size (member i)
+    if (threadIdx.x < 32) {
+      if constexpr (Team::fleet) {
+        for (int i = team.rank(); i < team.members(); i += team.size())
+          step_loss(p, p.at(i), s);
+      } else if (team.rank() == 0) {
+        step_loss(p, one, s);
+      }
     }
   }
 }
 
-// The epoch by `team`, its phases clocked in a -DHPNN_PHASE_CLOCKS build.
+// The epoch by `team`, its phases clocked in a -DHPNN_PHASE_CLOCKS build
+// by thread 0 of the launch's block 0 (the first cluster's rank 0).
 template <typename T, class Ly, typename Team>
-__device__ void run_epoch(const Params<T, Ly>& p, Team& team, const Worker<T>& wk) {
+__device__ void run_epoch(const Params<T, Ly>& p, const Slices<T>& one, Team& team,
+                          const Worker<T>& wk) {
 #ifdef HPNN_PHASE_CLOCKS
   PhaseClock clk;
-  const bool on = team.rank() == 0 && threadIdx.x == 0;
+  const bool on = blockIdx.x == 0 && threadIdx.x == 0;
   clk.start(on);
   Worker<T> clocked = wk;
   clocked.timed = on;
   TimedTeam<Team> timed{team, clk};
-  epoch(p, timed, clocked, clk);
+  epoch(p, one, timed, clocked, clk);
   clk.flush();
 #else
   NoClock clk;
-  epoch(p, team, wk, clk);
+  epoch(p, one, team, wk, clk);
 #endif
 }
 
@@ -1157,33 +1314,23 @@ template <typename T, class Ly>
 __global__ void __launch_bounds__(HPNN_THREADS, 1) batch_train(Params<T, Ly> p) {
   extern __shared__ __align__(16) unsigned char smem[];
   GridTeam team{cg::this_grid()};
-  run_epoch(p, team, Worker<T>(smem));
+  run_epoch(p, p.s, team, Worker<T>(smem));
 }
 
-// Member strides of a fleet launch, in elements of T.
-struct Fleet {
-  size_t x, t;     // one member's bank of X (bank_rows*n_in) and of T
-  size_t scratch;  // 2*B*n_act + B*sizeof(acc_t<T>)/sizeof(T)
-};
-
-// Cluster i trains member i: `p` holds member 0's pointers, moved here
-// to member i's slices.  The stacked weights are (N, out, in), so member
-// i's layer l starts i*out*in elements in; orders and losses are (N, S).
-// One member (#2-#5 on a cluster team) is cluster 0 with p as given.
-template <typename T, class Ly>
-__global__ void __launch_bounds__(HPNN_THREADS, 1) cluster_train(Params<T, Ly> p, Fleet f) {
+// The fleet kernel (#6), `p` holding member 0's slices and the strides
+// to member i's.  Team ClusterTeam: cluster i trains member i (one member
+// is #2-#5 on a cluster team, cluster 0 on p's slices).  Team
+// FleetGridTeam: the cooperative grid trains every member.
+template <typename T, class Ly, typename Team>
+__global__ void __launch_bounds__(HPNN_THREADS, 1) cluster_train(Params<T, Ly> p) {
   extern __shared__ __align__(16) unsigned char smem[];
-  ClusterTeam team;
-  const size_t i = blockIdx.x / team.size();
-  p.ly.to_member(i, p.n_layers, p.momentum);
-  p.X += i * f.x;
-  p.Tg += i * f.t;
-  if (p.order) p.order += i * p.S;
-  p.acts += i * f.scratch;
-  p.ds += i * f.scratch;
-  p.rowloss = reinterpret_cast<acc_t<T>*>(reinterpret_cast<T*>(p.rowloss) + i * f.scratch);
-  p.losses += i * p.S;
-  run_epoch(p, team, Worker<T>(smem));
+  if constexpr (Team::fleet) {
+    Team team{cg::this_grid(), p.f.n};
+    run_epoch(p, p.s, team, Worker<T>(smem));
+  } else {
+    Team team;
+    run_epoch(p, p.at(blockIdx.x / team.size()), team, Worker<T>(smem));
+  }
 }
 
 // Every kernel's dynamic shared memory, and the cluster kernels'
@@ -1196,11 +1343,14 @@ cudaError_t set_attributes_of() {
   cudaError_t err = cudaFuncSetAttribute(batch_train<T, Ly>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cluster_train<T, Ly>,
+    err = cudaFuncSetAttribute(cluster_train<T, Ly, ClusterTeam>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err == cudaSuccess)
-    err = cudaFuncSetAttribute(cluster_train<T, Ly>,
+    err = cudaFuncSetAttribute(cluster_train<T, Ly, ClusterTeam>,
                                cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess)
+    err = cudaFuncSetAttribute(cluster_train<T, Ly, FleetGridTeam>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   return err;
 }
 
@@ -1210,36 +1360,49 @@ cudaError_t set_attributes() {
   return err == cudaSuccess ? set_attributes_of<T, TableLayers<T>>() : err;
 }
 
-// Both flavours run one block an SM at most (HPNN_BLOCKS_PER_SM), so the
-// parameter flavour's occupancy stands for both.
+// Blocks an SM holds of a cooperative kernel, the fewer of its two
+// flavours' (parameter and table layers).
+template <typename T, typename KP, typename KT>
+cudaError_t per_sm_of(KP flavour_param, KT flavour_table, int* per_sm) {
+  int table = 0;
+  cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      per_sm, flavour_param, HPNN_THREADS, smem_bytes<T>());
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&table, flavour_table, HPNN_THREADS,
+                                                        smem_bytes<T>());
+  if (err == cudaSuccess && table < *per_sm) *per_sm = table;
+  return err;
+}
+
+// The cooperative grid of both cooperative kernels: one block an SM at
+// most (HPNN_BLOCKS_PER_SM), every block co-resident.
 template <typename T>
 int grid_blocks(int* blocks) {
-  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0, per_sm_fleet = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err == cudaSuccess) err = set_attributes<T>();
-  int per_sm_table = 0;
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, batch_train<T, ParamLayers<T>>,
-                                                        HPNN_THREADS, smem_bytes<T>());
+    err = per_sm_of<T>(batch_train<T, ParamLayers<T>>, batch_train<T, TableLayers<T>>,
+                       &per_sm);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm_table, batch_train<T, TableLayers<T>>, HPNN_THREADS, smem_bytes<T>());
+    err = per_sm_of<T>(cluster_train<T, ParamLayers<T>, FleetGridTeam>,
+                       cluster_train<T, TableLayers<T>, FleetGridTeam>, &per_sm_fleet);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorNotSupported;
-  if (per_sm_table < per_sm) per_sm = per_sm_table;
+  if (per_sm_fleet < per_sm) per_sm = per_sm_fleet;
   *blocks = sms * (per_sm < HPNN_BLOCKS_PER_SM ? per_sm : HPNN_BLOCKS_PER_SM);
   return (int)cudaSuccess;
 }
 
 // The launch's Params (member 0's, for a fleet) from the host copy of
 // the layer table `rec`, the scratch laid out as acts | ds | rowloss,
-// rowloss in acc_t<T>.  Returns the number of values of T of one scratch
-// (2*B*n_act + B*sizeof(acc_t<T>) / sizeof(T)), or 0 for a shape the
-// kernel does not take.
+// rowloss in acc_t<T>; one net's strides ({0, 0, 0, 1}).  Returns the
+// number of values of T of one scratch (2*B*n_act + B*sizeof(acc_t<T>) /
+// sizeof(T)), or 0 for a shape the kernel does not take.
 template <typename T, class Ly>
 size_t make_params(Params<T, Ly>* p, int snn, int momentum, int n_layers, const Layer* rec,
                    const void* X, const void* Tg, int B, const int* order, int first, int S,
@@ -1248,20 +1411,22 @@ size_t make_params(Params<T, Ly>* p, int snn, int momentum, int n_layers, const 
   if (n_layers < 1 || B < 1 || S < 1) return 0;
   p->n_layers = n_layers;
   const size_t total = (size_t)B * (rec[n_layers - 1].cum + rec[n_layers - 1].n);
-  p->X = static_cast<const T*>(X);
-  p->Tg = static_cast<const T*>(Tg);
-  p->order = order;
+  typedef acc_t<T> A;
+  p->s.X = static_cast<const T*>(X);
+  p->s.Tg = static_cast<const T*>(Tg);
+  p->s.order = order;
+  p->s.acts = static_cast<T*>(scratch);
+  p->s.ds = p->s.acts + total;
+  p->s.rowloss = reinterpret_cast<A*>(p->s.ds + total);
+  p->s.losses = static_cast<A*>(losses);
+  p->s.member = 0;
+  p->f = Fleet{0, 0, 0, 1};
   p->first = first;
   p->B = B;
   p->S = S;
-  typedef acc_t<T> A;
   p->lr = (A)lr_eff;
   p->alpha = (A)alpha;
   p->inv_b = (A)inv_b;
-  p->acts = static_cast<T*>(scratch);
-  p->ds = p->acts + total;
-  p->rowloss = reinterpret_cast<A*>(p->ds + total);
-  p->losses = static_cast<A*>(losses);
   p->snn = snn;
   p->momentum = momentum;
   p->prefetch = prefetch;
@@ -1285,11 +1450,10 @@ void set_layers(ParamLayers<T>* ly, const Layer* rec, const void*, int n_layers,
 template <typename T>
 void set_layers(TableLayers<T>* ly, const Layer*, const void* table, int, int, int) {
   ly->lay = static_cast<const Layer*>(table);
-  ly->member = 0;
 }
 
 // The launch of `members` clusters of `cluster` CTAs (1, 2, 4, 8 or 16)
-// of cluster_train<T, Ly>; `attr` holds the cluster size.
+// of cluster_train<T, Ly, ClusterTeam>; `attr` holds the cluster size.
 template <typename T>
 cudaError_t cluster_config(cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int members,
                            int cluster, cudaStream_t stream) {
@@ -1319,9 +1483,10 @@ int max_clusters(int cluster, int* n) {
   cudaError_t err = set_attributes<T>();
   if (err == cudaSuccess) err = cluster_config<T>(&cfg, &attr, 1, cluster, 0);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(n, cluster_train<T, ParamLayers<T>>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(n, cluster_train<T, ParamLayers<T>, ClusterTeam>, &cfg);
   if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveClusters(&n_table, cluster_train<T, TableLayers<T>>, &cfg);
+    err = cudaOccupancyMaxActiveClusters(&n_table, cluster_train<T, TableLayers<T>, ClusterTeam>,
+                                         &cfg);
   if (err == cudaSuccess && n_table < *n) *n = n_table;
   return (int)err;
 }
@@ -1329,13 +1494,29 @@ int max_clusters(int cluster, int* n) {
 // `members` clusters of `cluster` CTAs, cluster i on member i.  The
 // wrapper has checked with max_clusters that the card places one.
 template <typename T, class Ly>
-int launch_clusters(const Params<T, Ly>& p, const Fleet& f, int members, int cluster,
-                    cudaStream_t stream) {
+int launch_clusters(const Params<T, Ly>& p, int members, int cluster, cudaStream_t stream) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
   cudaError_t err = cluster_config<T>(&cfg, &attr, members, cluster, stream);
   if (err != cudaSuccess) return (int)err;
-  err = cudaLaunchKernelEx(&cfg, cluster_train<T, Ly>, p, f);
+  err = cudaLaunchKernelEx(&cfg, cluster_train<T, Ly, ClusterTeam>, p);
+  if (err != cudaSuccess) {
+    cudaGetLastError();  // clear the launch error
+    return (int)err;
+  }
+  return (int)cudaGetLastError();
+}
+
+// One cooperative launch of `kernel` on `blocks` blocks (from
+// grid_blocks): refused, never hung, when they cannot all be resident.
+template <typename T, class Ly>
+int launch_grid(void (*kernel)(Params<T, Ly>), Params<T, Ly> p, int blocks,
+                cudaStream_t stream) {
+  if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
+  void* args[] = {&p};
+  cudaError_t err = cudaLaunchCooperativeKernel((const void*)kernel, dim3(blocks),
+                                                dim3(HPNN_THREADS), args, smem_bytes<T>(),
+                                                stream);
   if (err != cudaSuccess) {
     cudaGetLastError();  // clear the launch error
     return (int)err;
@@ -1353,17 +1534,8 @@ int launch_as(int blocks, int cluster, int snn, int momentum, int n_layers, cons
                    alpha, inv_b, scratch, losses, prefetch))
     return (int)cudaErrorInvalidValue;
   set_layers(&p.ly, rec, table, n_layers, B, momentum);
-  if (cluster) return launch_clusters(p, Fleet{0, 0, 0}, 1, cluster, stream);
-  if (blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  void* args[] = {&p};
-  cudaError_t err = cudaLaunchCooperativeKernel((const void*)batch_train<T, Ly>, dim3(blocks),
-                                                dim3(HPNN_THREADS), args, smem_bytes<T>(),
-                                                stream);
-  if (err != cudaSuccess) {
-    cudaGetLastError();  // clear the launch error
-    return (int)err;
-  }
-  return (int)cudaGetLastError();
+  if (cluster) return launch_clusters(p, 1, cluster, stream);
+  return launch_grid<T, Ly>(batch_train<T, Ly>, p, blocks, stream);
 }
 
 template <typename T>
@@ -1384,24 +1556,24 @@ int launch(int blocks, int cluster, int snn, int momentum, int n_layers, const v
 }
 
 template <typename T, class Ly>
-int launch_fleet_as(int members, int cluster, int snn, int momentum, int n_layers,
+int launch_fleet_as(int blocks, int members, int cluster, int snn, int momentum, int n_layers,
                     const void* table, const Layer* rec, const void* X, const void* Tg,
                     long long bank_rows, int B, const int* orders, int S, double lr_eff,
                     double alpha, double inv_b, void* scratch, void* losses,
                     cudaStream_t stream) {
   Params<T, Ly> p;
-  Fleet f;
-  f.scratch = make_params(&p, snn, momentum, n_layers, rec, X, Tg, B, orders, 0, S, lr_eff,
-                          alpha, inv_b, scratch, losses, 1);
-  if (!f.scratch) return (int)cudaErrorInvalidValue;
+  const size_t scratch_values = make_params(&p, snn, momentum, n_layers, rec, X, Tg, B, orders,
+                                            0, S, lr_eff, alpha, inv_b, scratch, losses, 1);
+  if (!scratch_values) return (int)cudaErrorInvalidValue;
   set_layers(&p.ly, rec, table, n_layers, B, momentum);
-  f.x = (size_t)bank_rows * rec[0].m;
-  f.t = (size_t)bank_rows * rec[n_layers - 1].n;
-  return launch_clusters(p, f, members, cluster, stream);
+  p.f = Fleet{(size_t)bank_rows * rec[0].m, (size_t)bank_rows * rec[n_layers - 1].n,
+              scratch_values, members};
+  if (cluster) return launch_clusters(p, members, cluster, stream);
+  return launch_grid<T, Ly>(cluster_train<T, Ly, FleetGridTeam>, p, blocks, stream);
 }
 
 template <typename T>
-int launch_fleet(int members, int cluster, int snn, int momentum, int n_layers,
+int launch_fleet(int blocks, int members, int cluster, int snn, int momentum, int n_layers,
                  const void* table, const void* host_table, const void* X, const void* Tg,
                  long long bank_rows, int B, const int* orders, int S, double lr_eff,
                  double alpha, double inv_b, void* scratch, void* losses,
@@ -1411,14 +1583,14 @@ int launch_fleet(int members, int cluster, int snn, int momentum, int n_layers,
     return (int)cudaErrorInvalidValue;
   const Layer* rec = static_cast<const Layer*>(host_table);
   return n_layers > HPNN_PARAM_LAYERS
-             ? launch_fleet_as<T, TableLayers<T>>(members, cluster, snn, momentum, n_layers,
-                                                  table, rec, X, Tg, bank_rows, B, orders, S,
-                                                  lr_eff, alpha, inv_b, scratch, losses,
-                                                  stream)
-             : launch_fleet_as<T, ParamLayers<T>>(members, cluster, snn, momentum, n_layers,
-                                                  table, rec, X, Tg, bank_rows, B, orders, S,
-                                                  lr_eff, alpha, inv_b, scratch, losses,
-                                                  stream);
+             ? launch_fleet_as<T, TableLayers<T>>(blocks, members, cluster, snn, momentum,
+                                                  n_layers, table, rec, X, Tg, bank_rows, B,
+                                                  orders, S, lr_eff, alpha, inv_b, scratch,
+                                                  losses, stream)
+             : launch_fleet_as<T, ParamLayers<T>>(blocks, members, cluster, snn, momentum,
+                                                  n_layers, table, rec, X, Tg, bank_rows, B,
+                                                  orders, S, lr_eff, alpha, inv_b, scratch,
+                                                  losses, stream);
 }
 
 }  // namespace
@@ -1460,41 +1632,46 @@ extern "C" int hpnn_batch_train(int dtype, int blocks, int cluster, int snn, int
   return (int)cudaErrorInvalidValue;
 }
 
-// Plain C entry of the fleet epoch (#6): `members` clusters of `cluster`
-// CTAs (1, 2, 4, 8 or 16), cluster i on member i, every step prefetching
-// its member's next block.  `table` and `host_table` are as for
-// hpnn_batch_train, each record's w (and dw) the stacked (members, n, m)
-// layer l, member stride m*n.  X and Tg are the stacked banks, (members,
-// bank_rows, n_in) and (members, bank_rows, n_out), member stride
-// bank_rows rows.  `orders` and `losses` are (members, S), member stride
-// S; `scratch` holds members * (2*B*n_act + B) values, member stride one
-// scratch.  Ask hpnn_fleet_max_clusters on the device first, as for
-// hpnn_batch_train.  Returns the cudaError_t of the launch.
-extern "C" int hpnn_fleet_train(int dtype, int members, int cluster, int snn, int momentum,
-                                int n_layers, const void* table, const void* host_table,
-                                const void* X, const void* Tg, long long bank_rows, int B,
-                                const void* orders, int S, double lr_eff, double alpha,
-                                double inv_b, void* scratch, void* losses, void* stream) {
+// Plain C entry of the fleet epoch (#6), every step prefetching each
+// member's next block.  `cluster` 0: one cooperative launch of `blocks`
+// blocks (from hpnn_batch_grid_blocks), the grid walking every member's
+// tiles; `cluster` C in {1, 2, 4, 8, 16}: `members` clusters of C CTAs,
+// cluster i on member i, `blocks` unused.  `table` and `host_table` are
+// as for hpnn_batch_train, each record's w (and dw) the stacked (members,
+// n, m) layer l, member stride m*n.  X and Tg are the stacked banks,
+// (members, bank_rows, n_in) and (members, bank_rows, n_out), member
+// stride bank_rows rows.  `orders` and `losses` are (members, S), member
+// stride S; `scratch` holds members * (2*B*n_act + B) values, member
+// stride one scratch.  Ask hpnn_batch_grid_blocks or
+// hpnn_fleet_max_clusters on the device first, as for hpnn_batch_train.
+// Returns the cudaError_t of the launch.
+extern "C" int hpnn_fleet_train(int dtype, int blocks, int members, int cluster, int snn,
+                                int momentum, int n_layers, const void* table,
+                                const void* host_table, const void* X, const void* Tg,
+                                long long bank_rows, int B, const void* orders, int S,
+                                double lr_eff, double alpha, double inv_b, void* scratch,
+                                void* losses, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* ord = static_cast<const int*>(orders);
   if (dtype == 0)
-    return launch_fleet<float>(members, cluster, snn, momentum, n_layers, table, host_table,
-                               X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b, scratch,
-                               losses, st);
+    return launch_fleet<float>(blocks, members, cluster, snn, momentum, n_layers, table,
+                               host_table, X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b,
+                               scratch, losses, st);
   if (dtype == 1)
-    return launch_fleet<double>(members, cluster, snn, momentum, n_layers, table, host_table,
-                                X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b, scratch,
-                                losses, st);
+    return launch_fleet<double>(blocks, members, cluster, snn, momentum, n_layers, table,
+                                host_table, X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b,
+                                scratch, losses, st);
   if (dtype == 2)
-    return launch_fleet<bf16>(members, cluster, snn, momentum, n_layers, table, host_table,
-                              X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b, scratch,
-                              losses, st);
+    return launch_fleet<bf16>(blocks, members, cluster, snn, momentum, n_layers, table,
+                              host_table, X, Tg, bank_rows, B, ord, S, lr_eff, alpha, inv_b,
+                              scratch, losses, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// The cooperative grid of one launch on the current device: every
-// block co-resident.  Sets the kernels' attributes (set_attributes).
-// Returns the cudaError_t of the query.
+// The cooperative grid of one launch on the current device (of #2-#5,
+// and of #6 on the grid): every block co-resident.  Sets the kernels'
+// attributes (set_attributes).  Returns the cudaError_t of the query
+// (cudaErrorNotSupported on a card without cooperative launches).
 extern "C" int hpnn_batch_grid_blocks(int dtype, int* blocks) {
   *blocks = 0;
   if (dtype == 0) return grid_blocks<float>(blocks);

@@ -28,12 +28,15 @@ the fleet) on the tensors' own dtype.  There is no other route.
 ``launches`` counts each entry point's kernel launches in this process.
 
 The launch's *team*: #2-#5 run on the cooperative grid (one block per
-SM); #6 runs one cluster of :func:`fleet_cluster` CTAs per member
-(``cluster=`` forces the size).  Inside ``with _cluster_team(C):`` #2-#5
-run their body on one cluster of C CTAs instead, for the tests and
-``chip_smoke.py`` (the grid is the faster: PERF.md).  Every team gives
-the same bits.  A launch the card cannot place raises; nothing falls
-back to a smaller team.
+SM).  #6 runs on the team :func:`fleet_cluster` plans from an estimate
+of a step on each: the same grid walking every member's tiles (0), or
+one cluster of C CTAs per member (C); ``cluster=`` forces one (0 the
+grid).  Inside ``with _cluster_team(C):`` #2-#5 run their body on one
+cluster of C CTAs instead, for the tests and ``chip_smoke.py`` (the grid
+is the faster: PERF.md).  Every team gives the same bits.  A launch the
+card cannot place raises; nothing falls back to a smaller team.
+``launches_by_team`` counts #6's launches by team, and ``fleet_team``
+names the team of the last one.
 
 A net of any depth: the layers reach the kernel as one table of
 records (:func:`_layer_table`, kept by ``ops/_table.py``: its values by
@@ -64,13 +67,17 @@ BATCH_ENTRY_POINTS = (
 )
 ENTRY_POINTS = BATCH_ENTRY_POINTS + ("train_fleet_epoch_dbuf_banked",)
 launches = dict.fromkeys(ENTRY_POINTS, 0)
+launches_by_team = {"grid": 0, "cluster": 0}  # #6's launches in this process, by team
+fleet_team = None  # the team of this process's last launch of #6: "grid" or "cluster:C"
 tables = _table.Tables()  # the launches' layer tables (csrc/batch_step.cu's Layer)
 
 TILE = 32        # HPNN_TILE: output tile edge and k-tile depth
 WORKERS = 2      # HPNN_WORKERS: 128-thread tile workers a block
 MAX_SHARED_BYTES = 232448  # dynamic shared memory one H100 block can use
 CLUSTER_SIZES = (1, 2, 4, 8, 16)  # the cluster sizes the kernel takes
+GRID = 0  # #6's `cluster` that names the grid team
 _DTYPE_CODE = {torch.float32: 0, torch.float64: 1, torch.bfloat16: 2}
+_NO_COOPERATIVE_LAUNCH = 801  # cudaErrorNotSupported, from hpnn_batch_grid_blocks
 _BUILT_FOR = "float32 and float64 (and bfloat16 storage)"
 _libs: dict = {}       # define (None: the shipped build) -> loaded library
 _variant = None        # the build the entry points launch (phase_clocks sets it)
@@ -78,8 +85,8 @@ _team = 0              # #2-#5's team: 0 the grid, C one cluster (_cluster_team 
 # asked of the card once per build, type and device (the queries also opt
 # the kernels in to their shared memory, so a launch sets nothing):
 _grids: dict[tuple, int] = {}      # -> blocks of the cooperative grid
-_capacity: dict[tuple, dict] = {}  # -> {C: clusters of C CTAs at once}
-_plans: dict[tuple, int] = {}      # and members, shapes, B, forced size -> #6's C
+_capacity: dict[tuple, dict] = {}  # -> {GRID: grid blocks, C: clusters of C CTAs at once}
+_plans: dict[tuple, int] = {}      # and members, shapes, B, forced team -> #6's team
 
 # The C signatures of csrc/batch_step.cu's launch entries, argument by
 # argument (every pointer and the stream as ``c_void_p``): a wrong entry
@@ -93,10 +100,11 @@ ARGTYPES = {
     "hpnn_batch_train": (
         (_INT,) * 6 + (_PTR,) * 4 + (_INT,) + (_PTR,) + (_INT,) * 2
         + (_DBL,) * 3 + (_PTR,) * 2 + (_INT, _PTR)),
-    # dtype members cluster snn momentum n_layers | table host_table X Tg |
-    # bank_rows | B | orders | S | lr_eff alpha inv_b | scratch losses stream
+    # dtype blocks members cluster snn momentum n_layers | table host_table
+    # X Tg | bank_rows | B | orders | S | lr_eff alpha inv_b | scratch
+    # losses stream
     "hpnn_fleet_train": (
-        (_INT,) * 6 + (_PTR,) * 4 + (ctypes.c_longlong, _INT, _PTR, _INT)
+        (_INT,) * 7 + (_PTR,) * 4 + (ctypes.c_longlong, _INT, _PTR, _INT)
         + (_DBL,) * 3 + (_PTR,) * 3),
 }
 # one record of the table: csrc/batch_step.cu's `struct Layer` (w, dw or
@@ -139,13 +147,14 @@ KTILES = "k-tiles"
 def phase_clocks(run):
     """``run()`` (kernel launches through the entry points above, on CUDA
     tensors) with the kernel's phase-clock build (``-DHPNN_PHASE_CLOCKS``):
-    returns ``run()``'s result, the SM cycles that rank 0's thread 0
-    spent in each of ``PHASES`` (waits at the team's syncs included), and
+    returns ``run()``'s result, the SM cycles that thread 0 of the
+    launch's block 0 (the first cluster's rank 0) spent in each of
+    ``PHASES`` (waits at the team's syncs included), and
     its cycles in each of ``KTILE_PARTS`` of its tiles' k-tiles (a share
     of the tile phases) with, under ``KTILES``, the number of those
     k-tiles.  A measuring tool: its launches do not count in
-    ``launches``."""
-    global _variant
+    ``launches`` or ``launches_by_team``."""
+    global _variant, fleet_team
     lib = _library("HPNN_PHASE_CLOCKS")
     clocks = (ctypes.c_ulonglong * (len(PHASES) + len(KTILE_PARTS) + 1))()
 
@@ -154,7 +163,7 @@ def phase_clocks(run):
         if rc != 0:
             raise RuntimeError(f"reading the phase clocks failed: {rc}")
 
-    counted = dict(launches)
+    counted, by_team, team = dict(launches), dict(launches_by_team), fleet_team
     torch.cuda.synchronize()
     read_and_zero()
     _variant = "HPNN_PHASE_CLOCKS"
@@ -164,6 +173,8 @@ def phase_clocks(run):
     finally:
         _variant = None
         launches.update(counted)
+        launches_by_team.update(by_team)
+        fleet_team = team
     read_and_zero()
     values = [int(v) for v in clocks]
     return (out, dict(zip(PHASES, values)),
@@ -182,8 +193,9 @@ def _key(dtype, device) -> tuple:
 
 
 def grid_blocks(dtype, device) -> int:
-    """Blocks of one cooperative launch on ``device``, all co-resident
-    (asked of the card once per type and device).  This is the kernel's
+    """Blocks of one cooperative launch on ``device`` (#2-#5's grid, and
+    #6's on the grid team), all co-resident (asked of the card once per
+    type and device).  This is the kernel's
     resource check: it raises when the card cannot hold even one block
     per SM, or does not take cooperative launches."""
     key = _key(dtype, device)
@@ -234,37 +246,114 @@ def _cluster_arg(cluster) -> int:
     return cluster
 
 
+def _team_arg(cluster) -> int:
+    """#6's ``cluster=``: GRID (0), or a cluster size."""
+    if type(cluster) is int and cluster == GRID:
+        return GRID
+    return _cluster_arg(cluster)
+
+
+# The plan's estimate of a step (step_ns), from the phase-clock build on an
+# NVIDIA H100 80GB HBM3 at 700 W (chip_smoke.py --phase-split, phase 12's
+# plan split; PERF.md, PR 23), block 0's thread 0 at its 1.916 GHz SM
+# clock: one k-tile of a worker's tile, its share of the tile's set-up and
+# epilogue included (2429 cycles; float32 #6, 8 members of 784-300-10, B =
+# 256, on the grid), and one sync of each team, its wait for the slowest
+# block included (the HPNN-sized fleet, 64 x 32-16-4, B = 1, one tile a
+# member a phase): GRID the grid.sync() of 132 blocks (2273 cycles), C the
+# barrier of a C-CTA cluster (846-906 cycles; 1, __syncthreads, 73).
+KTILE_NS = 1268.0
+SYNC_NS = {GRID: 1186.0, 1: 38.0, 2: 473.0, 4: 447.0, 8: 455.0, 16: 442.0}
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def step_phases(shapes, batch: int) -> tuple:
+    """(tiles a member, k-tiles a tile) of each tile phase of one step, in
+    order (forward, hidden deltas, update, re-forward), and the team
+    syncs of the step.  ``shapes``: the layers' (out, in)."""
+    rows = _cdiv(batch, TILE)
+    fwd = [(rows * _cdiv(n, TILE), _cdiv(m, TILE)) for n, m in shapes]
+    hid = [(rows * _cdiv(shapes[l][0], TILE), _cdiv(shapes[l + 1][0], TILE))
+           for l in range(len(shapes) - 2, -1, -1)]
+    upd = [(sum(_cdiv(n, TILE) * _cdiv(m, TILE) for n, m in shapes), _cdiv(batch, TILE))]
+    syncs = 3 * len(shapes) + (2 if shapes[-1][0] > TILE else 0)
+    return fwd + hid + upd + fwd, syncs
+
+
+def step_ns(team: int, members: int, shapes, batch: int, capacity) -> float:
+    """The plan's estimate of one step of ``members`` nets on ``team``
+    (GRID: capacity[GRID] blocks on every member's tiles; C: one C-CTA
+    cluster a member, ceil(members / capacity[C]) waves of them): each
+    phase's tile rounds (ceil(tiles / workers)) times its k-tiles times
+    KTILE_NS, plus the step's syncs times SYNC_NS[team], times the waves."""
+    phases, syncs = step_phases(shapes, batch)
+    if team == GRID:
+        workers, waves, nets = WORKERS * capacity[GRID], 1, members
+    else:
+        workers, waves, nets = WORKERS * team, _cdiv(members, capacity[team]), 1
+    rounds = sum(_cdiv(nets * tiles, workers) * k for tiles, k in phases)
+    return waves * (rounds * KTILE_NS + syncs * SYNC_NS[team])
+
+
 def fleet_cluster(members: int, shapes, batch: int, capacity, *, cluster=None) -> int:
-    """CTAs of each member's cluster in one launch of #6.  ``capacity``:
-    {C: clusters of C CTAs the card holds at once} (:func:`cluster_capacity`).
-    Clusters live inside one GPC, so the count is not the SM count over
-    C.  The members run in ceil(members / capacity[C]) waves, and a
-    member's step takes about 1/C of one CTA's time, so the plan is the C
-    of CLUSTER_SIZES, at most :func:`largest_gemm_tiles` (or 1), with the
-    fewest waves per CTA of a member; of equals, the smaller C (its
-    barrier is cheaper).  Members that fill the card one CTA each take
-    C = 1: a larger C adds barriers and no SM.  ``cluster`` forces a
-    size (the same bits whatever C: tests and chip_smoke.py use it)."""
+    """The team of one launch of #6: GRID (0), the cooperative grid of
+    ``capacity[GRID]`` blocks walking every member's tiles, or C, one
+    cluster of C CTAs per member.  ``capacity``: {GRID: blocks of the grid
+    (0 or absent where the card takes no cooperative launch), C: clusters
+    of C CTAs the card holds at once} (:func:`cluster_capacity`).
+
+    The cluster plan: clusters live inside one GPC, so their count is not
+    the SM count over C.  The members run in ceil(members / capacity[C])
+    waves, and a member's step takes about 1/C of one CTA's time, so C is
+    the size of CLUSTER_SIZES, at most :func:`largest_gemm_tiles` (or 1),
+    with the fewest waves per CTA of a member; of equals, the smaller C
+    (its barrier is cheaper).  Members that fill the card one CTA each take
+    C = 1: a larger C adds barriers and no SM.  Then the grid, where the
+    card has one, if :func:`step_ns` puts its step below that C's: it wins
+    where the clusters leave SMs idle or a phase's tiles outnumber a
+    cluster's workers, and loses where a phase is a tile or so a member,
+    so that its syncs cost more than the rounds it saves.
+
+    ``cluster`` forces a team: GRID (refused on a card without it) or a
+    size, taken even past the card (the same bits whatever the team:
+    tests and chip_smoke.py use it)."""
+    grid = capacity.get(GRID, 0) >= 1
     if cluster is not None:
-        return _cluster_arg(cluster)
+        team = _team_arg(cluster)
+        if team == GRID and not grid:
+            raise RuntimeError("the card takes no cooperative launch of the fleet kernel")
+        return team
     tiles = largest_gemm_tiles(shapes, batch)
     full = members >= capacity.get(1, 0)
     sizes = [C for C in CLUSTER_SIZES
              if (C == 1 or (C <= tiles and not full)) and capacity.get(C, 0) >= 1]
-    if not sizes:
+    C = (min(sizes, key=lambda C: (-(-members // capacity[C]) / C, C)) if sizes else None)
+    if grid and (C is None or step_ns(GRID, members, shapes, batch, capacity)
+                 < step_ns(C, members, shapes, batch, capacity)):
+        return GRID
+    if C is None:
         raise RuntimeError("the card holds no cluster of the fleet kernel")
-    return min(sizes, key=lambda C: (-(-members // capacity[C]) / C, C))
+    return C
 
 
 def cluster_capacity(dtype, device) -> dict:
-    """{C: clusters of C CTAs of the fleet kernel the card holds at once},
-    asked of the card once per type and device; raises if it cannot hold
-    even one CTA."""
+    """{GRID: blocks of #6's cooperative grid (0 where the card takes no
+    cooperative launch), C: clusters of C CTAs of the fleet kernel the
+    card holds at once}, asked of the card once per type and device;
+    raises if it cannot hold even one CTA."""
     key = _key(dtype, device)
     if key not in _capacity:
         lib = _library(_variant)
         cap = {}
         with torch.cuda.device(device):
+            blocks = ctypes.c_int(0)
+            rc = lib.hpnn_batch_grid_blocks(_DTYPE_CODE[dtype], ctypes.byref(blocks))
+            if rc != _NO_COOPERATIVE_LAUNCH:
+                _raise_on(lib, rc, "occupancy query")
+            cap[GRID] = blocks.value
             for C in CLUSTER_SIZES:
                 n = ctypes.c_int(0)
                 _raise_on(lib, lib.hpnn_fleet_max_clusters(_DTYPE_CODE[dtype], C,
@@ -294,7 +383,8 @@ def _cluster_team(cluster: int):
 
 def _placed(cluster: int, dtype, device) -> int:
     """``cluster``, once the card is known to hold a cluster of that many
-    CTAs of the kernel; raises if it holds none."""
+    CTAs of the kernel (or, for GRID, its cooperative grid); raises if it
+    holds none."""
     if cluster_capacity(dtype, device)[cluster] < 1:
         raise RuntimeError(f"the card cannot place a cluster of {cluster} CTAs of the "
                            f"batch-step kernel ({shared_bytes(dtype)} bytes of shared "
@@ -474,6 +564,7 @@ def _check_fleet(weights, dw, X_banks, T_banks, orders, batch, model, momentum):
 
 def _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, *, model,
                   momentum, lr, alpha, cluster):
+    global fleet_team
     if X_banks.device.type != "cuda":
         raise ValueError(f"unsupported device {X_banks.device}")
     dev = X_banks.device
@@ -482,10 +573,11 @@ def _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, *, model,
     shapes = tuple(tuple(w.shape[1:]) for w in weights)
     key = _key(X_banks.dtype, dev) + (N, shapes, batch, cluster)
     C = _plans.get(key)
+    cap = cluster_capacity(X_banks.dtype, dev)
     if C is None:
-        cap = cluster_capacity(X_banks.dtype, dev)
         C = _plans[key] = _placed(fleet_cluster(N, shapes, batch, cap, cluster=cluster),
                                   X_banks.dtype, dev)
+    blocks = cap[GRID] if C == GRID else 0
     ord_dev = orders.to(dev)
     losses = torch.empty((N, S), dtype=loss_dtype(X_banks.dtype), device=dev)
     with torch.cuda.device(dev):
@@ -495,7 +587,7 @@ def _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, *, model,
         scratch = torch.empty(N * per_row * batch, dtype=X_banks.dtype, device=dev)
         # lr·(1/B) in double on the host, as the JAX Python-scalar product is
         rc = lib.hpnn_fleet_train(
-            _DTYPE_CODE[X_banks.dtype], N, C, int(model == "snn"), int(bool(momentum)),
+            _DTYPE_CODE[X_banks.dtype], blocks, N, C, int(model == "snn"), int(bool(momentum)),
             len(weights), None if table is None else table.data_ptr(),
             ctypes.addressof(host), X_banks.data_ptr(), T_banks.data_ptr(),
             int(X_banks.shape[1]), int(batch), ord_dev.data_ptr(), S,
@@ -503,9 +595,12 @@ def _launch_fleet(weights, dw, X_banks, T_banks, orders, batch, *, model,
             scratch.data_ptr(), losses.data_ptr(), stream,
         )
     if rc != 0:
-        _raise_on(lib, rc, f"fleet launch ({N} clusters of {C} CTAs, "
-                           f"{shared_bytes(X_banks.dtype)} bytes of shared memory a CTA)")
+        team = f"a grid of {blocks} blocks" if C == GRID else f"{N} clusters of {C} CTAs"
+        _raise_on(lib, rc, f"fleet launch ({team}, {shared_bytes(X_banks.dtype)} bytes of "
+                           f"shared memory a CTA)")
     launches["train_fleet_epoch_dbuf_banked"] += 1
+    launches_by_team["grid" if C == GRID else "cluster"] += 1
+    fleet_team = "grid" if C == GRID else f"cluster:{C}"
     return losses
 
 
@@ -513,13 +608,15 @@ def _run_fleet(kernel, weights, dw, X_banks, T_banks, orders, *, batch,
                model="ann", momentum=False, lr=None, alpha=0.2, cluster=None):
     """Check, then the kernel (``kernel`` and CUDA tensors) or, per
     member, the plain epoch (``kernel`` False, or CPU tensors)."""
+    global fleet_team
     orders = _check_fleet(weights, dw, X_banks, T_banks, orders, batch, model, momentum)
     if cluster is not None:
-        _cluster_arg(cluster)
+        _team_arg(cluster)
     if lr is None:
         lr = dp.default_lr(model, momentum)
     kw = dict(model=model, momentum=momentum, lr=lr, alpha=alpha)
     if not kernel or X_banks.device.type == "cpu":
+        fleet_team = None
         return torch.stack([
             _plain_epoch([w[i] for w in weights], [m[i] for m in dw] if momentum else (),
                          X_banks[i], T_banks[i], orders[i], batch, **kw)
@@ -530,8 +627,8 @@ def _run_fleet(kernel, weights, dw, X_banks, T_banks, orders, *, batch,
 # ------------------------------------------------------------ entry points
 # Each takes ``model`` ("ann" | "snn"), ``momentum``, ``lr`` (default
 # ``dp.default_lr``) and ``alpha`` (0.2) by keyword; the fleet epoch also
-# ``cluster``, the members' cluster size (default :func:`fleet_cluster`'s
-# plan), which its plain version checks and ignores.
+# ``cluster``, its team (GRID, 0, or the members' cluster size; default
+# :func:`fleet_cluster`'s plan), which its plain version checks and ignores.
 def _step_batch(name, weights, dw, X, T, **kw):
     losses = _run(name, weights, dw, X, T, [0], X.shape[0], prefetch=False, **kw)
     return weights, dw, losses[0]
@@ -582,7 +679,8 @@ def train_epoch_dbuf_banked(weights, dw, X_bank, T_bank, order, *, batch: int, *
 def train_fleet_epoch_dbuf_banked(weights, dw, X_banks, T_banks, orders, *,
                                   batch: int, **kw):
     """N members' :func:`train_epoch_dbuf_banked` epochs in ONE launch,
-    cluster i of the grid on member i: member i's slice of the stacked
+    on the grid or on one cluster a member (:func:`fleet_cluster`),
+    member i on its slice of the stacked
     ``(N, out, in)`` weights (and dw), its bank ``X_banks[i]``,
     ``T_banks[i]`` of ``(N, S·B, n)``, its block order ``orders[i]`` of
     ``(N, S)``.  Member i's result is bitwise that of

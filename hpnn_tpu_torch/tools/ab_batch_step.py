@@ -27,7 +27,10 @@ What a turn runs, on inputs made from one seed:
 * bitwise and timed (CUDA events, after one untimed run): one 235-step
   epoch of a 60000-row bank, 784-300-10 ANN-BP float32, B = 256,
   through #2 and #3 (235 launches each), #4 and #5 (one launch), and #6
-  for 8 and 32 members as planned; then the HPNN-sized fleet (64 x
+  for 8 (the ``mnist_ann.fleet8`` cell's shape, lr 0.001) and 32 members
+  as planned; #6 on the ``rruff_ann.fleet8`` cell's call: 8 members of
+  851-230-230 ANN-BPM (alpha 0.2, lr 0.4), B = 256, 16 launches of a
+  14-step epoch over 3584-row banks; then the HPNN-sized fleet (64 x
   32-16-4, B = 1) through ``train.fleet.make_fleet_epoch_fn``, one
   launch of #6 a tick, 3 x 30 ticks timed on the host's clock, each
   tick synchronised, then 30 more under ``torch.profiler`` for the
@@ -35,12 +38,14 @@ What a turn runs, on inputs made from one seed:
   median time the host spends in #6's entry point a tick.
 
 Each result is compared by the SHA-256 of its bytes (a bf16 result
-across the sides by its values, kept in a ``.pt`` file beside the
-turn's JSON).  Prints one line per timed item and one JSON object as
-its last line (also written to ``--out``); exits 1 when a float or
-double result differs between the sides or between two turns of one
-side, or a bf16 result between two turns of one side or out of the
-band between the sides.
+across the sides by its values too, kept in a ``.pt`` file beside the
+turn's JSON); the bf16 results the sides share bitwise are counted.
+Each turn also records the team of each #6 item's last launch
+(``ops.batch_step.fleet_team``, None on a side without it).  Prints one
+line per timed item and one JSON object as its last line (also written
+to ``--out``); exits 1 when a float or double result differs between
+the sides or between two turns of one side, or a bf16 result between
+two turns of one side or out of the band between the sides.
 """
 
 from __future__ import annotations
@@ -64,6 +69,8 @@ N_IN, N_HID, N_OUT = 784, 300, 10
 XRD = (851, 230, 230)
 BATCH, PINNED_S, ROWS = 256, 8, 60000
 FLEET_N = (8, 32)
+# rruff_ann.fleet8's call: members, rows a bank, epochs, lr, alpha
+RRUFF_FLEET = (8, 3584, 16, 0.4, 0.2)
 PINNED_N = 4
 HPNN_FLEET = (64, (32, 16, 4), 30)  # members, shape, ticks a timed run
 TICK_RUNS = 3
@@ -135,7 +142,7 @@ def turn(checkout: str, keep: str | None = None) -> dict:
         raise RuntimeError(f"imported {hpnn_tpu_torch.__file__}, not {checkout}'s package")
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda")
-    hashes, times, hashes16, kept = {}, {}, {}, {}
+    hashes, times, hashes16, kept, teams = {}, {}, {}, {}, {}
 
     def held16(name, loss, w0, w, dw):
         hashes16[name] = digest([loss] + w + dw)
@@ -248,6 +255,7 @@ def turn(checkout: str, keep: str | None = None) -> dict:
             w, [], Xb, Tb, orders, batch=BATCH, **kw)[2]] + w)
         times[name] = [events_ms(lambda: bs.train_fleet_epoch_dbuf_banked(
             w, [], Xb, Tb, orders, batch=BATCH, **kw))]
+        teams[name] = getattr(bs, "fleet_team", None)
         if N == FLEET_N[0]:
             # bf16 on the same banks, then float32 again: a float32 epoch
             # right after a bf16 one is timed apart from the float32 item
@@ -267,6 +275,37 @@ def turn(checkout: str, keep: str | None = None) -> dict:
         del Xb, Tb
         torch.cuda.empty_cache()
     del X, T
+
+    # rruff_ann.fleet8's call: 8 x 851-230-230 BPM, 16 launches of a
+    # 14-step epoch, each member on its own bank
+    n_r, rows_r, epochs_r, lr_r, alpha_r = RRUFF_FLEET
+    n_in, n_hid, n_out = XRD
+    S_r = rows_r // BATCH
+    rng = np.random.default_rng(SEED + 12)
+    rks = [km.generate(SEED + 50 + i, n_in, [n_hid], n_out)[0] for i in range(n_r)]
+    Xr = torch.tensor(rng.random((n_r, rows_r, n_in)), dtype=torch.float32, device=dev)
+    Tr = -torch.ones((n_r, rows_r, n_out), dtype=torch.float32, device=dev)
+    for i in range(n_r):
+        Tr[i, torch.arange(rows_r), torch.from_numpy(rng.integers(0, n_out, rows_r))] = 1.0
+    orders_r = [np.stack([rng.permutation(S_r) for _ in range(n_r)]) for _ in range(epochs_r)]
+    kw_r = dict(batch=BATCH, model="ann", momentum=True, lr=lr_r, alpha=alpha_r)
+
+    def rruff_call(w, dw):
+        return torch.stack([bs.train_fleet_epoch_dbuf_banked(w, dw, Xr, Tr, o, **kw_r)[2]
+                            for o in orders_r], dim=1)
+
+    def rruff_fresh():
+        w = [torch.tensor(np.stack([k.weights[l] for k in rks]), dtype=torch.float32,
+                          device=dev) for l in range(2)]
+        return w, [torch.zeros_like(t) for t in w]
+
+    name = f"#6 call, {n_r} members x {epochs_r} epochs of {S_r} steps, 851-230-230 BPM"
+    w, dw = rruff_fresh()
+    hashes[name] = digest([rruff_call(w, dw)] + w + dw)
+    w, dw = rruff_fresh()
+    times[name] = [events_ms(lambda: rruff_call(w, dw))]
+    teams[name] = getattr(bs, "fleet_team", None)
+    del Xr, Tr
 
     # the HPNN-sized fleet's tick through train.fleet
     n_m, (hi, hh, ho), ticks = HPNN_FLEET
@@ -289,6 +328,7 @@ def turn(checkout: str, keep: str | None = None) -> dict:
         torch.cuda.synchronize()
         times[name].append((time.perf_counter() - t0) / ticks * 1e3)
     tick_device = device_us(lambda: tick(stacked, (), Xh, Th, fperms, forders), ticks)
+    teams[name] = getattr(bs, "fleet_team", None)
     # the host's time in #6's entry point, the one call of a tick that
     # differs between the sides (train.fleet looks it up at each call)
     entry, spent = bs.train_fleet_epoch_dbuf_banked, []
@@ -311,7 +351,8 @@ def turn(checkout: str, keep: str | None = None) -> dict:
         f"{k} {', '.join(f'{t:.3f}' for t in v)} ms" for k, v in times.items()), flush=True)
     if keep:
         torch.save(kept, keep)
-    return dict(hash=hashes, hash_bf16=hashes16, ms=times, tick_device_us=tick_device)
+    return dict(hash=hashes, hash_bf16=hashes16, ms=times, tick_device_us=tick_device,
+                teams=teams)
 
 
 def main(argv=None) -> int:
@@ -362,6 +403,13 @@ def main(argv=None) -> int:
     for a, b in ((0, 3), (1, 2)):
         differ += [f"{k} ({TURNS[a]}'s turns)" for k in items16
                    if res[a]["hash_bf16"][k] != res[b]["hash_bf16"].get(k)]
+    bf16_same = [k for k in items16
+                 if all(r["hash_bf16"].get(k) == res[0]["hash_bf16"][k] for r in res)]
+    print(f"[ab] bf16: {len(bf16_same)} of {len(items16)} results bitwise equal in all four "
+          f"turns", flush=True)
+    for i, side in enumerate(TURNS):
+        print(f"[ab] {side} (turn {i + 1}), #6's team: " + "; ".join(
+            f"{k} {v}" for k, v in res[i].get("teams", {}).items()), flush=True)
     kept = [torch.load(os.path.join(work, f"turn{i}.json.pt")) for i in (0, 1)]
     gaps, out_of_band = {}, []
     for k in items16:
@@ -388,6 +436,7 @@ def main(argv=None) -> int:
               flush=True)
     float_differ = [k for k in differ if k in items]
     result = dict(card=card, bitwise_equal=len(items) - len(float_differ), differ=differ,
+                  bf16_bitwise_equal=len(bf16_same), teams=[r.get("teams") for r in res],
                   bf16_band=BF16_BAND, bf16_gaps=gaps, bf16_out_of_band=out_of_band,
                   times=times, tick_device_us=tick_device, seconds=time.perf_counter() - t0)
     if args.out:

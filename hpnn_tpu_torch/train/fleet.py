@@ -22,8 +22,9 @@ Semantics, as in the JAX package:
 
 Where the JAX package vmaps ``dp.train_step_math`` (XLA), the port runs
 each epoch of the whole fleet as ONE launch of kernel #6,
-``ops.batch_step.train_fleet_epoch_dbuf_banked`` (one thread-block
-cluster per member, its size planned from the card), then counts each
+``ops.batch_step.train_fleet_epoch_dbuf_banked`` (the cooperative grid
+walking every member's tiles, or one thread-block cluster per member:
+the team planned from the shapes and the card), then counts each
 member over the full ``X``, ``T``.  The
 per-member baseline (:func:`make_member_epoch_fn`,
 :func:`train_sequential`) launches #4, ``train_epoch_grid_banked``,
@@ -41,7 +42,8 @@ JAX package: ``fleet.size`` gauge, ``fleet.round`` / ``fleet.multi_round``
 ``train.multi_round`` / ``train.member_round`` spans (a
 ``train.fleet_round`` covers the whole call, its children
 ``fleet.stage``, ``fleet.plan``, ``fleet.gather``, ``fleet.epoch``,
-``fleet.count``, ``fleet.sync`` and ``fleet.result`` each part), and under
+``fleet.count``, ``fleet.sync`` and ``fleet.result`` each part; a
+``fleet.epoch`` ends with the launch's ``team``), and under
 ``HPNN_COST`` the ``perf.*`` gauges of every launch of #6
 (``fleet.epoch``) and #4 (``fleet.member_epoch``).
 
@@ -274,13 +276,16 @@ def make_fleet_epoch_fn(n_steps: int, *, model: str = "ann",
                 idx = torch.from_numpy(perms[:, g]).to(device=X.device, dtype=torch.long)
                 X_banks, T_banks = X[idx], T[idx]
             for r in range(orders.shape[2]):
-                with obs.spans.span("fleet.epoch", members=n):
+                with obs.spans.span("fleet.epoch", members=n) as sp:
                     losses.append(_timed(
                         "fleet.epoch", lambda: batch_step.train_fleet_epoch_dbuf_banked(
                             stacked_w, stacked_dw, X_banks, T_banks, orders[:, g, r],
                             batch=B, **kw)[2],
                         [w[0] for w in stacked_w], n_steps, B, n, momentum,
                         "train_fleet_epoch_dbuf_banked"))
+                    # the launch's team ("grid" or "cluster:C") on the span's end
+                    if batch_step.fleet_team is not None and isinstance(sp, obs.spans.Span):
+                        sp.fields["team"] = batch_step.fleet_team
                 # each member counted on its own copy of its weights: the
                 # operands a standalone run's count sees, so the counts
                 # agree bitwise with train_sequential's too

@@ -188,6 +188,10 @@ PACKED = {C: 132 // C for C in batch_step.CLUSTER_SIZES}
 # (cudaOccupancyMaxActiveClusters; chip_smoke.py phase 12 prints them): a
 # cluster lives inside one GPC, so fewer than 132 / C fit
 H100 = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+# and the blocks of its cooperative grid, one an SM
+GRID = batch_step.GRID
+H100_GRID = {GRID: 132, **H100}
+RRUFF = [(230, 851), (230, 230)]
 
 
 @pytest.mark.parametrize("members,shapes,batch,cap,want", [
@@ -203,6 +207,25 @@ H100 = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
     (2, [(16, 12), (6, 16)], 16, H100, 1),   # one tile a product, whatever N
     (2, [(70, 130), (10, 70)], 64, H100, 8),  # 3 x 5 tiles in the update
     (8, MNIST, 256, {1: 132, 2: 66, 4: 33, 8: 0, 16: 0}, 4),  # no 8- or 16-CTA cluster fits
+    # with the cooperative grid (bf16 #6 plans alike: the plan reads no
+    # dtype): the two benchmark fleets, where 8 clusters of 8 leave 68 SMs
+    # idle, and 32 members, where 16-CTA clusters take 5 waves
+    (8, MNIST, 256, H100_GRID, GRID),
+    (8, RRUFF, 256, H100_GRID, GRID),
+    (32, MNIST, 256, H100_GRID, GRID),
+    (4, MNIST, 256, H100_GRID, GRID),        # train_fleet_multi, quant_probe_fleet (chip_smoke)
+    # the HPNN-sized tick: one tile a member a phase, so the grid's syncs
+    # cost more than the rounds it saves
+    (64, [(16, 32), (4, 16)], 1, H100_GRID, 1),
+    (2, [(16, 12), (6, 16)], 16, H100_GRID, 1),
+    # the online trainer's two members of 784-300-10 (chip_smoke.py phase
+    # 17: rows 256, batch 32; the trainer's default batch 8): the grid's
+    # 73 k-tile rounds a step against 80 on 16-CTA clusters (PERF.md, PR
+    # 23: 0.780 against 0.966 ms an 8-step epoch on the card)
+    (2, MNIST, 32, H100_GRID, GRID),
+    (2, MNIST, 8, H100_GRID, GRID),
+    (8, MNIST, 256, {GRID: 0, **H100}, 8),    # no cooperative launch: the cluster plan
+    (8, MNIST, 256, {GRID: 132, **dict.fromkeys(batch_step.CLUSTER_SIZES, 0)}, GRID),
 ])
 def test_fleet_cluster_plan(members, shapes, batch, cap, want):
     assert batch_step.fleet_cluster(members, shapes, batch, cap) == want
@@ -213,14 +236,49 @@ def test_fleet_cluster_plan_refuses_a_card_that_holds_none():
         batch_step.fleet_cluster(8, MNIST, 256, dict.fromkeys(batch_step.CLUSTER_SIZES, 0))
 
 
-@pytest.mark.parametrize("forced", [1, 2, 4, 8, 16])
+@pytest.mark.parametrize("forced", [1, 2, 4, 8, 16, GRID])
 def test_fleet_cluster_forced(forced):
     """A forced size is taken as it is, even past the SM count: the
-    kernel then runs the members in waves."""
-    assert batch_step.fleet_cluster(200, MNIST, 256, PACKED, cluster=forced) == forced
+    kernel then runs the members in waves; GRID (0) forces the grid, even
+    where the plan takes a cluster."""
+    cap = {GRID: 132, **PACKED}
+    assert batch_step.fleet_cluster(200, MNIST, 256, cap, cluster=forced) == forced
+    assert batch_step.fleet_cluster(64, [(16, 32), (4, 16)], 1, cap, cluster=forced) == forced
 
 
-@pytest.mark.parametrize("bad", [0, 3, 6, 32, -4, 2.5])
+@pytest.mark.parametrize("cap", [H100, {GRID: 0, **H100}])
+def test_fleet_cluster_forced_grid_needs_a_cooperative_card(cap):
+    """A card without cooperative launches falls to the cluster plan,
+    and refuses the grid forced."""
+    assert batch_step.fleet_cluster(8, MNIST, 256, cap) == 8
+    with pytest.raises(RuntimeError, match="no cooperative launch"):
+        batch_step.fleet_cluster(8, MNIST, 256, cap, cluster=GRID)
+
+
+def test_step_estimate_counts_the_tile_rounds():
+    """The plan's step: MNIST 784-300-10 at B = 256 is 411 k-tile rounds
+    on one 8-CTA cluster a member and 237 on a grid of 132 blocks for 8
+    members; RRUFF 851-230-230 456 and 228 (its output rows take 2 more
+    syncs); the HPNN-sized fleet one round a phase on either team."""
+    phases, syncs = batch_step.step_phases(MNIST, 256)
+    assert phases == [(80, 25), (8, 10), (80, 1), (260, 8), (80, 25), (8, 10)] and syncs == 6
+    assert batch_step.step_phases(RRUFF, 256)[1] == 8
+
+    K, S = batch_step.KTILE_NS, batch_step.SYNC_NS
+
+    def step(team, members, shapes, batch):
+        return batch_step.step_ns(team, members, shapes, batch, H100_GRID)
+
+    assert step(8, 8, MNIST, 256) == 411 * K + 6 * S[8]
+    assert step(GRID, 8, MNIST, 256) == 237 * K + 6 * S[GRID]
+    assert step(8, 8, RRUFF, 256) == 456 * K + 8 * S[8]
+    assert step(GRID, 8, RRUFF, 256) == 228 * K + 8 * S[GRID]
+    assert step(1, 64, [(16, 32), (4, 16)], 1) == 6 * K + 6 * S[1]
+    assert step(GRID, 64, [(16, 32), (4, 16)], 1) == 6 * K + 6 * S[GRID]
+    assert step(16, 8, MNIST, 256) == 2 * (245 * K + 6 * S[16])   # 7 at once: 2 waves
+
+
+@pytest.mark.parametrize("bad", [12, 3, 6, 32, -4, 2.5])
 def test_fleet_cluster_refuses_other_sizes(bad):
     with pytest.raises(ValueError, match="cluster size"):
         batch_step.fleet_cluster(8, MNIST, 256, PACKED, cluster=bad)
@@ -258,7 +316,7 @@ def test_entry_points_check_the_team_on_the_cpu():
     kw = dict(model="ann", momentum=True, batch=8)
     Xs, Ts = torch.tensor(X).reshape(2, 8, 12), torch.tensor(T).reshape(2, 8, 6)
     runs = []
-    for cluster in (None, 1, 16):
+    for cluster in (None, 1, 16, GRID):
         gw, gdw = _torch(w, torch.float64), _torch(dw, torch.float64)
         with (batch_step._cluster_team(cluster) if cluster else contextlib.nullcontext()):
             losses = batch_step.train_epoch_grid_banked(

@@ -440,13 +440,14 @@ def test_fleet_kernel_matches_plain_one_row(cuda, model, momentum, dtype, tol):
 
 @pytest.mark.parametrize("shape,B", [((12, (16, 8), 6), 16), ((130, (70,), 10), 64),
                                      ((40, (36,), 40), 32)])
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
 @pytest.mark.parametrize("model,momentum", [("ann", False), ("ann", True), ("snn", False),
                                             ("snn", True)])
 def test_fleet_member_equals_dbuf_and_grid_bitwise(cuda, model, momentum, dtype, shape, B):
-    """Member i of #6 equals #5 and #4 on bank i with orders[i], for every
-    cluster size: 130-70-10 at B = 64 spreads 15 update tiles over the
-    CTAs' workers, 40-36-40 takes its output rows apart (n_out > 32)."""
+    """Member i of #6 equals #5 and #4 on bank i with orders[i], on the
+    grid team and at every cluster size: 130-70-10 at B = 64 spreads 15
+    update tiles over the CTAs' workers, 40-36-40 takes its output rows
+    apart (n_out > 32)."""
     w, dw, X, T, orders = _fleet(cuda, dtype, model, momentum, B=B, S=3, shape=shape)
     kw = dict(batch=B, model=model, momentum=momentum, lr=0.05, alpha=0.2)
     w0, dw0 = _clone(w), _clone(dw)
@@ -459,7 +460,7 @@ def test_fleet_member_equals_dbuf_and_grid_bitwise(cuda, model, momentum, dtype,
             assert torch.equal(li, lf[i]), fn.__name__
             for a, b in zip(wi + dwi, w + dw):
                 assert torch.equal(a, b[i]), fn.__name__
-    for C in batch_step.CLUSTER_SIZES:
+    for C in (batch_step.GRID,) + batch_step.CLUSTER_SIZES:
         wc, dwc = _clone(w0), _clone(dw0)
         _, _, lc = batch_step.train_fleet_epoch_dbuf_banked(wc, dwc, X, T, orders, cluster=C,
                                                             **kw)
@@ -467,17 +468,59 @@ def test_fleet_member_equals_dbuf_and_grid_bitwise(cuda, model, momentum, dtype,
         assert all(torch.equal(a, b) for a, b in zip(wc + dwc, w + dw)), C
 
 
+# the grid team's shapes: the output rows folded into the last forward's
+# tiles (n_out <= 32) and a RRUFF-wide output layer taken apart
+GRID_SHAPES = {"130-70-10": ((130, (70,), 10), 64), "851-230-230": ((851, (230,), 230), 32)}
+
+
+@pytest.mark.parametrize("shape", list(GRID_SHAPES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.bfloat16])
+@pytest.mark.parametrize("model,momentum", [("ann", False), ("ann", True), ("snn", False),
+                                            ("snn", True)])
+def test_fleet_grid_team_bitwise_cluster_team(cuda, model, momentum, dtype, shape):
+    """#6 on the grid, every member's tiles on one cooperative grid, is
+    bitwise #6 on 8-CTA and 1-CTA clusters, run again too: 40 members
+    (more clusters of 8 than the card holds at once), and 7, whose tiles
+    do not divide the grid's workers; member i is #5 on bank i.  Each
+    launch counts under its team."""
+    (n_in, hiddens, n_out), B = GRID_SHAPES[shape]
+    kw = dict(batch=B, model=model, momentum=momentum, lr=0.05, alpha=0.2)
+    for N in (40, 7):
+        w0, dw0, X, T, orders = _fleet(cuda, dtype, model, momentum, N=N, B=B, S=2,
+                                       shape=(n_in, hiddens, n_out), seed=N)
+        runs = []
+        for C in (batch_step.GRID, batch_step.GRID, 8, 1):
+            w, dw = _clone(w0), _clone(dw0)
+            before = dict(batch_step.launches_by_team)
+            _, _, lc = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders, cluster=C,
+                                                                **kw)
+            team = "grid" if C == batch_step.GRID else "cluster"
+            assert batch_step.launches_by_team[team] == before[team] + 1
+            assert batch_step.fleet_team == ("grid" if C == batch_step.GRID else f"cluster:{C}")
+            runs.append([lc] + w + dw)
+        assert not torch.equal(runs[0][1], w0[0])
+        for C, run in zip(("grid again", 8, 1), runs[1:]):
+            assert all(torch.equal(a, b) for a, b in zip(run, runs[0])), (N, C)
+        for i in (0, N - 1):
+            wi, dwi = [t[i].clone() for t in w0], [t[i].clone() for t in dw0]
+            _, _, li = batch_step.train_epoch_dbuf_banked(wi, dwi, X[i].contiguous(),
+                                                          T[i].contiguous(), orders[i], **kw)
+            assert torch.equal(li, runs[0][0][i]), (N, i)
+            assert all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, runs[0][1:])), (N, i)
+
+
 def test_fleet_many_members_and_waves(cuda):
-    """32 members at the planned cluster size and at 4 CTAs equal their
-    #5 epochs; 40 members of 16 CTAs, more clusters than the card holds
-    at once, run in waves and equal the planned launch bitwise."""
+    """32 members on the planned team and at 4 CTAs equal their #5
+    epochs; 40 members of 16 CTAs, more clusters than the card holds at
+    once, run in waves and equal the planned launch bitwise."""
     cap = batch_step.cluster_capacity(torch.float32, cuda)
     assert all(n >= 1 for n in cap.values())
     w, dw, X, T, orders = _fleet(cuda, torch.float32, "ann", True, N=40, B=32, S=2,
                                  shape=(130, (70,), 10))
     kw = dict(batch=32, model="ann", momentum=True, lr=0.05, alpha=0.2)
     shapes = [tuple(t.shape[1:]) for t in w]
-    assert batch_step.fleet_cluster(32, shapes, 32, cap) in batch_step.CLUSTER_SIZES
+    assert batch_step.fleet_cluster(32, shapes, 32, cap) in (batch_step.GRID,
+                                                              *batch_step.CLUSTER_SIZES)
     runs32 = []
     for C in (None, 4):
         w32, dw32 = [t[:32].clone() for t in w], [t[:32].clone() for t in dw]
@@ -630,7 +673,7 @@ def test_bf16_fleet_bitwise_across_reruns_and_cluster_sizes(cuda, shape, model, 
     w0, dw0, X, T, orders = _fleet(cuda, torch.bfloat16, model, momentum,
                                    shape=BF16_SHAPES[shape])
     runs = []
-    for cluster in (None, None) + batch_step.CLUSTER_SIZES:
+    for cluster in (None, None, batch_step.GRID) + batch_step.CLUSTER_SIZES:
         w, dw = _clone(w0), _clone(dw0)
         _, _, lk = batch_step.train_fleet_epoch_dbuf_banked(w, dw, X, T, orders,
                                                             cluster=cluster, **kw)
@@ -1152,7 +1195,7 @@ def test_batch_kernel_20_layers(cuda, entry, model, momentum, dtype, tol):
 @pytest.mark.parametrize("model,momentum", [("ann", True), ("snn", False)])
 def test_fleet_kernel_20_layers(cuda, model, momentum, dtype, tol):
     """#6 on 3 members of a 20-layer net: against its plain version, and
-    member i bitwise #4 on bank i at every cluster size."""
+    member i bitwise #4 on bank i on the grid and at every cluster size."""
     N, B, S = 3, 16, 4
     w = _deep_weights(cuda, dtype, lead=(N,))
     dw = ([torch.full_like(t, 1e-4) for t in w] if momentum else [])
@@ -1170,7 +1213,7 @@ def test_fleet_kernel_20_layers(cuda, model, momentum, dtype, tol):
         _, _, li = batch_step.train_epoch_grid_banked(wi, dwi, X[i], T[i], orders[i], **kw)
         assert torch.equal(li, lk[i])
         assert all(torch.equal(a, b[i]) for a, b in zip(wi + dwi, w + dw))
-    for C in batch_step.CLUSTER_SIZES:
+    for C in (batch_step.GRID,) + batch_step.CLUSTER_SIZES:
         wc, dwc = _clone(w0), _clone(dw0)
         _, _, lc = batch_step.train_fleet_epoch_dbuf_banked(wc, dwc, X, T, orders, cluster=C,
                                                             **kw)

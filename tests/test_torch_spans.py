@@ -158,6 +158,39 @@ def test_fleet_spans_count_epochs_and_groups():
         assert all(_inside(r, root) for r in got[name]), name
 
 
+def test_fleet_epoch_span_names_its_team(monkeypatch):
+    """A ``fleet.epoch`` span ends with the team of its launch of #6
+    (``batch_step.fleet_team``); on the CPU the plain version launches
+    nothing, and the span names no team."""
+    from hpnn_tpu_torch.ops import batch_step
+
+    ended = []
+    real_finish = spans.finish
+
+    def finish(sp, **fields):
+        if isinstance(sp, spans.Span) and sp.name == "fleet.epoch":
+            ended.append(dict(sp.fields, **fields))
+        return real_finish(sp, **fields)
+
+    monkeypatch.setattr(spans, "finish", finish)
+    monkeypatch.setattr(batch_step, "fleet_team", None)
+    with _profile():
+        _fleet_call()
+    assert len(ended) == 4 and not any("team" in f for f in ended)
+    real = batch_step.train_fleet_epoch_dbuf_banked
+
+    def launched(*args, **kw):   # as a launch on the grid would leave it
+        out = real(*args, **kw)
+        batch_step.fleet_team = "grid"
+        return out
+
+    monkeypatch.setattr(batch_step, "train_fleet_epoch_dbuf_banked", launched)
+    ended.clear()
+    with _profile():
+        _fleet_call()
+    assert [(f["team"], f["members"]) for f in ended] == [("grid", 3)] * 4
+
+
 def test_span_finished_on_another_thread():
     errors = []
 
